@@ -6,11 +6,18 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
 
 1. Card: name and power limit (nvidia-smi), and the build of the Hopper
    kernels from ``video_gen_evals_tpu_torch/csrc`` (nvcc, sm_90a).
-2. Each kernel against its plain PyTorch version at the scoring path's
+2. Each kernel against its plain PyTorch version at its main path's
    shapes: the window gather (K1) on a 64-video x 128-row x 2596 bank at
    B=512 must be bitwise equal; the fused conv stage (K3) at [512, 32, 256],
    dilations 1/2/4/8, within 1e-4 ("highest") and 5e-4 ("high") of the fp32
-   plain version. Milliseconds per call of both, from CUDA events.
+   plain version; the trainable stage (K4) forward and backward at
+   [960, 32, 256], dilations 1/2/4/8, with a seeded keep mask (keep 0.9) and
+   without, at "highest" and at "default" against the plain version of the
+   same precision (tolerances at K4_TOL), and two backward calls on the same
+   inputs bitwise equal. Milliseconds per call of kernel and plain from CUDA
+   events (plain, kernel, kernel, plain), each kernel's bound from its shapes
+   and the card's data-sheet peaks, and the time of one library call where
+   one computes the same function.
 3. End to end: the scoring CLI at the flagship width (5 modalities, 2596-d
    input, d_model 256, 4 layers, 8 heads, clip 32, stride 8, batch 512) on a
    synthetic tree (10 classes x 4 real videos, 20 generated) with seeded
@@ -21,6 +28,16 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    run within 1e-4, and the launch counts must match the number of batches.
 4. Throughput of the WindowEncoder sweep at batch 256 and 512 on a
    64 x 120-frame bank.
+5. Training: the train CLI at full width (TrainConfig defaults: P = 10,
+   K = 24, so 960 stacked windows and 40 K4 forward and backward calls a
+   step) on a synthetic tree (10 classes x 5 real videos, 20 generated, a
+   synthetic MOS file), 2 epochs of 4 steps. Every logged loss finite, the
+   launch counts of K4, K1 and K3 as the epochs' steps and eval passes give
+   them, the parameters changed, every event kind in metrics.jsonl, the best
+   .pt scored by the score CLI, and a run resumed from the first epoch's
+   checkpoint bitwise equal to the 2-epoch run. Then one step at "highest"
+   with dropout 0 and K = 4 on the card against the plain versions on the
+   CPU, loss components within 1e-3. Steps/s and clips/s of the second epoch.
 
 Then a JSON line listing the kernels, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -41,7 +58,19 @@ import time
 DIMS_RAW = {"vit": 1024, "global": 9, "pose": 207, "beta": 10, "kp2d": 120}
 DIMS_DIFF = {"vit": 1024, "global": 3, "pose": 69, "beta": 10, "kp2d": 120}
 CLIP, STRIDE, BATCH = 32, 8, 512
+TRAIN_WINDOWS = 960   # one training step's stacked batch: 4 x P x K = 4 x 10 x 24
 SEED = 0
+# NVIDIA H100 SXM data sheet, dense: fp32 outside tensor cores, bf16 tensor
+# cores, device memory
+PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+# K4 against its plain version of the same precision, both on the card:
+# (forward atol, gradient tol). A gradient g passes when |g - plain| <=
+# tol * max(1, max|plain|) + tol * |plain|: the order of the sums differs, and
+# a weight-gradient element sums 30720 products, so one that cancels to near
+# zero carries the rounding of the whole sum. At "default" an intermediate on
+# a bf16 rounding boundary can round the other way in the kernel than in the
+# plain version, a relative step of 2^-8 in one operand.
+K4_TOL = {"highest": (1e-4, 5e-4), "default": (1e-2, 2e-2)}
 
 
 def _check(ok: bool, what: str) -> None:
@@ -69,9 +98,10 @@ def _ptxas_summary(log: str):
             spill = line.strip()
         m = re.search(r"Used (\d+) registers", line)
         if name and m:
-            t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", name)
-            short = (f"temporal_block_kernel<T={t.group(1)}, C={t.group(2)}, split={t.group(3)}>" if t
-                     else "gather_windows_kernel" if "gather" in name else name)
+            t = re.search(r"(\d+)([a-z_]+kernel)ILi(\d+)ELi(\d+)ELb([01])E", name)
+            g = re.search(r"\d+([a-z_]+kernel)", name)
+            short = (f"{t.group(2)}<T={t.group(3)}, C={t.group(4)}, bf16={t.group(5)}>" if t
+                     else g.group(1) if g else name)
             yield f"{short}: {m.group(1)} registers; {spill}"
             name = None
 
@@ -98,6 +128,30 @@ def _interleaved_ms(kernel, plain, iters: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def _conv_fmas(windows: int, t_len: int, channels: int, dilation: int) -> int:
+    """FMAs of one k=5 dilated conv over ``windows`` windows: a tap at offset
+    o touches the t_len - |o| rows whose input row lies inside the window."""
+    rows = sum(max(0, t_len - abs((j - 2) * dilation)) for j in range(5))
+    return windows * rows * channels * channels
+
+
+def _bound(nbytes: float, flops: float, peak_flops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate for their type."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _conv_stage_bound(windows, t_len, channels, n_convs, act_tensors, w_tensors, flops_per_fma, peak):
+    """Mean over dilations 1/2/4/8 of a conv stage's bound: ``n_convs``
+    conv-sized products, ``act_tensors`` [B, T, C] and ``w_tensors`` [5, C, C]
+    fp32 tensors read or written once."""
+    nbytes = 4 * (act_tensors * windows * t_len * channels + w_tensors * 5 * channels * channels)
+    bounds = [_bound(nbytes, flops_per_fma * n_convs * _conv_fmas(windows, t_len, channels, d), peak)
+              for d in (1, 2, 4, 8)]
+    return sum(b[0] for b in bounds) / 4, bounds[0][1]
+
+
 def phase_kernels(torch, dev, gen):
     from video_gen_evals_tpu_torch.ops.conv_kernel import fused_temporal_block, fused_temporal_block_plain
     from video_gen_evals_tpu_torch.ops.window_kernel import gather_windows, gather_windows_plain
@@ -118,10 +172,18 @@ def phase_kernels(torch, dev, gen):
     _check(got.shape == (BATCH, CLIP, D), f"gather output shape {tuple(got.shape)}")
     _check(torch.equal(got, want), "gather kernel differs from its plain version")
     ms, plain_ms = _interleaved_ms(lambda: gather_windows(*args), lambda: gather_windows_plain(*args), 50)
+    # the library yardstick: one advanced-index call gathers the same rows
+    # (all but row 0's diff override); timed here, used nowhere in the port
+    row_idx = (offsets[vi.long()].long() + st.to(dev).long().clamp(0, rows - CLIP))[:, None] \
+        + torch.arange(CLIP, device=dev)[None, :]
+    library_ms = _time_ms(lambda: bank[row_idx], 50)
     gbs = 2 * BATCH * CLIP * D * 4 / (ms * 1e-3) / 1e9
+    bound_ms, bound_by = _bound(2 * BATCH * CLIP * D * 4 + 2 * BATCH * 4, 0.0, PEAK_FP32)
     print(f"K1 gather_windows [{BATCH}, {CLIP}, {D}] from a {V}x{rows}x{D} bank: bitwise equal; "
-          f"kernel {ms:.4f} ms ({gbs:.0f} GB/s moved), plain {plain_ms:.4f} ms")
-    results["gather_windows"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+          f"kernel {ms:.4f} ms ({gbs:.0f} GB/s moved), plain {plain_ms:.4f} ms, "
+          f"bank[rows] {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    results["gather_windows"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by, library_ms=library_ms)
 
     # K3: [512, 32, 256], d in 1/2/4/8, both precisions, against plain fp32
     C = 256
@@ -150,19 +212,105 @@ def phase_kernels(torch, dev, gen):
               f"max |kernel - plain fp32| {', '.join(f'{e:.2e}' for e in errs)} (tol {tol[precision]}); "
               f"vs plain {precision} {', '.join(f'{e:.2e}' for e in errs_same)}; "
               f"kernel ms {', '.join(f'{m:.3f}' for m in kms)}; plain ms {', '.join(f'{m:.3f}' for m in pms)}")
+        # x in, out, w1, w2; "high" is three bf16 products per term
+        bound_ms, bound_by = (_conv_stage_bound(BATCH, CLIP, C, 2, 2, 2, 2, PEAK_FP32)
+                              if precision == "highest"
+                              else _conv_stage_bound(BATCH, CLIP, C, 2, 2, 2, 6, PEAK_BF16))
+        print(f"   bound {bound_ms:.4f} ms ({bound_by}); no single PyTorch call computes the fused stage")
         results[f"fused_temporal_block[{precision}]"] = dict(
-            max_abs_err=max(errs), ms=sum(kms) / 4, plain_ms=sum(pms) / 4)
+            max_abs_err=max(errs), ms=sum(kms) / 4, plain_ms=sum(pms) / 4, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None)
+    results.update(phase_train_kernels(torch, dev, gen))
     return results
 
 
-def _write_tree(root):
+def phase_train_kernels(torch, dev, gen):
+    """K4 forward and backward against their plain versions at [960, 32, 256]."""
+    from video_gen_evals_tpu_torch.ops.conv_kernel_train import (
+        fused_temporal_block_train, fused_temporal_block_train_bwd_plain,
+        fused_temporal_block_train_plain)
+
+    B, C = TRAIN_WINDOWS, 256
+    x = torch.randn(B, CLIP, C, generator=gen).to(dev)
+    dy = torch.randn(B, CLIP, C, generator=gen).to(dev)
+    w1, w2 = ((torch.randn(5, C, C, generator=gen) / math.sqrt(5 * C)).to(dev) for _ in range(2))
+    gs = (1.0 + 0.1 * torch.randn(C, generator=gen)).to(dev)
+    gb = (0.1 * torch.randn(C, generator=gen)).to(dev)
+    keep_mask = ((torch.rand(B, CLIP, C, generator=gen) < 0.9).float() / 0.9).to(dev)
+    names = ("dx", "dw1", "dw2", "dgamma", "dbeta")
+
+    def kernel_backward(mask, d, precision):
+        leaves = [t.detach().requires_grad_() for t in (x, w1, w2, gs, gb)]
+        out = fused_temporal_block_train(*leaves, mask, d, precision)
+        return out, leaves
+
+    results = {}
+    for precision in ("highest", "default"):
+        f_tol, g_tol = K4_TOL[precision]
+        f_errs, g_errs, g_abs, f_ms, f_pms, b_ms, b_pms = [], [], [], [], [], [], []
+        for d in (1, 2, 4, 8):
+            for mask in (keep_mask, None):
+                tag = f"K4 {precision} d={d} mask={'yes' if mask is not None else 'no'}"
+                want = fused_temporal_block_train_plain(x, w1, w2, gs, gb, mask, d, precision)
+                want_g = fused_temporal_block_train_bwd_plain(x, w1, w2, gs, mask, dy, d, precision)
+                out, leaves = kernel_backward(mask, d, precision)
+                got_g = torch.autograd.grad(out, leaves, dy)
+                out2, leaves2 = kernel_backward(mask, d, precision)
+                again_g = torch.autograd.grad(out2, leaves2, dy)
+                torch.cuda.synchronize()
+                _check(bool(torch.isfinite(out).all()), f"{tag}: non-finite forward")
+                f_errs.append((out - want).abs().max().item())
+                _check(f_errs[-1] <= f_tol, f"{tag}: max |forward - plain| {f_errs[-1]:.3e} > {f_tol}")
+                for name, g, w, g2 in zip(names, got_g, want_g, again_g):
+                    _check(bool(torch.isfinite(g).all()), f"{tag}: non-finite {name}")
+                    _check(torch.equal(g, g2), f"{tag}: two backward calls differ in {name}")
+                    scale = max(1.0, w.abs().max().item())
+                    err = (g - w).abs()
+                    _check(bool((err <= g_tol * scale + g_tol * w.abs()).all()),
+                           f"{tag}: {name} differs from plain by {err.max().item():.3e} "
+                           f"(tol {g_tol} * {scale:.1f} + {g_tol} * |plain|)")
+                    g_abs.append(err.max().item())
+                    g_errs.append(g_abs[-1] / scale)
+            # timed with the mask, as the training step calls it
+            k, p = _interleaved_ms(
+                lambda: fused_temporal_block_train(x, w1, w2, gs, gb, keep_mask, d, precision),
+                lambda: fused_temporal_block_train_plain(x, w1, w2, gs, gb, keep_mask, d, precision), 10)
+            f_ms.append(k)
+            f_pms.append(p)
+            out, leaves = kernel_backward(keep_mask, d, precision)
+            k, p = _interleaved_ms(
+                lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True),
+                lambda: fused_temporal_block_train_bwd_plain(x, w1, w2, gs, keep_mask, dy, d, precision), 10)
+            b_ms.append(k)
+            b_pms.append(p)
+        # forward: x, mask in, out; w1, w2. backward: x, dy, mask in, dx out;
+        # w1, w2 in, dw1, dw2 out; six conv-sized products
+        peak = PEAK_FP32 if precision == "highest" else PEAK_BF16
+        f_bound = _conv_stage_bound(B, CLIP, C, 2, 3, 2, 2, peak)
+        b_bound = _conv_stage_bound(B, CLIP, C, 6, 4, 4, 2, peak)
+        fmt = lambda v: ", ".join(f"{m:.3f}" for m in v)   # noqa: E731
+        print(f"K4 fused_temporal_block_train[{precision}] [{B}, {CLIP}, {C}] d=1/2/4/8, mask and none: "
+              f"max |forward - plain {precision}| {max(f_errs):.2e} (tol {f_tol}); "
+              f"max |grad - plain| / scale {max(g_errs):.2e} (tol {g_tol}); backward twice: bitwise equal")
+        print(f"   forward kernel ms {fmt(f_ms)}; plain ms {fmt(f_pms)}; bound {f_bound[0]:.4f} ms ({f_bound[1]})")
+        print(f"   backward kernel ms {fmt(b_ms)}; plain ms {fmt(b_pms)}; bound {b_bound[0]:.4f} ms ({b_bound[1]})")
+        results[f"fused_temporal_block_train[{precision}]"] = dict(
+            max_abs_err=max(f_errs), ms=sum(f_ms) / 4, plain_ms=sum(f_pms) / 4,
+            bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None)
+        results[f"fused_temporal_block_train_bwd[{precision}]"] = dict(
+            max_abs_err=max(g_abs), ms=sum(b_ms) / 4, plain_ms=sum(b_pms) / 4,
+            bound_ms=b_bound[0], bound_by=b_bound[1], library_ms=None)
+    return results
+
+
+def _write_tree(root, videos_per_class=4, frames=(96, 107, 118, 128)):
     import numpy as np
 
     from video_gen_evals_tpu_torch.data.fixtures import make_fixture_tree, write_keypoints, write_mesh_npz
     from video_gen_evals_tpu_torch.utils.names import ACTION_CLASSES
 
     mesh_root, kp_root = make_fixture_tree(
-        root, ACTION_CLASSES, videos_per_class=4, frames=(96, 107, 118, 128),
+        root, ACTION_CLASSES, videos_per_class=videos_per_class, frames=frames,
         vit_dim=DIMS_RAW["vit"], seed=SEED,
     )
     gen_dir, gen_kp = os.path.join(root, "generated_meshes"), os.path.join(root, "generated_kps")
@@ -299,6 +447,163 @@ def phase_throughput(torch, card) -> None:
               f"incl. padded tail) on {card}")
 
 
+def _events(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _only_run(save_dir):
+    (run,) = os.listdir(save_dir)
+    return os.path.join(save_dir, run)
+
+
+def phase_training(torch, card):
+    import copy
+
+    from video_gen_evals_tpu_torch.core.config import PathsConfig, TrainConfig
+    from video_gen_evals_tpu_torch.data import (
+        enumerate_windows, scan_class_tree, scan_generated_flat, train_test_split)
+    from video_gen_evals_tpu_torch.models import EncoderConfig, HumanActionScorer
+    from video_gen_evals_tpu_torch.ops.conv_kernel import fused_temporal_block
+    from video_gen_evals_tpu_torch.ops.conv_kernel_train import (
+        LAUNCHES_PER_BACKWARD, fused_temporal_block_train)
+    from video_gen_evals_tpu_torch.ops.window_kernel import gather_windows
+    from video_gen_evals_tpu_torch.pipelines.score import main as score_main
+    from video_gen_evals_tpu_torch.pipelines.train_cli import main as train_main
+    from video_gen_evals_tpu_torch.train.experiment import Experiment
+    from video_gen_evals_tpu_torch.train.step import COMPONENTS, TrainStep
+    from video_gen_evals_tpu_torch.utils.names import ACTION_CLASSES
+
+    def reset():
+        gather_windows.launches = fused_temporal_block.launches = 0
+        fused_temporal_block_train.launches = fused_temporal_block_train.launches_bwd = 0
+
+    def counts():
+        return (fused_temporal_block_train.launches, fused_temporal_block_train.launches_bwd,
+                gather_windows.launches, fused_temporal_block.launches)
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        mesh_root, kp_root, gen_dir, gen_kp = _write_tree(
+            root, videos_per_class=5, frames=(248, 256, 240, 252, 244))
+        gen = scan_generated_flat(gen_dir)
+        human = {f"{os.path.splitext(it.name)[0]}.mp4": {"ac": float(i % 5), "tc": float(-(i % 7))}
+                 for i, it in enumerate(gen.items)}
+        human_path = os.path.join(root, "human.json")
+        with open(human_path, "w") as f:
+            json.dump(human, f)
+        base = TrainConfig(
+            paths=PathsConfig(real_meshes_dir=mesh_root, real_kp_dir=kp_root,
+                              generated_meshes_dir=gen_dir, gen_kp_dir=gen_kp,
+                              human_scores=human_path),
+            epochs=2, save_dir=os.path.join(root, "SAVE_two"))
+        cfg_path = os.path.join(root, "train.json")
+        base.to_json(cfg_path)
+
+        real = scan_class_tree(mesh_root, filter_classes=list(ACTION_CLASSES))
+        train, test = train_test_split(real, 0.8, seed=base.seed)
+        n_train, n_test, n_gen = (len(enumerate_windows(m, CLIP, STRIDE)) for m in (train, test, gen))
+        steps = max(1, n_train // base.batch_size)
+        eval_batches = -(-n_train // BATCH) + -(-n_test // BATCH) + -(-n_gen // BATCH)   # centroids, distance, monitor
+        loss_chunks = -(-n_test // BATCH)
+        print(f"train: tree written in {time.perf_counter() - t0:.1f} s; {n_train} train, {n_test} test, "
+              f"{n_gen} generated windows; {steps} steps of {4 * base.batch_size} stacked windows per epoch")
+        _check(steps >= 4, f"train: only {steps} steps per epoch")
+
+        # the 2-epoch run through the CLI, at TrainConfig defaults
+        reset()
+        t0 = time.perf_counter()
+        train_main(["--config", cfg_path, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        want = (40 * steps * 2, 40 * steps * 2 * LAUNCHES_PER_BACKWARD,
+                2 * (steps + eval_batches + loss_chunks), 2 * 40 * (eval_batches + loss_chunks))
+        print(f"train: 2 epochs in {wall:.1f} s (host stats + banks included); launches K4 forward={got[0]} "
+              f"backward={got[1]} ({LAUNCHES_PER_BACKWARD} per stage backward) gather={got[2]} K3={got[3]}")
+        _check(got == want, f"train: launches {got} != {want}")
+        launches["default"] = got[:2]
+
+        run_two = _only_run(base.save_dir)
+        events = _events(run_two)
+        kinds = {e["event"] for e in events}
+        need = {"train_epoch", "eval_loss", "centroid_distance", "human_corr", "checkpoint"}
+        _check(need <= kinds, f"train: metrics.jsonl lacks {sorted(need - kinds)} (has {sorted(kinds)})")
+        for e in events:
+            for k in ("loss", "avg") + COMPONENTS:
+                _check(k not in e or math.isfinite(e[k]), f"train: non-finite {k} in {e}")
+        epochs = [e for e in events if e["event"] == "train_epoch"]
+        _check(len(epochs) == 2 and all(e["batches"] == steps and e["skipped"] == 0 for e in epochs),
+               f"train: epochs {epochs}")
+        second = epochs[1]
+        print(f"train: epoch losses {epochs[0]['loss']:.4f} -> {second['loss']:.4f}; second epoch "
+              f"{second['batches'] / second['seconds']:.3f} steps/s, {second['clips_per_sec']:.1f} clips/s on {card}")
+
+        # the weights moved away from their seeded start
+        final = torch.load(os.path.join(run_two, "resume_epoch001.pt"), map_location="cpu", weights_only=True)
+        fresh = HumanActionScorer(EncoderConfig.create(DIMS_RAW, DIMS_DIFF),
+                                  generator=torch.Generator().manual_seed(base.seed)).state_dict()
+        moved = [k for k, v in final["model"].items() if k != "pos_enc.pe" and not torch.equal(v, fresh[k])]
+        _check(len(moved) == len(fresh) - 1, f"train: only {len(moved)} of {len(fresh) - 1} parameters changed")
+
+        # the best checkpoint goes through the score CLI
+        best = sorted(f for f in os.listdir(run_two) if f.startswith("best_eval"))[-1]
+        out = os.path.join(root, "scores_trained.json")
+        score_main(["--generated-meshes", gen_dir, "--real-meshes", mesh_root,
+                    "--checkpoint", os.path.join(run_two, best), "--real-kp-dir", kp_root,
+                    "--gen-kp-dir", gen_kp, "--output", out, "--no-bug-compat", "--device", "cuda"])
+        with open(out) as f:
+            scored = json.load(f)
+        _check(len(scored) == len(gen.items) and all(
+            math.isfinite(v.get("ac", math.nan)) and math.isfinite(v.get("tc", math.nan))
+            for v in scored.values()), "train: the trained checkpoint did not score every generated video finite")
+        print(f"train: {best} scored {len(scored)} generated videos, all finite")
+
+        # epoch 0's checkpoint + --resume for epoch 1 == the 2-epoch run, bit for bit
+        resumed_cfg = copy.deepcopy(base)
+        resumed_cfg.save_dir = os.path.join(root, "SAVE_resumed")
+        resumed_cfg.to_json(cfg_path)
+        train_main(["--config", cfg_path, "--device", "cuda",
+                    "--resume", os.path.join(run_two, "resume_epoch000.pt")])
+        resumed = torch.load(os.path.join(_only_run(resumed_cfg.save_dir), "resume_epoch001.pt"),
+                             map_location="cpu", weights_only=True)
+        same = all(torch.equal(v, resumed["model"][k]) for k, v in final["model"].items())
+        opt_a, opt_b = final["train_step"]["optimizer"]["state"], resumed["train_step"]["optimizer"]["state"]
+        same = same and all(torch.equal(opt_a[i][k], opt_b[i][k]) for i in opt_a for k in opt_a[i])
+        same = same and final["train_step"]["step"] == resumed["train_step"]["step"] == 2 * steps
+        same = same and final["best_eval_loss"] == resumed["best_eval_loss"]
+        _check(same, "train: the resumed run is not bitwise equal to the 2-epoch run")
+        print("train: resume from epoch 0's checkpoint ends bitwise equal to the 2-epoch run "
+              "(weights, Adam moments, step, best eval loss)")
+
+        # one step at "highest", dropout 0, K = 4: the card against the plain versions on the CPU
+        small = copy.deepcopy(base)
+        small.K, small.dropout, small.save_dir = 4, 0.0, os.path.join(root, "SAVE_small")
+        exp = Experiment(small, device="cuda", precision="highest")
+        idx = next(iter(exp._sampler_for_epoch(0)))
+        stacked = exp.train_step.stack(
+            exp._gather_batch(exp.train_bank, exp._train_bank_dev, exp.train_windows, idx))
+        labels = exp._labels(exp.window_labels, idx)
+        cpu_step = TrainStep(copy.deepcopy(exp.model).cpu(), small.lr, 8, precision="highest",
+                             eval_precision="highest", seed=small.seed)
+        reset()
+        on_card = exp.train_step.update(stacked, labels)
+        torch.cuda.synchronize()
+        got = counts()
+        _check(got[:2] == (40, 40 * LAUNCHES_PER_BACKWARD), f"train highest: K4 launches {got[:2]}")
+        launches["highest"] = got[:2]
+        t0 = time.perf_counter()
+        on_cpu = cpu_step.update(stacked.cpu(), labels.cpu())
+        worst = max(abs(on_card[k] - on_cpu[k]) for k in COMPONENTS + ("total",))
+        print(f"train: first step at highest, dropout 0, {stacked.shape[0]} stacked windows: card "
+              f"{ {k: round(on_card[k], 5) for k in COMPONENTS} } vs CPU plain versions, max |d| {worst:.3e} "
+              f"(tol 1e-3; CPU step {time.perf_counter() - t0:.1f} s)")
+        _check(worst <= 1e-3, f"train: card vs CPU loss components differ by {worst:.3e} > 1e-3")
+    return launches
+
+
+
 def main() -> int:
     import torch
 
@@ -315,12 +620,14 @@ def main() -> int:
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"kernel build {lib.build_seconds:.1f} s -> {os.path.relpath(lib.path)}")
     for line in _ptxas_summary(lib.build_log):
-        print(f"  ptxas: {line}")
+        if "<" not in line or "T=32, C=256" in line:   # the flagship instantiations
+            print(f"  ptxas: {line}")
 
     gen = torch.Generator().manual_seed(SEED)
     kern = phase_kernels(torch, dev, gen)
     launches = phase_end_to_end(torch)
     phase_throughput(torch, card)
+    train_launches = phase_training(torch, card)
 
     src = "video_gen_evals_tpu_torch/csrc/"
     rows = [
@@ -331,9 +638,19 @@ def main() -> int:
         ("fused_temporal_block[highest]", "temporal_block.cu",
          "video_gen_evals_tpu/ops/conv_kernel.py:358", launches["highest"][1]),
     ]
+    for precision in ("default", "highest"):
+        rows += [
+            (f"fused_temporal_block_train[{precision}]", "temporal_block_train.cu",
+             "video_gen_evals_tpu/ops/conv_kernel_train.py:294", train_launches[precision][0]),
+            (f"fused_temporal_block_train_bwd[{precision}]", "temporal_block_train.cu",
+             "video_gen_evals_tpu/ops/conv_kernel_train.py:335", train_launches[precision][1]),
+        ]
+    for name, _f, _rep, n in rows:
+        _check(n > 0, f"{name} was never launched on its main path")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + f, "replaces": rep, "launches": n,
-         **{k: kern[name][k] for k in ("max_abs_err", "ms", "plain_ms")}}
+         **{k: kern[name][k] for k in keys}}
         for name, f, rep, n in rows
     ]}))
     print(card)

@@ -22,9 +22,29 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def device_summary(prof, repeats: int, wall_us: float):
+    """From a finished ``torch.profiler`` run over ``repeats`` repeats taking
+    ``wall_us``: device microseconds per repeat by kernel name, the share of
+    the wall time the device was busy, and the card's name and power limit."""
+    from torch.autograd import DeviceType
+
+    # device-side events only (kernels, memcpys): the CPU-side aten ops also
+    # carry their children's device time and would count it twice
+    kernels = {
+        ev.key: ev.self_device_time_total / repeats
+        for ev in prof.key_averages()
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+    }
+    busy = round(sum(kernels.values()) * repeats / wall_us, 4) if kernels else "not measured"
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    return kernels, busy, card
+
+
 def main(argv=None) -> int:
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import CLIP, sweep_inputs
@@ -50,23 +70,12 @@ def main(argv=None) -> int:
         for _ in range(args.sweeps):
             enc.encode_bank_segsum(bank, windows, seg, V, bank_dev=dev_bank)
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only (kernels, memcpys): the CPU-side aten ops also
-    # carry their children's device time and would count it twice
-    kernels = {
-        ev.key: ev.self_device_time_total / args.sweeps
-        for ev in prof.key_averages()
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-    }
-    busy_us = sum(kernels.values()) * args.sweeps
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    kernels, busy_share, card = device_summary(prof, args.sweeps, wall_us)
     top = {k[:90]: round(v, 1) for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]}
     print(json.dumps({
         "precision": args.precision, "batch_size": args.batch_size,
         "windows_per_sweep": len(windows), "sweep_ms": round(wall_us / args.sweeps / 1e3, 3),
-        "device_busy_share": round(busy_us / wall_us, 4) if kernels else "not measured",
+        "device_busy_share": busy_share,
         "device_us_per_sweep_by_kernel": top, "card": card,
     }))
     return 0

@@ -12,6 +12,12 @@ import torch
 
 from video_gen_evals_tpu_torch.models import EncoderConfig, HumanActionScorer
 from video_gen_evals_tpu_torch.ops.conv_kernel import fused_temporal_block, fused_temporal_block_plain
+from video_gen_evals_tpu_torch.ops.conv_kernel_train import (
+    LAUNCHES_PER_BACKWARD,
+    fused_temporal_block_train,
+    fused_temporal_block_train_bwd_plain,
+    fused_temporal_block_train_plain,
+)
 from video_gen_evals_tpu_torch.ops.window_kernel import gather_windows, gather_windows_plain
 
 pytestmark = pytest.mark.cuda
@@ -86,6 +92,95 @@ def test_block_kernel_refuses_grad(cuda):
     g = torch.ones(64, device=cuda)
     with pytest.raises(RuntimeError, match="no backward"):
         fused_temporal_block(x, w, w, g, g, 1, "high")
+
+
+def _train_inputs(seed, batch, t_len, channels, with_mask):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, t_len, channels, generator=gen)
+    w1, w2 = (torch.randn(5, channels, channels, generator=gen) / (5 * channels) ** 0.5
+              for _ in range(2))
+    gs = 1.0 + 0.1 * torch.randn(channels, generator=gen)
+    gb = 0.1 * torch.randn(channels, generator=gen)
+    mask = (torch.rand(x.shape, generator=gen) < 0.9).float() / 0.9 if with_mask else None
+    dy = torch.randn(x.shape, generator=gen)
+    return x, w1, w2, gs, gb, mask, dy
+
+
+@pytest.mark.parametrize("batch,t_len,channels", [(960, 32, 256), (24, 16, 64), (5, 8, 128)])
+@pytest.mark.parametrize("dilation", [1, 2, 4, 8])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_train_kernels_match_plain(cuda, batch, t_len, channels, dilation, with_mask, precision):
+    """K4 forward and backward against their plain versions at the same
+    precision, both on the card. Forward within 1e-4. Gradients within
+    5e-4 * scale + 5e-4 * |plain| at "highest", scale = max(1, max |plain|) of
+    the tensor: the order of the sums differs, and a weight-gradient element
+    sums up to 30720 products, so one that cancels to near zero carries the
+    rounding of the whole sum. At
+    "default" an intermediate that lands on a bf16 rounding boundary can round
+    the other way in the kernel than in the plain version, a relative step of
+    2^-8 in one operand: forward within 1e-2, gradients within 2e-2 * scale +
+    2e-2 * |plain|."""
+    x, w1, w2, gs, gb, mask, dy = (
+        None if t is None else t.to(cuda)
+        for t in _train_inputs(dilation, batch, t_len, channels, with_mask))
+    f_tol, g_tol = (1e-4, 5e-4) if precision == "highest" else (1e-2, 2e-2)
+    want = fused_temporal_block_train_plain(x, w1, w2, gs, gb, mask, dilation, precision)
+    want_g = fused_temporal_block_train_bwd_plain(x, w1, w2, gs, mask, dy, dilation, precision)
+    leaves = [t.clone().requires_grad_() for t in (x, w1, w2, gs, gb)]
+    n_f, n_b = fused_temporal_block_train.launches, fused_temporal_block_train.launches_bwd
+    got = fused_temporal_block_train(*leaves, mask, dilation, precision)
+    got_g = torch.autograd.grad(got, leaves, dy)
+    torch.cuda.synchronize()
+    assert fused_temporal_block_train.launches == n_f + 1
+    assert fused_temporal_block_train.launches_bwd == n_b + LAUNCHES_PER_BACKWARD
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= f_tol
+    for name, g, w in zip(("dx", "dw1", "dw2", "dgamma", "dbeta"), got_g, want_g):
+        assert torch.isfinite(g).all(), name
+        excess = ((g - w).abs() - g_tol * w.abs()).max().item()
+        assert excess <= g_tol * max(1.0, w.abs().max().item()), name
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_train_backward_is_bitwise_repeatable(cuda, precision):
+    """No atomics and fixed-order sums: two backward calls give the same bits."""
+    x, w1, w2, gs, gb, mask, dy = (t.to(cuda) for t in _train_inputs(7, 960, 32, 256, True))
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (x, w1, w2, gs, gb)]
+        out = fused_temporal_block_train(*leaves, mask, 2, precision)
+        runs.append(torch.autograd.grad(out, leaves, dy))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_train_kernel_carries_grads_through_permuted_weights(cuda):
+    """The encoder hands the weights as permuted views of [Cout, Cin, K]
+    parameters: their .grad must land in that layout, equal to the CPU run's."""
+    x, w1, w2, gs, gb, mask, dy = _train_inputs(3, 8, 16, 64, True)
+    grads = {}
+    for dev in ("cpu", cuda):
+        p1, p2 = (w.permute(2, 1, 0).contiguous().to(dev).requires_grad_() for w in (w1, w2))
+        out = fused_temporal_block_train(
+            x.to(dev), p1.permute(2, 1, 0), p2.permute(2, 1, 0), gs.to(dev), gb.to(dev),
+            mask.to(dev), 2, "highest")
+        out.backward(dy.to(dev))
+        grads[str(dev)] = (p1.grad.cpu(), p2.grad.cpu())
+    for a, b in zip(grads["cpu"], grads["cuda"]):
+        assert a.shape == (64, 64, 5)
+        assert (a - b).abs().max().item() <= 5e-4
+
+
+def test_train_kernel_refuses_unbuilt_shapes(cuda):
+    x = torch.zeros(4, 12, 64, device=cuda)
+    w = torch.zeros(5, 64, 64, device=cuda)
+    g = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError, match="built for T"):
+        fused_temporal_block_train(x, w, w, g, g, None, 1, "highest")
+    with pytest.raises(ValueError, match="precision"):
+        fused_temporal_block_train(x, w, w, g, g, None, 1, "high")
 
 
 def test_forward_on_card_matches_cpu(cuda):

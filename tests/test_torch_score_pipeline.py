@@ -253,12 +253,19 @@ def test_score_cli_refuses_cuda_without_a_card(env, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """In a fresh interpreter: the scoring CLI module loads neither jax, flax
-    nor anything of the JAX package."""
+    """In a fresh interpreter: the scoring and training CLI modules, and every
+    module of the port they do not reach, load neither jax, flax, optax,
+    orbax nor anything of the JAX package."""
     code = (
-        "import sys, video_gen_evals_tpu_torch.pipelines.score\n"
+        "import sys, pkgutil, importlib, video_gen_evals_tpu_torch as pkg\n"
+        "import video_gen_evals_tpu_torch.pipelines.score\n"
+        "import video_gen_evals_tpu_torch.pipelines.train_cli\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert 'video_gen_evals_tpu_torch.train.experiment' in sys.modules\n"
+        "assert 'video_gen_evals_tpu_torch.ops.conv_kernel_train' in sys.modules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'video_gen_evals_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'video_gen_evals_tpu')]\n"
         "print(bad); raise SystemExit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -1,5 +1,5 @@
-"""video_gen_evals_tpu_torch — the TAG scoring path in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""video_gen_evals_tpu_torch — the TAG scoring and training paths in PyTorch,
+with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of ``video_gen_evals_tpu`` (JAX/Pallas), which stays in the
 repository as the numerical reference. The layout and names mirror the JAX
@@ -8,16 +8,19 @@ of ``video_gen_evals_tpu/ops/conv_kernel.py``.
 
 Subpackages
 -----------
-ops       : geometry deltas (SO(3), Procrustes, embedding deltas) and the two
-            Hopper kernels of the scoring path — the window gather
-            (``window_kernel``) and the fused residual conv stage
-            (``conv_kernel``), each beside its plain PyTorch version.
-data      : manifests, window enumeration, modality statistics and the
-            host-built, sentinel-padded feature bank.
+ops       : geometry deltas (SO(3), Procrustes, embedding deltas), temporal
+            corruptions, and the Hopper kernels — the window gather
+            (``window_kernel``), the fused residual conv stage of scoring
+            (``conv_kernel``) and its trainable form with a backward
+            (``conv_kernel_train``), each beside its plain PyTorch version.
+data      : manifests, window enumeration, modality statistics, the
+            host-built, sentinel-padded feature bank, the PK batch sampler.
 models    : ``HumanActionScorer`` as ``nn.Module``s with the reference's
             state_dict names, and weight conversion to and from the JAX tree.
 metrics   : per-window TC, AC/TC finalize, rank correlations.
-pipelines : the scoring CLI (``python -m video_gen_evals_tpu_torch.pipelines.score``).
+train     : losses, the training step, checkpoints, the experiment harness.
+pipelines : the scoring CLI (``python -m video_gen_evals_tpu_torch.pipelines.score``)
+            and the training CLI (``... .pipelines.train_cli``).
 csrc      : CUDA C++ sources, built with ``nvcc`` at first use.
 
 The package imports ``torch`` and never ``jax`` or the JAX package.

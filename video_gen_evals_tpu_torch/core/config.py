@@ -1,12 +1,20 @@
-"""The scoring path's switch for the reference's accidental behaviors.
+"""Typed configuration of the port: the scoring path's switch for the
+reference's accidental behaviors, and the training configuration tree.
 
-A subset of ``video_gen_evals_tpu/core/config.py::BugCompat`` (the fields the
-scoring path reads), kept here so the port loads nothing of the JAX package.
+The port's own copies of ``video_gen_evals_tpu/core/config.py``'s ``BugCompat``
+(the fields the scoring path reads), ``PathsConfig`` and ``TrainConfig``, kept
+here so the port loads nothing of the JAX package. A ``TrainConfig`` JSON
+written by either package loads in the other's training CLI, apart from the
+fields of paths that are not ported yet (see :class:`TrainConfig`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import typing as T
+
+from ..utils.names import ACTION_CLASSES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,3 +38,84 @@ class BugCompat:
     @classmethod
     def disabled(cls) -> "BugCompat":
         return cls(layout_auto=False, permissive_ckpt=False)
+
+
+@dataclasses.dataclass
+class PathsConfig:
+    real_meshes_dir: str = "meshes_10classes"
+    generated_meshes_dir: str = "generated_meshes"
+    human_scores: str = "TAG_final_human_scores.json"
+    real_kp_dir: T.Optional[str] = "SAVE_REAL_ONLY_10_minus1"
+    gen_kp_dir: T.Optional[str] = "generated_kps"
+    real_clip_dir: T.Optional[str] = None
+    real_dino_dir: T.Optional[str] = None
+    gen_clip_dir: T.Optional[str] = None
+    gen_dino_dir: T.Optional[str] = None
+
+
+# JAX-package TrainConfig fields whose paths the port does not have yet
+# (conv implementation selector, data-parallel device count, bank cache)
+_UNPORTED_TRAIN_FIELDS = ("conv_impl", "num_dp_devices", "bank_cache_dir")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Hyperparameters of ``Exp_TCL_Hard_V2Plus`` (ref ``train.py:471-480``).
+    ``from_json`` ignores ``conv_impl``, ``num_dp_devices`` and
+    ``bank_cache_dir`` of a config written by the JAX package."""
+
+    paths: PathsConfig = dataclasses.field(default_factory=PathsConfig)
+    seed: int = 1337
+    epochs: int = 30
+    clip_len: int = 32
+    stride: int = 8
+    P: int = 10                      # classes per batch
+    K: int = 24                      # windows per class
+    lr: float = 3e-4
+    eta_min: float = 1e-6            # cosine floor (ref train.py:184-186)
+    latent_dim: int = 128            # accepted, unused (reference quirk)
+    d_model: int = 256
+    time_layers: int = 4
+    time_heads: int = 8
+    dropout: float = 0.1
+    hard_negative_weight: float = 10.0
+    filter_classes: T.Optional[T.List[str]] = dataclasses.field(
+        default_factory=lambda: list(ACTION_CLASSES)
+    )
+    save_dir: str = "SAVE"
+    name: str = "HumanActionScorer"
+    # raise on the first non-finite loss instead of skipping the batch
+    debug_nans: bool = False
+    # write the per-epoch checkpoints on a worker thread, so the copy to the
+    # host and the file write overlap the next epoch's steps (Experiment.run's
+    # own saves only; direct save_resume_checkpoint calls stay blocking)
+    async_checkpoint: bool = True
+
+    @property
+    def batch_size(self) -> int:
+        return self.P * self.K
+
+    def detect_modalities(self) -> T.List[str]:
+        """Modalities = base four + whatever side dirs are configured
+        (ref ``train.py:225-236``)."""
+        mods = ["vit", "global", "pose", "beta"]
+        if self.paths.real_kp_dir is not None:
+            mods.append("kp2d")
+        if self.paths.real_clip_dir is not None:
+            mods.append("clip")
+        if self.paths.real_dino_dir is not None:
+            mods.append("dino")
+        return mods
+
+    def to_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(dataclasses.asdict(self), f, indent=2)
+
+    @classmethod
+    def from_json(cls, path: str) -> "TrainConfig":
+        with open(path) as f:
+            d = json.load(f)
+        for key in _UNPORTED_TRAIN_FIELDS:
+            d.pop(key, None)
+        d["paths"] = PathsConfig(**d.get("paths", {}))
+        return cls(**d)

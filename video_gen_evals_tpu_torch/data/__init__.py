@@ -1,5 +1,5 @@
-"""Data layer: manifests, window enumeration, modality statistics and the
-host-built feature bank."""
+"""Data layer: manifests, window enumeration, modality statistics, the
+host-built feature bank and the PK batch sampler."""
 
 from .features import (
     FeatureBank,
@@ -15,6 +15,7 @@ from .manifest import (
     scan_generated_flat,
     train_test_split,
 )
+from .sampler import PKBatchSampler
 from .stats import ModalityStats, compute_stats
 from .windows import enumerate_windows
 
@@ -29,6 +30,7 @@ __all__ = [
     "scan_class_tree",
     "scan_generated_flat",
     "train_test_split",
+    "PKBatchSampler",
     "ModalityStats",
     "compute_stats",
     "enumerate_windows",

@@ -2,9 +2,12 @@
 
 Port of ``video_gen_evals_tpu/models/fusion_encoder.py`` and of its kernel
 forward ``models/fused_apply.py::block_kernel_forward``, joined into one
-forward: every residual conv stage runs through
-``ops.conv_kernel.fused_temporal_block``, which launches the Hopper kernel
-for CUDA tensors and runs its plain version for CPU tensors.
+forward: every residual conv stage runs through a fused kernel wrapper,
+which launches the Hopper kernel for CUDA tensors and runs its plain version
+for CPU tensors. In eval mode (``model.eval()``) that is the scoring stage
+``ops.conv_kernel.fused_temporal_block``; in training mode
+(``model.train()``) the trainable stage
+``ops.conv_kernel_train.fused_temporal_block_train``, which has a backward.
 
 - :class:`TemporalConvBlock`       <- ref ``model.py:21-40``
 - :class:`MovementConvEncoder`     <- ref ``model.py:43-58``
@@ -20,8 +23,11 @@ matmul. Parameter and buffer names follow the reference's state_dict
 with ``load_state_dict(strict=True)``. Conv weights keep the reference's
 ``[Cout, Cin, K]`` layout and are viewed as ``[K, Cin, Cout]`` for the kernel.
 
-This is the deterministic (scoring) forward: dropout, and the kernel's
-backward, come with the training port.
+Training mode applies dropout at the JAX module's places: after GELU(conv1)
+inside each conv stage (in the kernel, as a scaled keep mask), on the fusion
+attention weights, and on the transformer's attention weights, attention
+output, FFN hidden and FFN output. Every mask is drawn from the explicit
+``torch.Generator`` handed to ``forward``, which lives on the input's device.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv_kernel import fused_temporal_block
+from ..ops.conv_kernel_train import fused_temporal_block_train
 from ..ops.deltas import l2_normalize
 
 DimsMap = T.Mapping[str, int]
@@ -54,6 +61,7 @@ class EncoderConfig:
     d_model: int = 256
     time_layers: int = 4
     time_heads: int = 8
+    dropout: float = 0.1   # training mode only
 
     @classmethod
     def create(cls, dims_map_raw: DimsMap, dims_map_diff: DimsMap, **kw) -> "EncoderConfig":
@@ -103,6 +111,27 @@ def sinusoidal_positional_embedding(length: int, d_model: int) -> torch.Tensor:
     return torch.from_numpy(pe)
 
 
+class Dropout:
+    """What one training forward needs to drop activations: the rate and the
+    generator its masks come from. ``None`` in its place means no dropout."""
+
+    def __init__(self, rate: float, generator: torch.Generator):
+        self.keep = 1.0 - rate
+        self.generator = generator
+
+    def mask(self, like: torch.Tensor) -> torch.Tensor:
+        """Scaled keep mask of ``like``'s shape: 0 or 1/keep."""
+        u = torch.rand(like.shape, generator=self.generator, device=like.device)
+        return (u < self.keep).to(like.dtype) / self.keep
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.mask(x)
+
+
+def _drop(x: torch.Tensor, dropout: T.Optional[Dropout]) -> torch.Tensor:
+    return x if dropout is None else dropout(x)
+
+
 class _ConvWeight(nn.Module):
     """A bias-free Conv1d's parameter, ``weight [Cout, Cin, K]``; the forward
     is the caller's (a matmul for the stem, the fused kernel for the blocks)."""
@@ -123,7 +152,9 @@ class _Affine(nn.Module):
 
 class TemporalConvBlock(nn.Module):
     """Residual dilated conv pair, GELU, GroupNorm(1) (ref ``model.py:21-40``),
-    as one ``fused_temporal_block`` call."""
+    as one fused call: the scoring kernel in eval mode (``precision`` "high"
+    or "highest"), the trainable kernel with its dropout mask in training
+    mode (``precision`` "default" or "highest")."""
 
     def __init__(self, channels: int, dilation: int = 1, kernel_size: int = _KERNEL):
         super().__init__()
@@ -132,16 +163,16 @@ class TemporalConvBlock(nn.Module):
         self.conv2 = _ConvWeight(channels, channels, kernel_size)
         self.norm = _Affine(channels)
 
-    def forward(self, x: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, precision: str = "highest",
+                dropout: T.Optional[Dropout] = None) -> torch.Tensor:
+        w1 = self.conv1.weight.permute(2, 1, 0)   # [K, Cin, Cout]
+        w2 = self.conv2.weight.permute(2, 1, 0)
+        if self.training:
+            mask = None if dropout is None else dropout.mask(x)
+            return fused_temporal_block_train(
+                x, w1, w2, self.norm.weight, self.norm.bias, mask, self.dilation, precision)
         return fused_temporal_block(
-            x,
-            self.conv1.weight.permute(2, 1, 0),   # [K, Cin, Cout]
-            self.conv2.weight.permute(2, 1, 0),
-            self.norm.weight,
-            self.norm.bias,
-            self.dilation,
-            precision,
-        )
+            x, w1, w2, self.norm.weight, self.norm.bias, self.dilation, precision)
 
 
 class MovementConvEncoder(nn.Module):
@@ -154,10 +185,11 @@ class MovementConvEncoder(nn.Module):
         self.blocks = nn.ModuleList(TemporalConvBlock(d_out, d) for d in dilations)
         self.proj = nn.Linear(d_out, d_out, bias=False)
 
-    def forward(self, x: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, precision: str = "highest",
+                dropout: T.Optional[Dropout] = None) -> torch.Tensor:
         y = x @ self.stem.weight[:, :, 0].t()
         for block in self.blocks:
-            y = block(y, precision)
+            y = block(y, precision, dropout)
         return self.proj(y)
 
 
@@ -178,7 +210,8 @@ class PerFrameFusion(nn.Module):
         self.logit_temp = nn.Parameter(torch.zeros(n_modalities))
         self.logit_bias = nn.Parameter(torch.zeros(n_modalities))
 
-    def forward(self, m_tokens: torch.Tensor) -> torch.Tensor:   # [B, T, M, D]
+    def forward(self, m_tokens: torch.Tensor,                    # [B, T, M, D]
+                dropout: T.Optional[Dropout] = None) -> torch.Tensor:
         D = m_tokens.shape[-1]
         kv = self.kv_ln(m_tokens)
         q = self.Wq(self.q_ln(self.latent))[0, 0]                 # [D], same for every frame
@@ -186,7 +219,7 @@ class PerFrameFusion(nn.Module):
         V = self.Wv(kv)
         logits = (K @ q) / math.sqrt(D)                           # [B, T, M]
         tau = F.softplus(self.logit_temp) + 1e-3
-        A = torch.softmax(logits / tau + self.logit_bias, dim=-1)
+        A = _drop(torch.softmax(logits / tau + self.logit_bias, dim=-1), dropout)
         fused = (A.unsqueeze(-2) @ V).squeeze(-2)                 # [B, T, D]
         return self.Wo(fused)
 
@@ -214,16 +247,17 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout: T.Optional[Dropout] = None) -> torch.Tensor:
         B, S, D = x.shape
         H = self.n_heads
         hd = D // H
         qkv = F.linear(x, self.self_attn.in_proj_weight, self.self_attn.in_proj_bias)
         q, k, v = (t.reshape(B, S, H, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-        attn = torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(hd), dim=-1)
+        attn = _drop(torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(hd), dim=-1), dropout)
         ctx = (attn @ v).transpose(1, 2).reshape(B, S, D)
-        x = self.norm1(x + self.self_attn.out_proj(ctx))
-        h = self.linear2(F.relu(self.linear1(x)))
+        x = self.norm1(x + _drop(self.self_attn.out_proj(ctx), dropout))
+        h = _drop(F.relu(self.linear1(x)), dropout)
+        h = _drop(self.linear2(h), dropout)
         return self.norm2(x + h)
 
 
@@ -248,8 +282,12 @@ class HumanActionScorer(nn.Module):
     Input ``x``: ``[B, T, D]``, raw block first, modalities in the order of
     the dims map. Returns ``(seq_embed [B, d_model], frame_embeds
     [B, T+1, d_model], tokens [B, T+1, d_model])``, both embeds L2-normalized.
-    ``precision`` selects the conv-stage kernel's arithmetic ("high" bf16x3
-    or "highest" fp32); every other matmul runs in fp32.
+    ``precision`` selects the conv-stage kernel's arithmetic: in eval mode
+    "high" (bf16x3) or "highest" (fp32), in training mode "default" (bf16
+    operands, fp32 sums) or "highest"; every other matmul runs in fp32.
+    In training mode with ``config.dropout > 0`` the masks come from
+    ``generator``, which must live on ``x``'s device. A new model is in eval
+    mode.
     """
 
     def __init__(self, config: EncoderConfig, generator: T.Optional[torch.Generator] = None):
@@ -268,6 +306,8 @@ class HumanActionScorer(nn.Module):
         self.temporal = _TemporalStack(d, config.time_heads, config.time_layers)
         self.pos_enc = _PositionalEncoding(d)
         self.reset_parameters(generator)
+        # a new model scores: the trainer switches to training mode itself
+        self.eval()
 
     @torch.no_grad()
     def reset_parameters(self, generator: T.Optional[torch.Generator] = None) -> None:
@@ -285,21 +325,28 @@ class HumanActionScorer(nn.Module):
             else:
                 p.zero_()
 
-    def forward(self, x: torch.Tensor, precision: str = "highest"):
+    def forward(self, x: torch.Tensor, precision: str = "highest",
+                generator: T.Optional[torch.Generator] = None):
         cfg = self.config
         B, Tlen, D = x.shape
         if D != cfg.input_dim:
             raise ValueError(f"expected input dim {cfg.input_dim}, got {D}")
+        dropout = None
+        if self.training and cfg.dropout > 0.0:
+            if generator is None:
+                raise ValueError("training mode with dropout needs a torch.Generator")
+            dropout = Dropout(cfg.dropout, generator)
         opr = cfg.one_pass_raw
         per_mod = []
         r_off = d_off = 0
         diff_dims = dict(cfg.dims_map_diff)
         for m, rd in cfg.dims_map_raw:
-            s = self.state_enc[m](x[:, :, r_off : r_off + rd], precision)
+            s = self.state_enc[m](x[:, :, r_off : r_off + rd], precision, dropout)
             r_off += rd
             dd = diff_dims[m]
             if cfg.has_motion(m):
-                s = s + self.motion_enc[m](x[:, :, opr + d_off : opr + d_off + dd], precision)
+                s = s + self.motion_enc[m](x[:, :, opr + d_off : opr + d_off + dd], precision,
+                                           dropout)
             d_off += dd
             # non-affine layer norm over the feature dim (ref model.py:175)
             mu = s.mean(dim=-1, keepdim=True)
@@ -307,11 +354,11 @@ class HumanActionScorer(nn.Module):
             per_mod.append((s - mu) / torch.sqrt(var + 1e-5))
         m_tokens = torch.stack(per_mod, dim=2)                    # [B, T, M, D]
 
-        frame_tok = self.fusion(m_tokens)                         # [B, T, D]
+        frame_tok = self.fusion(m_tokens, dropout)                # [B, T, D]
         tokens = torch.cat([self.cls.expand(B, 1, cfg.d_model), frame_tok], dim=1)
         tokens = tokens + self.pos_enc.pe[:, : Tlen + 1]
         for layer in self.temporal.layers:
-            tokens = layer(tokens)
+            tokens = layer(tokens, dropout)
         seq_embed = l2_normalize(tokens[:, 0, :], axis=-1)
         frame_embeds = l2_normalize(tokens, axis=-1)
         return seq_embed, frame_embeds, tokens

@@ -11,6 +11,11 @@ numpy arrays) across, without importing jax:
 
 They mirror ``video_gen_evals_tpu/models/torch_compat.py``'s
 ``flax_params_to_torch_state_dict`` and ``torch_state_dict_to_flax``.
+
+Training state crosses the same way: :func:`named_tensors_from_jax_tree` maps
+any tree shaped like the params (gradients, Adam moments) to the port's
+parameter names and layouts, and :func:`load_optax_adam_state` continues a
+JAX run's AdamW moments in a torch optimizer.
 """
 
 from __future__ import annotations
@@ -92,6 +97,39 @@ def state_dict_from_jax_params(params: FlaxParams, config: EncoderConfig) -> T.D
 
     sd["pos_enc.pe"] = sinusoidal_positional_embedding(_PE_MAX_LEN, config.d_model).numpy()[None]
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def named_tensors_from_jax_tree(tree: FlaxParams, config: EncoderConfig) -> T.Dict[str, torch.Tensor]:
+    """A tree with the structure of the JAX package's params (a gradient tree,
+    an Adam moment tree; numpy leaves) -> ``{parameter name: tensor}`` in the
+    port's names and layouts: the swaps of :func:`state_dict_from_jax_params`,
+    without the ``pos_enc.pe`` buffer, which is no parameter."""
+    named = state_dict_from_jax_params(tree, config)
+    del named["pos_enc.pe"]
+    return named
+
+
+def load_optax_adam_state(
+    optimizer: torch.optim.AdamW,
+    model: HumanActionScorer,
+    mu: FlaxParams,
+    nu: FlaxParams,
+    count: int,
+) -> None:
+    """Put optax's ``adamw`` state (first moments ``mu``, second moments
+    ``nu``, both trees of numpy arrays, and the update ``count``) into a torch
+    ``AdamW`` over ``model``'s parameters as ``exp_avg``, ``exp_avg_sq`` and
+    ``step``. With the schedule put at ``count`` as well
+    (``train.step.position_cosine_schedule``), the next ``optimizer.step()``
+    is the JAX run's next update."""
+    exp_avg = named_tensors_from_jax_tree(mu, model.config)
+    exp_avg_sq = named_tensors_from_jax_tree(nu, model.config)
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": exp_avg[name].to(p.device),
+            "exp_avg_sq": exp_avg_sq[name].to(p.device),
+        }
 
 
 class _TrackingDict(dict):

@@ -1,8 +1,9 @@
-"""Geometry deltas and the Hopper kernels of the scoring path.
+"""Geometry deltas, temporal corruptions and the port's Hopper kernels.
 
-``window_kernel.gather_windows`` (K1) and ``conv_kernel.fused_temporal_block``
-(K3) launch CUDA kernels built from ``csrc/`` for CUDA tensors and run their
-plain PyTorch versions for CPU tensors."""
+``window_kernel.gather_windows`` (K1), ``conv_kernel.fused_temporal_block``
+(K3) and ``conv_kernel_train.fused_temporal_block_train`` (K4, forward and
+backward) launch CUDA kernels built from ``csrc/`` for CUDA tensors and run
+their plain PyTorch versions for CPU tensors."""
 
 from .deltas import betas_delta, l2_normalize, vit_delta
 from .procrustes import procrustes_kp_delta

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) as one library.
 
-``nvcc`` compiles the sources for ``sm_90a`` into a shared library with a
-plain C interface, which ``ctypes`` loads. The build runs at first use,
+``nvcc`` compiles the sources for ``sm_90a``, one process per source and all
+at once, and links the objects into a shared library with a plain C
+interface, which ``ctypes`` loads. The build runs at first use,
 inside the first call that launches a kernel, never at import. The library
 goes to ``video_gen_evals_tpu_torch/_build/`` under a name made from a hash
 of the sources and flags: an edited source builds anew, an unchanged one
@@ -27,10 +28,11 @@ import typing as T
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("window_gather.cu", "temporal_block.cu")
+SOURCES = ("window_gather.cu", "temporal_block.cu", "temporal_block_train.cu")
+HEADERS = ("conv_tile.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -44,6 +46,13 @@ _SIGNATURES = {
     # device, x, w1, w2, gn_scale, gn_bias, out, batch, t_len, channels,
     # dilation, split_bf16, stream
     "vge_temporal_block": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # device, x, w1, w2, gn_scale, gn_bias, mask (or null), out, batch, t_len,
+    # channels, dilation, round_bf16, stream
+    "vge_temporal_block_train_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # device, x, w1, w2, w1t, w2t, gn_scale, dy, mask (or null), dx, d1, dr,
+    # dh1, pgamma, pbeta, partial, dw1, dw2, dgamma, dbeta, batch, t_len,
+    # channels, dilation, round_bf16, splits, stream
+    "vge_temporal_block_train_bwd": [_I] + [_P] * 19 + [_I] * 6 + [_P],
 }
 
 
@@ -75,7 +84,7 @@ def _build() -> KernelLibrary:
     nvcc = _nvcc()
     srcs = [os.path.join(CSRC_DIR, s) for s in SOURCES]
     h = hashlib.sha256()
-    for s in srcs:
+    for s in srcs + [os.path.join(CSRC_DIR, s) for s in HEADERS]:
         with open(s, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -84,15 +93,29 @@ def _build() -> KernelLibrary:
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
+        objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
-            capture_output=True, text=True,
-        )
+        try:
+            procs = [
+                subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(srcs, objs)
+            ]
+            outs = [proc.communicate()[0] for proc in procs]
+            log = "".join(outs)
+            failed = [s for s, proc in zip(SOURCES, procs) if proc.returncode != 0]
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+            link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n"
+                                   f"{link.stdout}{link.stderr}")
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
         os.replace(tmp, path)
     lib = ctypes.CDLL(path)
     for name, argtypes in _SIGNATURES.items():

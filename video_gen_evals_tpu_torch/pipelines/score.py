@@ -46,6 +46,7 @@ from ..metrics.correlation import match_and_correlate
 from ..metrics.scores import finalize_centroids, finalize_video_scores, tc_per_window
 from ..models import EncoderConfig, HumanActionScorer
 from ..ops.window_kernel import gather_windows
+from ..utils.device import disable_tf32, resolve_device
 from ..utils.names import ACTION_CLASSES, canonicalize_class
 
 PRECISIONS = ("high", "highest")
@@ -76,15 +77,8 @@ class WindowEncoder:
     ):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} requested but no CUDA device is available")
-        # fp32 matmuls outside the kernels: TF32 would be a coarser class than
-        # either precision mode, so both flags are set off and checked
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
-            raise RuntimeError("TF32 could not be disabled")
+        self.device = resolve_device(device)
+        disable_tf32()
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
         self.clip_len = clip_len
@@ -96,6 +90,54 @@ class WindowEncoder:
             torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
             for a in (bank.bank, bank.offsets, bank.row_limit, bank.z0_diff)
         )
+
+    def _encode_batches(
+        self,
+        bank: FeatureBank,
+        windows: T.Sequence[T.Tuple[int, int]],
+        bank_dev: T.Optional[T.Tuple[torch.Tensor, ...]],
+    ) -> T.Iterator[T.Tuple[slice, torch.Tensor, torch.Tensor]]:
+        """``(batch slice, seq [B, D], tc [B])`` of every batch of the sweep, in
+        eval mode under ``inference_mode``; the tail batch is padded with
+        repeats of the last window (slots past ``len(windows)``)."""
+        # a bank built with min_rows < clip_len would read the next video's rows
+        bank.validate_clip_len(self.clip_len)
+        n = len(windows)
+        B = self.batch_size
+        n_pad = -(-n // B) * B
+        pad = lambda a: np.concatenate([a, np.repeat(a[-1:], n_pad - n)])   # noqa: E731
+        vi_d, st_d = (
+            torch.from_numpy(pad(np.array([w[i] for w in windows], np.int32))).to(self.device)
+            for i in (0, 1)
+        )
+        bank_d, offsets_d, row_limit_d, z0_d = bank_dev if bank_dev is not None else self.upload(bank)
+        self.model.eval()
+        for lo in range(0, n_pad, B):
+            b = slice(lo, lo + B)
+            with torch.inference_mode():   # never held across a yield
+                w = gather_windows(bank_d, offsets_d, row_limit_d, z0_d, bank.one_pass_raw,
+                                   vi_d[b], st_d[b], self.clip_len)
+                seq, frames, _ = self.model(w, self.precision)
+                tc = tc_per_window(frames)
+            yield b, seq, tc
+
+    def encode_bank(
+        self,
+        bank: FeatureBank,
+        windows: T.Sequence[T.Tuple[int, int]],
+        bank_dev: T.Optional[T.Tuple[torch.Tensor, ...]] = None,
+    ) -> T.Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Host ``(seq_embeds [N, D], window_tc [N], window_video [N])`` of
+        every window, fetched once at the end of the sweep."""
+        n = len(windows)
+        video_idx = np.array([w[0] for w in windows], np.int32)
+        d_model = self.model.config.d_model
+        if n == 0:
+            return np.zeros((0, d_model), np.float32), np.zeros((0,), np.float32), video_idx
+        outs = [torch.cat([seq, tc[:, None]], dim=1)
+                for _b, seq, tc in self._encode_batches(bank, windows, bank_dev)]
+        out = torch.cat(outs)[:n].cpu().numpy()
+        return out[:, :d_model], out[:, d_model], video_idx
 
     def encode_bank_segsum(
         self,
@@ -113,32 +155,20 @@ class WindowEncoder:
         seg_ids = np.asarray(seg_ids, np.int64)
         if len(seg_ids) != len(windows):
             raise ValueError(f"seg_ids has {len(seg_ids)} entries for {len(windows)} windows")
-        # a bank built with min_rows < clip_len would read the next video's rows
-        bank.validate_clip_len(self.clip_len)
         d_model = self.model.config.d_model
         seq_sum = torch.zeros((num_segments, d_model), dtype=torch.float32, device=self.device)
         tc_sum = torch.zeros((num_segments,), dtype=torch.float32, device=self.device)
         count = torch.zeros((num_segments,), dtype=torch.float32, device=self.device)
         n = len(windows)
-        B = self.batch_size
-        n_pad = -(-n // B) * B
-        pad = lambda a: np.concatenate([a, np.repeat(a[-1:], n_pad - n)])   # noqa: E731
-        video_idx = pad(np.array([w[0] for w in windows], np.int32))
-        starts = pad(np.array([w[1] for w in windows], np.int32))
-        vi_d, st_d, seg_d = (
-            torch.from_numpy(a).to(self.device) for a in (video_idx, starts, pad(seg_ids))
-        )
+        n_pad = -(-n // self.batch_size) * self.batch_size
+        seg_d = torch.from_numpy(
+            np.concatenate([seg_ids, np.repeat(seg_ids[-1:], n_pad - n)])).to(self.device)
         valid = (torch.arange(n_pad, device=self.device) < n).to(torch.float32)
-        bank_d, offsets_d, row_limit_d, z0_d = bank_dev if bank_dev is not None else self.upload(bank)
         with torch.inference_mode():
-            for lo in range(0, n_pad, B):
-                b = slice(lo, lo + B)
-                w = gather_windows(bank_d, offsets_d, row_limit_d, z0_d, bank.one_pass_raw,
-                                   vi_d[b], st_d[b], self.clip_len)
-                seq, frames, _ = self.model(w, self.precision)
+            for b, seq, tc in self._encode_batches(bank, windows, bank_dev):
                 m = valid[b]
                 seq_sum.index_add_(0, seg_d[b], seq * m[:, None])
-                tc_sum.index_add_(0, seg_d[b], tc_per_window(frames) * m)
+                tc_sum.index_add_(0, seg_d[b], tc * m)
                 count.index_add_(0, seg_d[b], m)
         # the sweep's one fetch
         out = torch.cat([seq_sum, tc_sum[:, None], count[:, None]], dim=1).cpu().numpy()
@@ -274,8 +304,10 @@ def main(argv: T.Optional[T.List[str]] = None) -> None:
                    help="conv-stage kernel arithmetic: 'high' (bf16x3) or 'highest' (fp32)")
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
     args = p.parse_args(argv)
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        p.error(f"--device {args.device}: no CUDA device is available")
+    try:
+        resolve_device(args.device)
+    except RuntimeError as e:
+        p.error(f"--device: {e}")
 
     bc = BugCompat.enabled() if args.bug_compat else BugCompat.disabled()
     cfg = ScoreConfig(args.clip_len, args.stride, args.batch_size, precision=args.precision)

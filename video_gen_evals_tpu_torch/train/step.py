@@ -1,0 +1,199 @@
+"""The training step: clean + 3 corrupted forwards as one stacked batch.
+
+Port of ``video_gen_evals_tpu/train/step.py`` (ref ``train.py:488-524``):
+``TCL(clean) + w * (hard_shuf + hard_rev + hard_stat)``, each hard term a
+SupCon 2-way CE between the clean embedding and the embedding of a
+temporally corrupted copy of the batch. The clean batch and its three
+corruptions go through the encoder as one ``[4B, T, D]`` forward.
+
+:class:`TrainStep` is ``stack(feats) -> stacked`` and ``update(stacked,
+labels) -> metrics``; a step is their composition.
+
+- AdamW + per-step cosine annealing to ``eta_min`` (:func:`make_optimizer`:
+  betas 0.9/0.999, eps 1e-8, decoupled weight decay 0.01 on all parameters;
+  ref ``train.py:163,183-186``). The schedule stops at ``total_steps``, where
+  optax's clamps: ``CosineAnnealingLR`` alone would climb again.
+- A non-finite total skips the update (ref ``train.py:499-500``): the
+  parameters, the optimizer state and the schedule stay as they were, the
+  step counter still goes up by one, and ``skipped`` is 1.0 in the metrics.
+- Randomness is a function of ``(seed, step)``: the shuffle's indices come
+  from a CPU generator, the dropout masks from a generator on the model's
+  device, both seeded anew every step. Nothing random needs saving for an
+  exact resume.
+
+Precision: ``precision`` ("default" or "highest") selects the arithmetic of
+the trainable conv-stage kernel only. Every other matmul of the step runs in
+fp32 with TF32 off (set and checked). The JAX step on the TPU ran every
+matmul as one bf16 pass; the port does not.
+"""
+
+from __future__ import annotations
+
+import math
+import typing as T
+
+import torch
+
+from ..models import HumanActionScorer
+from ..ops.corruption import partial_shuffle_within_window, reverse_sequence, static_window
+from ..utils.device import disable_tf32
+from .losses import supcon_hard_negatives, tcl_loss
+
+COMPONENTS = ("tcl", "hard_shuf", "hard_rev", "hard_stat")
+_SHUFFLE, _DROPOUT = 0, 1   # the two random streams of a step
+
+
+def make_optimizer(
+    params: T.Iterable[torch.nn.Parameter],
+    lr: float,
+    total_steps: int,
+    eta_min: float = 1e-6,
+    weight_decay: float = 0.01,
+) -> T.Tuple[torch.optim.AdamW, torch.optim.lr_scheduler.CosineAnnealingLR]:
+    """AdamW with per-step cosine annealing to ``eta_min`` over ``total_steps``."""
+    optimizer = torch.optim.AdamW(
+        params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    scheduler = torch.optim.lr_scheduler.CosineAnnealingLR(
+        optimizer, T_max=max(1, total_steps), eta_min=eta_min)
+    return optimizer, scheduler
+
+
+def position_cosine_schedule(
+    optimizer: torch.optim.Optimizer,
+    scheduler: torch.optim.lr_scheduler.CosineAnnealingLR,
+    count: int,
+) -> None:
+    """Put the schedule where ``count`` applied updates leave it, from the
+    closed form ``eta_min + (lr - eta_min) * (1 + cos(pi * t / T_max)) / 2``
+    with ``t = min(count, T_max)``."""
+    t = min(int(count), scheduler.T_max)
+    scheduler.last_epoch = t
+    for group, base_lr in zip(optimizer.param_groups, scheduler.base_lrs):
+        group["lr"] = scheduler.eta_min + (base_lr - scheduler.eta_min) * (
+            1.0 + math.cos(math.pi * t / scheduler.T_max)) / 2.0
+    scheduler._last_lr = [group["lr"] for group in optimizer.param_groups]
+
+
+def seeded_generator(seed: int, counter: int, stream: int,
+                     device: T.Union[str, torch.device] = "cpu") -> torch.Generator:
+    """A generator for random stream ``stream`` of step (or chunk) ``counter``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(((seed * 1_000_003 + counter) * 2 + stream) % (2**63))
+    return g
+
+
+def stack_corruptions(feats: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """``[B, T, D] -> [4B, T, D]``: clean, shuffled, reversed, static."""
+    return torch.cat([
+        feats,
+        partial_shuffle_within_window(feats, generator),
+        reverse_sequence(feats),
+        static_window(feats),
+    ], dim=0)
+
+
+def loss_components(
+    emb: torch.Tensor, labels: torch.Tensor, hard_weight: float
+) -> T.Dict[str, torch.Tensor]:
+    """The four loss terms from the stacked batch's embeddings ``[4B, D]``."""
+    B = emb.shape[0] // 4
+    clean, sh, rev, st = emb[:B], emb[B : 2 * B], emb[2 * B : 3 * B], emb[3 * B :]
+    return {
+        "tcl": tcl_loss(clean, labels),
+        "hard_shuf": hard_weight * supcon_hard_negatives(clean, clean, sh),
+        "hard_rev": hard_weight * supcon_hard_negatives(clean, clean, rev),
+        "hard_stat": hard_weight * supcon_hard_negatives(clean, clean, st),
+    }
+
+
+def _to_floats(components: T.Dict[str, torch.Tensor], total: torch.Tensor) -> T.Dict[str, float]:
+    """One fetch for all the numbers."""
+    values = torch.stack([components[k].detach() for k in COMPONENTS] + [total.detach()]).tolist()
+    return dict(zip(COMPONENTS + ("total",), values))
+
+
+class TrainStep:
+    """The model's optimizer, schedule and step counter, and the step itself."""
+
+    def __init__(
+        self,
+        model: HumanActionScorer,
+        lr: float,
+        total_steps: int,
+        eta_min: float = 1e-6,
+        hard_weight: float = 10.0,
+        precision: str = "default",
+        eval_precision: str = "high",
+        seed: int = 0,
+    ):
+        disable_tf32()
+        self.model = model
+        self.total_steps = max(1, total_steps)
+        self.optimizer, self.scheduler = make_optimizer(
+            model.parameters(), lr, total_steps, eta_min)
+        self.hard_weight = hard_weight
+        self.precision = precision
+        self.eval_precision = eval_precision
+        self.seed = seed
+        self.step = 0
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def stack(self, feats: torch.Tensor) -> torch.Tensor:
+        """This step's stacked batch: the shuffle is drawn from ``(seed, step)``."""
+        return stack_corruptions(feats, seeded_generator(self.seed, self.step, _SHUFFLE))
+
+    def update(self, stacked: torch.Tensor, labels: torch.Tensor) -> T.Dict[str, float]:
+        """Forward in training mode, backward, and one optimizer and schedule
+        step unless the total is not finite. Returns the loss components,
+        ``total`` and ``skipped`` as floats."""
+        self.model.train()
+        dropout_gen = seeded_generator(self.seed, self.step, _DROPOUT, self.device)
+        emb, _, _ = self.model(stacked, self.precision, generator=dropout_gen)
+        components = loss_components(emb, labels, self.hard_weight)
+        total = sum(components.values())
+        metrics = _to_floats(components, total)
+        finite = bool(torch.isfinite(total))
+        if finite:
+            self.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+            self.optimizer.step()
+            if self.scheduler.last_epoch < self.total_steps:
+                self.scheduler.step()
+        self.step += 1
+        metrics["skipped"] = 0.0 if finite else 1.0
+        return metrics
+
+    def __call__(self, feats: torch.Tensor, labels: torch.Tensor) -> T.Dict[str, float]:
+        return self.update(self.stack(feats), labels)
+
+    def eval_loss(self, feats: torch.Tensor, labels: torch.Tensor,
+                  chunk: int = 0) -> T.Dict[str, float]:
+        """The same loss in eval mode, no dropout and no gradient (ref
+        ``train.py:286-333``); the shuffle is drawn from ``(seed + 999, chunk)``."""
+        self.model.eval()
+        with torch.no_grad():
+            stacked = stack_corruptions(
+                feats, seeded_generator(self.seed + 999, chunk, _SHUFFLE))
+            emb, _, _ = self.model(stacked, self.eval_precision)
+            components = loss_components(emb, labels, self.hard_weight)
+            return _to_floats(components, sum(components.values()))
+
+    def state_dict(self) -> T.Dict[str, T.Any]:
+        return {"optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(), "step": self.step}
+
+    def load_state_dict(self, state: T.Mapping[str, T.Any]) -> None:
+        """An interrupted run's state restores exactly. A checkpoint of a run
+        with another length keeps its weights, moments and counts, and this
+        run's schedule takes over at the saved count (the schedule is a
+        function of the count, as optax's is)."""
+        self.optimizer.load_state_dict(state["optimizer"])
+        saved = state["scheduler"]
+        if saved["T_max"] == self.scheduler.T_max:
+            self.scheduler.load_state_dict(saved)
+        else:
+            position_cosine_schedule(self.optimizer, self.scheduler, saved["last_epoch"])
+        self.step = int(state["step"])
