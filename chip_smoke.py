@@ -39,6 +39,28 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    with dropout 0 and K = 4 on the card against the plain versions on the
    CPU, loss components within 1e-3. Steps/s and clips/s of the second epoch.
 
+6. The attention kernels (K6 mha_core, K7 mha_head_batched, K8
+   flash_attention) against their plain versions at the ViT-H shape
+   (B = 32, N = 192, 16 heads of 80; q, k, v as slices of one qkv buffer) in
+   fp32 at "highest" (2e-5) and in bf16 at "default" (0.03), K6 at "high" (5e-5),
+   K8 at N = 100 and 300 with 64-key blocks, K6 at the scorer's
+   [512, 33, 256] with 8 heads; ms per call, the bound, and
+   F.scaled_dot_product_attention on the same tensors as the library time.
+7. The mesh-recovery stage at full width: ViT-H (depth 32, width 1280) and
+   the SMPL token head at its published geometry, weights drawn on the card
+   from a seed, one synthetic 72-frame 360 x 640 video with seeded boxes
+   (some blurred by the anti-alias branch, some not) through
+   Extractor.process_video with attention_impl "core" and frame_batch 32 (two
+   full chunks and a padded tail). Shapes, dtypes, finite values, rotations
+   orthonormal within 1e-4, K6 launched depth x chunks times, token_out
+   within 1e-3 of the same run with attention_impl "plain". Then
+   "head_batched" and "flash" through the same entry at depth 4 against
+   "plain"; the card against the CPU's plain versions at depth 2 on 4 frames
+   (1e-3); the bf16 fast mode at full depth and at depth 4 for K7 and K8
+   against the fp32 run (BF16_STAGE_TOL); the mesh dict written with
+   save_video_npz and read back by the scoring path's loader. Frames/s and
+   ms per chunk (crop, backbone, head) for each attention_impl, peak memory.
+
 Then a JSON line listing the kernels, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; so does a machine without a CUDA device.
@@ -71,6 +93,20 @@ PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 # a bf16 rounding boundary can round the other way in the kernel than in the
 # plain version, a relative step of 2^-8 in one operand.
 K4_TOL = {"highest": (1e-4, 5e-4), "default": (1e-2, 2e-2)}
+# attention kernels against their plain versions of the same precision, on
+# the card: fp32 sums in another order (tests/test_attention.py's 2e-5); with
+# bf16 operands a p or an output on a rounding boundary can round the other
+# way, a step of 2^-8 relative; at "high" (bf16x3) each product carries about
+# 2^-16 relative, and kernel and plain version split a p that differs in its
+# last bits
+ATTN_TOL = {"highest": 2e-5, "high": 5e-5, "default": 0.03}
+VIT_B, VIT_N, VIT_H, VIT_HD = 32, 192, 16, 80   # one ViT-H layer of one 32-frame chunk
+# the bf16 fast mode against the fp32 run on the same weights: max |d token_out|
+# over the video, relative to max |token_out|. bf16 keeps 8 bits through 32
+# residual blocks and 6 decoder layers of random weights; measured 0.013 at
+# depth 32 and 0.017 at depth 4 on an H100.
+BF16_STAGE_TOL = 0.05
+MESH_FRAMES, MESH_HW = 72, (360, 640)
 
 
 def _check(ok: bool, what: str) -> None:
@@ -99,8 +135,10 @@ def _ptxas_summary(log: str):
         m = re.search(r"Used (\d+) registers", line)
         if name and m:
             t = re.search(r"(\d+)([a-z_]+kernel)ILi(\d+)ELi(\d+)ELb([01])E", name)
+            a = re.search(r"\d+([a-z_]+kernel)ILi(\d+)E(?:Lb([01])E)?", name)
             g = re.search(r"\d+([a-z_]+kernel)", name)
             short = (f"{t.group(2)}<T={t.group(3)}, C={t.group(4)}, bf16={t.group(5)}>" if t
+                     else f"{a.group(1)}<hd={a.group(2)}" + (f", split={a.group(3)}>" if a.group(3) else ">") if a
                      else g.group(1) if g else name)
             yield f"{short}: {m.group(1)} registers; {spill}"
             name = None
@@ -603,6 +641,322 @@ def phase_training(torch, card):
     return launches
 
 
+def _attn_bound(batch, n, heads, hd, elem_bytes, flops_per_product, peak):
+    """q, k, v read and out written once; two products of 2 n^2 hd each."""
+    nbytes = 4 * batch * n * heads * hd * elem_bytes
+    return _bound(nbytes, flops_per_product * 2 * batch * heads * n * n * hd, peak)
+
+
+def phase_attention_kernels(torch, dev, gen):
+    """K6, K7, K8 against their plain versions at the ViT-H layer's shapes."""
+    import torch.nn.functional as F
+
+    from video_gen_evals_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+    from video_gen_evals_tpu_torch.ops.attention_core import (
+        mha_core, mha_core_plain, mha_head_batched, mha_head_batched_plain, mha_packed, pack_heads, unpack_heads)
+
+    B, N, H, hd = VIT_B, VIT_N, VIT_H, VIT_HD
+    D = H * hd
+    results = {}
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def check(tag, got, want, precision):
+        torch.cuda.synchronize()
+        _check(bool(torch.isfinite(got.float()).all()), f"{tag}: non-finite output")
+        e = err(got, want)
+        _check(e <= ATTN_TOL[precision], f"{tag}: max |kernel - plain| {e:.3e} > {ATTN_TOL[precision]}")
+        return e
+
+    for dtype, precision in ((torch.float32, "highest"), (torch.bfloat16, "default")):
+        qkv = torch.randn(B, N, 3 * D, generator=gen).to(dev).to(dtype)
+        q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]            # as the ViT block hands them
+        q4, k4, v4 = qkv.reshape(B, N, 3, H, hd).unbind(dim=2)
+        elem = 4 if dtype == torch.float32 else 2
+        bound_ms, bound_by = _attn_bound(B, N, H, hd, elem, 2, PEAK_FP32 if precision == "highest" else PEAK_BF16)
+        # one PyTorch call for the same function on the same tensors; timed
+        # here and used nowhere in the port
+        qs, ks, vs = (t.transpose(1, 2) for t in (q4, k4, v4))
+        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs), 20)
+        sdpa = F.scaled_dot_product_attention(qs, ks, vs).transpose(1, 2).reshape(B, N, D)
+
+        e = check(f"K6 {precision}", mha_core(q, k, v, H, precision=precision),
+                  mha_core_plain(q, k, v, H, precision=precision), precision)
+        ms, plain_ms = _interleaved_ms(lambda: mha_core(q, k, v, H, precision=precision),
+                                       lambda: mha_core_plain(q, k, v, H, precision=precision), 20)
+        results[f"mha_core[{precision}]"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                                 bound_by=bound_by, library_ms=library_ms)
+        print(f"K6 mha_core[{precision}] {str(dtype)[6:]} [{B}, {N}, {D}] {H} heads, strided slices of qkv: "
+              f"max |kernel - plain| {e:.2e} (tol {ATTN_TOL[precision]}), vs SDPA "
+              f"{err(mha_core(q, k, v, H, precision=precision), sdpa):.2e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+        e = check(f"K7 {precision}", mha_head_batched(q, k, v, H, precision=precision),
+                  mha_head_batched_plain(q, k, v, H, precision=precision), precision)
+        ms, plain_ms = _interleaved_ms(lambda: mha_head_batched(q, k, v, H, precision=precision),
+                                       lambda: mha_head_batched_plain(q, k, v, H, precision=precision), 20)
+        qp, kp, vp = (pack_heads(t, H) for t in (q, k, v))
+        scale = hd ** -0.5
+        kernel_ms = _time_ms(lambda: mha_packed(qp, kp, vp, scale, precision), 20)
+        relayout_ms = _time_ms(lambda: unpack_heads([pack_heads(t, H) for t in (q, k, v)][0], H), 20)   # three in, one back
+        results[f"mha_head_batched[{precision}]"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                                         bound_by=bound_by, library_ms=library_ms)
+        print(f"K7 mha_head_batched[{precision}] {str(dtype)[6:]}: max |kernel - plain| {e:.2e}; pack + kernel + unpack "
+              f"{ms:.4f} ms (kernel on packed pairs {kernel_ms:.4f} ms, the four relayouts {relayout_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+        e = check(f"K8 {precision}", flash_attention(q4, k4, v4, precision=precision),
+                  flash_attention_plain(q4, k4, v4, precision=precision), precision)
+        ms, plain_ms = _interleaved_ms(lambda: flash_attention(q4, k4, v4, precision=precision),
+                                       lambda: flash_attention_plain(q4, k4, v4, precision=precision), 20)
+        results[f"flash_attention[{precision}]"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                                        bound_by=bound_by, library_ms=library_ms)
+        print(f"K8 flash_attention[{precision}] {str(dtype)[6:]} [{B}, {N}, {H}, {hd}] blocks 128/128: "
+              f"max |kernel - plain| {e:.2e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+        # K8 where N is no multiple of the 64-key block, several blocks
+        for n_odd in (100, 300):
+            t = torch.randn(4, n_odd, 3, H, hd, generator=gen).to(dev).to(dtype)
+            a, b, c = t.unbind(dim=2)
+            e = check(f"K8 {precision} N={n_odd}", flash_attention(a, b, c, block_q=64, block_kv=64, precision=precision),
+                      flash_attention_plain(a, b, c, block_q=64, block_kv=64, precision=precision), precision)
+            print(f"   K8 [{precision}] N={n_odd}, blocks 64/64: max |kernel - plain| {e:.2e}")
+
+    # K6 "high" (bf16x3) at the ViT-H shape, and K6 at the scorer's transformer shape
+    qkv = torch.randn(B, N, 3 * D, generator=gen).to(dev)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    e = check("K6 high", mha_core(q, k, v, H, precision="high"), mha_core_plain(q, k, v, H, precision="high"), "high")
+    e32 = err(mha_core(q, k, v, H, precision="high"), mha_core_plain(q, k, v, H, precision="highest"))
+    ms, plain_ms = _interleaved_ms(lambda: mha_core(q, k, v, H, precision="high"),
+                                   lambda: mha_core_plain(q, k, v, H, precision="high"), 10)
+    print(f"K6 mha_core[high] float32 [{B}, {N}, {D}]: max |kernel - plain high| {e:.2e} (tol {ATTN_TOL['high']}), "
+          f"vs plain fp32 {e32:.2e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (no caller on the mesh path)")
+    qkv = torch.randn(BATCH, 33, 3 * 256, generator=gen).to(dev)
+    q, k, v = qkv[..., :256], qkv[..., 256:512], qkv[..., 512:]
+    for precision in ("highest", "high", "default"):
+        e = check(f"K6 scorer {precision}", mha_core(q, k, v, 8, precision=precision),
+                  mha_core_plain(q, k, v, 8, precision=precision), precision)
+        ms = _time_ms(lambda: mha_core(q, k, v, 8, precision=precision), 20)
+        print(f"   K6 [{precision}] at the scorer's [{BATCH}, 33, 256], 8 heads: max |kernel - plain| {e:.2e}, {ms:.4f} ms")
+    return results
+
+
+def mesh_video(n_frames=MESH_FRAMES, hw=MESH_HW, seed=SEED):
+    """A seeded synthetic video and one box a frame: uint8 noise over a smooth
+    component, and boxes that alternate between person-sized ones, whose crop
+    window is below 2.2 x 256 pixels (no anti-alias blur), and near-frame-sized
+    ones above it (blurred), all drifting from frame to frame."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    coarse = rng.uniform(40, 215, size=(n_frames, h // 40 + 2, w // 40 + 2, 3)).astype(np.float32)
+    ys, xs = (np.arange(h) / 40.0).astype(np.float32), (np.arange(w) / 40.0).astype(np.float32)
+    y0, x0 = ys.astype(int), xs.astype(int)
+    fy, fx = (ys - y0)[None, :, None, None], (xs - x0)[None, None, :, None]
+    smooth = ((1 - fy) * (1 - fx) * coarse[:, y0][:, :, x0] + (1 - fy) * fx * coarse[:, y0][:, :, x0 + 1]
+              + fy * (1 - fx) * coarse[:, y0 + 1][:, :, x0] + fy * fx * coarse[:, y0 + 1][:, :, x0 + 1])
+    frames = np.clip(smooth + rng.standard_normal(smooth.shape, dtype=np.float32) * 12, 0, 255).astype(np.uint8)
+    t = np.arange(n_frames)
+    large = (t // 4) % 2 == 1
+    bh = np.where(large, 300.0, 150.0) + rng.uniform(-10, 10, n_frames)
+    bw = bh * np.where(large, 0.8, 0.45)
+    cx = w / 2 + 60 * np.sin(t / 9.0) + rng.uniform(-3, 3, n_frames)
+    cy = h / 2 + 15 * np.cos(t / 7.0)
+    boxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], axis=1).astype(np.float32)
+    return frames, boxes, large
+
+
+def mesh_config(depth=32, impl="core", bf16=False, frame_batch=32):
+    """The mesh stage at full width: ViT-H and the default head; only the
+    backbone's depth is ever cut."""
+    from video_gen_evals_tpu_torch.models.vit import ViTConfig
+    from video_gen_evals_tpu_torch.pipelines.extract import ExtractorConfig
+
+    return ExtractorConfig(
+        vit=ViTConfig(depth=depth, attention_impl=impl), frame_batch=frame_batch,
+        matmul_precision="default" if bf16 else "highest", param_dtype="bfloat16" if bf16 else "float32")
+
+
+def _attention_counts():
+    from video_gen_evals_tpu_torch.ops.attention import flash_attention
+    from video_gen_evals_tpu_torch.ops.attention_core import mha_core, mha_head_batched
+
+    return mha_core, mha_head_batched, flash_attention
+
+
+def _run_counted(torch, ex, frames, boxes):
+    """process_video with the three attention launch counts set to 0 just
+    before and read just after: (mesh dict, (K6, K7, K8) launches)."""
+    fns = _attention_counts()
+    for fn in fns:
+        fn.launches = 0
+    out = ex.process_video(frames, boxes)
+    torch.cuda.synchronize()
+    return out, tuple(fn.launches for fn in fns)
+
+
+def _check_contract(torch, np, mesh, n, tag):
+    want = {"pose": (n, 23, 3, 3), "betas": (n, 10), "global_orient": (n, 1, 3, 3), "vit": (n, 1024)}
+    for key, shape in want.items():
+        _check(mesh[key].shape == shape and mesh[key].dtype == np.float32,
+               f"{tag}: {key} is {mesh[key].dtype}{mesh[key].shape}, expected float32{shape}")
+        _check(bool(np.isfinite(mesh[key]).all()), f"{tag}: non-finite {key}")
+    _check(mesh["frame_idx"].dtype == np.int32 and np.array_equal(mesh["frame_idx"], np.arange(n)),
+           f"{tag}: frame_idx")
+    worst = 0.0
+    for key in ("pose", "global_orient"):
+        R = torch.from_numpy(mesh[key]).double()
+        worst = max(worst, (R @ R.transpose(-1, -2) - torch.eye(3, dtype=torch.float64)).abs().max().item(),
+                    (torch.linalg.det(R) - 1.0).abs().max().item())
+    _check(worst <= 1e-4, f"{tag}: rotations off orthonormal by {worst:.2e} > 1e-4")
+    return worst
+
+
+def _max_diff(np, a, b, keys=("vit", "pose", "betas", "global_orient")):
+    return {k: float(np.abs(a[k] - b[k]).max()) for k in keys}
+
+
+def phase_mesh_stage(torch, card):
+    import numpy as np
+
+    from video_gen_evals_tpu_torch.data.features import ModalityPaths, load_video_arrays
+    from video_gen_evals_tpu_torch.data.manifest import VideoItem
+    from video_gen_evals_tpu_torch.pipelines.extract import Extractor
+    from video_gen_evals_tpu_torch.utils.io import save_video_npz
+
+    launches = {}
+    t0 = time.perf_counter()
+    frames, boxes, large = mesh_video()
+    n = len(frames)
+    chunks = -(-n // 32)
+    print(f"mesh: synthetic video {frames.shape} uint8 + boxes made in {time.perf_counter() - t0:.1f} s "
+          f"({int(large.sum())} frames take the anti-alias blur, {int((~large).sum())} do not)")
+
+    # full width and depth, fp32, K6
+    t0 = time.perf_counter()
+    ex = Extractor(mesh_config(), seed=SEED)
+    torch.cuda.synchronize()
+    params = [p for m in (ex.backbone, ex.head) for p in m.parameters()]
+    print(f"mesh: ViT-H depth 32 + SMPL head drawn on the card in {time.perf_counter() - t0:.1f} s: "
+          f"{sum(p.numel() for p in params) / 1e6:.0f} M parameters, "
+          f"{sum(p.numel() * p.element_size() for p in params) / 2**30:.2f} GiB")
+    crops = ex.crops(torch.from_numpy(frames[:8]).cuda(), torch.from_numpy(boxes[:8]).cuda())
+    _check(tuple(crops.shape) == (8, 256, 192, 3), f"mesh: crops {tuple(crops.shape)}")
+    mesh, counts = _run_counted(torch, ex, frames, boxes)
+    worst = _check_contract(torch, np, mesh, n, "mesh core")
+    _check(counts == (32 * chunks, 0, 0), f"mesh core: launches (K6, K7, K8) {counts} != ({32 * chunks}, 0, 0)")
+    launches["mha_core[highest]"] = counts[0]
+    ex.set_attention_impl("plain")
+    plain, counts = _run_counted(torch, ex, frames, boxes)
+    _check(counts == (0, 0, 0), f"mesh plain: attention kernels launched {counts}")
+    d = _max_diff(np, mesh, plain)
+    print(f"mesh: {n} frames, frame_batch 32 ({chunks} chunks, the last padded), attention_impl core: "
+          f"K6 launched {launches['mha_core[highest]']} times; contract shapes, finite, rotations within {worst:.1e}; "
+          f"max |core - plain| {d} (tol 1e-3 on vit), max |vit| {np.abs(mesh['vit']).max():.2f}")
+    _check(d["vit"] <= 1e-3, f"mesh: token_out core vs plain {d['vit']:.3e} > 1e-3")
+
+    # hand-off to the scoring path's loader
+    with tempfile.TemporaryDirectory() as root:
+        path = save_video_npz(root, "Synthetic/video_000", **mesh, meta={"frames": n})
+        arrays = load_video_arrays(VideoItem("Synthetic", "video_000.npz", path, n, 1024), ModalityPaths())
+    got = {k: v.shape for k, v in arrays.items()}
+    _check(got == {"vit": (n, 1024), "global": (n, 9), "pose": (n, 207), "beta": (n, 10)},
+           f"mesh: the scoring loader read {got}")
+    print(f"mesh: save_video_npz -> load_video_arrays: {got}")
+
+    # timing of the stage for each attention_impl on the same weights
+    timing_frames, timing_boxes = frames[:64], boxes[:64]
+    fps = {}
+    for impl in ("core", "head_batched", "flash", "plain"):
+        ex.set_attention_impl(impl)
+        fps[impl] = _stage_timing(torch, ex, timing_frames, timing_boxes, f"fp32 {impl}", card)
+    del ex
+    torch.cuda.empty_cache()
+
+    # K7 and K8 on a path, at depth 4, against plain on the same weights
+    short_frames, short_boxes = frames[:40], boxes[:40]
+    for bf16 in (False, True):
+        ex4 = Extractor(mesh_config(depth=4, impl="plain", bf16=bf16), seed=SEED)
+        ref, _ = _run_counted(torch, ex4, short_frames, short_boxes)
+        tag = "default" if bf16 else "highest"
+        for impl, slot, name in (("head_batched", 1, "mha_head_batched"), ("flash", 2, "flash_attention")):
+            ex4.set_attention_impl(impl)
+            out, counts = _run_counted(torch, ex4, short_frames, short_boxes)
+            _check_contract(torch, np, out, 40, f"mesh {impl} {tag}")
+            want = tuple(8 if i == slot else 0 for i in range(3))
+            _check(counts == want, f"mesh {impl} {tag}: launches {counts} != {want}")
+            launches[f"{name}[{tag}]"] = counts[slot]
+            d = _max_diff(np, out, ref)
+            tol = 1e-3 if not bf16 else BF16_STAGE_TOL * float(np.abs(ref["vit"]).max())
+            print(f"mesh depth 4 {tag}: attention_impl {impl} launched its kernel {counts[slot]} times; "
+                  f"max |{impl} - plain| {d} (tol {tol:.3g} on vit)")
+            _check(d["vit"] <= tol, f"mesh {impl} {tag}: token_out vs plain {d['vit']:.3e} > {tol:.3g}")
+        del ex4
+        torch.cuda.empty_cache()
+
+    # the card against the CPU's plain versions: depth 2, 4 blurred frames (an
+    # unblurred crop is rounded to integers as cv2 does, and a value that
+    # falls next to .5 may round the other way on the other device)
+    idx = np.where(large)[0][:4]
+    small_cfg = mesh_config(depth=2, frame_batch=4)
+    on_card = Extractor(small_cfg, seed=SEED)
+    t0 = time.perf_counter()
+    on_cpu = Extractor(small_cfg, device="cpu", state_dicts={
+        "vit": {k: v.cpu() for k, v in on_card.backbone.state_dict().items()},
+        "head": {k: v.cpu() for k, v in on_card.head.state_dict().items()}})
+    a, counts = _run_counted(torch, on_card, frames[idx], boxes[idx])
+    b = on_cpu.process_video(frames[idx], boxes[idx])
+    d = _max_diff(np, a, b)
+    print(f"mesh depth 2, 4 frames: card (K6 x{counts[0]}) vs CPU plain versions: max |d| {d} "
+          f"(tol 1e-3; CPU side {time.perf_counter() - t0:.1f} s)")
+    _check(counts[0] == 2 and max(d.values()) <= 1e-3, f"mesh: card vs CPU {d}, K6 launches {counts[0]}")
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+
+    # the bf16 fast mode at full depth, same seed and so the same weights rounded
+    fast = Extractor(mesh_config(bf16=True), seed=SEED)
+    out, counts = _run_counted(torch, fast, frames, boxes)
+    _check_contract(torch, np, out, n, "mesh bf16")
+    _check(counts == (32 * chunks, 0, 0), f"mesh bf16: launches {counts}")
+    launches["mha_core[default]"] = counts[0]
+    d = _max_diff(np, out, mesh)
+    scale = float(np.abs(mesh["vit"]).max())
+    print(f"mesh bf16 fast mode, depth 32: K6[default] launched {counts[0]} times; max |bf16 - fp32| {d}, "
+          f"vit relative to max |vit| {d['vit'] / scale:.4f} (tol {BF16_STAGE_TOL})")
+    _check(d["vit"] <= BF16_STAGE_TOL * scale, f"mesh bf16: token_out off by {d['vit']:.3e} > {BF16_STAGE_TOL} * {scale:.2f}")
+    fps["core bf16"] = _stage_timing(torch, fast, timing_frames, timing_boxes, "bf16 core", card)
+    del fast
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _stage_timing(torch, ex, frames, boxes, tag, card):
+    """Frames/s of process_video (host clock; the call ends in its one fetch)
+    and CUDA-event ms of one chunk's crop, backbone and head."""
+    ex.process_video(frames, boxes)   # warm
+    torch.cuda.reset_peak_memory_stats()
+    reps = 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ex.process_video(frames, boxes)
+    dt = (time.perf_counter() - t0) / reps
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    f = torch.from_numpy(frames[:32]).cuda()
+    b = torch.from_numpy(boxes[:32]).cuda()
+    with torch.inference_mode():
+        crops = ex.crops(f, b).to(ex.cfg.working_dtype)
+        tokens, _ = ex.backbone(crops)
+        parts = (_time_ms(lambda: ex.crops(f, b), 3), _time_ms(lambda: ex.backbone(crops), 3),
+                 _time_ms(lambda: ex.head(tokens), 3))
+    n_chunks = -(-len(frames) // 32)
+    print(f"mesh timing {tag}: {len(frames) / dt:.1f} frames/s ({dt * 1e3 / n_chunks:.1f} ms per 32-frame chunk, upload and "
+          f"fetch included); one chunk: crop {parts[0]:.2f} ms, backbone {parts[1]:.2f} ms, head {parts[2]:.2f} ms; "
+          f"peak memory {peak:.2f} GiB on {card}")
+    return len(frames) / dt
+
 
 def main() -> int:
     import torch
@@ -620,14 +974,16 @@ def main() -> int:
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"kernel build {lib.build_seconds:.1f} s -> {os.path.relpath(lib.path)}")
     for line in _ptxas_summary(lib.build_log):
-        if "<" not in line or "T=32, C=256" in line:   # the flagship instantiations
+        if "<" not in line or "T=32, C=256" in line or "hd=80" in line:   # the flagship instantiations
             print(f"  ptxas: {line}")
 
     gen = torch.Generator().manual_seed(SEED)
     kern = phase_kernels(torch, dev, gen)
+    kern.update(phase_attention_kernels(torch, dev, gen))
     launches = phase_end_to_end(torch)
     phase_throughput(torch, card)
     train_launches = phase_training(torch, card)
+    mesh_launches = phase_mesh_stage(torch, card)
 
     src = "video_gen_evals_tpu_torch/csrc/"
     rows = [
@@ -644,6 +1000,14 @@ def main() -> int:
              "video_gen_evals_tpu/ops/conv_kernel_train.py:294", train_launches[precision][0]),
             (f"fused_temporal_block_train_bwd[{precision}]", "temporal_block_train.cu",
              "video_gen_evals_tpu/ops/conv_kernel_train.py:335", train_launches[precision][1]),
+        ]
+    for precision in ("highest", "default"):
+        rows += [
+            (f"{name}[{precision}]", "attention.cu", replaces, mesh_launches[f"{name}[{precision}]"])
+            for name, replaces in (
+                ("mha_core", "video_gen_evals_tpu/ops/attention_core.py:102"),
+                ("mha_head_batched", "video_gen_evals_tpu/ops/attention_core.py:172"),
+                ("flash_attention", "video_gen_evals_tpu/ops/attention.py:123"))
         ]
     for name, _f, _rep, n in rows:
         _check(n > 0, f"{name} was never launched on its main path")

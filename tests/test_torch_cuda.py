@@ -11,6 +11,14 @@ import pytest
 import torch
 
 from video_gen_evals_tpu_torch.models import EncoderConfig, HumanActionScorer
+from video_gen_evals_tpu_torch.models.vit import ViTBlock
+from video_gen_evals_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+from video_gen_evals_tpu_torch.ops.attention_core import (
+    mha_core,
+    mha_core_plain,
+    mha_head_batched,
+    mha_head_batched_plain,
+)
 from video_gen_evals_tpu_torch.ops.conv_kernel import fused_temporal_block, fused_temporal_block_plain
 from video_gen_evals_tpu_torch.ops.conv_kernel_train import (
     LAUNCHES_PER_BACKWARD,
@@ -196,3 +204,107 @@ def test_forward_on_card_matches_cpu(cuda):
         got = model.to(cuda)(x.to(cuda), "highest")
     for g, w in zip(got, want):
         assert (g.cpu() - w).abs().max().item() <= 1e-4
+
+
+# fp32 sums in another order: 2e-5. At "high" (bf16x3) each product carries
+# about 2^-16 relative and the two sides split a p that differs in its last
+# bits: 5e-5. With bf16 operands a p or an output on a rounding boundary can
+# round the other way: 0.03.
+_ATTN_TOL = {"highest": 2e-5, "high": 5e-5, "default": 0.03}
+
+
+def _qkv_slices(seed, B, N, H, hd, dtype, device):
+    """q, k, v as the column slices of one [B, N, 3 * H * hd] buffer."""
+    D = H * hd
+    qkv = torch.randn(B, N, 3 * D, generator=torch.Generator().manual_seed(seed)).to(device).to(dtype)
+    return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+
+
+@pytest.mark.parametrize("B,N,H,hd", [(32, 192, 16, 80), (64, 33, 8, 32), (3, 100, 4, 64),
+                                      (2, 77, 3, 18), (2, 100, 2, 128)])
+@pytest.mark.parametrize("dtype,precision", [(torch.float32, "highest"), (torch.float32, "high"),
+                                             (torch.float32, "default"), (torch.bfloat16, "default"),
+                                             (torch.bfloat16, "highest")])
+def test_mha_core_kernel_matches_plain(cuda, B, N, H, hd, dtype, precision):
+    """K6 on strided slices: the built head widths (80, 64, 32), a run-time
+    width (128), a width that is no multiple of four (18: scalar loads), odd
+    N. A bf16 output is one rounding of the fp32 result: 0.03 at any precision."""
+    q, k, v = _qkv_slices(N, B, N, H, hd, dtype, cuda)
+    assert not q.is_contiguous()
+    want = mha_core_plain(q, k, v, H, precision=precision)
+    before = mha_core.launches
+    got = mha_core(q, k, v, H, precision=precision)
+    torch.cuda.synchronize()
+    assert mha_core.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    tol = 0.03 if dtype == torch.bfloat16 else _ATTN_TOL[precision]
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    again = mha_core(q.contiguous(), k.contiguous(), v.contiguous(), H, precision=precision)
+    assert torch.equal(got, again)   # strides change no bit
+
+
+@pytest.mark.parametrize("B,N,H,hd", [(32, 192, 16, 80), (3, 45, 4, 16)])
+@pytest.mark.parametrize("dtype,precision", [(torch.float32, "highest"), (torch.bfloat16, "default")])
+def test_mha_head_batched_kernel_matches_plain(cuda, B, N, H, hd, dtype, precision):
+    q, k, v = _qkv_slices(N + 1, B, N, H, hd, dtype, cuda)
+    want = mha_head_batched_plain(q, k, v, H, precision=precision)
+    before = mha_head_batched.launches
+    got = mha_head_batched(q, k, v, H, precision=precision)
+    torch.cuda.synchronize()
+    assert mha_head_batched.launches == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= _ATTN_TOL[precision]
+    # the packed schedule computes what the in-place one computes
+    assert (got.float() - mha_core(q, k, v, H, precision=precision).float()).abs().max().item() \
+        <= _ATTN_TOL[precision]
+
+
+@pytest.mark.parametrize("B,N,H,hd,block", [(32, 192, 16, 80, 128), (2, 33, 8, 32, 128), (2, 100, 4, 64, 64),
+                                            (1, 300, 2, 32, 64), (2, 130, 2, 128, 64), (1, 1000, 2, 80, 128)])
+@pytest.mark.parametrize("dtype,precision", [(torch.float32, "highest"), (torch.bfloat16, "default")])
+def test_flash_kernel_matches_plain(cuda, B, N, H, hd, block, dtype, precision):
+    """K8 on views of a [B, N, 3, H, hd] buffer: one block, several blocks,
+    a ragged last block, and a sequence the one-pass kernels cannot hold."""
+    qkv = torch.randn(B, N, 3, H, hd, generator=torch.Generator().manual_seed(N)).to(cuda).to(dtype)
+    q, k, v = qkv.unbind(dim=2)
+    want = flash_attention_plain(q, k, v, block_q=block, block_kv=block, precision=precision)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, block_q=block, block_kv=block, precision=precision)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= _ATTN_TOL[precision]
+    assert torch.equal(got, flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            block_q=block, block_kv=block, precision=precision))
+
+
+def test_attention_kernels_refuse_what_they_cannot_run(cuda):
+    q = torch.zeros(2, 64, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mha_core(q.requires_grad_(), q, q, 4)
+    q = torch.zeros(1, 1000, 160, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        mha_core(q, q, q, 2)                      # one head's keys no longer fit a block
+    q4 = torch.zeros(1, 200, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        flash_attention(q4, q4, q4, block_q=32, block_kv=32)
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention(q4, q4.cpu(), q4)
+
+
+@pytest.mark.parametrize("impl", ["core", "head_batched", "flash", "flash_bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_block_on_card_matches_plain_impl(cuda, impl, dtype):
+    """One ViT-H-width block per attention_impl against the einsum block on
+    the same weights: 1e-4 in fp32 (5e-2 for "flash_bf16", which rounds q, k,
+    v and p), 0.1 in bf16 on activations of order 1."""
+    gen = torch.Generator().manual_seed(5)
+    ref = ViTBlock(1280, 16, attention_impl="plain").eval()
+    blk = ViTBlock(1280, 16, attention_impl=impl).eval()
+    blk.load_state_dict(ref.state_dict())
+    x = torch.randn(4, 192, 1280, generator=gen).to(cuda).to(dtype)
+    with torch.inference_mode():
+        want = ref.to(cuda).to(dtype)(x)
+        got = blk.to(cuda).to(dtype)(x)
+    torch.cuda.synchronize()
+    tol = 0.1 if dtype == torch.bfloat16 else 5e-2 if impl == "flash_bf16" else 1e-4
+    assert (got.float() - want.float()).abs().max().item() <= tol

@@ -254,8 +254,9 @@ def test_score_cli_refuses_cuda_without_a_card(env, tmp_path):
 
 def test_port_imports_no_jax():
     """In a fresh interpreter: the scoring and training CLI modules, and every
-    module of the port they do not reach, load neither jax, flax, optax,
-    orbax nor anything of the JAX package."""
+    module of the port they do not reach (the mesh-recovery stage's among
+    them), load neither jax, flax, optax, orbax nor anything of the JAX
+    package."""
     code = (
         "import sys, pkgutil, importlib, video_gen_evals_tpu_torch as pkg\n"
         "import video_gen_evals_tpu_torch.pipelines.score\n"
@@ -264,6 +265,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "assert 'video_gen_evals_tpu_torch.train.experiment' in sys.modules\n"
         "assert 'video_gen_evals_tpu_torch.ops.conv_kernel_train' in sys.modules\n"
+        "for m in ('ops.attention', 'ops.attention_core', 'ops.upstream_crops', 'models.vit',\n"
+        "          'models.smpl_head', 'pipelines.extract', 'pipelines.weights', 'utils.io'):\n"
+        "    assert 'video_gen_evals_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'video_gen_evals_tpu')]\n"
         "print(bad); raise SystemExit(1 if bad else 0)\n"

@@ -12,6 +12,13 @@ numpy arrays) across, without importing jax:
 They mirror ``video_gen_evals_tpu/models/torch_compat.py``'s
 ``flax_params_to_torch_state_dict`` and ``torch_state_dict_to_flax``.
 
+The mesh-recovery networks cross the same way:
+:func:`vit_state_dict_from_jax_tree` and :func:`head_state_dict_from_jax_tree`
+map the flax trees of the JAX package's ``ViTBackbone`` and
+``SMPLTokenDecoderHead`` to the port's state_dicts, whose names are the
+published torch checkpoints' own. They are the inverses of the JAX package's
+``torch_vit_to_flax`` and ``torch_head_to_flax``.
+
 Training state crosses the same way: :func:`named_tensors_from_jax_tree` maps
 any tree shaped like the params (gradients, Adam moments) to the port's
 parameter names and layouts, and :func:`load_optax_adam_state` continues a
@@ -26,6 +33,8 @@ import numpy as np
 import torch
 
 from .fusion_encoder import _PE_MAX_LEN, EncoderConfig, HumanActionScorer, sinusoidal_positional_embedding
+from .smpl_head import SMPLHeadConfig
+from .vit import ViTConfig
 
 FlaxParams = T.Dict[str, T.Any]
 
@@ -220,3 +229,85 @@ def load_torch_checkpoint(path: str, model: HumanActionScorer, strict: bool = Fa
     else:
         sd = ckpt
     return model.load_state_dict(sd, strict=strict)
+
+
+def _as_tensors(sd: T.Dict[str, np.ndarray]) -> T.Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def _put_dense(sd, prefix: str, p: FlaxParams) -> None:
+    sd[f"{prefix}.weight"] = _dense_swap(p["kernel"])
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def _put_norm(sd, prefix: str, p: FlaxParams) -> None:
+    sd[f"{prefix}.weight"] = _np(p["scale"])
+    sd[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def vit_state_dict_from_jax_tree(params: FlaxParams, config: ViTConfig) -> T.Dict[str, torch.Tensor]:
+    """The JAX package's ``ViTBackbone`` params (numpy leaves) -> the port's
+    ``ViTBackbone`` state_dict: conv ``[kh, kw, in, out]`` -> ``[out, in, kh,
+    kw]``, dense kernels transposed, ``block{i}`` -> ``blocks.{i}``."""
+    sd: T.Dict[str, np.ndarray] = {
+        "patch_embed.proj.weight": np.ascontiguousarray(
+            np.transpose(_np(params["patch_embed"]["kernel"]), (3, 2, 0, 1))),
+        "patch_embed.proj.bias": _np(params["patch_embed"]["bias"]),
+        "pos_embed": _np(params["pos_embed"]),
+    }
+    if config.use_cls_token:
+        sd["cls_token"] = _np(params["cls_token"])
+    for i in range(config.depth):
+        blk, b = params[f"block{i}"], f"blocks.{i}"
+        _put_norm(sd, f"{b}.norm1", blk["norm1"])
+        _put_dense(sd, f"{b}.attn.qkv", blk["qkv"])
+        _put_dense(sd, f"{b}.attn.proj", blk["proj"])
+        _put_norm(sd, f"{b}.norm2", blk["norm2"])
+        _put_dense(sd, f"{b}.mlp.fc1", blk["fc1"])
+        _put_dense(sd, f"{b}.mlp.fc2", blk["fc2"])
+    if config.final_norm:
+        _put_norm(sd, "norm", params["norm"])
+    return _as_tensors(sd)
+
+
+def head_state_dict_from_jax_tree(params: FlaxParams, config: SMPLHeadConfig) -> T.Dict[str, torch.Tensor]:
+    """The JAX package's ``SMPLTokenDecoderHead`` params (numpy leaves) -> the
+    port's head state_dict, in the upstream checkpoint's names."""
+    sd: T.Dict[str, np.ndarray] = {}
+    for name in ("decpose_grot", "decpose_hands", "decshape", "deccam"):
+        _put_dense(sd, name, params[name])
+    for buf in ("init_body_pose", "init_betas", "init_cam"):
+        sd[buf] = _np(params[buf])
+
+    dec = params["decoder"]
+    _put_dense(sd, "transformer.to_token_embedding", dec["to_token_embedding"])
+    sd["transformer.pos_embedding"] = _np(dec["pos_embedding"])
+    for i in range(config.depth):
+        p = f"transformer.transformer.layers.{i}"
+        _put_norm(sd, f"{p}.0.norm", dec[f"sa_ln{i}"])
+        _put_dense(sd, f"{p}.0.fn.to_qkv", dec[f"sa{i}"]["to_qkv"])
+        _put_dense(sd, f"{p}.0.fn.to_out.0", dec[f"sa{i}"]["to_out"])
+        _put_norm(sd, f"{p}.1.norm", dec[f"ca_ln{i}"])
+        _put_dense(sd, f"{p}.1.fn.to_q", dec[f"ca{i}"]["to_q"])
+        _put_dense(sd, f"{p}.1.fn.to_kv", dec[f"ca{i}"]["to_kv"])
+        _put_dense(sd, f"{p}.1.fn.to_out.0", dec[f"ca{i}"]["to_out"])
+        _put_norm(sd, f"{p}.2.norm", dec[f"ff_ln{i}"])
+        _put_dense(sd, f"{p}.2.fn.net.0", dec[f"ff1_{i}"])
+        _put_dense(sd, f"{p}.2.fn.net.3", dec[f"ff2_{i}"])
+
+    cls = params["decpose"]
+    _put_dense(sd, "decpose.cls_head", cls["cls_head"])
+    sd["decpose.codebook"] = _np(cls["codebook"])
+    for name in ("decoder_token_mlp", "decoder_start", "recover_embed"):
+        _put_dense(sd, f"decpose.{name}", cls[name])
+    _put_norm(sd, "decpose.decoder_layer_norm", cls["decoder_ln"])
+    for i in range(config.dec_num_blocks):
+        mix, p = cls[f"mixer_{i}"], f"decpose.decoder.{i}"
+        _put_norm(sd, f"{p}.layernorm1", mix["ln1"])
+        _put_dense(sd, f"{p}.MLP_token.ff.0", mix["token_fc1"])
+        _put_dense(sd, f"{p}.MLP_token.ff.3", mix["token_fc2"])
+        _put_norm(sd, f"{p}.layernorm2", mix["ln2"])
+        _put_dense(sd, f"{p}.MLP_channel.ff.0", mix["channel_fc1"])
+        _put_dense(sd, f"{p}.MLP_channel.ff.3", mix["channel_fc2"])
+    return _as_tensors(sd)

@@ -1,0 +1,230 @@
+"""Multi-head attention for short sequences in the layout the model already
+has (K6, K7), CUDA kernels for Hopper.
+
+Replaces ``video_gen_evals_tpu/ops/attention_core.py``: :func:`mha_core`
+(``_mha_kernel``) and :func:`mha_head_batched` (``_mha_hb_kernel``). Kernel
+source: ``csrc/attention.cu``.
+
+Both compute ``softmax(q k^T * scale) v`` per head on ``[B, N, H * hd]``
+inputs, with a one-pass fp32 softmax whose p is divided by its row sum
+before the second product, and return ``[B, N, H * hd]`` in the inputs'
+dtype (float32 or bfloat16).
+
+- :func:`mha_core` reads q, k and v in place: they may be column slices of
+  the qkv projection's ``[B, N, 3 * H * hd]`` output (any batch and row
+  stride, unit stride along the last axis), so no copy is made on the way in
+  and the output is ready for the next projection.
+- :func:`mha_head_batched` packs q, k and v to contiguous ``[B * H, N, hd]``
+  pairs (three relayouts in, one back, here in the wrapper as in the JAX
+  function), and the kernel runs on the packed pairs.
+
+Precision (what is computed, on either device):
+- ``"highest"``: inputs widened to fp32, fp32 products and sums.
+- ``"default"``: q, k, v rounded to bf16 (a no-op for bf16 inputs), products
+  summed in fp32, p rounded to bf16 before ``p v``: the arithmetic of the JAX
+  kernels' input-dtype dots on bf16 tensors.
+- ``"high"`` (:func:`mha_core` only, float32 inputs): bf16x3, each product
+  as ``a_hi b_hi + a_hi b_lo + a_lo b_hi`` of round-to-nearest-even bf16
+  parts, the class of :func:`..conv_kernel.split_bf16`.
+
+Bound on the H100: fp32 FMA rate at ``"highest"`` and ``"high"`` (4 N^2 hd
+operations per pair against four [N, hd] tiles moved); at ``"default"`` the
+products run on the tensor cores (``mma.sync``, head widths 80, 64 and 32)
+and the bytes bound it. Design and shared-memory budget: see the source.
+The kernel holds one head's keys and values and a [64, N] score tile in
+shared memory, with N padded to a multiple of 64, so N is bounded (192 at
+hd = 80, 384 at hd = 32; the wrapper refuses more); longer sequences belong
+to :func:`..attention.flash_attention`.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain version
+(``mha_core_plain``, ``mha_head_batched_plain``) for CPU tensors;
+``mha_core.launches`` and ``mha_head_batched.launches`` count kernel
+launches. Neither kernel has a backward.
+"""
+
+from __future__ import annotations
+
+import math
+import typing as T
+
+import torch
+
+from .conv_kernel import split_bf16
+from .cuda_lib import check, load_library, stream_handle
+
+PRECISION_CODES = {"highest": 0, "default": 1, "high": 2}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
+    """``a @ b`` on fp32 tensors; at ``"high"`` as three products of bf16 parts."""
+    if precision != "high":
+        return a @ b
+    (a_hi, a_lo), (b_hi, b_lo) = ((p.float() for p in split_bf16(t)) for t in (a, b))
+    return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+
+
+def widen(t: torch.Tensor, precision: str) -> torch.Tensor:
+    if precision == "default":
+        t = t.to(torch.bfloat16)
+    return t.float()
+
+
+def attention_onepass_plain(q, k, v, scale: float, precision: str) -> torch.Tensor:
+    """The kernels' arithmetic on ``[..., N, hd]`` tensors, result in fp32:
+    scores scaled after the product, p divided by its sum, then ``p v``."""
+    q, k, v = (widen(t, precision) for t in (q, k, v))
+    s = _product(q, k.transpose(-1, -2), precision) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    if precision == "default":
+        p = p.to(torch.bfloat16).float()
+    return _product(p, v, precision)
+
+
+def _heads_first(t: torch.Tensor, heads: int) -> torch.Tensor:
+    B, N, D = t.shape
+    return t.reshape(B, N, heads, D // heads).permute(0, 2, 1, 3)
+
+
+def mha_core_plain(q, k, v, heads: int, scale: T.Optional[float] = None,
+                   precision: str = "default") -> torch.Tensor:
+    """Plain PyTorch version of :func:`mha_core` (same arguments and result)."""
+    B, N, D = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D // heads)
+    ctx = attention_onepass_plain(*(_heads_first(t, heads) for t in (q, k, v)), scale, precision)
+    return ctx.permute(0, 2, 1, 3).reshape(B, N, D).to(q.dtype)
+
+
+def pack_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """``[B, N, H * d]`` -> contiguous ``[B * H, N, d]``."""
+    B, N, D = t.shape
+    return _heads_first(t, heads).reshape(B * heads, N, D // heads).contiguous()
+
+
+def unpack_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    BH, N, d = t.shape
+    return t.reshape(BH // heads, heads, N, d).permute(0, 2, 1, 3).reshape(BH // heads, N, heads * d)
+
+
+def mha_head_batched_plain(q, k, v, heads: int, scale: T.Optional[float] = None,
+                           precision: str = "highest") -> torch.Tensor:
+    """Plain PyTorch version of :func:`mha_head_batched`."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1] // heads)
+    out = attention_onepass_plain(*(pack_heads(t, heads) for t in (q, k, v)), scale, precision)
+    return unpack_heads(out.to(q.dtype), heads)
+
+
+def _validate(name, q, k, v, heads, precision, allowed) -> None:
+    if precision not in allowed:
+        raise ValueError(f"{name}: unknown precision {precision!r}, expected one of {allowed}")
+    if q.ndim != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"{name}: q, k, v must share one [B, N, D] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[-1] % heads:
+        raise ValueError(f"D={q.shape[-1]} not divisible by heads={heads}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} takes float32 or bfloat16 tensors of one dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if precision == "high" and q.dtype != torch.float32:
+        raise TypeError(f"{name}: precision 'high' splits float32 inputs, got {q.dtype}")
+    if len({t.device for t in (q, k, v)}) != 1:
+        raise ValueError(f"{name}: q, k, v must be on one device")
+
+
+def refuse_grad(name, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward on CUDA: run it under "
+                           "torch.no_grad() / torch.inference_mode()")
+
+
+def check_shared_memory(name: str, lib, need: int, what: str) -> None:
+    """Raise if a block would need more shared memory than the card gives."""
+    limit = lib.vge_attention_max_smem()
+    if need > limit:
+        raise ValueError(f"{name}: {what} needs {need} bytes of shared memory a block, "
+                         f"the card gives {limit}")
+
+
+def mha_core(
+    q: torch.Tensor,   # [B, N, D] (D = heads * hd), float32 or bfloat16
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    scale: T.Optional[float] = None,
+    precision: str = "default",
+) -> torch.Tensor:
+    """Layout-preserving fused multi-head attention: [B, N, D] -> [B, N, D]."""
+    _validate("mha_core", q, k, v, heads, precision, ("default", "high", "highest"))
+    B, N, D = q.shape
+    hd = D // heads
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if q.device.type == "cpu":
+        return mha_core_plain(q, k, v, heads, scale, precision)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha_core runs on CUDA or CPU tensors, not {q.device}")
+    refuse_grad("mha_core", q, k, v)
+    # read in place where rows are dense along the last axis; else copy
+    q, k, v = (t if t.stride(2) == 1 else t.contiguous() for t in (q, k, v))
+    lib = load_library().lib
+    check_shared_memory("mha_core", lib, lib.vge_mha_smem_bytes(N, hd),
+                        f"N={N} at head width {hd} (use flash_attention for long sequences)")
+    out = torch.empty((B, N, D), dtype=q.dtype, device=q.device)
+    code = lib.vge_mha_core(
+        q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        B, N, heads, hd, float(scale), int(q.dtype == torch.bfloat16),
+        PRECISION_CODES[precision], stream_handle(q.device),
+    )
+    check(code, "mha_core launch")
+    mha_core.launches += 1
+    return out
+
+
+mha_core.launches = 0
+
+
+def mha_head_batched(
+    q: torch.Tensor,   # [B, N, D]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    scale: T.Optional[float] = None,
+    precision: str = "highest",
+) -> torch.Tensor:
+    """Head-batched schedule: heads packed to ``[B * H, N, d]`` pairs, one
+    kernel over the pairs, unpacked to ``[B, N, D]``."""
+    _validate("mha_head_batched", q, k, v, heads, precision, ("default", "highest"))
+    B, N, D = q.shape
+    d = D // heads
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return mha_head_batched_plain(q, k, v, heads, scale, precision)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha_head_batched runs on CUDA or CPU tensors, not {q.device}")
+    refuse_grad("mha_head_batched", q, k, v)
+    return unpack_heads(mha_packed(*(pack_heads(t, heads) for t in (q, k, v)), scale, precision), heads)
+
+
+def mha_packed(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, scale: float,
+               precision: str) -> torch.Tensor:
+    """The K7 kernel alone, on contiguous CUDA ``[pairs, N, d]`` tensors (what
+    :func:`mha_head_batched` runs between its pack and its unpack)."""
+    if not (qp.is_cuda and qp.is_contiguous() and kp.is_contiguous() and vp.is_contiguous()):
+        raise ValueError("mha_packed takes contiguous CUDA [pairs, N, d] tensors")
+    pairs, N, d = qp.shape
+    lib = load_library().lib
+    check_shared_memory("mha_head_batched", lib, lib.vge_mha_smem_bytes(N, d),
+                        f"N={N} at head width {d} (use flash_attention for long sequences)")
+    out = torch.empty_like(qp)
+    code = lib.vge_mha_head_batched(
+        qp.device.index, qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+        pairs, N, d, float(scale), int(qp.dtype == torch.bfloat16),
+        PRECISION_CODES[precision], stream_handle(qp.device),
+    )
+    check(code, "mha_head_batched launch")
+    mha_head_batched.launches += 1
+    return out
+
+
+mha_head_batched.launches = 0

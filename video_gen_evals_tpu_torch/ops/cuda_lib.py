@@ -28,7 +28,7 @@ import typing as T
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("window_gather.cu", "temporal_block.cu", "temporal_block_train.cu")
+SOURCES = ("window_gather.cu", "temporal_block.cu", "temporal_block_train.cu", "attention.cu")
 HEADERS = ("conv_tile.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -38,6 +38,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # device, bank, n_rows, d, offsets, row_limit, n_videos, z0, one_pass_raw,
     # d_diff, video_idx, starts, batch, clip_len, out, stream
@@ -53,6 +55,21 @@ _SIGNATURES = {
     # dh1, pgamma, pbeta, partial, dw1, dw2, dgamma, dbeta, batch, t_len,
     # channels, dilation, round_bf16, splits, stream
     "vge_temporal_block_train_bwd": [_I] + [_P] * 19 + [_I] * 6 + [_P],
+    # device, q, k, v, out, (batch, row) strides of q, k, v in elements, batch,
+    # n, heads, head width, scale, bf16_io, precision (0 highest, 1 default,
+    # 2 high), stream
+    "vge_mha_core": [_I, _P, _P, _P, _P] + [_L] * 6 + [_I, _I, _I, _I, _F, _I, _I, _P],
+    # device, q, k, v, out, pairs, n, head width, scale, bf16_io, precision, stream
+    "vge_mha_head_batched": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    # device, q, k, v, out, (batch, row, head) strides of q, k, v, batch, n,
+    # heads, head width, scale, bf16_io, precision, block_kv, stream
+    "vge_flash_attention": [_I, _P, _P, _P, _P] + [_L] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _P],
+}
+# entry points that return a size in bytes, not a CUDA error code
+_SIZE_QUERIES = {
+    "vge_mha_smem_bytes": [_I, _I],        # n, head width
+    "vge_flash_smem_bytes": [_I, _I],      # block_kv, head width
+    "vge_attention_max_smem": [],
 }
 
 
@@ -122,6 +139,10 @@ def _build() -> KernelLibrary:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in _SIZE_QUERIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
     lib.vge_error_string.argtypes = [ctypes.c_int]
     lib.vge_error_string.restype = ctypes.c_char_p
     return KernelLibrary(lib, path, seconds, log)

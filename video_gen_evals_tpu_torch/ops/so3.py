@@ -1,4 +1,4 @@
-"""SO(3) log map and per-frame relative rotations.
+"""SO(3) log map, per-frame relative rotations and the 6D representation.
 
 Port of ``video_gen_evals_tpu/ops/so3.py`` (ref ``utils.py:130-174``). The
 clamping constants match the reference, so the log map stays finite at the
@@ -40,3 +40,19 @@ def rotmat_delta(R: torch.Tensor) -> torch.Tensor:
     R_prev = torch.cat([R[:1], R[:-1]], dim=0)
     R_rel = R_prev.transpose(-1, -2) @ R
     return log_so3(R_rel)
+
+
+def rot6d_to_rotmat(x: torch.Tensor) -> torch.Tensor:
+    """6D rotation representation -> rotation matrix (Zhou et al.), as used by
+    TokenHMR's decoder head (ref ``modifications/token_head.py:227-231``).
+
+    ``x``: ``[..., 6]`` (two 3-vectors, column convention) -> ``[..., 3, 3]``.
+    Columns: b1 = norm(a1); b2 = norm(a2 - (b1.a2) b1); b3 = b1 x b2.
+    """
+    a1, a2 = x[..., 0:3], x[..., 3:6]
+    eps = 1e-12
+    b1 = a1 / torch.linalg.norm(a1, dim=-1, keepdim=True).clamp_min(eps)
+    a2p = a2 - (b1 * a2).sum(dim=-1, keepdim=True) * b1
+    b2 = a2p / torch.linalg.norm(a2p, dim=-1, keepdim=True).clamp_min(eps)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-1)
