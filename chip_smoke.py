@@ -27,7 +27,16 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    must agree within 1e-3, the card's highest run must agree with the CPU
    run within 1e-4, and the launch counts must match the number of batches.
 4. Throughput of the WindowEncoder sweep at batch 256 and 512 on a
-   64 x 120-frame bank.
+   64 x 120-frame bank. Then the same sweep at "high", batch 512, under the
+   fused forwards of models/fused_apply.py: encoder_impl block_kernel (K3)
+   and chain_kernel (K10, 4 stages) through WindowEncoder, and
+   block_kernel_forward's chain2 (K10, 2 stages) and stacked (K9) through
+   the same sweep written out here, the stacked one gathering through K2 and
+   once with attn_impl "core" (K6 at "high"), and the module forward with
+   attention_impl "pallas" (K8 at "highest") and "pallas_bf16" (K8 at
+   "default"). Each arm's launch counts set to 0 before one sweep and read
+   after it, its AC and TC within 1e-4 of the module forward's (2e-2 for
+   pallas_bf16), windows/s.
 5. Training: the train CLI at full width (TrainConfig defaults: P = 10,
    K = 24, so 960 stacked windows and 40 K4 forward and backward calls a
    step) on a synthetic tree (10 classes x 5 real videos, 20 generated, a
@@ -44,8 +53,16 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    (B = 32, N = 192, 16 heads of 80; q, k, v as slices of one qkv buffer) in
    fp32 at "highest" (2e-5) and in bf16 at "default" (0.03), K6 at "high" (5e-5),
    K8 at N = 100 and 300 with 64-key blocks, K6 at the scorer's
-   [512, 33, 256] with 8 heads; ms per call, the bound, and
+   [512, 33, 256] with 8 heads, K8 there as [512, 33, 8, 32] at "highest"
+   and "default"; ms per call, the bound, and
    F.scaled_dot_product_attention on the same tensors as the library time.
+   Then K2 (gather_windows_subblock: bitwise equal to its plain version on a
+   B = 512 x 32 x 2596 gather with a window clipped to an unaligned start,
+   where it must differ from K1), K9 (fused_temporal_block_stacked over 10
+   chains of [512, 32, 256], dilations 1/2/4/8) and K10
+   (fused_temporal_chain over one chain's 4 stages, and the two halves of
+   chain2) against their plain versions at "high" (FUSED_TOL), with ms,
+   bound and library time as in phase 2.
 7. The mesh-recovery stage at full width: ViT-H (depth 32, width 1280) and
    the SMPL token head at its published geometry, weights drawn on the card
    from a seed, one synthetic 72-frame 360 x 640 video with seeded boxes
@@ -107,6 +124,15 @@ VIT_B, VIT_N, VIT_H, VIT_HD = 32, 192, 16, 80   # one ViT-H layer of one 32-fram
 # depth 32 and 0.017 at depth 4 on an H100.
 BF16_STAGE_TOL = 0.05
 MESH_FRAMES, MESH_HW = 72, (360, 640)
+# K9 and K10 against their plain versions at "high", both on the card, and a
+# fused forward's AC and TC against the module forward's: bf16x3 on both
+# sides, the sums in another order (measured 2e-5 to 6e-5 on an H100)
+FUSED_TOL = 1e-4
+# the sweep's AC and TC with the temporal transformer's attention in K8 at
+# "default" against the module forward's fp32 attention: q, k, v and p are
+# rounded to bf16 (2^-9 relative each) in each of the 4 layers, and AC and TC
+# are cosines of the L2-normalized embeddings, so they move by a few 2^-9
+BF16_SWEEP_TOL = 2e-2
 
 
 def _check(ok: bool, what: str) -> None:
@@ -134,10 +160,13 @@ def _ptxas_summary(log: str):
             spill = line.strip()
         m = re.search(r"Used (\d+) registers", line)
         if name and m:
-            t = re.search(r"(\d+)([a-z_]+kernel)ILi(\d+)ELi(\d+)ELb([01])E", name)
+            t = re.search(r"(\d+)([a-z_]+kernel)ILi(\d+)ELi(\d+)ELb([01])E(?:Lb([01])E)?", name)
+            tc = re.search(r"\d+([a-z_]+kernel)ILi(\d+)ELi(\d+)EE", name)
             a = re.search(r"\d+([a-z_]+kernel)ILi(\d+)E(?:Lb([01])E)?", name)
             g = re.search(r"\d+([a-z_]+kernel)", name)
-            short = (f"{t.group(2)}<T={t.group(3)}, C={t.group(4)}, bf16={t.group(5)}>" if t
+            short = (f"{t.group(2)}<T={t.group(3)}, C={t.group(4)}, bf16={t.group(5)}"
+                     + (f", stacked={t.group(6)}>" if t.group(6) else ">") if t
+                     else f"{tc.group(1)}<T={tc.group(2)}, C={tc.group(3)}>" if tc
                      else f"{a.group(1)}<hd={a.group(2)}" + (f", split={a.group(3)}>" if a.group(3) else ">") if a
                      else g.group(1) if g else name)
             yield f"{short}: {m.group(1)} registers; {spill}"
@@ -341,6 +370,109 @@ def phase_train_kernels(torch, dev, gen):
     return results
 
 
+def phase_fused_kernels(torch, dev, gen):
+    """K2, K9 and K10 against their plain versions at the fused forwards'
+    shapes: K9 over the scorer's 10 chains, K10 over one chain's 4 stages and
+    the two halves of chain2, K2 on a sweep-sized bank."""
+    from video_gen_evals_tpu_torch.ops.chain_kernel import fused_temporal_chain, fused_temporal_chain_plain
+    from video_gen_evals_tpu_torch.ops.conv_kernel import (
+        fused_temporal_block_stacked, fused_temporal_block_stacked_plain)
+    from video_gen_evals_tpu_torch.ops.window_kernel import (
+        gather_windows, gather_windows_subblock, gather_windows_subblock_plain)
+
+    results = {}
+    # K2: 64 videos x 128 rows x 2596 bank, B = 512; video 3 has 37 rows, so
+    # its windows clip to start 5, no multiple of 8: there K2 reads from row 0
+    V, rows, D = 64, 128, sum(DIMS_RAW.values()) + sum(DIMS_DIFF.values())
+    bank = torch.randn(V * rows, D, generator=gen).to(dev)
+    offsets = (torch.arange(V, dtype=torch.int32) * rows).to(dev)
+    row_limit = torch.full((V,), rows - 1, dtype=torch.int32)
+    row_limit[3] = 36
+    vi = torch.randint(0, V, (BATCH,), generator=gen, dtype=torch.int32)
+    st = torch.randint(0, 13, (BATCH,), generator=gen, dtype=torch.int32) * 8
+    vi[0], st[0] = 3, 8
+    z0 = torch.randn(sum(DIMS_DIFF.values()), generator=gen).to(dev)
+    args = (bank, offsets, row_limit.to(dev), z0, sum(DIMS_RAW.values()), vi.to(dev), st.to(dev), CLIP)
+    got, want = gather_windows_subblock(*args), gather_windows_subblock_plain(*args)
+    torch.cuda.synchronize()
+    _check(got.shape == (BATCH, CLIP, D), f"K2 output shape {tuple(got.shape)}")
+    _check(torch.equal(got, want), "K2 kernel differs from its plain version")
+    k1 = gather_windows(*args)
+    _check(not torch.equal(got[0], k1[0]), "K2 and K1 agree on a window whose clipped start is unaligned")
+    ms, plain_ms = _interleaved_ms(lambda: gather_windows_subblock(*args),
+                                   lambda: gather_windows_subblock_plain(*args), 50)
+    base = (offsets[vi.long().to(dev)].long()
+            + torch.minimum(st.to(dev).long(), (row_limit[vi.long()].to(dev).long() + 1 - CLIP).clamp_min(0))) // 8 * 8
+    row_idx = base[:, None] + torch.arange(CLIP, device=dev)[None, :]
+    library_ms = _time_ms(lambda: bank[row_idx], 50)
+    bound_ms, bound_by = _bound(2 * BATCH * CLIP * D * 4 + 2 * BATCH * 4, 0.0, PEAK_FP32)
+    print(f"K2 gather_windows_subblock [{BATCH}, {CLIP}, {D}] from a {V}x{rows}x{D} bank, one window clipped "
+          f"to an unaligned start: bitwise equal to plain, differs from K1 there; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bank[rows] {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    results["gather_windows_subblock"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                              bound_by=bound_by, library_ms=library_ms)
+
+    # K9 and K10 at "high", against the plain versions at "high" (K3_TOL's class)
+    S, C = 10, 256
+    xs = torch.randn(S, BATCH, CLIP, C, generator=gen).to(dev)
+    w1s, w2s = ((torch.randn(S, 5, C, C, generator=gen) / math.sqrt(5 * C)).to(dev) for _ in range(2))
+    gs = (1.0 + 0.1 * torch.randn(S, C, generator=gen)).to(dev)
+    gb = (0.1 * torch.randn(S, C, generator=gen)).to(dev)
+
+    def act_w_bytes(windows, weight_sets):
+        """x read and out written once; each conv's [5, C, C] fp32 weights read once."""
+        return 4 * (2 * windows * CLIP * C + 2 * weight_sets * 5 * C * C)
+
+    errs, kms, pms, bounds = [], [], [], []
+    for d in (1, 2, 4, 8):
+        got = fused_temporal_block_stacked(xs, w1s, w2s, gs, gb, d)
+        want = fused_temporal_block_stacked_plain(xs, w1s, w2s, gs, gb, d)
+        torch.cuda.synchronize()
+        _check(bool(torch.isfinite(got).all()), f"K9 d={d}: non-finite output")
+        errs.append((got - want).abs().max().item())
+        _check(errs[-1] <= FUSED_TOL, f"K9 d={d}: max |kernel - plain| {errs[-1]:.3e} > {FUSED_TOL}")
+        k, p = _interleaved_ms(lambda: fused_temporal_block_stacked(xs, w1s, w2s, gs, gb, d),
+                               lambda: fused_temporal_block_stacked_plain(xs, w1s, w2s, gs, gb, d), 5)
+        kms.append(k)
+        pms.append(p)
+        bounds.append(_bound(act_w_bytes(S * BATCH, S), 6 * 2 * S * _conv_fmas(BATCH, CLIP, C, d), PEAK_BF16))
+    fmt = lambda v: ", ".join(f"{m:.3f}" for m in v)   # noqa: E731
+    bound_ms = sum(b[0] for b in bounds) / 4
+    print(f"K9 fused_temporal_block_stacked[high] [{S}, {BATCH}, {CLIP}, {C}] d=1/2/4/8: max |kernel - plain| "
+          f"{', '.join(f'{e:.2e}' for e in errs)} (tol {FUSED_TOL}); kernel ms {fmt(kms)}; plain ms {fmt(pms)}; "
+          f"bound {bound_ms:.4f} ms ({bounds[0][1]}); no single PyTorch call computes the fused stage")
+    results["fused_temporal_block_stacked[high]"] = dict(
+        max_abs_err=max(errs), ms=sum(kms) / 4, plain_ms=sum(pms) / 4, bound_ms=bound_ms,
+        bound_by=bounds[0][1], library_ms=None)
+
+    x = xs[0]
+    for name, groups in (("fused_temporal_chain[4 stages]", ((1, 2, 4, 8),)),
+                         ("fused_temporal_chain[2 stages]", ((1, 2), (4, 8)))):
+        errs, kms, pms, bounds = [], [], [], []
+        for dil in groups:
+            n = len(dil)
+            w = (w1s[:n], w2s[:n], gs[:n], gb[:n])   # n of the chains' weight sets as stages
+            got = fused_temporal_chain(x, *w, dil)
+            want = fused_temporal_chain_plain(x, *w, dil)
+            torch.cuda.synchronize()
+            _check(bool(torch.isfinite(got).all()), f"K10 {dil}: non-finite output")
+            errs.append((got - want).abs().max().item())
+            _check(errs[-1] <= FUSED_TOL, f"K10 {dil}: max |kernel - plain| {errs[-1]:.3e} > {FUSED_TOL}")
+            k, p = _interleaved_ms(lambda: fused_temporal_chain(x, *w, dil),
+                                   lambda: fused_temporal_chain_plain(x, *w, dil), 10)
+            kms.append(k)
+            pms.append(p)
+            bounds.append(_bound(act_w_bytes(BATCH, n),
+                                 6 * 2 * sum(_conv_fmas(BATCH, CLIP, C, d) for d in dil), PEAK_BF16))
+        bound_ms = sum(b[0] for b in bounds) / len(groups)
+        print(f"K10 {name} [{BATCH}, {CLIP}, {C}] dilations {' and '.join(map(str, groups))}: max |kernel - plain| "
+              f"{', '.join(f'{e:.2e}' for e in errs)} (tol {FUSED_TOL}); kernel ms {fmt(kms)}; plain ms {fmt(pms)}; "
+              f"bound {bound_ms:.4f} ms ({bounds[0][1]})")
+        results[name] = dict(max_abs_err=max(errs), ms=sum(kms) / len(groups), plain_ms=sum(pms) / len(groups),
+                             bound_ms=bound_ms, bound_by=bounds[0][1], library_ms=None)
+    return results
+
+
 def _write_tree(root, videos_per_class=4, frames=(96, 107, 118, 128)):
     import numpy as np
 
@@ -483,6 +615,152 @@ def phase_throughput(torch, card) -> None:
         print(f"throughput {precision} batch {bs}: {len(windows) / dt:.0f} windows/s "
               f"({len(windows)} windows, {n_batches} batches, {dt * 1e3 / n_batches:.2f} ms/batch "
               f"incl. padded tail) on {card}")
+
+
+def _kernel_counters():
+    """Every scoring kernel's launch counter, by the kernels line's names
+    (K8's counts both of its precisions)."""
+    from video_gen_evals_tpu_torch.ops.attention import flash_attention
+    from video_gen_evals_tpu_torch.ops.attention_core import mha_core
+    from video_gen_evals_tpu_torch.ops.chain_kernel import fused_temporal_chain
+    from video_gen_evals_tpu_torch.ops.conv_kernel import fused_temporal_block, fused_temporal_block_stacked
+    from video_gen_evals_tpu_torch.ops.window_kernel import gather_windows, gather_windows_subblock
+
+    return {"gather_windows": gather_windows, "gather_windows_subblock": gather_windows_subblock,
+            "fused_temporal_block[high]": fused_temporal_block,
+            "fused_temporal_block_stacked[high]": fused_temporal_block_stacked,
+            "fused_temporal_chain": fused_temporal_chain, "mha_core[high]": mha_core,
+            "flash_attention": flash_attention}
+
+
+def _fused_segsum(torch, model, bank, bank_dev, windows, seg, num_videos, gather, **fused):
+    """WindowEncoder.encode_bank_segsum's sweep with ``gather`` (K1 or K2) and
+    ``block_kernel_forward(**fused)`` at "high" for the fused forwards that
+    no encoder_impl names: batches of BATCH, the tail padded with the last
+    window, per-video sums of CLS embeddings, TCs and counts, one fetch."""
+    import numpy as np
+
+    from video_gen_evals_tpu_torch.metrics.scores import tc_per_window
+    from video_gen_evals_tpu_torch.models.fused_apply import block_kernel_forward
+
+    dev = bank_dev[0].device
+    n = len(windows)
+    n_pad = -(-n // BATCH) * BATCH
+    idx = np.array(list(windows) + [windows[-1]] * (n_pad - n), np.int32)
+    vi, st = (torch.from_numpy(np.ascontiguousarray(idx[:, i])).to(dev) for i in (0, 1))
+    seg_d = torch.tensor(list(seg) + [seg[-1]] * (n_pad - n), device=dev)
+    valid = (torch.arange(n_pad, device=dev) < n).float()
+    seq_sum = torch.zeros(num_videos, model.config.d_model, device=dev)
+    tc_sum, count = torch.zeros(num_videos, device=dev), torch.zeros(num_videos, device=dev)
+    with torch.inference_mode():
+        for lo in range(0, n_pad, BATCH):
+            b = slice(lo, lo + BATCH)
+            w = gather(*bank_dev, bank.one_pass_raw, vi[b], st[b], CLIP)
+            seq, frames, _ = block_kernel_forward(model.config, model, w, precision="high", **fused)
+            m = valid[b]
+            seq_sum.index_add_(0, seg_d[b], seq * m[:, None])
+            tc_sum.index_add_(0, seg_d[b], tc_per_window(frames) * m)
+            count.index_add_(0, seg_d[b], m)
+    return seq_sum.cpu().numpy(), tc_sum.cpu().numpy(), count.cpu().numpy()
+
+
+def phase_fused_sweep(torch, card):
+    """The throughput phase's sweep at "high", batch 512, under each fused
+    forward: encoder_impl block_kernel and chain_kernel through WindowEncoder;
+    block_kernel_forward's chain2 and stacked through the same sweep written
+    out here (_fused_segsum), stacked once with K2 as its gather and once with
+    attn_impl "core"; and the module forward with attention_impl "pallas" (K8
+    at "highest") and "pallas_bf16" (K8 at "default"). Each arm's launch
+    counts are set to 0 just before one sweep and read just after it; its AC
+    and TC (8 classes of 8 videos, centroids from the arm's own sums) are held
+    against the module forward's within FUSED_TOL (BF16_SWEEP_TOL for
+    pallas_bf16). Then windows/s, warm, 5 sweeps per arm. Returns the
+    launches of K2, K9 and K10 (4 and 2 stages) on their arms."""
+    import dataclasses
+
+    from video_gen_evals_tpu_torch.metrics.scores import finalize_centroids, finalize_video_scores
+    from video_gen_evals_tpu_torch.models import HumanActionScorer
+    from video_gen_evals_tpu_torch.ops.window_kernel import gather_windows, gather_windows_subblock
+    from video_gen_evals_tpu_torch.pipelines.score import WindowEncoder
+
+    bank, windows, seg, model = sweep_inputs(torch)
+    V = bank.num_videos
+    flash_models = {}
+    for impl in ("pallas", "pallas_bf16"):
+        flash_models[impl] = HumanActionScorer(dataclasses.replace(model.config, attention_impl=impl))
+        flash_models[impl].load_state_dict(model.state_dict())
+    encoders = {name: WindowEncoder(m, BATCH, CLIP, "high", "cuda", encoder_impl=impl)
+                for name, m, impl in (("module", model, "module"), ("block_kernel", model, "block_kernel"),
+                                      ("chain_kernel", model, "chain_kernel"),
+                                      ("pallas", flash_models["pallas"], "module"),
+                                      ("pallas_bf16", flash_models["pallas_bf16"], "module"))}
+    dev_bank = encoders["module"].upload(bank)
+
+    def encoder_sweep(name):
+        return lambda: encoders[name].encode_bank_segsum(bank, windows, seg, V, bank_dev=dev_bank)
+
+    def fused_sweep(gather, **fused):
+        return lambda: _fused_segsum(torch, model, bank, dev_bank, windows, seg, V, gather, **fused)
+
+    labels = torch.arange(V) % 8
+    nb = -(-len(windows) // BATCH)
+    layers = model.config.time_layers
+    # (arm, one sweep, launches a sweep, the kernels-line rows this arm's
+    # counts stand for, tolerance of AC and TC against the module forward's)
+    arms = [
+        ("module", encoder_sweep("module"),
+         {"gather_windows": nb, "fused_temporal_block[high]": 40 * nb}, {}, FUSED_TOL),
+        ("block_kernel", encoder_sweep("block_kernel"),
+         {"gather_windows": nb, "fused_temporal_block[high]": 40 * nb}, {}, FUSED_TOL),
+        ("chain_kernel", encoder_sweep("chain_kernel"),
+         {"gather_windows": nb, "fused_temporal_chain": 10 * nb},
+         {"fused_temporal_chain": "fused_temporal_chain[4 stages]"}, FUSED_TOL),
+        ("chain2", fused_sweep(gather_windows, stage_fusion="chain2"),
+         {"gather_windows": nb, "fused_temporal_chain": 20 * nb},
+         {"fused_temporal_chain": "fused_temporal_chain[2 stages]"}, FUSED_TOL),
+        ("stacked, K2 gather", fused_sweep(gather_windows_subblock, stage_fusion="stacked"),
+         {"gather_windows_subblock": nb, "fused_temporal_block_stacked[high]": 4 * nb},
+         {"gather_windows_subblock": "gather_windows_subblock",
+          "fused_temporal_block_stacked[high]": "fused_temporal_block_stacked[high]"}, FUSED_TOL),
+        ("stacked, attn_impl core", fused_sweep(gather_windows, stage_fusion="stacked", attn_impl="core"),
+         {"gather_windows": nb, "fused_temporal_block_stacked[high]": 4 * nb, "mha_core[high]": layers * nb},
+         {}, FUSED_TOL),
+        ("module, attention_impl pallas", encoder_sweep("pallas"),
+         {"gather_windows": nb, "fused_temporal_block[high]": 40 * nb, "flash_attention": layers * nb},
+         {}, FUSED_TOL),
+        ("module, attention_impl pallas_bf16", encoder_sweep("pallas_bf16"),
+         {"gather_windows": nb, "fused_temporal_block[high]": 40 * nb, "flash_attention": layers * nb},
+         {}, BF16_SWEEP_TOL),
+    ]
+    counters = _kernel_counters()
+    ref, launches = None, {}
+    for arm, sweep, want, rows, tol in arms:
+        for fn in counters.values():
+            fn.launches = 0
+        sums = [torch.from_numpy(a) for a in sweep()]
+        torch.cuda.synchronize()
+        got = {name: fn.launches for name, fn in counters.items() if fn.launches}
+        _check(got == want, f"fused sweep {arm}: launches {got} != {want}")
+        launches.update({row: got[counter] for counter, row in rows.items()})
+        class_sum = torch.zeros(8, sums[0].shape[1]).index_add_(0, labels, sums[0])
+        class_count = torch.zeros(8).index_add_(0, labels, sums[2])
+        ac, tc = finalize_video_scores(*sums, labels, finalize_centroids(class_sum, class_count))
+        _check(bool(torch.isfinite(ac).all() and torch.isfinite(tc).all()), f"fused sweep {arm}: non-finite AC/TC")
+        if ref is None:
+            ref = (ac, tc)
+        d_ac, d_tc = ((a - r).abs().max().item() for a, r in zip((ac, tc), ref))
+        _check(max(d_ac, d_tc) <= tol,
+               f"fused sweep {arm}: AC/TC differ from module by {d_ac:.3e} / {d_tc:.3e} > {tol}")
+        reps = 5
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            sweep()   # ends in its one fetch, so the host clock sees it finish
+        dt = (time.perf_counter() - t0) / reps
+        print(f"fused sweep high batch {BATCH}, {arm}: {len(windows) / dt:.0f} windows/s "
+              f"({dt * 1e3 / nb:.2f} ms/batch); launches a sweep {got}; max |dAC| {d_ac:.2e}, "
+              f"|dTC| {d_tc:.2e} vs module (tol {tol}) on {card}")
+    return launches
 
 
 def _events(run_dir):
@@ -739,6 +1017,16 @@ def phase_attention_kernels(torch, dev, gen):
                   mha_core_plain(q, k, v, 8, precision=precision), precision)
         ms = _time_ms(lambda: mha_core(q, k, v, 8, precision=precision), 20)
         print(f"   K6 [{precision}] at the scorer's [{BATCH}, 33, 256], 8 heads: max |kernel - plain| {e:.2e}, {ms:.4f} ms")
+    # K8 at the scorer's shape, as attention_impl "pallas" ("highest") and
+    # "pallas_bf16" ("default") hand it the fp32 q, k, v slices
+    q4, k4, v4 = (t.reshape(BATCH, 33, 8, 32) for t in (q, k, v))
+    for precision in ("highest", "default"):
+        e = check(f"K8 scorer {precision}", flash_attention(q4, k4, v4, precision=precision),
+                  flash_attention_plain(q4, k4, v4, precision=precision), precision)
+        ms, plain_ms = _interleaved_ms(lambda: flash_attention(q4, k4, v4, precision=precision),
+                                       lambda: flash_attention_plain(q4, k4, v4, precision=precision), 20)
+        print(f"   K8 [{precision}] at the scorer's [{BATCH}, 33, 8, 32] (fp32 slices of qkv): "
+              f"max |kernel - plain| {e:.2e} (tol {ATTN_TOL[precision]}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     return results
 
 
@@ -980,8 +1268,10 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     kern = phase_kernels(torch, dev, gen)
     kern.update(phase_attention_kernels(torch, dev, gen))
+    kern.update(phase_fused_kernels(torch, dev, gen))
     launches = phase_end_to_end(torch)
     phase_throughput(torch, card)
+    fused_launches = phase_fused_sweep(torch, card)
     train_launches = phase_training(torch, card)
     mesh_launches = phase_mesh_stage(torch, card)
 
@@ -993,6 +1283,15 @@ def main() -> int:
          "video_gen_evals_tpu/ops/conv_kernel.py:347", launches["high"][1]),
         ("fused_temporal_block[highest]", "temporal_block.cu",
          "video_gen_evals_tpu/ops/conv_kernel.py:358", launches["highest"][1]),
+    ]
+    rows += [
+        ("gather_windows_subblock", "window_gather.cu",
+         "video_gen_evals_tpu/ops/window_kernel.py:95", fused_launches["gather_windows_subblock"]),
+        ("fused_temporal_block_stacked[high]", "temporal_block.cu",
+         "video_gen_evals_tpu/ops/conv_kernel.py:272", fused_launches["fused_temporal_block_stacked[high]"]),
+    ] + [
+        (name, "temporal_chain.cu", "video_gen_evals_tpu/ops/chain_kernel.py:228", fused_launches[name])
+        for name in ("fused_temporal_chain[4 stages]", "fused_temporal_chain[2 stages]")
     ]
     for precision in ("default", "highest"):
         rows += [

@@ -8,6 +8,7 @@ sweep's wall time the device was busy, and the card's name and power limit.
 Needs one NVIDIA GPU.
 
     python scripts/profile_torch_sweep.py [--precision high] [--batch-size 512]
+        [--encoder-impl auto|module|block_kernel|chain_kernel]
 """
 
 from __future__ import annotations
@@ -48,12 +49,13 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import CLIP, sweep_inputs
-    from video_gen_evals_tpu_torch.pipelines.score import WindowEncoder
+    from video_gen_evals_tpu_torch.pipelines.score import ENCODER_IMPLS, WindowEncoder
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--precision", default="high", choices=["high", "highest"])
     p.add_argument("--batch-size", type=int, default=512)
     p.add_argument("--sweeps", type=int, default=3)
+    p.add_argument("--encoder-impl", default="auto", choices=list(ENCODER_IMPLS))
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_sweep: no CUDA device", file=sys.stderr)
@@ -61,7 +63,7 @@ def main(argv=None) -> int:
 
     bank, windows, seg, model = sweep_inputs(torch)
     V = bank.num_videos
-    enc = WindowEncoder(model, args.batch_size, CLIP, args.precision, "cuda")
+    enc = WindowEncoder(model, args.batch_size, CLIP, args.precision, "cuda", args.encoder_impl)
     dev_bank = enc.upload(bank)
     enc.encode_bank_segsum(bank, windows, seg, V, bank_dev=dev_bank)   # warm
 
@@ -74,6 +76,7 @@ def main(argv=None) -> int:
     top = {k[:90]: round(v, 1) for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]}
     print(json.dumps({
         "precision": args.precision, "batch_size": args.batch_size,
+        "encoder_impl": args.encoder_impl,
         "windows_per_sweep": len(windows), "sweep_ms": round(wall_us / args.sweeps / 1e3, 3),
         "device_busy_share": busy_share,
         "device_us_per_sweep_by_kernel": top, "card": card,

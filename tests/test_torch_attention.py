@@ -50,7 +50,14 @@ def test_mha_core_matches_jax(B, N, H, D, precision):
     qkv = _qkv(0, (B, N, H * D))
     want = np.asarray(jax_mha_core(*_j(qkv), heads=H, precision=precision, interpret=True))
     got = mha_core(*_t(qkv), heads=H, precision=precision).numpy()
-    np.testing.assert_allclose(got, want, atol=F32_ATOL)
+    # on a mismatch, say which side moved: each against a float64 reference
+    q, k, v = (a.astype(np.float64).reshape(B, N, H, D).transpose(0, 2, 1, 3) for a in qkv)
+    s = q @ k.transpose(0, 1, 3, 2) / np.sqrt(D)
+    p = np.exp(s - s.max(axis=-1, keepdims=True))
+    ref = ((p / p.sum(axis=-1, keepdims=True)) @ v).transpose(0, 2, 1, 3).reshape(B, N, H * D)
+    np.testing.assert_allclose(got, want, atol=F32_ATOL, err_msg=(
+        f"max |JAX interpret - float64| {np.abs(want - ref).max():.3e}, "
+        f"max |port - float64| {np.abs(got - ref).max():.3e}"))
 
 
 def test_mha_core_bf16_matches_jax():

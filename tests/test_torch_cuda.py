@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from video_gen_evals_tpu_torch.models import EncoderConfig, HumanActionScorer
+from video_gen_evals_tpu_torch.models.fused_apply import block_kernel_forward
 from video_gen_evals_tpu_torch.models.vit import ViTBlock
 from video_gen_evals_tpu_torch.ops.attention import flash_attention, flash_attention_plain
 from video_gen_evals_tpu_torch.ops.attention_core import (
@@ -19,14 +20,25 @@ from video_gen_evals_tpu_torch.ops.attention_core import (
     mha_head_batched,
     mha_head_batched_plain,
 )
-from video_gen_evals_tpu_torch.ops.conv_kernel import fused_temporal_block, fused_temporal_block_plain
+from video_gen_evals_tpu_torch.ops.chain_kernel import fused_temporal_chain, fused_temporal_chain_plain
+from video_gen_evals_tpu_torch.ops.conv_kernel import (
+    fused_temporal_block,
+    fused_temporal_block_plain,
+    fused_temporal_block_stacked,
+    fused_temporal_block_stacked_plain,
+)
 from video_gen_evals_tpu_torch.ops.conv_kernel_train import (
     LAUNCHES_PER_BACKWARD,
     fused_temporal_block_train,
     fused_temporal_block_train_bwd_plain,
     fused_temporal_block_train_plain,
 )
-from video_gen_evals_tpu_torch.ops.window_kernel import gather_windows, gather_windows_plain
+from video_gen_evals_tpu_torch.ops.window_kernel import (
+    gather_windows,
+    gather_windows_plain,
+    gather_windows_subblock,
+    gather_windows_subblock_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -100,6 +112,124 @@ def test_block_kernel_refuses_grad(cuda):
     g = torch.ones(64, device=cuda)
     with pytest.raises(RuntimeError, match="no backward"):
         fused_temporal_block(x, w, w, g, g, 1, "high")
+
+
+@pytest.mark.parametrize("d,out_dim", [(2596, 2596), (2688, 2596), (37, 37), (40, 37)])
+@pytest.mark.parametrize("batch", [512, 61])
+def test_subblock_gather_kernel_is_bitwise_plain(cuda, d, out_dim, batch):
+    """K2 against its plain version, bitwise: 16-byte and scalar paths, a
+    lane-padded bank sliced to out_dim, clipped starts that are no multiple
+    of 8 (video 2 has 37 rows: its windows clip to start 5)."""
+    gen = torch.Generator().manual_seed(batch)
+    # 8-aligned offsets, as build_feature_bank lays them out
+    offsets = torch.tensor([0, 48, 88, 128], dtype=torch.int32)
+    row_limit = torch.tensor([47, 39, 36, 63], dtype=torch.int32)
+    bank = torch.randn(192, d, generator=gen)
+    z0 = torch.randn(11, generator=gen)
+    vi = torch.randint(0, 4, (batch,), generator=gen, dtype=torch.int32)
+    st = torch.randint(-20, 80, (batch,), generator=gen, dtype=torch.int32)
+    vi[:4], st[:4] = 2, torch.tensor([8, 3, 40, 0], dtype=torch.int32)
+    args = (bank, offsets, row_limit, z0, 13, vi, st, 32)
+    want = gather_windows_subblock_plain(*args, out_dim=out_dim)
+    before = gather_windows_subblock.launches
+    got = gather_windows_subblock(*(a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args),
+                                  out_dim=out_dim)
+    torch.cuda.synchronize()
+    assert gather_windows_subblock.launches == before + 1
+    assert got.shape == (batch, 32, out_dim)
+    assert torch.equal(got.cpu(), want)
+
+
+def _stage_weights(gen, lead, channels):
+    w1, w2 = (torch.randn(lead + (5, channels, channels), generator=gen) / (5 * channels) ** 0.5
+              for _ in range(2))
+    gs = 1.0 + 0.1 * torch.randn(lead + (channels,), generator=gen)
+    gb = 0.1 * torch.randn(lead + (channels,), generator=gen)
+    return w1, w2, gs, gb
+
+
+@pytest.mark.parametrize("chains,batch,t_len,channels", [(10, 512, 32, 256), (3, 37, 16, 64)])
+@pytest.mark.parametrize("dilation", [1, 2, 4, 8])
+def test_stacked_kernel_matches_plain(cuda, chains, batch, t_len, channels, dilation):
+    """K9 against its plain version (K3's plain version at "high" per chain)
+    on the card: 1e-4, as K3 "high"."""
+    gen = torch.Generator().manual_seed(dilation)
+    xs = torch.randn(chains, batch, t_len, channels, generator=gen)
+    args = [a.to(cuda) for a in (xs,) + _stage_weights(gen, (chains,), channels)]
+    want = fused_temporal_block_stacked_plain(*args, dilation)
+    before = fused_temporal_block_stacked.launches
+    got = fused_temporal_block_stacked(*args, dilation)
+    torch.cuda.synchronize()
+    assert fused_temporal_block_stacked.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("batch,t_len,channels", [(512, 32, 256), (37, 16, 64)])
+@pytest.mark.parametrize("dilations", [(1, 2, 4, 8), (1, 2), (4, 8)])
+@pytest.mark.parametrize("variant", ["slice", "mm_first"])
+def test_chain_kernel_matches_plain(cuda, batch, t_len, channels, dilations, variant):
+    """K10 (4 stages, and the two halves of chain2) against its plain
+    version (K3's plain version at "high", stage after stage) on the card:
+    1e-4, as K3 "high"; each stage renormalizes, so errors do not grow."""
+    gen = torch.Generator().manual_seed(len(dilations) + dilations[0])
+    x = torch.randn(batch, t_len, channels, generator=gen)
+    args = [a.to(cuda) for a in (x,) + _stage_weights(gen, (len(dilations),), channels)]
+    want = fused_temporal_chain_plain(*args, dilations)
+    before = fused_temporal_chain.launches
+    got = fused_temporal_chain(*args, dilations, variant)
+    torch.cuda.synchronize()
+    assert fused_temporal_chain.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_block_kernel_forward_on_card_matches_module(cuda):
+    """Every stage_fusion, and attn_impl "core" (K6 at "high"), against the
+    module forward (K3 per stage) on the card at "high": 1e-4 on all three
+    outputs; each fused forward launches its own kernel and not K3."""
+    cfg = EncoderConfig.create({"vit": 64, "pose": 207}, {"vit": 64, "pose": 69},
+                               d_model=256, time_layers=1, time_heads=8)
+    model = HumanActionScorer(cfg, generator=torch.Generator().manual_seed(5)).to(cuda)
+    x = torch.randn(64, 32, cfg.input_dim, generator=torch.Generator().manual_seed(6)).to(cuda)
+    fns = (fused_temporal_block, fused_temporal_block_stacked, fused_temporal_chain, mha_core)
+    want_launches = {"stage": (16, 0, 0), "chain": (0, 0, 4), "chain2": (0, 0, 8),
+                     "stacked": (0, 4, 0)}
+    with torch.inference_mode():
+        want = model(x, "high")
+        for fusion, attn in [(f, "xla") for f in want_launches] + [("stacked", "core")]:
+            before = [fn.launches for fn in fns]
+            got = block_kernel_forward(cfg, model, x, precision="high", stage_fusion=fusion,
+                                       attn_impl=attn)
+            torch.cuda.synchronize()
+            n = tuple(fn.launches - b for fn, b in zip(fns, before))
+            assert n == want_launches[fusion] + (1 if attn == "core" else 0,), (fusion, attn, n)
+            for g, w in zip(got, want):
+                assert (g - w).abs().max().item() <= 1e-4, (fusion, attn)
+
+
+@pytest.mark.parametrize("impl,tol", [("pallas", 2e-5), ("pallas_bf16", 0.05)])
+def test_encoder_attention_impl_pallas_on_card(cuda, impl, tol):
+    """attention_impl "pallas" (K8 at "highest") and "pallas_bf16" (K8 at
+    "default") run K8 in eval mode (one launch a layer) against the plain fp32
+    attention: 2e-5 (fp32 sums in another order); 0.05 at "default", where q,
+    k, v and p are rounded to bf16 (2^-9 relative each) in 2 layers whose
+    tokens reach a few units."""
+    dims = ({"vit": 64}, {"vit": 64})
+    model = HumanActionScorer(EncoderConfig.create(*dims, d_model=256, time_layers=2,
+                                                   time_heads=8),
+                              generator=torch.Generator().manual_seed(7)).to(cuda)
+    flash = HumanActionScorer(EncoderConfig.create(*dims, d_model=256, time_layers=2,
+                                                   time_heads=8, attention_impl=impl)).to(cuda)
+    flash.load_state_dict(model.state_dict())
+    x = torch.randn(64, 32, 128, generator=torch.Generator().manual_seed(8)).to(cuda)
+    with torch.inference_mode():
+        before = flash_attention.launches
+        got = flash(x, "highest")
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 2
+        for g, w in zip(got, model(x, "highest")):
+            assert (g - w).abs().max().item() <= tol
 
 
 def _train_inputs(seed, batch, t_len, channels, with_mask):

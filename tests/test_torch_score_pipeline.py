@@ -242,6 +242,61 @@ def test_score_cli_runs_on_cpu_from_a_reference_checkpoint(env, tmp_path):
     assert all(np.isfinite(v["ac"]) and np.isfinite(v["tc"]) for v in got.values())
 
 
+@pytest.fixture(scope="module")
+def fused_scores(env, tmp_path_factory):
+    """score_generated's AC and TC per encoder_impl, one set of weights, at
+    "high" on the CPU (the kernels' plain versions)."""
+    _root, mesh_root, kp_root, gen_dir, gen_kp, _human, _names = env
+    port, _jm, _p = _models(seed=6)
+    out = {}
+    for impl in ("module", "block_kernel", "chain_kernel"):
+        got = score.score_generated(
+            port, gen_dir, mesh_root, _real_paths(kp_root),
+            data.ModalityPaths(keypoint_dir=gen_kp, layout="generated"),
+            cfg=score.ScoreConfig(clip_len=16, stride=8, batch_size=16, precision="high",
+                                  encoder_impl=impl),
+            output_json=None, device="cpu",
+        )
+        out[impl] = got["scores"]
+    return out
+
+
+@pytest.mark.parametrize("encoder_impl", ["block_kernel", "chain_kernel"])
+def test_window_encoder_fused_forwards_match_module(fused_scores, encoder_impl):
+    """block_kernel (K3 a stage) and chain_kernel (K10 a chain) give every
+    video's AC and TC within 1e-4 of the module forward."""
+    want, got = fused_scores["module"], fused_scores[encoder_impl]
+    assert sorted(got) == sorted(want)
+    for vid in want:
+        for m in ("ac", "tc"):
+            assert np.isfinite(got[vid][m])
+            assert abs(got[vid][m] - want[vid][m]) <= 1e-4, (vid, m)
+
+
+def test_fused_encoder_impls_refuse_highest_and_the_cli_parses_them(env, tmp_path):
+    """An explicit kernel forward at "highest" raises rather than changing
+    numerics, in WindowEncoder and through --encoder-impl; an unknown
+    --encoder-impl is refused by the parser."""
+    _root, mesh_root, kp_root, gen_dir, gen_kp, _human, _names = env
+    port, _jm, _p = _models(seed=7)
+    for impl in ("block_kernel", "chain_kernel"):
+        with pytest.raises(ValueError, match="precision 'high'"):
+            score.WindowEncoder(port, 16, 16, precision="highest", device="cpu",
+                                encoder_impl=impl)
+    with pytest.raises(ValueError, match="encoder_impl"):
+        score.WindowEncoder(port, 16, 16, device="cpu", encoder_impl="stacked")
+    ckpt = str(tmp_path / "model.pt")
+    torch.save({"model_state_dict": _models(seed=7, d_model=256, layers=4, heads=8)[0].state_dict()},
+               ckpt)
+    argv = ["--generated-meshes", gen_dir, "--real-meshes", mesh_root, "--checkpoint", ckpt,
+            "--real-kp-dir", kp_root, "--gen-kp-dir", gen_kp, "--clip-len", "16",
+            "--output", str(tmp_path / "scores.json"), "--no-bug-compat", "--device", "cpu"]
+    with pytest.raises(ValueError, match="chain_kernel"):
+        score.main(argv + ["--encoder-impl", "chain_kernel", "--precision", "highest"])
+    with pytest.raises(SystemExit):
+        score.main(argv + ["--encoder-impl", "stacked"])
+
+
 def test_score_cli_refuses_cuda_without_a_card(env, tmp_path):
     """--device cuda never falls back to the CPU."""
     if torch.cuda.is_available():
@@ -254,8 +309,8 @@ def test_score_cli_refuses_cuda_without_a_card(env, tmp_path):
 
 def test_port_imports_no_jax():
     """In a fresh interpreter: the scoring and training CLI modules, and every
-    module of the port they do not reach (the mesh-recovery stage's among
-    them), load neither jax, flax, optax, orbax nor anything of the JAX
+    module of the port they do not reach (the mesh-recovery stage's and the
+    fused forwards' among them), load neither jax, flax, optax, orbax nor anything of the JAX
     package."""
     code = (
         "import sys, pkgutil, importlib, video_gen_evals_tpu_torch as pkg\n"
@@ -266,7 +321,8 @@ def test_port_imports_no_jax():
         "assert 'video_gen_evals_tpu_torch.train.experiment' in sys.modules\n"
         "assert 'video_gen_evals_tpu_torch.ops.conv_kernel_train' in sys.modules\n"
         "for m in ('ops.attention', 'ops.attention_core', 'ops.upstream_crops', 'models.vit',\n"
-        "          'models.smpl_head', 'pipelines.extract', 'pipelines.weights', 'utils.io'):\n"
+        "          'models.smpl_head', 'pipelines.extract', 'pipelines.weights', 'utils.io',\n"
+        "          'ops.chain_kernel', 'models.fused_apply'):\n"
         "    assert 'video_gen_evals_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'video_gen_evals_tpu')]\n"

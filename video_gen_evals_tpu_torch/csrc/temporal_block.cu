@@ -1,8 +1,10 @@
-// Fused residual dilated-conv stage of the scoring encoder (K3).
+// Fused residual dilated-conv stage of the scoring encoder (K3), and the same
+// stage over S stacked chains in one launch (K9).
 //
 // Replaces: video_gen_evals_tpu/ops/conv_kernel.py::fused_temporal_block
 // (bodies _block_kernel_f32 for precision "highest" and _block_kernel_high_mm
-// for "high").
+// for "high"), and ::fused_temporal_block_stacked (_block_kernel_high_stacked,
+// "high" only) through vge_temporal_block_stacked.
 //
 // For each window b, with x[b] a [T, C] tile and weights laid out [K, Cin, Cout]:
 //   h      = GELU(conv(x[b], w1))   k = 5, dilation d, zero padding inside the
@@ -46,12 +48,24 @@
 // raised with cudaFuncSetAttribute before the launch. The residual re-reads
 // x from device memory. Tensor cores (wgmma) and TMA are left to a later
 // change.
+//
+// K9 (stacked chains): blockIdx.y picks the chain, and with it the chain's
+// slice of x, out, w1, w2, gn_scale and gn_bias; each block then runs the
+// body above unchanged. Bound: S times K3's FMAs. The windows are on
+// blockIdx.x and the chain on blockIdx.y because blocks are dispatched
+// x-fastest: the resident blocks then work through one chain's weights
+// (5.2 MB at "high") at a time, where a chain-fastest order would cycle
+// through all S chains' weights (52 MB for the scorer's 10 chains, more than
+// the 50 MB L2) and stream them from device memory.
 
 #include "conv_tile.cuh"
 
 namespace {
 
-template <int T, int C, bool kSplit>
+// kStacked: K9's chain axis on blockIdx.y. It is a template flag so that K3's
+// instantiations keep their pointer arguments in the parameter bank: with the
+// offsets, K3 at "highest" (T = 32, C = 256) needed 255 registers and spilled.
+template <int T, int C, bool kSplit, bool kStacked>
 __global__ void __launch_bounds__(C / Cols<C, kSplit>::value) temporal_block_kernel(
     const float* __restrict__ x, const float* __restrict__ w1,
     const float* __restrict__ w2, const float* __restrict__ gn_scale,
@@ -62,6 +76,17 @@ __global__ void __launch_bounds__(C / Cols<C, kSplit>::value) temporal_block_ker
   __shared__ float red[kThreads / 32];
   float* tile = reinterpret_cast<float*>(smem);
   const int co = threadIdx.x;
+  if constexpr (kStacked) {
+    // chain blockIdx.y of the grid (windows, chains): its activations,
+    // weights and norm parameters
+    const size_t chain = blockIdx.y;
+    x += chain * gridDim.x * T * C;
+    out += chain * gridDim.x * T * C;
+    w1 += chain * kTaps * C * C * (kSplit ? 2 : 1);
+    w2 += chain * kTaps * C * C * (kSplit ? 2 : 1);
+    gn_scale += chain * C;
+    gn_bias += chain * C;
+  }
   const size_t win = (size_t)blockIdx.x * T * C;
 
   float col[kCols][T];
@@ -116,29 +141,46 @@ __global__ void __launch_bounds__(C / Cols<C, kSplit>::value) temporal_block_ker
   }
 }
 
-template <int T, int C, bool kSplit>
-cudaError_t launch(const float* x, const float* w1, const float* w2, const float* gs,
-                   const float* gb, float* out, int batch, int dilation, cudaStream_t stream) {
+template <int T, int C, bool kSplit, bool kStacked>
+cudaError_t launch_kernel(const float* x, const float* w1, const float* w2, const float* gs,
+                          const float* gb, float* out, int chains, int batch, int dilation,
+                          cudaStream_t stream) {
   constexpr size_t smem = (size_t)T * C * (kSplit ? 8 : 4);
-  cudaError_t err = cudaFuncSetAttribute(temporal_block_kernel<T, C, kSplit>,
+  cudaError_t err = cudaFuncSetAttribute(temporal_block_kernel<T, C, kSplit, kStacked>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  temporal_block_kernel<T, C, kSplit><<<batch, C / Cols<C, kSplit>::value, smem, stream>>>(
-      x, w1, w2, gs, gb, out, dilation);
+  temporal_block_kernel<T, C, kSplit, kStacked>
+      <<<dim3(batch, chains), C / Cols<C, kSplit>::value, smem, stream>>>(
+          x, w1, w2, gs, gb, out, dilation);
   return cudaGetLastError();
+}
+
+// chains == 0: K3 (one chain, no chain axis); chains >= 1: K9, "high" only.
+template <int T, int C, bool kSplit>
+cudaError_t launch(const float* x, const float* w1, const float* w2, const float* gs,
+                   const float* gb, float* out, int chains, int batch, int dilation,
+                   cudaStream_t stream) {
+  if (chains == 0)
+    return launch_kernel<T, C, kSplit, false>(x, w1, w2, gs, gb, out, 1, batch, dilation, stream);
+  if constexpr (kSplit)
+    return launch_kernel<T, C, true, true>(x, w1, w2, gs, gb, out, chains, batch, dilation, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <int T, bool kSplit>
 cudaError_t dispatch_c(int channels, const float* x, const float* w1, const float* w2,
-                       const float* gs, const float* gb, float* out, int batch, int dilation,
-                       cudaStream_t stream) {
+                       const float* gs, const float* gb, float* out, int chains, int batch,
+                       int dilation, cudaStream_t stream) {
   switch (channels) {
     case 64:
-      return launch<T, 64, kSplit>(x, w1, w2, gs, gb, out, batch, dilation, stream);
+      return launch<T, 64, kSplit>(x, w1, w2, gs, gb, out, chains, batch, dilation,
+                                        stream);
     case 128:
-      return launch<T, 128, kSplit>(x, w1, w2, gs, gb, out, batch, dilation, stream);
+      return launch<T, 128, kSplit>(x, w1, w2, gs, gb, out, chains, batch, dilation,
+                                        stream);
     case 256:
-      return launch<T, 256, kSplit>(x, w1, w2, gs, gb, out, batch, dilation, stream);
+      return launch<T, 256, kSplit>(x, w1, w2, gs, gb, out, chains, batch, dilation,
+                                        stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -146,15 +188,18 @@ cudaError_t dispatch_c(int channels, const float* x, const float* w1, const floa
 
 template <bool kSplit>
 cudaError_t dispatch(int t_len, int channels, const float* x, const float* w1, const float* w2,
-                     const float* gs, const float* gb, float* out, int batch, int dilation,
-                     cudaStream_t stream) {
+                     const float* gs, const float* gb, float* out, int chains, int batch,
+                     int dilation, cudaStream_t stream) {
   switch (t_len) {
     case 8:
-      return dispatch_c<8, kSplit>(channels, x, w1, w2, gs, gb, out, batch, dilation, stream);
+      return dispatch_c<8, kSplit>(channels, x, w1, w2, gs, gb, out, chains, batch, dilation,
+                                       stream);
     case 16:
-      return dispatch_c<16, kSplit>(channels, x, w1, w2, gs, gb, out, batch, dilation, stream);
+      return dispatch_c<16, kSplit>(channels, x, w1, w2, gs, gb, out, chains, batch, dilation,
+                                       stream);
     case 32:
-      return dispatch_c<32, kSplit>(channels, x, w1, w2, gs, gb, out, batch, dilation, stream);
+      return dispatch_c<32, kSplit>(channels, x, w1, w2, gs, gb, out, chains, batch, dilation,
+                                       stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -173,7 +218,22 @@ extern "C" int vge_temporal_block(int device, const float* x, const float* w1,
   if (err != cudaSuccess) return (int)err;
   if (batch == 0) return (int)cudaSuccess;
   err = split_bf16
-            ? dispatch<true>(t_len, channels, x, w1, w2, gs, gb, out, batch, dilation, stream)
-            : dispatch<false>(t_len, channels, x, w1, w2, gs, gb, out, batch, dilation, stream);
+            ? dispatch<true>(t_len, channels, x, w1, w2, gs, gb, out, 0, batch, dilation, stream)
+            : dispatch<false>(t_len, channels, x, w1, w2, gs, gb, out, 0, batch, dilation, stream);
   return (int)err;
+}
+
+// K9: x, out [chains, batch, t_len, channels]; w1, w2 [chains, 5, C, C, 2]
+// (hi, lo) pairs, "high" only; gs, gb [chains, C].
+extern "C" int vge_temporal_block_stacked(int device, const float* x, const float* w1,
+                                          const float* w2, const float* gs,
+                                          const float* gb, float* out, int chains,
+                                          int batch, int t_len, int channels,
+                                          int dilation, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (batch == 0 || chains == 0) return (int)cudaSuccess;
+  if (chains > 65535) return (int)cudaErrorInvalidValue;
+  return (int)dispatch<true>(t_len, channels, x, w1, w2, gs, gb, out, chains, batch, dilation,
+                             stream);
 }

@@ -1,7 +1,8 @@
-// Window gather of the scoring path (K1).
+// Window gather of the scoring path (K1), and its 8-row sub-block form (K2).
 //
 // Replaces: video_gen_evals_tpu/ops/window_kernel.py::pallas_gather_windows_burst
-// (and, with the same output, ::pallas_gather_windows).
+// (K1; ::pallas_gather_windows gives the same output only where the window's
+// base row is a multiple of 8, see K2 below).
 //
 // For window b of video v = video_idx[b]:
 //   rows_v = row_limit[v] + 1
@@ -72,6 +73,68 @@ __global__ void __launch_bounds__(kThreads) gather_windows_kernel(
   }
 }
 
+
+// K2. Replaces: video_gen_evals_tpu/ops/window_kernel.py::pallas_gather_windows
+// (_copy_kernel over a (window, 8-row sub-block) grid).
+//
+// K1's function with the window's base floored to a multiple of 8 rows, as
+// the TPU kernel's 8-row block index does:
+//   base    = ((offsets[v] + s) / 8) * 8        (s clipped as in K1)
+//   row r0j = clip(base + 8 j, 0, n_rows - 8)   for sub-block j of the window
+//   out[b, 8 j : 8 j + 8, :out_dim] = bank[r0j : r0j + 8, :out_dim]
+//   out[b, 0, one_pass_raw : one_pass_raw + d_diff] = z0
+// A clipped start that is not a multiple of 8 therefore reads from the
+// aligned row below it, where K1 reads from the start itself. The per
+// sub-block clip keeps every read inside the bank (the clamp a block index
+// past the end gets in Pallas' interpret mode). The TPU's 128-lane padding
+// of the bank does not carry over: d is the bank's row stride and out_dim
+// (<= d) the width written.
+//
+// Bound on the H100: bytes, as K1 (2 * B * clip_len * out_dim * 4 bytes).
+// Design: one block per (window, sub-block), grid (B, clip_len / 8); the
+// block copies its 8 rows with 16-byte loads and stores where d, out_dim
+// and both pointers allow it, scalar ones otherwise; the block of sub-block 0
+// then writes z0 over row 0's diff block behind a block barrier.
+__global__ void __launch_bounds__(kThreads) gather_subblock_kernel(
+    const float* __restrict__ bank, long long n_rows, int d, int out_dim,
+    const int* __restrict__ offsets, const int* __restrict__ row_limit,
+    int n_videos, const float* __restrict__ z0, int one_pass_raw, int d_diff,
+    const int* __restrict__ video_idx, const int* __restrict__ starts,
+    int clip_len, float* __restrict__ out) {
+  constexpr int kRows = 8;
+  const int b = blockIdx.x;
+  const int j = blockIdx.y;
+  const int v = (int)clamp_ll(video_idx[b], 0, n_videos - 1);
+  const long long rows_v = (long long)row_limit[v] + 1;
+  const long long hi = rows_v - clip_len > 0 ? rows_v - clip_len : 0;
+  const long long s = clamp_ll(starts[b], 0, hi);
+  const long long base = ((long long)offsets[v] + s) / kRows * kRows;
+  const long long r0 = clamp_ll(base + (long long)kRows * j, 0, n_rows - kRows);
+
+  const float* src = bank + r0 * d;
+  float* dst = out + ((long long)b * clip_len + (long long)kRows * j) * out_dim;
+  const uintptr_t addr_bits =
+      reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst);
+  if ((d & 3) == 0 && (out_dim & 3) == 0 && (addr_bits & 15) == 0) {
+    const int w4 = out_dim >> 2, d4 = d >> 2;
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (int i = threadIdx.x; i < kRows * w4; i += blockDim.x) {
+      const int r = i / w4;
+      dst4[i] = __ldg(src4 + r * d4 + (i - r * w4));
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * out_dim; i += blockDim.x) {
+      const int r = i / out_dim;
+      dst[i] = __ldg(src + (long long)r * d + (i - r * out_dim));
+    }
+  }
+  if (j == 0) {
+    __syncthreads();
+    for (int k = threadIdx.x; k < d_diff; k += blockDim.x) dst[one_pass_raw + k] = z0[k];
+  }
+}
+
 }  // namespace
 
 extern "C" int vge_gather_windows(
@@ -84,6 +147,22 @@ extern "C" int vge_gather_windows(
   if (batch == 0) return (int)cudaSuccess;
   gather_windows_kernel<<<batch, kThreads, 0, stream>>>(
       bank, n_rows, d, offsets, row_limit, n_videos, z0, one_pass_raw, d_diff,
+      video_idx, starts, clip_len, out);
+  return (int)cudaGetLastError();
+}
+
+// K2: clip_len % 8 == 0, n_rows >= 8, out_dim <= d.
+extern "C" int vge_gather_windows_subblock(
+    int device, const float* bank, long long n_rows, int d, int out_dim,
+    const int* offsets, const int* row_limit, int n_videos, const float* z0,
+    int one_pass_raw, int d_diff, const int* video_idx, const int* starts,
+    int batch, int clip_len, float* out, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (clip_len % 8 != 0 || n_rows < 8 || out_dim > d) return (int)cudaErrorInvalidValue;
+  if (batch == 0) return (int)cudaSuccess;
+  gather_subblock_kernel<<<dim3(batch, clip_len / 8), kThreads, 0, stream>>>(
+      bank, n_rows, d, out_dim, offsets, row_limit, n_videos, z0, one_pass_raw, d_diff,
       video_idx, starts, clip_len, out);
   return (int)cudaGetLastError();
 }

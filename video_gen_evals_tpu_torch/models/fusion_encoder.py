@@ -23,6 +23,14 @@ matmul. Parameter and buffer names follow the reference's state_dict
 with ``load_state_dict(strict=True)``. Conv weights keep the reference's
 ``[Cout, Cin, K]`` layout and are viewed as ``[K, Cin, Cout]`` for the kernel.
 
+``EncoderConfig.attention_impl`` picks the temporal transformer's attention
+in eval mode, as in JAX: ``"xla"`` (the default) the plain matmul + softmax,
+``"pallas"`` / ``"pallas_bf16"`` the flash-attention kernel (K8,
+``ops/attention.py::flash_attention``) at ``"highest"`` / ``"default"``,
+``"pallas_interpret"`` its plain version (the reference computation the JAX
+name stands for). Training mode keeps the plain attention, whose weights
+take dropout.
+
 Training mode applies dropout at the JAX module's places: after GELU(conv1)
 inside each conv stage (in the kernel, as a scaled keep mask), on the fusion
 attention weights, and on the transformer's attention weights, attention
@@ -41,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attention import flash_attention, flash_attention_plain
 from ..ops.conv_kernel import fused_temporal_block
 from ..ops.conv_kernel_train import fused_temporal_block_train
 from ..ops.deltas import l2_normalize
@@ -50,6 +59,10 @@ DimsMap = T.Mapping[str, int]
 _DILATIONS = (1, 2, 4, 8)
 _KERNEL = 5
 _PE_MAX_LEN = 5000  # ref model.py:8-16
+ATTENTION_IMPLS = ("xla", "pallas", "pallas_bf16", "pallas_interpret")
+
+# q, k, v [B, S, D] column slices of the packed projection -> context [B, S, D]
+Attention = T.Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +75,13 @@ class EncoderConfig:
     time_layers: int = 4
     time_heads: int = 8
     dropout: float = 0.1   # training mode only
+    # the temporal transformer's attention in eval mode (ATTENTION_IMPLS)
+    attention_impl: str = "xla"
+
+    def __post_init__(self):
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, "
+                             f"got {self.attention_impl!r}")
 
     @classmethod
     def create(cls, dims_map_raw: DimsMap, dims_map_diff: DimsMap, **kw) -> "EncoderConfig":
@@ -185,9 +205,13 @@ class MovementConvEncoder(nn.Module):
         self.blocks = nn.ModuleList(TemporalConvBlock(d_out, d) for d in dilations)
         self.proj = nn.Linear(d_out, d_out, bias=False)
 
+    def apply_stem(self, x: torch.Tensor) -> torch.Tensor:
+        """The 1x1 stem: ``[B, T, d_in] -> [B, T, d_out]``."""
+        return x @ self.stem.weight[:, :, 0].t()
+
     def forward(self, x: torch.Tensor, precision: str = "highest",
                 dropout: T.Optional[Dropout] = None) -> torch.Tensor:
-        y = x @ self.stem.weight[:, :, 0].t()
+        y = self.apply_stem(x)
         for block in self.blocks:
             y = block(y, precision, dropout)
         return self.proj(y)
@@ -234,9 +258,24 @@ class _SelfAttention(nn.Module):
         self.out_proj = nn.Linear(d_model, d_model)
 
 
+def flash_attend(heads: int, impl: str) -> Attention:
+    """The attention of ``EncoderConfig.attention_impl`` ``impl`` (not
+    ``"xla"``) on ``[B, S, D]`` slices, through ``[B, S, H, hd]`` views."""
+    def attend(q, k, v):
+        B, S, D = q.shape
+        q4, k4, v4 = (t.reshape(B, S, heads, D // heads) for t in (q, k, v))
+        if impl == "pallas_interpret":
+            ctx = flash_attention_plain(q4, k4, v4)
+        else:
+            ctx = flash_attention(q4, k4, v4, precision="default" if impl == "pallas_bf16" else "highest")
+        return ctx.reshape(B, S, D)
+    return attend
+
+
 class TransformerEncoderLayer(nn.Module):
     """``nn.TransformerEncoderLayer`` semantics: post-LN, ReLU FFN, packed
-    qkv; attention is a plain matmul + softmax, as the JAX einsum path."""
+    qkv; attention is a plain matmul + softmax, as the JAX einsum path, unless
+    the caller hands an ``attention`` function of the q, k, v slices."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int):
         super().__init__()
@@ -247,14 +286,18 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x: torch.Tensor, dropout: T.Optional[Dropout] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout: T.Optional[Dropout] = None,
+                attention: T.Optional[Attention] = None) -> torch.Tensor:
         B, S, D = x.shape
         H = self.n_heads
         hd = D // H
         qkv = F.linear(x, self.self_attn.in_proj_weight, self.self_attn.in_proj_bias)
-        q, k, v = (t.reshape(B, S, H, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-        attn = _drop(torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(hd), dim=-1), dropout)
-        ctx = (attn @ v).transpose(1, 2).reshape(B, S, D)
+        if attention is not None:
+            ctx = attention(*qkv.chunk(3, dim=-1))
+        else:
+            q, k, v = (t.reshape(B, S, H, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+            attn = _drop(torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(hd), dim=-1), dropout)
+            ctx = (attn @ v).transpose(1, 2).reshape(B, S, D)
         x = self.norm1(x + _drop(self.self_attn.out_proj(ctx), dropout))
         h = _drop(F.relu(self.linear1(x)), dropout)
         h = _drop(self.linear2(h), dropout)
@@ -328,37 +371,65 @@ class HumanActionScorer(nn.Module):
     def forward(self, x: torch.Tensor, precision: str = "highest",
                 generator: T.Optional[torch.Generator] = None):
         cfg = self.config
-        B, Tlen, D = x.shape
-        if D != cfg.input_dim:
-            raise ValueError(f"expected input dim {cfg.input_dim}, got {D}")
         dropout = None
         if self.training and cfg.dropout > 0.0:
             if generator is None:
                 raise ValueError("training mode with dropout needs a torch.Generator")
             dropout = Dropout(cfg.dropout, generator)
+        chains = self.chain_inputs(x)
+        m_tokens = self.modality_tokens(
+            (enc(xin, precision, dropout) for enc, xin, _slot in chains),   # one chain at a time
+            [slot for _enc, _xin, slot in chains])
+        attention = (None if self.training or cfg.attention_impl == "xla"
+                     else flash_attend(cfg.time_heads, cfg.attention_impl))
+        return self.embed_tokens(m_tokens, dropout, attention)
+
+    def chain_inputs(self, x: torch.Tensor
+                     ) -> T.List[T.Tuple[MovementConvEncoder, torch.Tensor, int]]:
+        """The conv chains of the input ``x [B, T, input_dim]`` in the forward's
+        order (per modality its raw chain, then its diff chain where it has
+        motion): ``(encoder, its input slice [B, T, d_in], modality slot)``."""
+        cfg = self.config
+        if x.shape[-1] != cfg.input_dim:
+            raise ValueError(f"expected input dim {cfg.input_dim}, got {x.shape[-1]}")
         opr = cfg.one_pass_raw
-        per_mod = []
-        r_off = d_off = 0
         diff_dims = dict(cfg.dims_map_diff)
-        for m, rd in cfg.dims_map_raw:
-            s = self.state_enc[m](x[:, :, r_off : r_off + rd], precision, dropout)
+        chains = []
+        r_off = d_off = 0
+        for slot, (m, rd) in enumerate(cfg.dims_map_raw):
+            chains.append((self.state_enc[m], x[:, :, r_off : r_off + rd], slot))
             r_off += rd
             dd = diff_dims[m]
             if cfg.has_motion(m):
-                s = s + self.motion_enc[m](x[:, :, opr + d_off : opr + d_off + dd], precision,
-                                           dropout)
+                chains.append((self.motion_enc[m], x[:, :, opr + d_off : opr + d_off + dd], slot))
             d_off += dd
-            # non-affine layer norm over the feature dim (ref model.py:175)
+        return chains
+
+    def modality_tokens(self, ys: T.Iterable[torch.Tensor], slots: T.Sequence[int]) -> torch.Tensor:
+        """The chains' outputs ``ys`` summed per modality slot (raw + diff, in
+        that order), each through a non-affine layer norm over the feature dim
+        (ref ``model.py:175``), as ``[B, T, M, D]``."""
+        sums: T.List[T.Optional[torch.Tensor]] = [None] * len(self.config.modalities)
+        for y, slot in zip(ys, slots):
+            sums[slot] = y if sums[slot] is None else sums[slot] + y
+        per_mod = []
+        for s in sums:
             mu = s.mean(dim=-1, keepdim=True)
             var = ((s - mu) ** 2).mean(dim=-1, keepdim=True)
             per_mod.append((s - mu) / torch.sqrt(var + 1e-5))
-        m_tokens = torch.stack(per_mod, dim=2)                    # [B, T, M, D]
+        return torch.stack(per_mod, dim=2)
 
+    def embed_tokens(self, m_tokens: torch.Tensor, dropout: T.Optional[Dropout] = None,
+                     attention: T.Optional[Attention] = None):
+        """The forward after the conv chains: per-frame fusion of the modality
+        tokens ``[B, T, M, D]``, the CLS token, positions and the temporal
+        transformer (its attention ``attention``, plain when None)."""
+        B, Tlen = m_tokens.shape[:2]
         frame_tok = self.fusion(m_tokens, dropout)                # [B, T, D]
-        tokens = torch.cat([self.cls.expand(B, 1, cfg.d_model), frame_tok], dim=1)
+        tokens = torch.cat([self.cls.expand(B, 1, self.config.d_model), frame_tok], dim=1)
         tokens = tokens + self.pos_enc.pe[:, : Tlen + 1]
         for layer in self.temporal.layers:
-            tokens = layer(tokens, dropout)
+            tokens = layer(tokens, dropout, attention)
         seq_embed = l2_normalize(tokens[:, 0, :], axis=-1)
         frame_embeds = l2_normalize(tokens, axis=-1)
         return seq_embed, frame_embeds, tokens

@@ -1,9 +1,10 @@
-"""Fused residual dilated-conv stage of the scoring encoder (K3), a CUDA
-kernel for Hopper.
+"""Fused residual dilated-conv stage of the scoring encoder (K3), and the same
+stage over S stacked chains in one launch (K9), CUDA kernels for Hopper.
 
 Replaces ``video_gen_evals_tpu/ops/conv_kernel.py::fused_temporal_block``
 (its ``"highest"`` body ``_block_kernel_f32`` and its ``"high"`` body
-``_block_kernel_high_mm``). Kernel source: ``csrc/temporal_block.cu``.
+``_block_kernel_high_mm``) and ``::fused_temporal_block_stacked``
+(``_block_kernel_high_stacked``). Kernel source: ``csrc/temporal_block.cu``.
 
 One stage on ``x [B, T, C]`` with weights ``[K, Cin, Cout]`` (ref
 ``model.py:21-40``): conv1 (k=5, dilation d, zero padding inside each window,
@@ -26,10 +27,17 @@ conv input, read as broadcasts; the next weights are loaded before the
 current ones are used. The kernel is built for T in {8, 16, 32}
 and C in {64, 128, 256}. Details in the source.
 
-:func:`fused_temporal_block` launches the kernel for CUDA tensors and runs
-:func:`fused_temporal_block_plain` for CPU tensors;
-``fused_temporal_block.launches`` counts kernel launches. The kernel has no
-backward: the wrapper refuses CUDA inputs that require grad.
+:func:`fused_temporal_block_stacked` (K9) runs the ``"high"`` stage on
+``xs [S, B, T, C]`` with per-chain weights ``[S, K, C, C]`` and norms
+``[S, C]``: one launch for all S chains (4 a scoring batch instead of K3's
+40), a grid of (window, chain) blocks each running K3's body on its chain's
+slices. Bound: S times K3's. ``"high"`` only, as in JAX.
+
+:func:`fused_temporal_block` and :func:`fused_temporal_block_stacked` launch
+their kernel for CUDA tensors and run their plain versions for CPU tensors;
+``fused_temporal_block.launches`` and ``fused_temporal_block_stacked.launches``
+count kernel launches. Neither kernel has a backward: the wrappers refuse
+CUDA inputs that require grad.
 """
 
 from __future__ import annotations
@@ -96,27 +104,48 @@ def fused_temporal_block_plain(
     return (y - mu) * torch.rsqrt(var + 1e-5) * gn_scale + gn_bias
 
 
-def _validate(x, w1, w2, gn_scale, gn_bias, precision) -> None:
-    if precision not in _PRECISIONS:
-        raise ValueError(
-            f"precision must be 'high' or 'highest', got {precision!r} "
-            "(a silent fallback would change numerics)"
-        )
-    if x.ndim != 3:
-        raise ValueError(f"x must be [B, T, C], got {tuple(x.shape)}")
-    C = x.shape[2]
-    for name, w in (("w1", w1), ("w2", w2)):
-        if tuple(w.shape) != (_K, C, C):
-            raise ValueError(f"{name} must be [{_K}, {C}, {C}], got {tuple(w.shape)}")
-    for name, g in (("gn_scale", gn_scale), ("gn_bias", gn_bias)):
-        if tuple(g.shape) != (C,):
-            raise ValueError(f"{name} must be [{C}], got {tuple(g.shape)}")
+def split_pairs(w: torch.Tensor) -> torch.Tensor:
+    """``[..., Cin, Cout]`` fp32 -> ``[..., Cin, Cout, 2]`` fp32 holding each
+    weight's (hi, lo) bf16 pair: the layout the ``"high"`` kernels read."""
+    return torch.stack([p.float() for p in split_bf16(w)], dim=-1)
+
+
+def validate_stage_args(name: str, x, w1, w2, gn_scale, gn_bias, lead: T.Tuple[int, ...] = (),
+                        x_dims: str = "B, T, C") -> None:
+    """Shapes, dtype and device of a conv stage's arguments: ``x`` of the
+    named dims, weights ``lead + [K, C, C]``, norm parameters ``lead + [C]``."""
+    if x.ndim != len(x_dims.split(",")):
+        raise ValueError(f"{name}: x must be [{x_dims}], got {tuple(x.shape)}")
+    C = x.shape[-1]
+    for arg, w in (("w1", w1), ("w2", w2)):
+        if tuple(w.shape) != lead + (_K, C, C):
+            raise ValueError(f"{arg} must be {list(lead + (_K, C, C))}, got {tuple(w.shape)}")
+    for arg, g in (("gn_scale", gn_scale), ("gn_bias", gn_bias)):
+        if tuple(g.shape) != lead + (C,):
+            raise ValueError(f"{arg} must be {list(lead + (C,))}, got {tuple(g.shape)}")
     tensors = (x, w1, w2, gn_scale, gn_bias)
     if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("fused_temporal_block takes float32 tensors")
+        raise TypeError(f"{name} takes float32 tensors")
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"all arguments must be on one device, got {devices}")
+
+
+def check_launchable(name: str, x: torch.Tensor, *tensors: torch.Tensor) -> None:
+    """What the conv-stage kernels take on the card: CUDA tensors, T and C of
+    the built instantiations, no gradient."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not {x.device}")
+    t_len, C = x.shape[-2:]
+    if t_len not in _KERNEL_T:
+        raise ValueError(f"the kernel is built for T in {_KERNEL_T}, got T={t_len}")
+    if C not in _KERNEL_C:
+        raise ValueError(f"the kernel is built for C in {_KERNEL_C}, got C={C}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x,) + tensors):
+        raise RuntimeError(
+            f"{name} has no backward on CUDA: run it under "
+            "torch.no_grad() / torch.inference_mode()"
+        )
 
 
 def fused_temporal_block(
@@ -129,28 +158,19 @@ def fused_temporal_block(
     precision: str = "high",
 ) -> torch.Tensor:
     """One fused residual dilated-conv stage over a window batch."""
-    _validate(x, w1, w2, gn_scale, gn_bias, precision)
+    if precision not in _PRECISIONS:
+        raise ValueError(
+            f"precision must be 'high' or 'highest', got {precision!r} "
+            "(a silent fallback would change numerics)"
+        )
+    validate_stage_args("fused_temporal_block", x, w1, w2, gn_scale, gn_bias)
     if x.device.type == "cpu":
         return fused_temporal_block_plain(x, w1, w2, gn_scale, gn_bias, dilation, precision)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_temporal_block runs on CUDA or CPU tensors, not {x.device}")
+    check_launchable("fused_temporal_block", x, w1, w2, gn_scale, gn_bias)
     B, t_len, C = x.shape
-    if t_len not in _KERNEL_T:
-        raise ValueError(f"the kernel is built for T in {_KERNEL_T}, got T={t_len}")
-    if C not in _KERNEL_C:
-        raise ValueError(f"the kernel is built for C in {_KERNEL_C}, got C={C}")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, w1, w2, gn_scale, gn_bias)
-    ):
-        raise RuntimeError(
-            "fused_temporal_block has no backward on CUDA: run it under "
-            "torch.no_grad() / torch.inference_mode()"
-        )
     split = precision == "high"
     if split:
-        # [K, Cin, Cout, 2] fp32 holding the (hi, lo) bf16 pair of each weight
-        w1k = torch.stack([p.float() for p in split_bf16(w1)], dim=-1)
-        w2k = torch.stack([p.float() for p in split_bf16(w2)], dim=-1)
+        w1k, w2k = split_pairs(w1), split_pairs(w2)
     else:
         w1k, w2k = w1.contiguous(), w2.contiguous()
     x = x.contiguous()
@@ -168,3 +188,51 @@ def fused_temporal_block(
 
 
 fused_temporal_block.launches = 0
+
+
+def fused_temporal_block_stacked_plain(
+    xs: torch.Tensor,
+    w1s: torch.Tensor,
+    w2s: torch.Tensor,
+    gn_scales: torch.Tensor,
+    gn_biases: torch.Tensor,
+    dilation: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of K9: K3's plain version at ``"high"`` per chain."""
+    return torch.stack([
+        fused_temporal_block_plain(x, w1, w2, gs, gb, dilation, "high")
+        for x, w1, w2, gs, gb in zip(xs, w1s, w2s, gn_scales, gn_biases)
+    ])
+
+
+def fused_temporal_block_stacked(
+    xs: torch.Tensor,          # [S, B, T, C] float32 stacked chain activations
+    w1s: torch.Tensor,         # [S, K, C, C] float32, [S, K, Cin, Cout]
+    w2s: torch.Tensor,         # [S, K, C, C] float32
+    gn_scales: torch.Tensor,   # [S, C]
+    gn_biases: torch.Tensor,   # [S, C]
+    dilation: int,
+) -> torch.Tensor:
+    """One residual stage for all S chains in one launch, at ``"high"``."""
+    validate_stage_args("fused_temporal_block_stacked", xs, w1s, w2s, gn_scales, gn_biases,
+                        lead=tuple(xs.shape[:1]), x_dims="S, B, T, C")
+    if xs.device.type == "cpu":
+        return fused_temporal_block_stacked_plain(xs, w1s, w2s, gn_scales, gn_biases, dilation)
+    check_launchable("fused_temporal_block_stacked", xs, w1s, w2s, gn_scales, gn_biases)
+    S, B, t_len, C = xs.shape
+    xs = xs.contiguous()
+    w1k, w2k = split_pairs(w1s), split_pairs(w2s)
+    gs, gb = gn_scales.contiguous(), gn_biases.contiguous()
+    out = torch.empty_like(xs)
+    lib = load_library().lib
+    code = lib.vge_temporal_block_stacked(
+        xs.device.index, xs.data_ptr(), w1k.data_ptr(), w2k.data_ptr(),
+        gs.data_ptr(), gb.data_ptr(), out.data_ptr(), S, B, t_len, C,
+        int(dilation), stream_handle(xs.device),
+    )
+    check(code, "fused_temporal_block_stacked launch")
+    fused_temporal_block_stacked.launches += 1
+    return out
+
+
+fused_temporal_block_stacked.launches = 0

@@ -28,7 +28,8 @@ import typing as T
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("window_gather.cu", "temporal_block.cu", "temporal_block_train.cu", "attention.cu")
+SOURCES = ("window_gather.cu", "temporal_block.cu", "temporal_chain.cu", "temporal_block_train.cu",
+           "attention.cu")
 HEADERS = ("conv_tile.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,9 +46,20 @@ _SIGNATURES = {
     # d_diff, video_idx, starts, batch, clip_len, out, stream
     "vge_gather_windows": [_I, _P, ctypes.c_longlong, _I, _P, _P, _I, _P, _I,
                            _I, _P, _P, _I, _I, _P, _P],
+    # device, bank, n_rows, d, out_dim, offsets, row_limit, n_videos, z0,
+    # one_pass_raw, d_diff, video_idx, starts, batch, clip_len, out, stream
+    "vge_gather_windows_subblock": [_I, _P, ctypes.c_longlong, _I, _I, _P, _P, _I, _P, _I,
+                                    _I, _P, _P, _I, _I, _P, _P],
     # device, x, w1, w2, gn_scale, gn_bias, out, batch, t_len, channels,
     # dilation, split_bf16, stream
     "vge_temporal_block": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # device, x, w1s, w2s, gn_scales, gn_biases, out, chains, batch, t_len,
+    # channels, dilation, stream
+    "vge_temporal_block_stacked": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # device, x, w1s, w2s, gn_scales, gn_biases, out, batch, t_len, channels,
+    # n_stages, dilations (host int array), stream
+    "vge_temporal_chain": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           ctypes.POINTER(ctypes.c_int), _P],
     # device, x, w1, w2, gn_scale, gn_bias, mask (or null), out, batch, t_len,
     # channels, dilation, round_bf16, stream
     "vge_temporal_block_train_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

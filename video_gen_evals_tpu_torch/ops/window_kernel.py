@@ -1,8 +1,13 @@
-"""Window gather of the scoring path (K1), a CUDA kernel for Hopper.
+"""Window gather of the scoring path (K1), and its 8-row sub-block form (K2),
+CUDA kernels for Hopper.
 
-Replaces ``video_gen_evals_tpu/ops/window_kernel.py::pallas_gather_windows_burst``
-(the same output as ``::pallas_gather_windows``). Kernel source:
-``csrc/window_gather.cu``.
+:func:`gather_windows` (K1) replaces
+``video_gen_evals_tpu/ops/window_kernel.py::pallas_gather_windows_burst``. It
+gives ``::pallas_gather_windows``' output only where a window's base row
+``offsets[v] + start`` (start clipped) is a multiple of 8: that kernel floors
+the base to an 8-row block, and K1 does not. :func:`gather_windows_subblock`
+(K2) is the port of ``::pallas_gather_windows`` with that floor. Kernel
+source: ``csrc/window_gather.cu``.
 
 Window ``b`` of video ``v = video_idx[b]`` is the contiguous row run
 ``bank[base : base + clip_len]`` of the sentinel-padded bank
@@ -20,12 +25,27 @@ when D % 4 == 0), then writes ``z0_diff`` behind a block barrier. Offsets and st
 arbitrary and D keeps its true width: the TPU's 8-row, 128-lane contract
 does not carry over.
 
-:func:`gather_windows` launches the kernel for CUDA tensors and runs
-:func:`gather_windows_plain` for CPU tensors; ``gather_windows.launches``
-counts kernel launches.
+K2 (:func:`gather_windows_subblock`) reads window ``b`` as ``clip_len / 8``
+sub-blocks of 8 rows from ``base = ((offsets[v] + start) // 8) * 8``, start
+clipped as above, each sub-block's first row kept inside the bank
+(``clip(base + 8 j, 0, N - 8)``), then writes ``z0_diff`` to row 0; it needs
+``clip_len % 8 == 0``, as in JAX. For a clipped start that is not a multiple
+of 8 (a video of 37 rows, clip 32, start 8 clips to 5) it reads from the
+aligned row below, where K1 reads from the start. The TPU's 128-lane padding
+of the bank is not needed; ``out_dim`` slices the feature dim as in JAX.
+Bound: bytes, as K1. Design: one block per (window, sub-block), 16-byte
+copies, the ``z0_diff`` write behind a barrier in the block of sub-block 0.
+No pipeline calls K2, as in the JAX package.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain version
+(:func:`gather_windows_plain`, :func:`gather_windows_subblock_plain`) for CPU
+tensors; ``gather_windows.launches`` and ``gather_windows_subblock.launches``
+count kernel launches.
 """
 
 from __future__ import annotations
+
+import typing as T
 
 import torch
 
@@ -117,3 +137,79 @@ def gather_windows(
 
 
 gather_windows.launches = 0
+
+
+_ALIGN = 8   # rows a sub-block of K2
+
+
+def gather_windows_subblock_plain(
+    bank: torch.Tensor,       # [N, D] float32
+    offsets: torch.Tensor,    # [V] int32
+    row_limit: torch.Tensor,  # [V] int32
+    z0_diff: torch.Tensor,    # [D_diff] float32
+    one_pass_raw: int,
+    video_idx: torch.Tensor,  # [B] int32
+    starts: torch.Tensor,     # [B] int32
+    clip_len: int,
+    out_dim: T.Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K2: ``[B, clip_len, out_dim or D]``."""
+    n_rows = bank.shape[0]
+    out_dim = bank.shape[1] if out_dim is None else out_dim
+    v = video_idx.long().clamp(0, offsets.shape[0] - 1)
+    rows_v = row_limit[v].long() + 1
+    start = torch.minimum(starts.long().clamp_min(0), (rows_v - clip_len).clamp_min(0))
+    base = (offsets[v].long() + start) // _ALIGN * _ALIGN
+    sub = base[:, None] + _ALIGN * torch.arange(clip_len // _ALIGN, device=bank.device)[None, :]
+    sub = sub.clamp(0, n_rows - _ALIGN)
+    rows = (sub[:, :, None] + torch.arange(_ALIGN, device=bank.device)).reshape(-1, clip_len)
+    out = bank[rows, :out_dim]
+    out[:, 0, one_pass_raw : one_pass_raw + z0_diff.shape[0]] = z0_diff
+    return out
+
+
+def gather_windows_subblock(
+    bank: torch.Tensor,
+    offsets: torch.Tensor,
+    row_limit: torch.Tensor,
+    z0_diff: torch.Tensor,
+    one_pass_raw: int,
+    video_idx: torch.Tensor,
+    starts: torch.Tensor,
+    clip_len: int,
+    out_dim: T.Optional[int] = None,
+) -> torch.Tensor:
+    """K2: windows from 8-row sub-blocks, the base floored to 8 rows
+    (signature of the JAX ``pallas_gather_windows``)."""
+    if clip_len % _ALIGN != 0:
+        raise ValueError(f"clip_len {clip_len} must be a multiple of {_ALIGN}")
+    _validate(bank, offsets, row_limit, z0_diff, one_pass_raw, video_idx, starts, clip_len)
+    d = bank.shape[1]
+    out_dim = d if out_dim is None else int(out_dim)
+    if not 0 < out_dim <= d:
+        raise ValueError(f"out_dim {out_dim} must be in [1, {d}]")
+    if one_pass_raw + z0_diff.shape[0] > out_dim:
+        raise ValueError("the diff block [one_pass_raw, +len(z0_diff)) must lie inside out_dim")
+    if bank.device.type == "cpu":
+        return gather_windows_subblock_plain(bank, offsets, row_limit, z0_diff, one_pass_raw,
+                                             video_idx, starts, clip_len, out_dim)
+    if bank.device.type != "cuda":
+        raise ValueError(f"gather_windows_subblock runs on CUDA or CPU tensors, not {bank.device}")
+    bank, offsets, row_limit, z0_diff, video_idx, starts = (
+        t.contiguous() for t in (bank, offsets, row_limit, z0_diff, video_idx, starts)
+    )
+    B = video_idx.shape[0]
+    out = torch.empty((B, clip_len, out_dim), dtype=torch.float32, device=bank.device)
+    lib = load_library().lib
+    code = lib.vge_gather_windows_subblock(
+        bank.device.index, bank.data_ptr(), bank.shape[0], d, out_dim, offsets.data_ptr(),
+        row_limit.data_ptr(), offsets.shape[0], z0_diff.data_ptr(), one_pass_raw,
+        z0_diff.shape[0], video_idx.data_ptr(), starts.data_ptr(), B, clip_len,
+        out.data_ptr(), stream_handle(bank.device),
+    )
+    check(code, "gather_windows_subblock launch")
+    gather_windows_subblock.launches += 1
+    return out
+
+
+gather_windows_subblock.launches = 0

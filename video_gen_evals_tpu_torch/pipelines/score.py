@@ -6,6 +6,11 @@ the device:
   gather windows (K1 kernel) -> HumanActionScorer forward (K3 kernel for the
   40 residual conv stages) -> per-window TC -> per-segment sums (index_add_)
 
+``--encoder-impl`` picks the forward as in JAX: ``auto`` and ``module`` the
+module forward above; ``block_kernel`` and ``chain_kernel`` the fused forward
+``models/fused_apply.py::block_kernel_forward``, with one conv stage a launch
+(K3) or a chain's 4 stages a launch (K10), both at ``--precision high`` only.
+
 The bank is built on the host and uploaded once per sweep; window indices
 are uploaded once per sweep too, and the segment sums come back in one fetch
 at its end, so the sweep never waits on the host between batches. The tail
@@ -45,11 +50,18 @@ from ..data import (
 from ..metrics.correlation import match_and_correlate
 from ..metrics.scores import finalize_centroids, finalize_video_scores, tc_per_window
 from ..models import EncoderConfig, HumanActionScorer
+from ..models.fused_apply import block_kernel_forward
 from ..ops.window_kernel import gather_windows
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.names import ACTION_CLASSES, canonicalize_class
 
 PRECISIONS = ("high", "highest")
+ENCODER_IMPLS = ("auto", "module", "block_kernel", "chain_kernel")
+# block_kernel_forward's arguments for each explicit kernel forward
+_FUSED = {
+    "block_kernel": dict(stage_fusion="stage", conv_variant="mm_first"),
+    "chain_kernel": dict(stage_fusion="chain", conv_variant="slice"),
+}
 
 
 @dataclasses.dataclass
@@ -61,11 +73,14 @@ class ScoreConfig:
     # arithmetic of the conv-stage kernel: "high" (bf16x3, the JAX scoring
     # default) or "highest" (fp32); every other matmul runs in fp32
     precision: str = "high"
+    # the encoder forward (ENCODER_IMPLS): "auto" and "module" the module
+    # forward, "block_kernel" / "chain_kernel" the fused kernel forwards
+    encoder_impl: str = "auto"
 
 
 class WindowEncoder:
     """Encodes window sweeps of a feature bank on one device and reduces them
-    to per-segment sums there."""
+    to per-segment sums there. ``encoder_impl``: see ``ENCODER_IMPLS``."""
 
     def __init__(
         self,
@@ -74,9 +89,19 @@ class WindowEncoder:
         clip_len: int,
         precision: str = "high",
         device: T.Union[str, torch.device] = "cuda",
+        encoder_impl: str = "auto",
     ):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+        if encoder_impl not in ENCODER_IMPLS:
+            raise ValueError(f"encoder_impl must be one of {ENCODER_IMPLS}, got {encoder_impl!r}")
+        if encoder_impl in _FUSED and precision != "high":
+            # the fused kernels run bf16x3: another precision would silently
+            # change numerics
+            raise ValueError(
+                f"encoder_impl={encoder_impl!r} runs the fused kernels at precision 'high' "
+                f"(bf16x3); precision={precision!r} needs encoder_impl 'auto' or 'module'")
+        self._fused = _FUSED.get(encoder_impl)   # block_kernel_forward's arguments, or None
         self.device = resolve_device(device)
         disable_tf32()
         self.model = model.to(self.device).eval()
@@ -117,9 +142,17 @@ class WindowEncoder:
             with torch.inference_mode():   # never held across a yield
                 w = gather_windows(bank_d, offsets_d, row_limit_d, z0_d, bank.one_pass_raw,
                                    vi_d[b], st_d[b], self.clip_len)
-                seq, frames, _ = self.model(w, self.precision)
+                seq, frames, _ = self.forward(w)
                 tc = tc_per_window(frames)
             yield b, seq, tc
+
+    def forward(self, w: torch.Tensor):
+        """The encoder forward on a window batch: ``model(w)`` or the fused
+        kernel forward of ``encoder_impl``."""
+        if self._fused is None:
+            return self.model(w, self.precision)
+        return block_kernel_forward(self.model.config, self.model, w, precision=self.precision,
+                                    **self._fused)
 
     def encode_bank(
         self,
@@ -254,7 +287,8 @@ def score_generated(
         train_ds, _ = train_test_split(real_manifest, 0.8, seed=cfg.seed)
         stats = compute_stats(train_ds.items, real_paths)
 
-    encoder = WindowEncoder(model, cfg.batch_size, cfg.clip_len, cfg.precision, device)
+    encoder = WindowEncoder(model, cfg.batch_size, cfg.clip_len, cfg.precision, device,
+                            cfg.encoder_impl)
     centroids, label_dict = build_real_centroids(encoder, real_manifest, real_paths, stats, cfg)
     gen_bank = build_feature_bank(gen_manifest.items, gen_paths, stats, min_rows=cfg.clip_len + 8)
     combined = score_bank(encoder, gen_bank, gen_manifest, centroids, label_dict, cfg)
@@ -302,6 +336,10 @@ def main(argv: T.Optional[T.List[str]] = None) -> None:
     p.add_argument("--no-bug-compat", dest="bug_compat", action="store_false")
     p.add_argument("--precision", default="high", choices=list(PRECISIONS),
                    help="conv-stage kernel arithmetic: 'high' (bf16x3) or 'highest' (fp32)")
+    p.add_argument("--encoder-impl", default="auto", choices=list(ENCODER_IMPLS),
+                   help="encoder forward: the module forward (auto, module) or the fused "
+                        "kernel forwards (block_kernel: K3 a stage; chain_kernel: K10 a chain; "
+                        "both --precision high only)")
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
     args = p.parse_args(argv)
     try:
@@ -310,7 +348,8 @@ def main(argv: T.Optional[T.List[str]] = None) -> None:
         p.error(f"--device: {e}")
 
     bc = BugCompat.enabled() if args.bug_compat else BugCompat.disabled()
-    cfg = ScoreConfig(args.clip_len, args.stride, args.batch_size, precision=args.precision)
+    cfg = ScoreConfig(args.clip_len, args.stride, args.batch_size, precision=args.precision,
+                      encoder_impl=args.encoder_impl)
     real_paths = ModalityPaths(
         keypoint_dir=args.real_kp_dir, clip_dir=args.real_clip_dir,
         dino_dir=args.real_dino_dir, layout="auto" if bc.layout_auto else "real",
