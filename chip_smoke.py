@@ -77,6 +77,20 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    against the fp32 run (BF16_STAGE_TOL); the mesh dict written with
    save_video_npz and read back by the scoring path's loader. Frames/s and
    ms per chunk (crop, backbone, head) for each attention_impl, peak memory.
+8. The Faster R-CNN X101-32x8d-FPN detect stage at full width (weights drawn
+   on the card from a seed) on the same 72-frame video. K5
+   (roi_align_pyramid_dma) against its plain version on one detect chunk's
+   own packed pyramid and proposals (8 x 1000 ROIs) and on over-span boxes
+   of the same buffer (K5_TOL), ms and bound. Extractor.process_video(frames)
+   with mesh_detector "rcnn" and no boxes, ViT-H at full depth,
+   keep_all_frames: contract shapes, finite values, K5 launched once a chunk
+   (9), K6 as in phase 7; then keep_all_frames=False, whose result is None or
+   the frames of the detector's single-person mask. The small config on the
+   card against the CPU's plain versions with roi_impl "dma" on both
+   (levels, RPN outputs and box_forward logits 1e-4, detections 5e-3).
+   Detector frames/s, ms per 8-frame chunk split into resize, backbone + FPN,
+   RPN + proposals (NMS apart), pool (K5) and box head + postprocess, peak
+   memory.
 
 Then a JSON line listing the kernels, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -124,6 +138,11 @@ VIT_B, VIT_N, VIT_H, VIT_HD = 32, 192, 16, 80   # one ViT-H layer of one 32-fram
 # depth 32 and 0.017 at depth 4 on an H100.
 BF16_STAGE_TOL = 0.05
 MESH_FRAMES, MESH_HW = 72, (360, 640)
+# K5 against its plain version, both on the card: fp32 sums of up to 48 x 56
+# taps a bin in another order; relative to max(1, max |plain|), so 2e-5 on
+# unit-scale features (the seeded detector's FPN levels are of order 10)
+K5_TOL = 2e-5
+RCNN_BATCH = 8   # ExtractorConfig.rcnn_frame_batch
 # K9 and K10 against their plain versions at "high", both on the card, and a
 # fused forward's AC and TC against the module forward's: bf16x3 on both
 # sides, the sums in another order (measured 2e-5 to 6e-5 on an H100)
@@ -1246,6 +1265,235 @@ def _stage_timing(torch, ex, frames, boxes, tag, card):
     return len(frames) / dt
 
 
+def _k5_work(torch, geom, channels):
+    """FMAs that K5's contraction needs on these ROIs: the taps with weight
+    (each bin row's span of rows times the span of columns any bin column
+    weights, plus the 7 x 7 column sums)."""
+    _wy0, _wx0, Wy, Wx, _w, _wx = geom
+    rows_nz = (Wy != 0).to(torch.int64)
+    col_nz = (Wx != 0).any(dim=1).to(torch.int64)
+    idx_y = torch.arange(Wy.shape[2], device=Wy.device)
+    ny = torch.where(rows_nz.bool(), idx_y, -1).amax(-1) - torch.where(rows_nz.bool(), idx_y, 10**6).amin(-1) + 1
+    idx_x = torch.arange(Wx.shape[2], device=Wx.device)
+    nx = torch.where(col_nz.bool(), idx_x, -1).amax(-1) - torch.where(col_nz.bool(), idx_x, 10**6).amin(-1) + 1
+    ny, nx = ny.clamp_min(0), nx.clamp_min(0)
+    return int(((ny.sum(-1) + 49) * nx).sum().item()) * channels
+
+
+def _k5_cells(torch, geom, n_images, rois_per_image, buffer_hw):
+    """Buffer cells K5 must read on these ROIs: the union, over an image's
+    ROIs, of the window cells whose row and column both carry weight (each
+    counted once; the zero padding right of the narrow levels and the cells
+    no ROI weights are not read)."""
+    wy0, wx0, Wy, Wx, _w, _wx = geom
+    bufh, bufw = buffer_hw
+    dev = Wy.device
+    img = torch.arange(n_images, device=dev).repeat_interleave(rois_per_image)
+    rows = img[:, None] * bufh + wy0.long()[:, None] + torch.arange(Wy.shape[2], device=dev)
+    cols = wx0.long()[:, None] + torch.arange(Wx.shape[2], device=dev)
+    flat = rows[:, :, None] * bufw + cols[:, None, :]
+    weighted = (Wy != 0).any(dim=1)[:, :, None] & (Wx != 0).any(dim=1)[:, None, :]
+    read = torch.zeros(n_images * bufh * bufw, dtype=torch.bool, device=dev)
+    read[flat[weighted]] = True
+    return int(read.sum().item())
+
+
+def phase_detector(torch, card):
+    """Phase 8: the R-CNN detect stage at full width, K5 on its own tensors,
+    process_video from raw frames, the small config against the CPU, timings."""
+    import dataclasses
+
+    import numpy as np
+
+    from video_gen_evals_tpu_torch.models.rcnn import (
+        FasterRCNN, RCNNConfig, fast_rcnn_postprocess, init_rcnn_weights_, nms_masked, predictor_canvas)
+    from video_gen_evals_tpu_torch.models.vit import ViTConfig
+    from video_gen_evals_tpu_torch.ops.attention_core import mha_core
+    from video_gen_evals_tpu_torch.ops.roi_align import (
+        assign_fpn_levels, dma_geometry, pack_pyramid, roi_align_pyramid_dma, roi_align_pyramid_dma_plain)
+    from video_gen_evals_tpu_torch.pipelines.extract import Extractor, ExtractorConfig
+
+    frames, _boxes, _large = mesh_video()
+    n = len(frames)
+    chunks = -(-n // RCNN_BATCH)
+    cfg = ExtractorConfig(vit=ViTConfig(depth=32, attention_impl="core"), frame_batch=32,
+                          matmul_precision="highest", mesh_detector="rcnn", keep_all_frames=True)
+    t0 = time.perf_counter()
+    ex = Extractor(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_det = sum(p.numel() for p in ex.rcnn.parameters())
+    print(f"rcnn: X101-32x8d-FPN ({n_det / 1e6:.1f} M parameters) + ViT-H depth 32 + SMPL head drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s")
+
+    # the main path: process_video from raw frames, counts set to 0 just before
+    roi_align_pyramid_dma.launches = mha_core.launches = 0
+    t0 = time.perf_counter()
+    mesh = ex.process_video(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (roi_align_pyramid_dma.launches, mha_core.launches)
+    worst = _check_contract(torch, np, mesh, n, "rcnn process_video")
+    _check(counts == (chunks, 32 * -(-n // 32)), f"rcnn process_video: launches (K5, K6) {counts}")
+    print(f"rcnn: process_video({n} frames of {MESH_HW[0]} x {MESH_HW[1]}), mesh_detector rcnn, no boxes: "
+          f"{wall:.2f} s cold; K5 launched {counts[0]} times ({chunks} chunks of {RCNN_BATCH}), K6 {counts[1]}; "
+          f"contract shapes, finite, rotations within {worst:.1e}")
+    launches = {"roi_align_pyramid_dma": counts[0]}
+
+    frames_dev = torch.from_numpy(frames).cuda()
+    det = ex.detect_stage(frames_dev)
+    single = det["single"].cpu().numpy()
+    box = det["box"]
+    _check(bool(torch.isfinite(box).all()) and bool((box[:, 2] <= MESH_HW[1]).all())
+           and bool((box[:, 3] <= MESH_HW[0]).all()) and bool((box[:, :2] >= 0).all()),
+           "rcnn: detect-stage boxes not finite or outside the frame")
+    ex.cfg.keep_all_frames = False
+    filtered = ex.process_video(frames)
+    ex.cfg.keep_all_frames = True
+    accept = single.sum() > 0 and single.mean() >= cfg.min_single_ratio
+    if accept:
+        _check(filtered is not None and np.array_equal(filtered["frame_idx"], np.flatnonzero(single)),
+               "rcnn keep_all_frames=False: kept frames differ from the detector's single mask")
+    else:
+        _check(filtered is None, "rcnn keep_all_frames=False: a video below min_single_ratio was kept")
+    print(f"rcnn: detector's single-person mask holds {int(single.sum())} of {n} frames, present "
+          f"{int(det['present'].sum())}; keep_all_frames=False -> "
+          f"{'None (rejected)' if filtered is None else str(len(filtered['frame_idx'])) + ' frames'}, as the rule says")
+
+    # detector frames/s over the video, and the peak memory of the stage
+    # (both nets' weights resident)
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reps = 2
+        for _ in range(reps):
+            ex.detect_stage(frames_dev)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / reps
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # K5 against its plain version on chunk 0's own pyramid and proposals
+    results = {}
+    rc = ex.cfg.rcnn
+    with torch.inference_mode():
+        canvas, hw = predictor_canvas(frames_dev[:RCNN_BATCH], rc)
+        feats = ex.rcnn.backbone_features(canvas)
+        props, valid = ex.rcnn.proposals(feats, hw)
+        levels = assign_fpn_levels(props)
+        buf, offs, lhw = pack_pyramid(feats[:4])
+        args = (buf, offs, lhw, rc.strides[:4], props, levels)
+        got = roi_align_pyramid_dma(*args, window=rc.roi_window)
+        want = roi_align_pyramid_dma_plain(*args, window=rc.roi_window)
+        torch.cuda.synchronize()
+        scale = max(1.0, want.abs().max().item())
+        err = (got - want).abs().max().item()
+        _check(bool(torch.isfinite(got).all()), "K5: non-finite output")
+        _check(err <= K5_TOL * scale, f"K5 on the detect chunk: max |kernel - plain| {err:.3e} > {K5_TOL} * {scale:.2f}")
+        hist = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+        # over-span boxes on the same buffer: 100 an image, wider than the 56-column window on p2
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        x0 = torch.rand(RCNN_BATCH, 100, generator=g, device="cuda") * 300
+        y0 = torch.rand(RCNN_BATCH, 100, generator=g, device="cuda") * 600
+        wide = torch.stack([x0, y0, x0 + 240 + torch.rand(RCNN_BATCH, 100, generator=g, device="cuda") * 780,
+                            y0 + 8 + torch.rand(RCNN_BATCH, 100, generator=g, device="cuda") * 40], dim=-1)
+        wl = torch.zeros(RCNN_BATCH, 100, dtype=torch.int32, device="cuda")
+        ow = roi_align_pyramid_dma(buf, offs, lhw, rc.strides[:4], wide, wl, window=rc.roi_window)
+        pw = roi_align_pyramid_dma_plain(buf, offs, lhw, rc.strides[:4], wide, wl, window=rc.roi_window)
+        torch.cuda.synchronize()
+        scale_w = max(1.0, pw.abs().max().item())
+        err_w = (ow - pw).abs().max().item()
+        _check(err_w <= K5_TOL * scale_w, f"K5 over-span: max |kernel - plain| {err_w:.3e} > {K5_TOL} * {scale_w:.2f}")
+        ms, plain_ms = _interleaved_ms(lambda: roi_align_pyramid_dma(*args, window=rc.roi_window),
+                                       lambda: roi_align_pyramid_dma_plain(*args, window=rc.roi_window), 5)
+        geom = dma_geometry(tuple(buf.shape[1:3]), offs, lhw, rc.strides[:4], props.reshape(-1, 4),
+                            levels.reshape(-1), window=rc.roi_window)
+        fmas = _k5_work(torch, geom, buf.shape[-1])
+        cells = _k5_cells(torch, geom, *props.shape[:2], tuple(buf.shape[1:3]))
+    level_cells = RCNN_BATCH * sum(h * w for h, w in lhw)
+    # each weighted cell read once, the boxes and levels, the output written once
+    nbytes = 4 * (cells * buf.shape[-1] + props.numel() + levels.numel() + got.numel())
+    bound_ms, bound_by = _bound(nbytes, 2 * fmas, PEAK_FP32)
+    print(f"K5 roi_align_pyramid_dma on one detect chunk: buffer {tuple(buf.shape)} ({buf.numel() * 4 / 1e6:.1f} MB, "
+          f"{level_cells} level cells, {cells} of them weighted by some ROI), "
+          f"{props.shape[0]} x {props.shape[1]} proposals ({int(valid.sum())} valid; levels p2..p5 {hist}): "
+          f"max |kernel - plain| {err:.2e} (tol {K5_TOL} x {scale:.2f} = {K5_TOL * scale:.2e}); over-span boxes "
+          f"{err_w:.2e} (tol {K5_TOL} x {scale_w:.2f} = {K5_TOL * scale_w:.2e}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}: {nbytes / 1e6:.1f} MB, {2 * fmas / 1e9:.2f} GFLOP of weighted taps); "
+          f"no single PyTorch call computes ROIAlign (and no torchvision on the card)")
+    results["roi_align_pyramid_dma"] = dict(max_abs_err=max(err, err_w), ms=ms, plain_ms=plain_ms,
+                                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+    # the split of one chunk
+    with torch.inference_mode():
+        chunk = frames_dev[:RCNN_BATCH]
+        rcnn = ex.rcnn
+        pooled = rcnn.pool(feats, props)
+        K = props.shape[1]
+
+        def head_post():
+            c, d = rcnn.box_head(pooled.reshape(-1, *pooled.shape[2:]))
+            return fast_rcnn_postprocess(c.reshape(RCNN_BATCH, K, -1), d.reshape(RCNN_BATCH, K, -1), props, valid,
+                                         hw, rc)
+
+        parts = {
+            "resize": _time_ms(lambda: predictor_canvas(chunk, rc), 3),
+            "backbone + FPN": _time_ms(lambda: rcnn.backbone_features(canvas), 3),
+            "RPN + proposals": _time_ms(lambda: rcnn.proposals(feats, hw), 3),
+            "pool (pack + K5)": _time_ms(lambda: rcnn.pool(feats, props), 3),
+            "box head + postprocess": _time_ms(head_post, 3),
+        }
+        # the two NMS loops alone at the chunk's shapes (1000 steps of two
+        # launches each, whatever the boxes): frames x 5 levels of
+        # rpn_pre_nms_topk candidates, then frames x second_stage_candidates
+        rpn_boxes = props.repeat(len(feats), 1, 1)
+        rpn_valid = torch.ones(rpn_boxes.shape[:2], dtype=torch.bool, device=rpn_boxes.device)
+        nms_ms = [_time_ms(lambda: nms_masked(rpn_boxes, rpn_valid, rc.rpn_nms_thresh), 3),
+                  _time_ms(lambda: nms_masked(props, valid, rc.test_nms_thresh), 3)]
+    split = ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+    print(f"rcnn timing: detect stage {n / dt:.1f} frames/s ({dt * 1e3 / chunks:.1f} ms per {RCNN_BATCH}-frame chunk, "
+          f"upload excluded, the chunks' results kept on the card); one chunk: {split} ms; NMS loops alone: RPN "
+          f"{nms_ms[0]:.2f} ms ({rc.rpn_pre_nms_topk} steps over {RCNN_BATCH} x 5 levels), second stage "
+          f"{nms_ms[1]:.2f} ms; peak memory {peak:.2f} GiB with both nets' weights on {card}")
+    del ex, feats, buf, canvas, pooled, got, want
+    torch.cuda.empty_cache()
+
+    # the small config on the card against the CPU's plain versions, K5 pinned on both
+    small = dataclasses.replace(RCNNConfig.small(), roi_impl="dma")
+    on_card = FasterRCNN(small).cuda().eval()
+    init_rcnn_weights_(on_card, torch.Generator(device="cuda").manual_seed(SEED))
+    with torch.no_grad():   # class logits of order 3, so that boxes pass the 0.25 score threshold
+        on_card.roi_heads.box_predictor.cls_score.weight.mul_(300.0)
+    on_cpu = FasterRCNN(small).eval()
+    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    with torch.inference_mode():
+        x, small_hw = predictor_canvas(frames_dev[np.arange(4) * 17], small)
+        xc = x.cpu()
+        d_feat = max((a.cpu() - b).abs().max().item() for a, b in zip(on_card.backbone_features(x),
+                                                                      on_cpu.backbone_features(xc)))
+        d_rpn = max((a.cpu() - b).abs().max().item()
+                    for pa, pb in zip(on_card.rpn_raw(x), on_cpu.rpn_raw(xc)) for a, b in zip(pa, pb))
+        fixed = torch.tensor([[4.0, 4.0, 40.0, 40.0], [10.0, 5.0, 70.0, 44.0], [0.0, 0.0, 80.0, 45.0],
+                              [30.0, 10.0, 34.0, 18.0]]).expand(4, 4, 4).contiguous()
+        lv = assign_fpn_levels(fixed)
+        roi_align_pyramid_dma.launches = 0
+        box_card = on_card.box_forward(x, fixed.cuda(), lv.cuda())
+        box_cpu = on_cpu.box_forward(xc, fixed, lv)
+        d_box = max((a.cpu() - b).abs().max().item() for a, b in zip(box_card, box_cpu))
+        det_card, det_cpu = on_card(x, image_hw=small_hw), on_cpu(xc, image_hw=small_hw)
+        torch.cuda.synchronize()
+    _check(roi_align_pyramid_dma.launches == 2, f"rcnn small on the card: K5 launched {roi_align_pyramid_dma.launches}")
+    v = det_cpu["valid"]
+    same = torch.equal(det_card["valid"].cpu(), v) and torch.equal(det_card["classes"].cpu()[v], det_cpu["classes"][v])
+    d_det = (det_card["boxes"].cpu()[v] - det_cpu["boxes"][v]).abs().max().item() if v.any() else 0.0
+    print(f"rcnn small config, 4 frames, card (K5) vs CPU (its plain version): levels {d_feat:.2e}, RPN {d_rpn:.2e}, "
+          f"box_forward {d_box:.2e} (tol 1e-4); {int(v.sum())} detections, valid and classes "
+          f"{'equal' if same else 'DIFFER'}, boxes {d_det:.2e} (tol 5e-3)")
+    _check(max(d_feat, d_rpn, d_box) <= 1e-4, "rcnn small: card vs CPU beyond 1e-4")
+    _check(same and d_det <= 5e-3, "rcnn small: detections differ between card and CPU")
+    return results, launches
+
+
 def main() -> int:
     import torch
 
@@ -1274,6 +1522,8 @@ def main() -> int:
     fused_launches = phase_fused_sweep(torch, card)
     train_launches = phase_training(torch, card)
     mesh_launches = phase_mesh_stage(torch, card)
+    det_kern, det_launches = phase_detector(torch, card)
+    kern.update(det_kern)
 
     src = "video_gen_evals_tpu_torch/csrc/"
     rows = [
@@ -1308,6 +1558,8 @@ def main() -> int:
                 ("mha_head_batched", "video_gen_evals_tpu/ops/attention_core.py:172"),
                 ("flash_attention", "video_gen_evals_tpu/ops/attention.py:123"))
         ]
+    rows.append(("roi_align_pyramid_dma", "roi_align.cu", "video_gen_evals_tpu/ops/roi_align.py:335",
+                 det_launches["roi_align_pyramid_dma"]))
     for name, _f, _rep, n in rows:
         _check(n > 0, f"{name} was never launched on its main path")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

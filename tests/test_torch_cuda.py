@@ -33,6 +33,12 @@ from video_gen_evals_tpu_torch.ops.conv_kernel_train import (
     fused_temporal_block_train_bwd_plain,
     fused_temporal_block_train_plain,
 )
+from video_gen_evals_tpu_torch.ops.roi_align import (
+    assign_fpn_levels,
+    pack_pyramid,
+    roi_align_pyramid_dma,
+    roi_align_pyramid_dma_plain,
+)
 from video_gen_evals_tpu_torch.ops.window_kernel import (
     gather_windows,
     gather_windows_plain,
@@ -438,3 +444,94 @@ def test_vit_block_on_card_matches_plain_impl(cuda, impl, dtype):
     torch.cuda.synchronize()
     tol = 0.1 if dtype == torch.bfloat16 else 5e-2 if impl == "flash_bf16" else 1e-4
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+# K5 against its plain version: fp32 sums of at most 48 x 56 taps a bin in
+# another order, on features of order 1
+_ROI_TOL = 2e-5
+
+
+def _roi_inputs(gen, batch, canvas, channels, n_rois):
+    """A packed pyramid of unit-scale features for ``batch`` canvases, random
+    proposals on their canonical levels, and over-span boxes (wider than the
+    56-column window) on p2."""
+    H, W = canvas
+    feats = [torch.randn(batch, channels, H // s, W // s, generator=gen) for s in (4, 8, 16, 32)]
+    xy = torch.rand(batch, n_rois, 2, generator=gen) * torch.tensor([W, H]) * 0.9
+    wh = 4 + torch.rand(batch, n_rois, 2, generator=gen) ** 2 * torch.tensor([W, H]) * 0.5
+    boxes = torch.cat([xy, xy + wh], dim=-1)
+    boxes[:, :4] = torch.tensor([[0.0, 40.0, W - 1.0, 60.0], [8.0, 0.0, W * 0.8, 12.0],
+                                 [W * 0.5, H * 0.5, W * 1.0, H * 0.5 + 6], [3.0, 3.0, 3.0, 30.0]])
+    levels = assign_fpn_levels(boxes)
+    levels[:, :3] = 0
+    return pack_pyramid(feats), boxes, levels
+
+
+@pytest.mark.parametrize("batch,canvas,channels,n_rois", [(2, (768, 1344), 256, 1000), (3, (96, 160), 16, 37)])
+def test_roi_align_kernel_matches_plain(cuda, batch, canvas, channels, n_rois):
+    """K5 on the detector's full canvas (p2..p5 packed into 360 x 336 x 256)
+    and on a small one, in-span proposals and over-span boxes: within
+    _ROI_TOL of the plain version, one launch a call."""
+    gen = torch.Generator().manual_seed(7)
+    (buf, offs, hw), boxes, levels = _roi_inputs(gen, batch, canvas, channels, n_rois)
+    want = roi_align_pyramid_dma_plain(buf, offs, hw, (4, 8, 16, 32), boxes, levels)
+    before = roi_align_pyramid_dma.launches
+    got = roi_align_pyramid_dma(buf.to(cuda), offs, hw, (4, 8, 16, 32), boxes.to(cuda), levels.to(cuda))
+    torch.cuda.synchronize()
+    assert roi_align_pyramid_dma.launches == before + 1
+    assert got.shape == (batch, n_rois, 7, 7, channels)
+    assert (got.cpu() - want).abs().max().item() <= _ROI_TOL
+    assert got[:, 3].abs().max().item() == 0.0            # the empty box
+
+
+def test_roi_align_kernel_refuses(cuda):
+    gen = torch.Generator().manual_seed(8)
+    (buf, offs, hw), boxes, levels = _roi_inputs(gen, 1, (96, 160), 16, 5)
+    buf, boxes, levels = buf.to(cuda), boxes.to(cuda), levels.to(cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        roi_align_pyramid_dma(buf.bfloat16(), offs, hw, (4, 8, 16, 32), boxes, levels)
+    with pytest.raises(ValueError, match="7 x 7"):
+        roi_align_pyramid_dma(buf, offs, hw, (4, 8, 16, 32), boxes, levels, out_size=5)
+    with pytest.raises(ValueError, match="one device"):
+        roi_align_pyramid_dma(buf, offs, hw, (4, 8, 16, 32), boxes.cpu(), levels)
+
+
+def test_rcnn_on_card_matches_cpu(cuda):
+    """The small R-CNN with seeded weights, K5 pinned on both sides (its
+    plain version on the CPU): levels within 1e-4 of the largest, equal
+    valid counts and classes, boxes within 5e-3."""
+    import dataclasses
+
+    from video_gen_evals_tpu_torch.models.rcnn import FasterRCNN, RCNNConfig, init_rcnn_weights_
+
+    cfg = dataclasses.replace(RCNNConfig.small(), roi_impl="dma")
+    cpu = FasterRCNN(cfg).eval()
+    init_rcnn_weights_(cpu, torch.Generator().manual_seed(9))
+    card = FasterRCNN(cfg).eval()
+    card.load_state_dict(cpu.state_dict())
+    card.to(cuda)
+    x = torch.randn(2, 64, 96, 3, generator=torch.Generator().manual_seed(10)) * 50
+    with torch.inference_mode():
+        want_f, got_f = cpu.backbone_features(x), card.backbone_features(x.to(cuda))
+        want, before = cpu(x), roi_align_pyramid_dma.launches
+        got = card(x.to(cuda))
+    torch.cuda.synchronize()
+    assert roi_align_pyramid_dma.launches == before + 1
+    for g, w in zip(got_f, want_f):
+        assert (g.cpu() - w).abs().max().item() <= 1e-4 * max(1.0, w.abs().max().item())
+    v = want["valid"]
+    assert torch.equal(got["valid"].cpu(), v) and torch.equal(got["classes"].cpu()[v], want["classes"][v])
+    if v.any():
+        assert (got["boxes"].cpu()[v] - want["boxes"][v]).abs().max().item() <= 5e-3
+
+
+def test_rcnn_matmul_pool_refused_on_card(cuda):
+    """On CUDA tensors the detector pools with K5 or raises: the matmul
+    pool is the CPU's."""
+    import dataclasses
+
+    from video_gen_evals_tpu_torch.models.rcnn import FasterRCNN, RCNNConfig
+
+    model = FasterRCNN(dataclasses.replace(RCNNConfig.small(), roi_impl="matmul")).eval().to(cuda)
+    with torch.inference_mode(), pytest.raises(ValueError, match="matmul"):
+        model(torch.zeros(1, 64, 96, 3, device=cuda))

@@ -322,7 +322,8 @@ def test_port_imports_no_jax():
         "assert 'video_gen_evals_tpu_torch.ops.conv_kernel_train' in sys.modules\n"
         "for m in ('ops.attention', 'ops.attention_core', 'ops.upstream_crops', 'models.vit',\n"
         "          'models.smpl_head', 'pipelines.extract', 'pipelines.weights', 'utils.io',\n"
-        "          'ops.chain_kernel', 'models.fused_apply'):\n"
+        "          'ops.chain_kernel', 'models.fused_apply', 'ops.roi_align', 'ops.image',\n"
+        "          'models.rcnn', 'models.pose2d'):\n"
         "    assert 'video_gen_evals_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'video_gen_evals_tpu')]\n"

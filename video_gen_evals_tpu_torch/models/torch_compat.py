@@ -23,6 +23,9 @@ Training state crosses the same way: :func:`named_tensors_from_jax_tree` maps
 any tree shaped like the params (gradients, Adam moments) to the port's
 parameter names and layouts, and :func:`load_optax_adam_state` continues a
 JAX run's AdamW moments in a torch optimizer.
+
+The detector crosses by :func:`rcnn_state_dict_from_jax_tree`, the inverse of
+the JAX package's ``detectron2_to_flax``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from .fusion_encoder import _PE_MAX_LEN, EncoderConfig, HumanActionScorer, sinusoidal_positional_embedding
+from .rcnn import RCNNConfig
 from .smpl_head import SMPLHeadConfig
 from .vit import ViTConfig
 
@@ -310,4 +314,49 @@ def head_state_dict_from_jax_tree(params: FlaxParams, config: SMPLHeadConfig) ->
         _put_norm(sd, f"{p}.layernorm2", mix["ln2"])
         _put_dense(sd, f"{p}.MLP_channel.ff.0", mix["channel_fc1"])
         _put_dense(sd, f"{p}.MLP_channel.ff.3", mix["channel_fc2"])
+    return _as_tensors(sd)
+
+
+def rcnn_state_dict_from_jax_tree(params: FlaxParams, config: RCNNConfig) -> T.Dict[str, torch.Tensor]:
+    """The JAX package's ``FasterRCNN`` params (numpy leaves) -> the port's
+    ``FasterRCNN`` state_dict, whose names are detectron2's: the inverse of
+    the JAX package's ``detectron2_to_flax``. Convs ``[kh, kw, in/g, out]`` ->
+    ``[out, in/g, kh, kw]``; FrozenBN ``scale``/``mean``/``var`` -> ``weight``/
+    ``running_mean``/``running_var``; fc1's rows go back from flax's ``(y, x,
+    c)`` flatten order to torch's ``(c, y, x)``."""
+    sd: T.Dict[str, np.ndarray] = {}
+
+    def conv(prefix, p):
+        sd[f"{prefix}.weight"] = np.ascontiguousarray(np.transpose(_np(p["kernel"]), (3, 2, 0, 1)))
+        if "bias" in p:
+            sd[f"{prefix}.bias"] = _np(p["bias"])
+
+    def conv_norm(prefix, p):
+        conv(prefix, p["conv"])
+        n = p["norm"]
+        for ours, theirs in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                             ("running_var", "var")):
+            sd[f"{prefix}.norm.{ours}"] = _np(n[theirs])
+
+    bb, bu = params["backbone"], "backbone.bottom_up"
+    conv_norm(f"{bu}.stem.conv1", bb["stem_conv1"])
+    for si, n in enumerate(config.stage_blocks):
+        for bi in range(n):
+            blk = bb[f"res{si + 2}_b{bi}"]
+            for name in ("conv1", "conv2", "conv3", "shortcut"):
+                if name in blk:
+                    conv_norm(f"{bu}.res{si + 2}.{bi}.{name}", blk[name])
+    for i in range(2, 6):
+        conv(f"backbone.fpn_lateral{i}", bb[f"fpn_lateral{i}"])
+        conv(f"backbone.fpn_output{i}", bb[f"fpn_output{i}"])
+    for name in ("conv", "objectness_logits", "anchor_deltas"):
+        conv(f"proposal_generator.rpn_head.{name}", params["rpn"][name])
+    r, f = config.roi_resolution, config.fpn_channels
+    fc1 = _np(params["fc1"]["kernel"]).reshape(r, r, f, config.fc_dim)
+    sd["roi_heads.box_head.fc1.weight"] = np.ascontiguousarray(
+        fc1.transpose(3, 2, 0, 1).reshape(config.fc_dim, f * r * r))
+    sd["roi_heads.box_head.fc1.bias"] = _np(params["fc1"]["bias"])
+    _put_dense(sd, "roi_heads.box_head.fc2", params["fc2"])
+    _put_dense(sd, "roi_heads.box_predictor.cls_score", params["cls_score"])
+    _put_dense(sd, "roi_heads.box_predictor.bbox_pred", params["bbox_pred"])
     return _as_tensors(sd)

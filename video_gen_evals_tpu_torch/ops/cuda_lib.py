@@ -29,7 +29,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("window_gather.cu", "temporal_block.cu", "temporal_chain.cu", "temporal_block_train.cu",
-           "attention.cu")
+           "attention.cu", "roi_align.cu")
 HEADERS = ("conv_tile.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -76,6 +76,10 @@ _SIGNATURES = {
     # device, q, k, v, out, (batch, row, head) strides of q, k, v, batch, n,
     # heads, head width, scale, bf16_io, precision, block_kv, stream
     "vge_flash_attention": [_I, _P, _P, _P, _P] + [_L] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _P],
+    # device, buffer, buf_h, buf_w, channels, boxes, levels, level_info,
+    # strides, n_levels, n_rois, rois_per_image, window, window_x,
+    # max_samples, out, stream
+    "vge_roi_align": [_I, _P, _I, _I, _I, _P, _P, _P, _P] + [_I] * 6 + [_P, _P],
 }
 # entry points that return a size in bytes, not a CUDA error code
 _SIZE_QUERIES = {

@@ -10,10 +10,15 @@ of ``frame_batch`` frames. The output is the extraction contract the scoring
 path reads: ``pose [T,23,3,3]``, ``betas [T,10]``, ``global_orient
 [T,1,3,3]``, ``vit [T,1024]`` and ``frame_idx [T]``.
 
-The person detectors and the 2D pose net are not ported yet (ROADMAP.md,
-Queue 1). Until they are, the boxes are the caller's and every frame counts
-as single-person, which is the JAX package's own ``keep_all_frames`` mode;
-every entry that needs a detector raises ``NotImplementedError``.
+The boxes come from the caller, or, with ``mesh_detector="rcnn"``, from the
+Faster R-CNN X101-32x8d-FPN detect stage (``models/rcnn.py``, the reference's
+mesh-path detector, ref ``mesh_generator.py:69-74``): a frame is kept iff
+exactly one person box scores above ``det_score_thresh``, and a video is
+rejected when fewer than ``min_single_ratio`` of its frames are kept (ref
+``:103-117``). The YOLOX detector and the 2D pose net (the keypoint branch)
+are not ported yet (ROADMAP.md, Queue 1, items 1 and 2): the default
+``mesh_detector="yolox"`` without boxes, the keypoint entry, ``run_tree`` and
+the CLI raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,14 +31,24 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.rcnn import (
+    FasterRCNN,
+    RCNNConfig,
+    canonical_rcnn_state_dict,
+    clip_boxes,
+    init_rcnn_weights_,
+    predictor_canvas,
+)
 from ..models.smpl_head import SMPLHeadConfig, SMPLTokenDecoderHead
 from ..models.vit import ViTBackbone, ViTConfig
 from ..ops.upstream_crops import vitdet_mesh_crop
 from ..utils.device import disable_tf32, resolve_device
 
-_NEEDS_DETECTOR = ("{what} needs the person detector, which is not ported yet "
-                   "(ROADMAP.md, Queue 1, items 1.1 and 1.2): pass one box a frame to "
-                   "Extractor.process_video")
+_NEEDS_YOLOX = ("{what} needs the YOLOX person detector, which is not ported yet "
+                "(ROADMAP.md, Queue 1, item 1): use mesh_detector='rcnn' or pass one box a "
+                "frame to Extractor.process_video")
+_NEEDS_POSE = ("{what} needs the YOLOX detector and the 2D pose net of the keypoint branch, "
+               "which are not ported yet (ROADMAP.md, Queue 1, items 1 to 3)")
 # (matmul_precision, param_dtype) -> the dtype the two networks work in
 _WORKING_DTYPE = {
     ("highest", "float32"): torch.float32,
@@ -63,8 +78,17 @@ class ExtractorConfig:
     vitdet_antialias: bool = True  # hmr2 gaussian pre-blur (df > 1.1)
     matmul_precision: str = "high"
     param_dtype: str = "float32"   # "float32" | "bfloat16"
-    # every frame counts as single-person; the reference's >= 80% rule needs
-    # the detector's mask, so False is refused until the detectors are ported
+    # mesh-path box provenance when process_video gets no boxes: "rcnn" is the
+    # Faster R-CNN X101-FPN; "yolox" (JAX's default) is not ported yet
+    mesh_detector: str = "yolox"
+    rcnn: T.Optional[RCNNConfig] = None   # None: RCNNConfig.x101_32x8d()
+    # the detect stage's canvas is ~70x a crop's pixel area, so it chunks smaller
+    rcnn_frame_batch: int = 8
+    det_score_thresh: float = 0.5
+    min_single_ratio: float = 0.8
+    # every frame counts as single-person (the JAX package defaults to False).
+    # False applies the reference's rule to the R-CNN's boxes; without a
+    # detector there is no mask, so it is refused there
     keep_all_frames: bool = True
 
     def __post_init__(self):
@@ -78,10 +102,19 @@ class ExtractorConfig:
             raise ValueError(
                 f"matmul_precision={self.matmul_precision!r} with param_dtype={self.param_dtype!r} "
                 f"is not a mode of the port; the modes are {sorted(_WORKING_DTYPE)}")
-        if not self.keep_all_frames:
-            raise NotImplementedError(_NEEDS_DETECTOR.format(what="keep_all_frames=False"))
-        if self.frame_batch < 1:
-            raise ValueError(f"frame_batch must be positive, got {self.frame_batch}")
+        if self.rcnn is None:
+            self.rcnn = RCNNConfig.x101_32x8d()
+        if self.mesh_detector not in ("yolox", "rcnn"):
+            raise ValueError(f"unknown mesh_detector {self.mesh_detector!r}")
+        if not self.keep_all_frames and self.mesh_detector != "rcnn":
+            raise NotImplementedError(_NEEDS_YOLOX.format(what="keep_all_frames=False"))
+        if self.mesh_detector == "rcnn" and self.param_dtype != "float32":
+            raise NotImplementedError(
+                "the bfloat16 extraction mode with the R-CNN detector is not ported: "
+                "ROADMAP.md, Queue 1, item 0")
+        if self.frame_batch < 1 or self.rcnn_frame_batch < 1:
+            raise ValueError(f"frame_batch {self.frame_batch} and rcnn_frame_batch "
+                             f"{self.rcnn_frame_batch} must be positive")
 
     @property
     def working_dtype(self) -> torch.dtype:
@@ -138,12 +171,28 @@ def _build_net(factory, config, state_dict, generator, device, dtype) -> nn.Modu
     return net.to(dtype).eval()
 
 
+def _build_rcnn(config: RCNNConfig, state_dict, generator, device) -> FasterRCNN:
+    """The detector on ``device`` in float32, its weights from a detectron2
+    state_dict (every key used, none missing) or drawn from ``generator``."""
+    with torch.device("meta"):
+        net = FasterRCNN(config)
+    net.to_empty(device=device)
+    if state_dict is None:
+        init_rcnn_weights_(net, generator)
+    else:
+        net.load_state_dict(canonical_rcnn_state_dict(state_dict), strict=True)
+    return net.eval()
+
+
 class Extractor:
-    """Crops, ViT backbone and SMPL head of the mesh stage, in fixed chunks.
+    """Detect stage (with ``mesh_detector="rcnn"``), crops, ViT backbone and
+    SMPL head of the mesh stage, in fixed chunks.
 
     ``state_dicts`` may hold ``"vit"`` and ``"head"`` (state_dicts in the
-    modules' own names); a net without one is drawn from a generator seeded
-    with ``seed``. ``device=None`` means the card and raises without one."""
+    modules' own names) and, in rcnn mode, ``"rcnn"`` (detectron2's names);
+    a net without one is drawn from a generator seeded with ``seed`` (the
+    detector last, so the other two do not depend on the mode).
+    ``device=None`` means the card and raises without one."""
 
     def __init__(self, config: T.Optional[ExtractorConfig] = None,
                  state_dicts: T.Optional[T.Mapping[str, T.Mapping[str, torch.Tensor]]] = None,
@@ -152,9 +201,10 @@ class Extractor:
         self.device = resolve_device("cuda" if device is None else device)
         disable_tf32()
         state_dicts = dict(state_dicts or {})
-        unknown = set(state_dicts) - {"vit", "head"}
+        nets = {"vit", "head"} | ({"rcnn"} if cfg.mesh_detector == "rcnn" else set())
+        unknown = set(state_dicts) - nets
         if unknown:
-            raise ValueError(f"state_dicts holds nets the mesh stage does not have: {sorted(unknown)}")
+            raise ValueError(f"state_dicts holds nets this configuration does not have: {sorted(unknown)}")
         if cfg.head.context_dim != cfg.vit.embed_dim:
             raise ValueError(f"head.context_dim {cfg.head.context_dim} != vit.embed_dim {cfg.vit.embed_dim}")
         generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -162,22 +212,26 @@ class Extractor:
         self.backbone = _build_net(ViTBackbone, cfg.vit, state_dicts.get("vit"), generator, self.device, dtype)
         self.head = _build_net(SMPLTokenDecoderHead, cfg.head, state_dicts.get("head"), generator,
                                self.device, dtype)
+        self.rcnn = (_build_rcnn(cfg.rcnn, state_dicts.get("rcnn"), generator, self.device)
+                     if cfg.mesh_detector == "rcnn" else None)
 
     @classmethod
     def from_checkpoints(cls, config: T.Optional[ExtractorConfig] = None, *,
                          tokenhmr: T.Optional[str] = None, dwpose: T.Optional[str] = None,
                          yolox: T.Optional[str] = None, rcnn: T.Optional[str] = None,
                          seed: int = 0, device=None) -> "Extractor":
-        """An Extractor with the published TokenHMR weights (a ``.ckpt``,
+        """An Extractor with the published weights: TokenHMR (a ``.ckpt``,
         ``.pt`` or ``.npz`` whose ``backbone.*`` and ``smpl_head.*`` keys are
-        the two networks'); the head's classifier geometry is read from the
-        file. The other three checkpoints belong to networks not ported yet."""
+        the two networks'; the head's classifier geometry is read from the
+        file) and the detectron2 Faster R-CNN (``.pkl`` or ``.pt``), which
+        selects ``mesh_detector="rcnn"``. The DWPose and YOLOX checkpoints
+        belong to networks not ported yet."""
         from .weights import extraction_params_from_checkpoints, load_torch_state_dict, published_config
 
         tokenhmr = load_torch_state_dict(tokenhmr) if tokenhmr else None
         cfg = published_config(config or ExtractorConfig(), tokenhmr=tokenhmr, dwpose=dwpose,
                                yolox=yolox, rcnn=rcnn)
-        converted = extraction_params_from_checkpoints(cfg, tokenhmr=tokenhmr)
+        converted = extraction_params_from_checkpoints(cfg, tokenhmr=tokenhmr, rcnn=rcnn)
         return cls(cfg, state_dicts=converted, seed=seed, device=device)
 
     def set_attention_impl(self, impl: str) -> None:
@@ -206,11 +260,39 @@ class Extractor:
         tokens, _fmap = self.backbone(crops)
         return {k: v.float() for k, v in self.head(tokens).items()}
 
-    def _batched(self, fn, frames: torch.Tensor, *extra: torch.Tensor) -> T.Dict[str, np.ndarray]:
-        """Run ``fn`` on fixed chunks of ``frame_batch`` frames: the tail is
-        padded by repeating its last frame and cut again, chunk outputs stay
-        on the device, and the whole result is fetched once at the end."""
-        B = self.cfg.frame_batch
+    @torch.inference_mode()
+    def detect_rcnn(self, frames: torch.Tensor) -> T.Dict[str, torch.Tensor]:
+        """The R-CNN detect stage on one chunk ``[B, H, W, 3]`` (RGB 0..255):
+        detectron2's DefaultPredictor preprocessing (``predictor_canvas``),
+        the detector, boxes rescaled and clipped to the
+        frame, then the reference's rule: the person boxes (class 0) scoring
+        above ``det_score_thresh``. Returns ``box [B, 4]`` (the best person
+        box, or the top detection where there is none), ``single [B]``
+        (exactly one person box) and ``present [B]`` (at least one)."""
+        cfg = self.cfg
+        H, W = frames.shape[1:3]
+        canvas, (rh, rw) = predictor_canvas(frames, cfg.rcnn)
+        det = self.rcnn(canvas, image_hw=(rh, rw))
+        sx, sy = W / rw, H / rh
+        boxes = clip_boxes(det["boxes"] * torch.tensor([sx, sy, sx, sy], device=canvas.device), (H, W))
+        person = (det["classes"] == 0) & (det["scores"] > cfg.det_score_thresh) & det["valid"]
+        best = torch.argmax(torch.where(person, det["scores"], -1.0), dim=-1)
+        return {"box": torch.take_along_dim(boxes, best[:, None, None], dim=1)[:, 0],
+                "single": person.sum(dim=-1) == 1, "present": person.any(dim=-1)}
+
+    def detect_stage(self, frames: torch.Tensor) -> T.Dict[str, torch.Tensor]:
+        """:meth:`detect_rcnn` over a video on the device, in chunks of
+        ``min(rcnn_frame_batch, frame_batch)``; the results stay there."""
+        return self._batched(self.detect_rcnn, frames,
+                             batch=min(self.cfg.rcnn_frame_batch, self.cfg.frame_batch), fetch=False)
+
+    def _batched(self, fn, frames: torch.Tensor, *extra: torch.Tensor, batch: T.Optional[int] = None,
+                 fetch: bool = True) -> T.Dict[str, T.Any]:
+        """Run ``fn`` on fixed chunks of ``batch`` (default ``frame_batch``)
+        frames: the tail is padded by repeating its last frame and cut again,
+        chunk outputs stay on the device, and with ``fetch`` the whole result
+        is fetched once at the end."""
+        B = batch or self.cfg.frame_batch
         n = frames.shape[0]
         outs = []
         for lo in range(0, n, B):
@@ -221,40 +303,59 @@ class Extractor:
             out = fn(*chunk)
             outs.append({k: v[:B - pad] for k, v in out.items()} if pad else out)
         joined = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
-        return {k: v.cpu().numpy() for k, v in joined.items()}
+        return {k: v.cpu().numpy() for k, v in joined.items()} if fetch else joined
 
     def process_video(self, frames: T.Union[np.ndarray, torch.Tensor],
                       boxes_xyxy: T.Union[None, np.ndarray, torch.Tensor] = None
-                      ) -> T.Dict[str, np.ndarray]:
+                      ) -> T.Optional[T.Dict[str, np.ndarray]]:
         """Mesh extraction for one video. ``frames``: ``[T, H, W, 3]`` uint8
-        RGB, uploaded once and cast on the device chunk by chunk;
-        ``boxes_xyxy``: ``[T, 4]``, one person box a frame in frame pixels.
-        Every frame is kept (``keep_all_frames``)."""
-        if boxes_xyxy is None:
-            raise NotImplementedError(_NEEDS_DETECTOR.format(what="process_video without boxes"))
+        RGB, uploaded once and cast on the device chunk by chunk.
+
+        With ``boxes_xyxy`` (``[T, 4]``, one person box a frame in frame
+        pixels) every frame is kept. Without, the R-CNN detect stage
+        (``mesh_detector="rcnn"``) gives the boxes and the single-person
+        mask: with ``keep_all_frames=False`` the video is rejected (``None``)
+        when no frame, or fewer than ``min_single_ratio`` of them, hold
+        exactly one person, and otherwise only those frames are returned
+        (``frame_idx``), as JAX's ``process_video_full`` does. The mask is
+        read before the mesh forward, so a rejected video costs no mesh
+        work."""
         frames_dev = torch.as_tensor(frames).to(self.device)
-        boxes_dev = torch.as_tensor(boxes_xyxy, dtype=torch.float32).to(self.device)
         if frames_dev.ndim != 4 or frames_dev.shape[-1] != 3:
             raise ValueError(f"frames must be [T, H, W, 3], got {tuple(frames_dev.shape)}")
-        if tuple(boxes_dev.shape) != (frames_dev.shape[0], 4):
-            raise ValueError(f"boxes must be [{frames_dev.shape[0]}, 4], got {tuple(boxes_dev.shape)}")
-        if frames_dev.shape[0] == 0:
+        n = frames_dev.shape[0]
+        if n == 0:
             raise ValueError("process_video needs at least one frame")
+        keep = np.ones(n, dtype=bool)
+        if boxes_xyxy is not None:
+            boxes_dev = torch.as_tensor(boxes_xyxy, dtype=torch.float32).to(self.device)
+            if tuple(boxes_dev.shape) != (n, 4):
+                raise ValueError(f"boxes must be [{n}, 4], got {tuple(boxes_dev.shape)}")
+        elif self.rcnn is None:
+            raise NotImplementedError(_NEEDS_YOLOX.format(what="process_video without boxes"))
+        else:
+            det = self.detect_stage(frames_dev)
+            boxes_dev = det["box"]
+            if not self.cfg.keep_all_frames:
+                keep = det["single"].cpu().numpy()
+                if keep.sum() == 0 or keep.mean() < self.cfg.min_single_ratio:
+                    return None
         out = self._batched(self.mesh_forward, frames_dev, boxes_dev)
+        idx = np.flatnonzero(keep)
         return {
-            "pose": out["body_pose"],
-            "betas": out["betas"],
-            "global_orient": out["global_orient"],
-            "vit": out["token_out"],
-            "frame_idx": np.arange(frames_dev.shape[0], dtype=np.int32),
+            "pose": out["body_pose"][idx],
+            "betas": out["betas"][idx],
+            "global_orient": out["global_orient"][idx],
+            "vit": out["token_out"][idx],
+            "frame_idx": idx.astype(np.int32),
         }
 
     def process_video_keypoints(self, *args, **kwargs):
-        raise NotImplementedError(_NEEDS_DETECTOR.format(what="process_video_keypoints"))
+        raise NotImplementedError(_NEEDS_POSE.format(what="process_video_keypoints"))
 
     def run_tree(self, *args, **kwargs):
-        raise NotImplementedError(_NEEDS_DETECTOR.format(what="run_tree"))
+        raise NotImplementedError(_NEEDS_POSE.format(what="run_tree"))
 
 
 def main(argv: T.Optional[T.Sequence[str]] = None) -> int:
-    raise NotImplementedError(_NEEDS_DETECTOR.format(what="the extract CLI"))
+    raise NotImplementedError(_NEEDS_POSE.format(what="the extract CLI"))
