@@ -50,12 +50,14 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
 
 6. The attention kernels (K6 mha_core, K7 mha_head_batched, K8
    flash_attention) against their plain versions at the ViT-H shape
-   (B = 32, N = 192, 16 heads of 80; q, k, v as slices of one qkv buffer) in
-   fp32 at "highest" (2e-5) and in bf16 at "default" (0.03), K6 at "high" (5e-5),
-   K8 at N = 100 and 300 with 64-key blocks, K6 at the scorer's
-   [512, 33, 256] with 8 heads, K8 there as [512, 33, 8, 32] at "highest"
-   and "default"; ms per call, the bound, and
-   F.scaled_dot_product_attention on the same tensors as the library time.
+   (B = 32, N = 192, 16 heads of 80; q, k, v as slices of one qkv buffer,
+   which K7 also reads in place: bitwise K6's result) in fp32 at "highest"
+   (2e-5) and in bf16 at "default" (0.03), K6 at "high" (5e-5); at N = 100
+   and 300 (K8 with 64-key blocks at ViT-H's width, K6 and K7 at widths 80
+   and 32); at the scorer's [512, 33, 256] with 8 heads (K6 at all three
+   precisions, K7 and K8 at "highest" and "default"). ms per call, the
+   bound and the kernel's share of it, and F.scaled_dot_product_attention
+   on the same tensors (cast to bf16 for "default") as the library time.
    Then K2 (gather_windows_subblock: bitwise equal to its plain version on a
    B = 512 x 32 x 2596 gather with a window clipped to an unaligned start,
    where it must differ from K1), K9 (fused_temporal_block_stacked over 10
@@ -76,7 +78,8 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    (1e-3); the bf16 fast mode at full depth and at depth 4 for K7 and K8
    against the fp32 run (BF16_STAGE_TOL); the mesh dict written with
    save_video_npz and read back by the scoring path's loader. Frames/s and
-   ms per chunk (crop, backbone, head) for each attention_impl, peak memory.
+   ms per chunk (crop, backbone, head) for each attention_impl in fp32 and
+   for core, head_batched and flash in the bf16 mode, peak memory.
 8. The Faster R-CNN X101-32x8d-FPN detect stage at full width (weights drawn
    on the card from a seed) on the same 72-frame video. K5
    (roi_align_pyramid_dma) against its plain version on one detect chunk's
@@ -186,7 +189,8 @@ def _ptxas_summary(log: str):
             short = (f"{t.group(2)}<T={t.group(3)}, C={t.group(4)}, bf16={t.group(5)}"
                      + (f", stacked={t.group(6)}>" if t.group(6) else ">") if t
                      else f"{tc.group(1)}<T={tc.group(2)}, C={tc.group(3)}>" if tc
-                     else f"{a.group(1)}<hd={a.group(2)}" + (f", split={a.group(3)}>" if a.group(3) else ">") if a
+                     else f"{a.group(1)}<hd={a.group(2)}" + (
+                         f", {'flash' if 'resident' in a.group(1) else 'split'}={a.group(3)}>" if a.group(3) else ">") if a
                      else g.group(1) if g else name)
             yield f"{short}: {m.group(1)} registers; {spill}"
             name = None
@@ -945,12 +949,13 @@ def _attn_bound(batch, n, heads, hd, elem_bytes, flops_per_product, peak):
 
 
 def phase_attention_kernels(torch, dev, gen):
-    """K6, K7, K8 against their plain versions at the ViT-H layer's shapes."""
+    """K6, K7, K8 against their plain versions at the ViT-H layer's shapes,
+    at odd N and at the scorer's shape."""
     import torch.nn.functional as F
 
     from video_gen_evals_tpu_torch.ops.attention import flash_attention, flash_attention_plain
     from video_gen_evals_tpu_torch.ops.attention_core import (
-        mha_core, mha_core_plain, mha_head_batched, mha_head_batched_plain, mha_packed, pack_heads, unpack_heads)
+        mha_core, mha_core_plain, mha_head_batched, mha_head_batched_plain)
 
     B, N, H, hd = VIT_B, VIT_N, VIT_H, VIT_HD
     D = H * hd
@@ -966,61 +971,67 @@ def phase_attention_kernels(torch, dev, gen):
         _check(e <= ATTN_TOL[precision], f"{tag}: max |kernel - plain| {e:.3e} > {ATTN_TOL[precision]}")
         return e
 
+    def sdpa_ms(q4, k4, v4, precision):
+        """One PyTorch call for the same function on the same [B, N, H, hd]
+        tensors (bf16 for "default", the cast made before the timing); timed
+        here and used nowhere in the port."""
+        ts = [t.transpose(1, 2) for t in (q4, k4, v4)]
+        if precision == "default":
+            ts = [t.to(torch.bfloat16) for t in ts]
+        return _time_ms(lambda: F.scaled_dot_product_attention(*ts), 20)
+
+    def kernel_row(name, tag, kernel, plain, precision, bound, library_ms):
+        """Check, time (plain, kernel, kernel, plain), print with the share of
+        the bound, record."""
+        e = check(tag, kernel(), plain(), precision)
+        ms, plain_ms = _interleaved_ms(kernel, plain, 20)
+        results[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                             library_ms=library_ms)
+        print(f"{tag}: max |kernel - plain| {e:.2e} (tol {ATTN_TOL[precision]}); kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
+              f"{bound[0]:.4f} ms ({bound[1]}, {bound[0] / ms:.1%} of the kernel's time)")
+
     for dtype, precision in ((torch.float32, "highest"), (torch.bfloat16, "default")):
         qkv = torch.randn(B, N, 3 * D, generator=gen).to(dev).to(dtype)
         q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]            # as the ViT block hands them
         q4, k4, v4 = qkv.reshape(B, N, 3, H, hd).unbind(dim=2)
         elem = 4 if dtype == torch.float32 else 2
-        bound_ms, bound_by = _attn_bound(B, N, H, hd, elem, 2, PEAK_FP32 if precision == "highest" else PEAK_BF16)
-        # one PyTorch call for the same function on the same tensors; timed
-        # here and used nowhere in the port
-        qs, ks, vs = (t.transpose(1, 2) for t in (q4, k4, v4))
-        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs), 20)
-        sdpa = F.scaled_dot_product_attention(qs, ks, vs).transpose(1, 2).reshape(B, N, D)
+        bound = _attn_bound(B, N, H, hd, elem, 2, PEAK_FP32 if precision == "highest" else PEAK_BF16)
+        library_ms = sdpa_ms(q4, k4, v4, precision)
+        what = f"{str(dtype)[6:]} [{B}, {N}, {H}, {hd}]"
+        kernel_row(f"mha_core[{precision}]", f"K6 mha_core[{precision}] {what}, strided slices of qkv",
+                   lambda: mha_core(q, k, v, H, precision=precision),
+                   lambda: mha_core_plain(q, k, v, H, precision=precision), precision, bound, library_ms)
+        kernel_row(f"mha_head_batched[{precision}]", f"K7 mha_head_batched[{precision}] {what}, read in place",
+                   lambda: mha_head_batched(q, k, v, H, precision=precision),
+                   lambda: mha_head_batched_plain(q, k, v, H, precision=precision), precision, bound, library_ms)
+        _check(torch.equal(mha_head_batched(q, k, v, H, precision=precision),
+                           mha_core(q, k, v, H, precision=precision)),
+               f"K7 {precision}: not bitwise equal to K6 on the same strides")
+        kernel_row(f"flash_attention[{precision}]", f"K8 flash_attention[{precision}] {what}, blocks 128/128",
+                   lambda: flash_attention(q4, k4, v4, precision=precision),
+                   lambda: flash_attention_plain(q4, k4, v4, precision=precision), precision, bound, library_ms)
 
-        e = check(f"K6 {precision}", mha_core(q, k, v, H, precision=precision),
-                  mha_core_plain(q, k, v, H, precision=precision), precision)
-        ms, plain_ms = _interleaved_ms(lambda: mha_core(q, k, v, H, precision=precision),
-                                       lambda: mha_core_plain(q, k, v, H, precision=precision), 20)
-        results[f"mha_core[{precision}]"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                                 bound_by=bound_by, library_ms=library_ms)
-        print(f"K6 mha_core[{precision}] {str(dtype)[6:]} [{B}, {N}, {D}] {H} heads, strided slices of qkv: "
-              f"max |kernel - plain| {e:.2e} (tol {ATTN_TOL[precision]}), vs SDPA "
-              f"{err(mha_core(q, k, v, H, precision=precision), sdpa):.2e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-
-        e = check(f"K7 {precision}", mha_head_batched(q, k, v, H, precision=precision),
-                  mha_head_batched_plain(q, k, v, H, precision=precision), precision)
-        ms, plain_ms = _interleaved_ms(lambda: mha_head_batched(q, k, v, H, precision=precision),
-                                       lambda: mha_head_batched_plain(q, k, v, H, precision=precision), 20)
-        qp, kp, vp = (pack_heads(t, H) for t in (q, k, v))
-        scale = hd ** -0.5
-        kernel_ms = _time_ms(lambda: mha_packed(qp, kp, vp, scale, precision), 20)
-        relayout_ms = _time_ms(lambda: unpack_heads([pack_heads(t, H) for t in (q, k, v)][0], H), 20)   # three in, one back
-        results[f"mha_head_batched[{precision}]"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                                         bound_by=bound_by, library_ms=library_ms)
-        print(f"K7 mha_head_batched[{precision}] {str(dtype)[6:]}: max |kernel - plain| {e:.2e}; pack + kernel + unpack "
-              f"{ms:.4f} ms (kernel on packed pairs {kernel_ms:.4f} ms, the four relayouts {relayout_ms:.4f} ms), "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-
-        e = check(f"K8 {precision}", flash_attention(q4, k4, v4, precision=precision),
-                  flash_attention_plain(q4, k4, v4, precision=precision), precision)
-        ms, plain_ms = _interleaved_ms(lambda: flash_attention(q4, k4, v4, precision=precision),
-                                       lambda: flash_attention_plain(q4, k4, v4, precision=precision), 20)
-        results[f"flash_attention[{precision}]"] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                                        bound_by=bound_by, library_ms=library_ms)
-        print(f"K8 flash_attention[{precision}] {str(dtype)[6:]} [{B}, {N}, {H}, {hd}] blocks 128/128: "
-              f"max |kernel - plain| {e:.2e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-
-        # K8 where N is no multiple of the 64-key block, several blocks
-        for n_odd in (100, 300):
+        # N that is no multiple of a 16- or 64-key chunk: K8 over several
+        # 64-key blocks; K6 and K7 at ViT-H's width for N = 100 and at head
+        # width 32 for N = 300 (the one-pass kernels hold at most 192 keys of
+        # width 80)
+        for n_odd, hd_odd in ((100, hd), (300, 32)):
             t = torch.randn(4, n_odd, 3, H, hd, generator=gen).to(dev).to(dtype)
             a, b, c = t.unbind(dim=2)
-            e = check(f"K8 {precision} N={n_odd}", flash_attention(a, b, c, block_q=64, block_kv=64, precision=precision),
-                      flash_attention_plain(a, b, c, block_q=64, block_kv=64, precision=precision), precision)
-            print(f"   K8 [{precision}] N={n_odd}, blocks 64/64: max |kernel - plain| {e:.2e}")
+            e8 = check(f"K8 {precision} N={n_odd}",
+                       flash_attention(a, b, c, block_q=64, block_kv=64, precision=precision),
+                       flash_attention_plain(a, b, c, block_q=64, block_kv=64, precision=precision), precision)
+            t = torch.randn(4, n_odd, 3 * H * hd_odd, generator=gen).to(dev).to(dtype)
+            a, b, c = t.chunk(3, dim=-1)
+            e6 = check(f"K6 {precision} N={n_odd}", mha_core(a, b, c, H, precision=precision),
+                       mha_core_plain(a, b, c, H, precision=precision), precision)
+            e7 = check(f"K7 {precision} N={n_odd}", mha_head_batched(a, b, c, H, precision=precision),
+                       mha_head_batched_plain(a, b, c, H, precision=precision), precision)
+            print(f"   [{precision}] N={n_odd}: max |kernel - plain| K8 ({H} heads of {hd}, blocks 64/64) {e8:.2e}, "
+                  f"K6 {e6:.2e} and K7 {e7:.2e} ({H} heads of {hd_odd})")
 
-    # K6 "high" (bf16x3) at the ViT-H shape, and K6 at the scorer's transformer shape
+    # K6 "high" (bf16x3) at the ViT-H shape
     qkv = torch.randn(B, N, 3 * D, generator=gen).to(dev)
     q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
     e = check("K6 high", mha_core(q, k, v, H, precision="high"), mha_core_plain(q, k, v, H, precision="high"), "high")
@@ -1029,23 +1040,37 @@ def phase_attention_kernels(torch, dev, gen):
                                    lambda: mha_core_plain(q, k, v, H, precision="high"), 10)
     print(f"K6 mha_core[high] float32 [{B}, {N}, {D}]: max |kernel - plain high| {e:.2e} (tol {ATTN_TOL['high']}), "
           f"vs plain fp32 {e32:.2e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (no caller on the mesh path)")
+
+    # the scorer's transformer shape [512, 33, 8 heads of 32] on fp32 slices of
+    # qkv, as attn_impl "core" (K6) and attention_impl "pallas" (K8
+    # "highest") and "pallas_bf16" (K8 "default") hand them; K7 on the same
+    # slices. SDPA on the same tensors, cast to bf16 for "default".
     qkv = torch.randn(BATCH, 33, 3 * 256, generator=gen).to(dev)
     q, k, v = qkv[..., :256], qkv[..., 256:512], qkv[..., 512:]
+    q4, k4, v4 = (t.reshape(BATCH, 33, 8, 32) for t in (q, k, v))
     for precision in ("highest", "high", "default"):
         e = check(f"K6 scorer {precision}", mha_core(q, k, v, 8, precision=precision),
                   mha_core_plain(q, k, v, 8, precision=precision), precision)
         ms = _time_ms(lambda: mha_core(q, k, v, 8, precision=precision), 20)
-        print(f"   K6 [{precision}] at the scorer's [{BATCH}, 33, 256], 8 heads: max |kernel - plain| {e:.2e}, {ms:.4f} ms")
-    # K8 at the scorer's shape, as attention_impl "pallas" ("highest") and
-    # "pallas_bf16" ("default") hand it the fp32 q, k, v slices
-    q4, k4, v4 = (t.reshape(BATCH, 33, 8, 32) for t in (q, k, v))
-    for precision in ("highest", "default"):
-        e = check(f"K8 scorer {precision}", flash_attention(q4, k4, v4, precision=precision),
-                  flash_attention_plain(q4, k4, v4, precision=precision), precision)
-        ms, plain_ms = _interleaved_ms(lambda: flash_attention(q4, k4, v4, precision=precision),
-                                       lambda: flash_attention_plain(q4, k4, v4, precision=precision), 20)
-        print(f"   K8 [{precision}] at the scorer's [{BATCH}, 33, 8, 32] (fp32 slices of qkv): "
-              f"max |kernel - plain| {e:.2e} (tol {ATTN_TOL[precision]}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        line = f"   K6 [{precision}] at the scorer's [{BATCH}, 33, 256], 8 heads: max |kernel - plain| {e:.2e}, {ms:.4f} ms"
+        if precision != "high":
+            library_ms = sdpa_ms(q4, k4, v4, precision)
+            bound_ms, bound_by = _attn_bound(BATCH, 33, 8, 32, 4, 2, PEAK_FP32 if precision == "highest" else PEAK_BF16)
+            e7 = check(f"K7 scorer {precision}", mha_head_batched(q, k, v, 8, precision=precision),
+                       mha_head_batched_plain(q, k, v, 8, precision=precision), precision)
+            ms7 = _time_ms(lambda: mha_head_batched(q, k, v, 8, precision=precision), 20)
+            e8 = check(f"K8 scorer {precision}", flash_attention(q4, k4, v4, precision=precision),
+                       flash_attention_plain(q4, k4, v4, precision=precision), precision)
+            ms8, plain8 = _interleaved_ms(lambda: flash_attention(q4, k4, v4, precision=precision),
+                                          lambda: flash_attention_plain(q4, k4, v4, precision=precision), 20)
+            line += (f"; K7 {e7:.2e}, {ms7:.4f} ms; K8 {e8:.2e}, {ms8:.4f} ms (plain {plain8:.4f} ms); SDPA "
+                     f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, fp32 inputs: K6 "
+                     f"{bound_ms / ms:.1%}, K8 {bound_ms / ms8:.1%})")
+            if precision == "default":   # like for like with SDPA: K8 on the bf16 tensors SDPA reads
+                qb, kb, vb = (t.to(torch.bfloat16) for t in (q4, k4, v4))
+                cast_ms = _time_ms(lambda: flash_attention(qb, kb, vb, precision=precision), 20)
+                line += f"; K8 on the bf16 cast {cast_ms:.4f} ms"
+        print(line)
     return results
 
 
@@ -1233,7 +1258,10 @@ def phase_mesh_stage(torch, card):
     print(f"mesh bf16 fast mode, depth 32: K6[default] launched {counts[0]} times; max |bf16 - fp32| {d}, "
           f"vit relative to max |vit| {d['vit'] / scale:.4f} (tol {BF16_STAGE_TOL})")
     _check(d["vit"] <= BF16_STAGE_TOL * scale, f"mesh bf16: token_out off by {d['vit']:.3e} > {BF16_STAGE_TOL} * {scale:.2f}")
-    fps["core bf16"] = _stage_timing(torch, fast, timing_frames, timing_boxes, "bf16 core", card)
+    # the bf16 mode under every kernel attention_impl on the same weights
+    for impl in ("core", "head_batched", "flash"):
+        fast.set_attention_impl(impl)
+        fps[f"{impl} bf16"] = _stage_timing(torch, fast, timing_frames, timing_boxes, f"bf16 {impl}", card)
     del fast
     torch.cuda.empty_cache()
     return launches

@@ -356,15 +356,35 @@ def _qkv_slices(seed, B, N, H, hd, dtype, device):
     return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
 
 
+def _unaligned(t):
+    """A copy of [B, N, D] (or [B, N, H, hd]) t whose rows start one element
+    past a 16-byte boundary, so the kernels load them through registers."""
+    B, N = t.shape[:2]
+    flat = t.reshape(B, N, -1)
+    buf = torch.zeros(B, N, flat.shape[-1] + 1, dtype=t.dtype, device=t.device)
+    buf[..., 1:] = flat
+    row = buf.shape[-1]
+    inner = (1,) if t.ndim == 3 else (t.shape[3], 1)
+    return torch.as_strided(buf, t.shape, (N * row, row) + inner, storage_offset=1)
+
+
+# N at the 16- and 64-key edges of the tensor-core kernels (1, 15 to 17, 63
+# to 65) and the largest N the wrapper takes at head width 32 (384); pairs
+# packed several to a block at N = 33, the last block half empty at 15 pairs
 @pytest.mark.parametrize("B,N,H,hd", [(32, 192, 16, 80), (64, 33, 8, 32), (3, 100, 4, 64),
-                                      (2, 77, 3, 18), (2, 100, 2, 128)])
+                                      (2, 77, 3, 18), (2, 100, 2, 128),
+                                      (3, 1, 4, 80), (3, 15, 4, 64), (2, 16, 4, 32), (3, 17, 4, 80),
+                                      (2, 63, 4, 64), (2, 64, 4, 32), (2, 65, 4, 80), (2, 384, 2, 32),
+                                      (5, 33, 3, 32)])
 @pytest.mark.parametrize("dtype,precision", [(torch.float32, "highest"), (torch.float32, "high"),
                                              (torch.float32, "default"), (torch.bfloat16, "default"),
                                              (torch.bfloat16, "highest")])
 def test_mha_core_kernel_matches_plain(cuda, B, N, H, hd, dtype, precision):
     """K6 on strided slices: the built head widths (80, 64, 32), a run-time
     width (128), a width that is no multiple of four (18: scalar loads), odd
-    N. A bf16 output is one rounding of the fp32 result: 0.03 at any precision."""
+    N. A bf16 output is one rounding of the fp32 result: 0.03 at any precision.
+    Contiguous inputs, and rows that start off a 16-byte boundary (loaded
+    through registers, not by cp.async), give the same bits."""
     q, k, v = _qkv_slices(N, B, N, H, hd, dtype, cuda)
     assert not q.is_contiguous()
     want = mha_core_plain(q, k, v, H, precision=precision)
@@ -377,29 +397,43 @@ def test_mha_core_kernel_matches_plain(cuda, B, N, H, hd, dtype, precision):
     assert (got.float() - want.float()).abs().max().item() <= tol
     again = mha_core(q.contiguous(), k.contiguous(), v.contiguous(), H, precision=precision)
     assert torch.equal(got, again)   # strides change no bit
+    assert torch.equal(got, mha_core(*(_unaligned(t) for t in (q, k, v)), H, precision=precision))
 
 
 @pytest.mark.parametrize("B,N,H,hd", [(32, 192, 16, 80), (3, 45, 4, 16)])
 @pytest.mark.parametrize("dtype,precision", [(torch.float32, "highest"), (torch.bfloat16, "default")])
 def test_mha_head_batched_kernel_matches_plain(cuda, B, N, H, hd, dtype, precision):
+    """K7 on the card reads the strided slices in place through K6's kernel:
+    it allocates only its output, makes no relayout copy, and gives K6's bits."""
     q, k, v = _qkv_slices(N + 1, B, N, H, hd, dtype, cuda)
     want = mha_head_batched_plain(q, k, v, H, precision=precision)
     before = mha_head_batched.launches
+    held = torch.cuda.memory_allocated()
+    probe = torch.empty(q.shape, dtype=q.dtype, device=cuda)
+    out_block = torch.cuda.memory_allocated() - held   # the allocator's block for one output
+    del probe
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     got = mha_head_batched(q, k, v, H, precision=precision)
     torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - held == out_block
     assert mha_head_batched.launches == before + 1
     assert (got.float() - want.float()).abs().max().item() <= _ATTN_TOL[precision]
-    # the packed schedule computes what the in-place one computes
-    assert (got.float() - mha_core(q, k, v, H, precision=precision).float()).abs().max().item() \
-        <= _ATTN_TOL[precision]
+    assert torch.equal(got, mha_core(q, k, v, H, precision=precision))
 
 
+# N at the 16- and 64-key edges, pairs packed several to a block at N = 33,
+# a ragged last key block (200 = 128 + 72), the largest block_kv the wrapper
+# takes at head width 32 (384) on a sequence whose keys stream through it
 @pytest.mark.parametrize("B,N,H,hd,block", [(32, 192, 16, 80, 128), (2, 33, 8, 32, 128), (2, 100, 4, 64, 64),
-                                            (1, 300, 2, 32, 64), (2, 130, 2, 128, 64), (1, 1000, 2, 80, 128)])
+                                            (1, 300, 2, 32, 64), (2, 130, 2, 128, 64), (1, 1000, 2, 80, 128),
+                                            (3, 1, 4, 80, 64), (3, 17, 4, 64, 64), (2, 65, 4, 32, 64),
+                                            (5, 33, 3, 32, 128), (2, 200, 3, 80, 128), (1, 700, 2, 32, 384)])
 @pytest.mark.parametrize("dtype,precision", [(torch.float32, "highest"), (torch.bfloat16, "default")])
 def test_flash_kernel_matches_plain(cuda, B, N, H, hd, block, dtype, precision):
     """K8 on views of a [B, N, 3, H, hd] buffer: one block, several blocks,
-    a ragged last block, and a sequence the one-pass kernels cannot hold."""
+    a ragged last block, and a sequence the one-pass kernels cannot hold.
+    Contiguous and unaligned inputs give the same bits."""
     qkv = torch.randn(B, N, 3, H, hd, generator=torch.Generator().manual_seed(N)).to(cuda).to(dtype)
     q, k, v = qkv.unbind(dim=2)
     want = flash_attention_plain(q, k, v, block_q=block, block_kv=block, precision=precision)
@@ -410,6 +444,8 @@ def test_flash_kernel_matches_plain(cuda, B, N, H, hd, block, dtype, precision):
     assert torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() <= _ATTN_TOL[precision]
     assert torch.equal(got, flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            block_q=block, block_kv=block, precision=precision))
+    assert torch.equal(got, flash_attention(*(_unaligned(t) for t in (q, k, v)),
                                             block_q=block, block_kv=block, precision=precision))
 
 

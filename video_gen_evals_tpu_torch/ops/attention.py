@@ -6,27 +6,37 @@ Replaces ``video_gen_evals_tpu/ops/attention.py``: :func:`flash_attention`
 einsum reference) and :func:`multihead_attention`. Kernel source:
 ``csrc/attention.cu``.
 
-:func:`flash_attention` streams keys and values in blocks of ``block_kv``
+:func:`flash_attention` walks keys and values in blocks of ``block_kv``
 with a running max and sum (online softmax), so the ``[N, N]`` scores never
 reach device memory and N is unbounded. Keys past N are masked inside the
 kernel and q, k, v are read through their strides (they may be views of the
 qkv projection's output), so the JAX wrapper's pad and two transposes have no
 counterpart here. The accumulator is divided by ``max(l, 1e-30)`` at the end.
 ``block_q`` is how many query rows share one pass over the keys; rows are
-independent, so it changes no value, and the kernel gives each block 64 of
-them. ``block_kv`` sets where the online softmax rescales and so the last
+independent, so it changes no value, and the kernel picks its own row
+blocking. ``block_kv`` sets where the online softmax rescales and so the last
 bits; on the card it is a multiple of 64.
 
 Precision: ``"highest"`` (inputs widened to fp32, fp32 products) or
 ``"default"`` (q, k, v rounded to bf16, fp32 sums, p rounded to bf16 before
 ``p v``; the row sum l adds the unrounded p, as the JAX kernel does).
 
-Bound on the H100: fp32 FMA rate at ``"highest"``; at ``"default"`` the
-products run on the tensor cores (``mma.sync``) at head widths 80, 64 and 32
-and the bytes bound it. The wrapper launches the kernel for CUDA
-tensors and runs :func:`flash_attention_plain` (the same block loop, mask
-and rescaling order) for CPU tensors; ``flash_attention.launches`` counts
-kernel launches. The kernel has no backward.
+Bound on the H100: the fp32 FMA rate at ``"highest"``; the bytes at
+``"default"``, where both products run on the tensor cores at head widths
+80, 64 and 32. There a warp owns 16 query rows and keeps its scores, p, m, l
+and output in registers; a block holds all query rows of a pair (several
+pairs for short sequences, such as the scorer's 33 tokens), so each key is
+read once a pair. Where a pair's keys fit in shared memory they stay there
+and the next pair's q, k and v are copied in asynchronously while the
+current pair computes; longer sequences stream key blocks through two
+buffers, the next block in flight while the current one computes. fp32
+inputs, as the scorer's ``pallas_bf16`` arm hands them, are rounded to bf16
+on the way into shared memory.
+
+The wrapper launches the kernel for CUDA tensors and runs
+:func:`flash_attention_plain` (the same block loop, mask and rescaling
+order) for CPU tensors; ``flash_attention.launches`` counts kernel
+launches. The kernel has no backward.
 """
 
 from __future__ import annotations

@@ -14,9 +14,13 @@ dtype (float32 or bfloat16).
   the qkv projection's ``[B, N, 3 * H * hd]`` output (any batch and row
   stride, unit stride along the last axis), so no copy is made on the way in
   and the output is ready for the next projection.
-- :func:`mha_head_batched` packs q, k and v to contiguous ``[B * H, N, hd]``
-  pairs (three relayouts in, one back, here in the wrapper as in the JAX
-  function), and the kernel runs on the packed pairs.
+- :func:`mha_head_batched` is the JAX package's head-batched schedule. The
+  JAX function packs q, k and v to ``[B * H, N, hd]`` pairs and unpacks the
+  result, a bet that one bulk transpose each way is cheaper than XLA's
+  per-op relayouts on the TPU. On the card the kernel reads strided slices
+  in place, so the wrapper launches K6's kernel through the same strides
+  and makes no copy: the two give the same bits. Its plain version packs
+  like the JAX function.
 
 Precision (what is computed, on either device):
 - ``"highest"``: inputs widened to fp32, fp32 products and sums.
@@ -27,16 +31,19 @@ Precision (what is computed, on either device):
   as ``a_hi b_hi + a_hi b_lo + a_lo b_hi`` of round-to-nearest-even bf16
   parts, the class of :func:`..conv_kernel.split_bf16`.
 
-Bound on the H100: fp32 FMA rate at ``"highest"`` and ``"high"`` (4 N^2 hd
-operations per pair against four [N, hd] tiles moved); at ``"default"`` the
-products run on the tensor cores (``mma.sync``, head widths 80, 64 and 32)
-and the bytes bound it. Design and shared-memory budget: see the source.
-The kernel holds one head's keys and values and a [64, N] score tile in
-shared memory, with N padded to a multiple of 64, so N is bounded (192 at
-hd = 80, 384 at hd = 32; the wrapper refuses more); longer sequences belong
-to :func:`..attention.flash_attention`.
+Bound on the H100: the fp32 FMA rate at ``"highest"`` and ``"high"`` (4 N^2
+hd operations per pair against four [N, hd] tiles moved); the bytes at
+``"default"``, where both products run on the tensor cores at head widths
+80, 64 and 32 (96 operations a byte at N = 192, under the card's bf16 ridge
+of about 295). The ``"default"`` design reads each pair's keys and values
+from device memory once, by asynchronous copy, into a block that owns all of
+the pair's query rows, and keeps scores, p and the output in registers; see
+the source. The FMA kernel holds one head's keys and values and a [64, N]
+score tile in shared memory, with N padded to a multiple of 64, so N is
+bounded (192 at hd = 80, 384 at hd = 32; the wrapper refuses more, at every
+precision); longer sequences belong to :func:`..attention.flash_attention`.
 
-Each wrapper launches its kernel for CUDA tensors and runs its plain version
+Each wrapper launches the kernel for CUDA tensors and runs its plain version
 (``mha_core_plain``, ``mha_head_batched_plain``) for CPU tensors;
 ``mha_core.launches`` and ``mha_head_batched.launches`` count kernel
 launches. Neither kernel has a backward.
@@ -146,6 +153,27 @@ def check_shared_memory(name: str, lib, need: int, what: str) -> None:
                          f"the card gives {limit}")
 
 
+def _launch_core(name: str, q, k, v, heads: int, scale: float, precision: str) -> torch.Tensor:
+    """K6's kernel on CUDA ``[B, N, H * hd]`` tensors read through their strides."""
+    refuse_grad(name, q, k, v)
+    B, N, D = q.shape
+    hd = D // heads
+    # read in place where rows are dense along the last axis; else copy
+    q, k, v = (t if t.stride(2) == 1 else t.contiguous() for t in (q, k, v))
+    lib = load_library().lib
+    check_shared_memory(name, lib, lib.vge_mha_smem_bytes(N, hd),
+                        f"N={N} at head width {hd} (use flash_attention for long sequences)")
+    out = torch.empty((B, N, D), dtype=q.dtype, device=q.device)
+    code = lib.vge_mha_core(
+        q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        B, N, heads, hd, float(scale), int(q.dtype == torch.bfloat16),
+        PRECISION_CODES[precision], stream_handle(q.device),
+    )
+    check(code, f"{name} launch")
+    return out
+
+
 def mha_core(
     q: torch.Tensor,   # [B, N, D] (D = heads * hd), float32 or bfloat16
     k: torch.Tensor,
@@ -156,27 +184,12 @@ def mha_core(
 ) -> torch.Tensor:
     """Layout-preserving fused multi-head attention: [B, N, D] -> [B, N, D]."""
     _validate("mha_core", q, k, v, heads, precision, ("default", "high", "highest"))
-    B, N, D = q.shape
-    hd = D // heads
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1] // heads)
     if q.device.type == "cpu":
         return mha_core_plain(q, k, v, heads, scale, precision)
     if q.device.type != "cuda":
         raise ValueError(f"mha_core runs on CUDA or CPU tensors, not {q.device}")
-    refuse_grad("mha_core", q, k, v)
-    # read in place where rows are dense along the last axis; else copy
-    q, k, v = (t if t.stride(2) == 1 else t.contiguous() for t in (q, k, v))
-    lib = load_library().lib
-    check_shared_memory("mha_core", lib, lib.vge_mha_smem_bytes(N, hd),
-                        f"N={N} at head width {hd} (use flash_attention for long sequences)")
-    out = torch.empty((B, N, D), dtype=q.dtype, device=q.device)
-    code = lib.vge_mha_core(
-        q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        B, N, heads, hd, float(scale), int(q.dtype == torch.bfloat16),
-        PRECISION_CODES[precision], stream_handle(q.device),
-    )
-    check(code, "mha_core launch")
+    out = _launch_core("mha_core", q, k, v, heads, scale, precision)
     mha_core.launches += 1
     return out
 
@@ -192,37 +205,16 @@ def mha_head_batched(
     scale: T.Optional[float] = None,
     precision: str = "highest",
 ) -> torch.Tensor:
-    """Head-batched schedule: heads packed to ``[B * H, N, d]`` pairs, one
-    kernel over the pairs, unpacked to ``[B, N, D]``."""
+    """Head-batched schedule, [B, N, D] -> [B, N, D]: on the CPU heads packed
+    to ``[B * H, N, d]`` pairs and unpacked, as the JAX function does; on the
+    card K6's kernel on the same strides, with no copy."""
     _validate("mha_head_batched", q, k, v, heads, precision, ("default", "highest"))
-    B, N, D = q.shape
-    d = D // heads
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1] // heads)
     if q.device.type == "cpu":
         return mha_head_batched_plain(q, k, v, heads, scale, precision)
     if q.device.type != "cuda":
         raise ValueError(f"mha_head_batched runs on CUDA or CPU tensors, not {q.device}")
-    refuse_grad("mha_head_batched", q, k, v)
-    return unpack_heads(mha_packed(*(pack_heads(t, heads) for t in (q, k, v)), scale, precision), heads)
-
-
-def mha_packed(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor, scale: float,
-               precision: str) -> torch.Tensor:
-    """The K7 kernel alone, on contiguous CUDA ``[pairs, N, d]`` tensors (what
-    :func:`mha_head_batched` runs between its pack and its unpack)."""
-    if not (qp.is_cuda and qp.is_contiguous() and kp.is_contiguous() and vp.is_contiguous()):
-        raise ValueError("mha_packed takes contiguous CUDA [pairs, N, d] tensors")
-    pairs, N, d = qp.shape
-    lib = load_library().lib
-    check_shared_memory("mha_head_batched", lib, lib.vge_mha_smem_bytes(N, d),
-                        f"N={N} at head width {d} (use flash_attention for long sequences)")
-    out = torch.empty_like(qp)
-    code = lib.vge_mha_head_batched(
-        qp.device.index, qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
-        pairs, N, d, float(scale), int(qp.dtype == torch.bfloat16),
-        PRECISION_CODES[precision], stream_handle(qp.device),
-    )
-    check(code, "mha_head_batched launch")
+    out = _launch_core("mha_head_batched", q, k, v, heads, scale, precision)
     mha_head_batched.launches += 1
     return out
 

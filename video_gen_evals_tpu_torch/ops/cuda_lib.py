@@ -9,6 +9,9 @@ of the sources and flags: an edited source builds anew, an unchanged one
 loads what is there. Each process builds into a temporary name and renames,
 so processes that build at once never load a half-written file.
 
+:func:`load_library` takes a subset of the sources for a script that times
+one kernel source alone: the first call in a process decides what is built.
+
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into a ``RuntimeError``.
 """
@@ -69,10 +72,8 @@ _SIGNATURES = {
     "vge_temporal_block_train_bwd": [_I] + [_P] * 19 + [_I] * 6 + [_P],
     # device, q, k, v, out, (batch, row) strides of q, k, v in elements, batch,
     # n, heads, head width, scale, bf16_io, precision (0 highest, 1 default,
-    # 2 high), stream
+    # 2 high), stream; K6 and K7
     "vge_mha_core": [_I, _P, _P, _P, _P] + [_L] * 6 + [_I, _I, _I, _I, _F, _I, _I, _P],
-    # device, q, k, v, out, pairs, n, head width, scale, bf16_io, precision, stream
-    "vge_mha_head_batched": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     # device, q, k, v, out, (batch, row, head) strides of q, k, v, batch, n,
     # heads, head width, scale, bf16_io, precision, block_kv, stream
     "vge_flash_attention": [_I, _P, _P, _P, _P] + [_L] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _P],
@@ -113,9 +114,9 @@ def _nvcc() -> str:
     )
 
 
-def _build() -> KernelLibrary:
+def _build(sources: T.Tuple[str, ...]) -> KernelLibrary:
     nvcc = _nvcc()
-    srcs = [os.path.join(CSRC_DIR, s) for s in SOURCES]
+    srcs = [os.path.join(CSRC_DIR, s) for s in sources]
     h = hashlib.sha256()
     for s in srcs + [os.path.join(CSRC_DIR, s) for s in HEADERS]:
         with open(s, "rb") as f:
@@ -136,7 +137,7 @@ def _build() -> KernelLibrary:
             ]
             outs = [proc.communicate()[0] for proc in procs]
             log = "".join(outs)
-            failed = [s for s, proc in zip(SOURCES, procs) if proc.returncode != 0]
+            failed = [s for s, proc in zip(sources, procs) if proc.returncode != 0]
             if failed:
                 raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
             link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
@@ -151,25 +152,28 @@ def _build() -> KernelLibrary:
         seconds = time.perf_counter() - t0
         os.replace(tmp, path)
     lib = ctypes.CDLL(path)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    for name, argtypes in _SIZE_QUERIES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_longlong
+    for table, restype in ((_SIGNATURES, ctypes.c_int), (_SIZE_QUERIES, ctypes.c_longlong)):
+        for name, argtypes in table.items():
+            if sources != SOURCES and not hasattr(lib, name):
+                continue   # an entry point of a source left out
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
     lib.vge_error_string.argtypes = [ctypes.c_int]
     lib.vge_error_string.restype = ctypes.c_char_p
     return KernelLibrary(lib, path, seconds, log)
 
 
-def load_library() -> KernelLibrary:
-    """The kernel library, built on the first call in this process."""
+def load_library(sources: T.Optional[T.Sequence[str]] = None) -> KernelLibrary:
+    """The kernel library, built on the first call in this process: from
+    ``sources`` (names under ``csrc/``; ``window_gather.cu``, which holds the
+    error strings, is always added) or from all of :data:`SOURCES`. Later
+    calls return that library whatever they pass."""
     global _loaded
     with _lock:
         if _loaded is None:
-            _loaded = _build()
+            chosen = SOURCES if sources is None else tuple(dict.fromkeys(("window_gather.cu", *sources)))
+            _loaded = _build(chosen)
         return _loaded
 
 
