@@ -57,7 +57,10 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    and 32); at the scorer's [512, 33, 256] with 8 heads (K6 at all three
    precisions, K7 and K8 at "highest" and "default"). ms per call, the
    bound and the kernel's share of it, and F.scaled_dot_product_attention
-   on the same tensors (cast to bf16 for "default") as the library time.
+   on the same tensors (cast to bf16 for "default") as the library time;
+   K6 at "high" (bf16x3, bound by its bytes) is held against SDPA on the
+   fp32 tensors, which runs 3xTF32 and agrees with it within "high"'s
+   tolerance.
    Then K2 (gather_windows_subblock: bitwise equal to its plain version on a
    B = 512 x 32 x 2596 gather with a window clipped to an unaligned start,
    where it must differ from K1), K9 (fused_temporal_block_stacked over 10
@@ -170,6 +173,10 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# the bool template arguments of the attention kernels, in order
+_ATTN_FLAGS = {"attention_fma_kernel": ("split", "flash"), "attention_resident_kernel": ("flash",)}
+
+
 def _ptxas_summary(log: str):
     """One line per compiled kernel: registers and spills (nvcc -Xptxas -v)."""
     name, spill = None, ""
@@ -184,13 +191,14 @@ def _ptxas_summary(log: str):
         if name and m:
             t = re.search(r"(\d+)([a-z_]+kernel)ILi(\d+)ELi(\d+)ELb([01])E(?:Lb([01])E)?", name)
             tc = re.search(r"\d+([a-z_]+kernel)ILi(\d+)ELi(\d+)EE", name)
-            a = re.search(r"\d+([a-z_]+kernel)ILi(\d+)E(?:Lb([01])E)?", name)
+            a = re.search(r"\d+([a-z_]+kernel)ILi(\d+)E((?:Lb[01]E)*)", name)
             g = re.search(r"\d+([a-z_]+kernel)", name)
+            flags = "".join(f", {k}={b}" for k, b in zip(_ATTN_FLAGS.get(a.group(1), ()),
+                                                         re.findall(r"Lb([01])E", a.group(3)))) if a else ""
             short = (f"{t.group(2)}<T={t.group(3)}, C={t.group(4)}, bf16={t.group(5)}"
                      + (f", stacked={t.group(6)}>" if t.group(6) else ">") if t
                      else f"{tc.group(1)}<T={tc.group(2)}, C={tc.group(3)}>" if tc
-                     else f"{a.group(1)}<hd={a.group(2)}" + (
-                         f", {'flash' if 'resident' in a.group(1) else 'split'}={a.group(3)}>" if a.group(3) else ">") if a
+                     else f"{a.group(1)}<hd={a.group(2)}{flags}>" if a
                      else g.group(1) if g else name)
             yield f"{short}: {m.group(1)} registers; {spill}"
             name = None
@@ -698,7 +706,7 @@ def phase_fused_sweep(torch, card):
     and TC (8 classes of 8 videos, centroids from the arm's own sums) are held
     against the module forward's within FUSED_TOL (BF16_SWEEP_TOL for
     pallas_bf16). Then windows/s, warm, 5 sweeps per arm. Returns the
-    launches of K2, K9 and K10 (4 and 2 stages) on their arms."""
+    launches of K2, K9, K10 (4 and 2 stages) and K6 at "high" on their arms."""
     import dataclasses
 
     from video_gen_evals_tpu_torch.metrics.scores import finalize_centroids, finalize_video_scores
@@ -747,7 +755,7 @@ def phase_fused_sweep(torch, card):
           "fused_temporal_block_stacked[high]": "fused_temporal_block_stacked[high]"}, FUSED_TOL),
         ("stacked, attn_impl core", fused_sweep(gather_windows, stage_fusion="stacked", attn_impl="core"),
          {"gather_windows": nb, "fused_temporal_block_stacked[high]": 4 * nb, "mha_core[high]": layers * nb},
-         {}, FUSED_TOL),
+         {"mha_core[high]": "mha_core[high]"}, FUSED_TOL),
         ("module, attention_impl pallas", encoder_sweep("pallas"),
          {"gather_windows": nb, "fused_temporal_block[high]": 40 * nb, "flash_attention": layers * nb},
          {}, FUSED_TOL),
@@ -982,14 +990,15 @@ def phase_attention_kernels(torch, dev, gen):
 
     def kernel_row(name, tag, kernel, plain, precision, bound, library_ms):
         """Check, time (plain, kernel, kernel, plain), print with the share of
-        the bound, record."""
+        the bound and the library call's time, record."""
         e = check(tag, kernel(), plain(), precision)
         ms, plain_ms = _interleaved_ms(kernel, plain, 20)
         results[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
                              library_ms=library_ms)
+        library = f"SDPA {library_ms:.4f} ms ({ms / library_ms:.2f}x)"
         print(f"{tag}: max |kernel - plain| {e:.2e} (tol {ATTN_TOL[precision]}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
-              f"{bound[0]:.4f} ms ({bound[1]}, {bound[0] / ms:.1%} of the kernel's time)")
+              f"plain {plain_ms:.4f} ms, {library}, bound {bound[0]:.4f} ms ({bound[1]}, "
+              f"{bound[0] / ms:.1%} of the kernel's time)")
 
     for dtype, precision in ((torch.float32, "highest"), (torch.bfloat16, "default")):
         qkv = torch.randn(B, N, 3 * D, generator=gen).to(dev).to(dtype)
@@ -1031,15 +1040,22 @@ def phase_attention_kernels(torch, dev, gen):
             print(f"   [{precision}] N={n_odd}: max |kernel - plain| K8 ({H} heads of {hd}, blocks 64/64) {e8:.2e}, "
                   f"K6 {e6:.2e} and K7 {e7:.2e} ({H} heads of {hd_odd})")
 
-    # K6 "high" (bf16x3) at the ViT-H shape
+    # K6 "high" (bf16x3) at the ViT-H shape; its bound is the bytes (bf16x3
+    # fits the bf16 tensor rate). Its library call is fp32 SDPA (3xTF32 on
+    # the tensor cores), whose distance from the plain "high" is printed.
     qkv = torch.randn(B, N, 3 * D, generator=gen).to(dev)
     q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    q4, k4, v4 = qkv.reshape(B, N, 3, H, hd).unbind(dim=2)
     e = check("K6 high", mha_core(q, k, v, H, precision="high"), mha_core_plain(q, k, v, H, precision="high"), "high")
     e32 = err(mha_core(q, k, v, H, precision="high"), mha_core_plain(q, k, v, H, precision="highest"))
     ms, plain_ms = _interleaved_ms(lambda: mha_core(q, k, v, H, precision="high"),
                                    lambda: mha_core_plain(q, k, v, H, precision="high"), 10)
+    library_ms = sdpa_ms(q4, k4, v4, "highest")
+    bound_ms, bound_by = _attn_bound(B, N, H, hd, 4, 2, PEAK_BF16)
     print(f"K6 mha_core[high] float32 [{B}, {N}, {D}]: max |kernel - plain high| {e:.2e} (tol {ATTN_TOL['high']}), "
-          f"vs plain fp32 {e32:.2e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (no caller on the mesh path)")
+          f"vs plain fp32 {e32:.2e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA fp32 {library_ms:.4f} ms "
+          f"({ms / library_ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of the kernel's "
+          f"time; no caller on the mesh path)")
 
     # the scorer's transformer shape [512, 33, 8 heads of 32] on fp32 slices of
     # qkv, as attn_impl "core" (K6) and attention_impl "pallas" (K8
@@ -1048,6 +1064,13 @@ def phase_attention_kernels(torch, dev, gen):
     qkv = torch.randn(BATCH, 33, 3 * 256, generator=gen).to(dev)
     q, k, v = qkv[..., :256], qkv[..., 256:512], qkv[..., 512:]
     q4, k4, v4 = (t.reshape(BATCH, 33, 8, 32) for t in (q, k, v))
+    sdpa_high = err(F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q4, k4, v4))).transpose(1, 2),
+                    mha_core_plain(q, k, v, 8, precision="high").reshape(BATCH, 33, 8, 32))
+    print(f"   SDPA fp32 (3xTF32) at the scorer: max |SDPA - plain high| {sdpa_high:.2e} (tol {ATTN_TOL['high']})")
+    kernel_row("mha_core[high]", f"K6 mha_core[high] float32 [{BATCH}, 33, 256], 8 heads, as attn_impl core "
+               "hands them", lambda: mha_core(q, k, v, 8, precision="high"),
+               lambda: mha_core_plain(q, k, v, 8, precision="high"), "high",
+               _attn_bound(BATCH, 33, 8, 32, 4, 2, PEAK_BF16), sdpa_ms(q4, k4, v4, "highest"))
     for precision in ("highest", "high", "default"):
         e = check(f"K6 scorer {precision}", mha_core(q, k, v, 8, precision=precision),
                   mha_core_plain(q, k, v, 8, precision=precision), precision)
@@ -1586,6 +1609,8 @@ def main() -> int:
                 ("mha_head_batched", "video_gen_evals_tpu/ops/attention_core.py:172"),
                 ("flash_attention", "video_gen_evals_tpu/ops/attention.py:123"))
         ]
+    rows.append(("mha_core[high]", "attention.cu", "video_gen_evals_tpu/ops/attention_core.py:102",
+                 fused_launches["mha_core[high]"]))
     rows.append(("roi_align_pyramid_dma", "roi_align.cu", "video_gen_evals_tpu/ops/roi_align.py:335",
                  det_launches["roi_align_pyramid_dma"]))
     for name, _f, _rep, n in rows:

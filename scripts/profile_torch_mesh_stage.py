@@ -58,7 +58,7 @@ def main(argv=None) -> int:
     kernels, busy_share, card = device_summary(prof, args.chunks, wall_us)
     top = {k[:90]: round(v, 1) for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:14]}
     attention = sum(v for k, v in kernels.items()
-                    if any(name in k for name in ("mha_onepass", "flash_attention", "attention_resident")))
+                    if any(name in k for name in ("attention_fma", "flash_attention", "attention_resident")))
     print(json.dumps({
         "attention_impl": args.attention_impl, "mode": "bf16 default" if args.bf16 else "fp32 highest",
         "depth": args.depth, "frames_per_chunk": 32,

@@ -369,13 +369,16 @@ def _unaligned(t):
 
 
 # N at the 16- and 64-key edges of the tensor-core kernels (1, 15 to 17, 63
-# to 65) and the largest N the wrapper takes at head width 32 (384); pairs
-# packed several to a block at N = 33, the last block half empty at 15 pairs
+# to 65) and 384 at head width 32; pairs packed several to a block at
+# N = 33, the last block half empty at 15 pairs; the largest N the wrapper
+# takes at widths 80, 64 and 32 (324, 396, 720: the FMA body's sub-tiles
+# shrink to fit shared memory, and "default" runs there where the
+# tensor-core plan does not fit)
 @pytest.mark.parametrize("B,N,H,hd", [(32, 192, 16, 80), (64, 33, 8, 32), (3, 100, 4, 64),
                                       (2, 77, 3, 18), (2, 100, 2, 128),
                                       (3, 1, 4, 80), (3, 15, 4, 64), (2, 16, 4, 32), (3, 17, 4, 80),
                                       (2, 63, 4, 64), (2, 64, 4, 32), (2, 65, 4, 80), (2, 384, 2, 32),
-                                      (5, 33, 3, 32)])
+                                      (5, 33, 3, 32), (1, 324, 2, 80), (1, 396, 2, 64), (1, 720, 2, 32)])
 @pytest.mark.parametrize("dtype,precision", [(torch.float32, "highest"), (torch.float32, "high"),
                                              (torch.float32, "default"), (torch.bfloat16, "default"),
                                              (torch.bfloat16, "highest")])
@@ -447,6 +450,79 @@ def test_flash_kernel_matches_plain(cuda, B, N, H, hd, block, dtype, precision):
                                             block_q=block, block_kv=block, precision=precision))
     assert torch.equal(got, flash_attention(*(_unaligned(t) for t in (q, k, v)),
                                             block_q=block, block_kv=block, precision=precision))
+
+
+# The FMA body (fp32 "highest", bf16x3 "high") walks a pair's query rows in
+# sub-tiles of at most 64 rows split evenly over the sequence: N at the edges
+# of one, two and three sub-tiles at ViT-H's width
+@pytest.mark.parametrize("N", [64, 65, 128, 129, 191, 192])
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_mha_core_fma_subtile_edges(cuda, N, precision):
+    q, k, v = _qkv_slices(N + 7, 3, N, 2, 80, torch.float32, cuda)
+    got = mha_core(q, k, v, 2, precision=precision)
+    torch.cuda.synchronize()
+    assert (got - mha_core_plain(q, k, v, 2, precision=precision)).abs().max().item() <= _ATTN_TOL[precision]
+    assert torch.equal(got, mha_core(q.contiguous(), k.contiguous(), v.contiguous(), 2, precision=precision))
+    assert torch.equal(got, mha_core(*(_unaligned(t) for t in (q, k, v)), 2, precision=precision))
+
+
+# Scores more than 90 apart in a row: exp(s - max) underflows to subnormal
+# p (and p / sum below the normal range), the case where the IEEE
+# division leaves its fast path. q and k hold integers and the scale is
+# 1/8, so every side forms the same scores.
+@pytest.mark.parametrize("kernel,precision", [("K6", "highest"), ("K6", "high"), ("K8", "highest")])
+def test_attention_fma_underflowing_p(cuda, kernel, precision):
+    B, N, H, hd = 2, 40, 2, 64
+    gen = torch.Generator().manual_seed(11)
+    q, k = (torch.randint(-12, 13, (B, N, H, hd), generator=gen).float() for _ in range(2))
+    v = torch.randn(B, N, H, hd, generator=gen)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) / 8
+    spread = (s.amax(-1) - s.amin(-1)).amax().item()
+    assert spread > 90
+    q, k, v = (t.to(cuda) for t in (q, k, v))
+    if kernel == "K6":
+        q, k, v = (t.reshape(B, N, H * hd) for t in (q, k, v))
+        got = mha_core(q, k, v, H, precision=precision)
+        want = mha_core_plain(q, k, v, H, precision=precision)
+    else:
+        got = flash_attention(q, k, v, precision=precision)
+        want = flash_attention_plain(q, k, v, precision=precision)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= _ATTN_TOL[precision]
+
+
+# Short sequences pack several pairs into a block (5 at N = 33 and width 32,
+# 16 at N = 9): 21 and 28 pairs leave the last group partly empty; one pair
+@pytest.mark.parametrize("B,N,H,hd", [(5, 33, 3, 32), (7, 33, 3, 32), (7, 9, 4, 64), (1, 33, 1, 80)])
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_mha_core_fma_packed_pairs(cuda, B, N, H, hd, precision):
+    q, k, v = _qkv_slices(B * N, B, N, H, hd, torch.float32, cuda)
+    got = mha_core(q, k, v, H, precision=precision)
+    torch.cuda.synchronize()
+    assert (got - mha_core_plain(q, k, v, H, precision=precision)).abs().max().item() <= _ATTN_TOL[precision]
+    assert torch.equal(got, mha_core(*(_unaligned(t) for t in (q, k, v)), H, precision=precision))
+    if precision == "highest":
+        assert torch.equal(got, mha_head_batched(q, k, v, H, precision=precision))
+
+
+# K8's FMA body holds a pair's keys in shared memory while 32 query rows a
+# sub-tile still fit, and streams its key blocks beyond: the last N of one
+# side and the first of the other, at ViT-H's width and at head width 32
+@pytest.mark.parametrize("hd", [80, 32])
+@pytest.mark.parametrize("side", [0, 1])
+def test_flash_fma_resident_and_streamed(cuda, hd, side):
+    from video_gen_evals_tpu_torch.ops.cuda_lib import load_library
+
+    lib = load_library().lib
+    n = next(n for n in range(64, 4096) if lib.vge_flash_streams(n + 1, hd, 128)) + side
+    assert lib.vge_flash_streams(n, hd, 128) == side
+    qkv = torch.randn(2, n, 3, 2, hd, generator=torch.Generator().manual_seed(n)).to(cuda)
+    q, k, v = qkv.unbind(dim=2)
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (got - flash_attention_plain(q, k, v)).abs().max().item() <= _ATTN_TOL["highest"]
+    assert torch.equal(got, flash_attention(*(_unaligned(t) for t in (q, k, v))))
 
 
 def test_attention_kernels_refuse_what_they_cannot_run(cuda):

@@ -87,6 +87,7 @@ _SIZE_QUERIES = {
     "vge_mha_smem_bytes": [_I, _I],        # n, head width
     "vge_flash_smem_bytes": [_I, _I],      # block_kv, head width
     "vge_attention_max_smem": [],
+    "vge_flash_streams": [_I, _I, _I],     # n, head width, block_kv: 1 where K8's FMA path streams
 }
 
 
