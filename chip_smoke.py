@@ -175,6 +175,9 @@ def _card() -> str:
 
 # the bool template arguments of the attention kernels, in order
 _ATTN_FLAGS = {"attention_fma_kernel": ("split", "flash"), "attention_resident_kernel": ("flash",)}
+# the tensor-core conv kernels (K3 at "high", K4's backward at "default"): every
+# instantiation's ptxas line is printed
+_TC_KERNELS = ("temporal_block_high_kernel", "train_bwd_tc_kernel", "tap_grad_tc_kernel")
 
 
 def _ptxas_summary(log: str):
@@ -198,6 +201,7 @@ def _ptxas_summary(log: str):
             short = (f"{t.group(2)}<T={t.group(3)}, C={t.group(4)}, bf16={t.group(5)}"
                      + (f", stacked={t.group(6)}>" if t.group(6) else ">") if t
                      else f"{tc.group(1)}<T={tc.group(2)}, C={tc.group(3)}>" if tc
+                     else f"{a.group(1)}<C={a.group(2)}>" if a and a.group(1) in _TC_KERNELS
                      else f"{a.group(1)}<hd={a.group(2)}{flags}>" if a
                      else g.group(1) if g else name)
             yield f"{short}: {m.group(1)} registers; {spill}"
@@ -1561,7 +1565,8 @@ def main() -> int:
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"kernel build {lib.build_seconds:.1f} s -> {os.path.relpath(lib.path)}")
     for line in _ptxas_summary(lib.build_log):
-        if "<" not in line or "T=32, C=256" in line or "hd=80" in line:   # the flagship instantiations
+        # the flagship instantiations, and every tensor-core conv instantiation
+        if "<" not in line or "T=32, C=256" in line or "hd=80" in line or line.startswith(_TC_KERNELS):
             print(f"  ptxas: {line}")
 
     gen = torch.Generator().manual_seed(SEED)

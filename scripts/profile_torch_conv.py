@@ -1,0 +1,187 @@
+#!/usr/bin/env python3
+"""Time the fused conv-stage kernels of the PyTorch + CUDA port (K3
+``fused_temporal_block``, K4 ``fused_temporal_block_train`` forward and
+backward) on one NVIDIA GPU, alone. It builds only ``csrc/temporal_block.cu``
+and ``csrc/temporal_block_train.cu`` (``cuda_lib.load_library`` with a subset
+of the sources).
+
+    python3 scripts/profile_torch_conv.py [--root DIR] [--iters 20] [--build-only]
+
+``--root`` imports ``video_gen_evals_tpu_torch`` from another checkout (for
+example the parent commit unpacked with ``git archive`` under the ignored
+``_checkout/``), so that two versions are timed in one call on one card:
+run parent, change, change, parent (``--build-only`` first, for both roots at
+once, so that the timed runs build nothing). The kernels are held against
+their plain versions by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``
+phase 2; this script only times them.
+
+The run that builds prints the ptxas line (registers, spills) of every conv
+kernel the build instantiated; ``--build-only`` also the number of HMMA
+instructions in each conv kernel's SASS (``cuobjdump``). A timed run prints,
+at the main paths' shapes ([512, 32, 256] for K3, [960, 32, 256] with a keep
+mask for K4; dilations 1, 2, 4, 8 and their mean, as phase 2 reports it): ms
+a call from CUDA events, the bound and the kernel's share of it; K3 at
+``"high"`` and the backward split into their launches by ``torch.profiler``
+(device ms a call of each kernel, the weight preparation's small launches
+included); and what the weight preparation costs a call. Every line carries
+the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CONV_KERNELS = ("temporal_block", "train_", "tap_grad", "reduce_partials")
+
+
+def _sass_hmma(path: str):
+    """(kernel, HMMA count) for each conv kernel in the library's SASS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    return [(n, c) for n, c in counts.items() if any(k in n for k in _CONV_KERNELS)]
+
+
+def _device_split(torch, fn, iters):
+    """Device ms a call and launches a call of each kernel ``fn`` runs
+    (torch.profiler); empty when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and e.count > 0:
+            rows.append((us / 1e3 / iters, e.count / iters, e.key))
+    return sorted(rows, reverse=True)
+
+
+def timing(torch, ck, ckt, iters, card):
+    from chip_smoke import (BATCH, CLIP, PEAK_BF16, PEAK_FP32, TRAIN_WINDOWS, _conv_stage_bound,
+                            _time_ms)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    C = 256
+    fmt = lambda v: ", ".join(f"{m:.4f}" for m in v)   # noqa: E731
+
+    def weights():
+        w1, w2 = ((torch.randn(5, C, C, generator=gen) / math.sqrt(5 * C)).to(dev) for _ in range(2))
+        gs = (1.0 + 0.1 * torch.randn(C, generator=gen)).to(dev)
+        gb = (0.1 * torch.randn(C, generator=gen)).to(dev)
+        return w1, w2, gs, gb
+
+    # K3 at [512, 32, 256]
+    x = torch.randn(BATCH, CLIP, C, generator=gen).to(dev)
+    w1, w2, gs, gb = weights()
+    for precision in ("high", "highest"):
+        ms = [_time_ms(lambda: ck.fused_temporal_block(x, w1, w2, gs, gb, d, precision), iters)
+              for d in (1, 2, 4, 8)]
+        bound, by = (_conv_stage_bound(BATCH, CLIP, C, 2, 2, 2, 6, PEAK_BF16) if precision == "high"
+                     else _conv_stage_bound(BATCH, CLIP, C, 2, 2, 2, 2, PEAK_FP32))
+        mean = sum(ms) / 4
+        print(f"K3 {precision} [{BATCH}, {CLIP}, {C}] d=1/2/4/8: {fmt(ms)} ms, mean {mean:.4f}; "
+              f"bound {bound:.4f} ms ({by}, {bound / mean:.1%} of it) on {card}")
+    if hasattr(ck, "high_weight_planes"):
+        prep = ("high_weight_planes", lambda: ck.high_weight_planes(w1, w2))
+    else:
+        prep = ("split_pairs x2", lambda: (ck.split_pairs(w1), ck.split_pairs(w2)))
+    print(f"K3 high weight preparation ({prep[0]}): {_time_ms(prep[1], iters):.4f} ms a call on {card}")
+    for name, rows in (("K3 high d=2", _device_split(torch, lambda: ck.fused_temporal_block(
+            x, w1, w2, gs, gb, 2, "high"), iters)),):
+        for ms, n, key in rows[:6]:
+            print(f"  {name} device split: {ms:.4f} ms, {n:g} launches a call: {key[:90]}")
+    del x
+
+    # K4 at [960, 32, 256] with a keep mask, as the training step calls it
+    B = TRAIN_WINDOWS
+    x = torch.randn(B, CLIP, C, generator=gen).to(dev)
+    dy = torch.randn(B, CLIP, C, generator=gen).to(dev)
+    w1, w2, gs, gb = weights()
+    mask = ((torch.rand(B, CLIP, C, generator=gen) < 0.9).float() / 0.9).to(dev)
+    for precision in ("default", "highest"):
+        peak = PEAK_FP32 if precision == "highest" else PEAK_BF16
+        f_ms, b_ms = [], []
+        for d in (1, 2, 4, 8):
+            f_ms.append(_time_ms(
+                lambda: ckt.fused_temporal_block_train(x, w1, w2, gs, gb, mask, d, precision), iters))
+            leaves = [t.detach().requires_grad_() for t in (x, w1, w2, gs, gb)]
+            out = ckt.fused_temporal_block_train(*leaves, mask, d, precision)
+            b_ms.append(_time_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True), iters))
+            if d == 2:
+                split = _device_split(torch, lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True),
+                                      iters)
+        fb = _conv_stage_bound(B, CLIP, C, 2, 3, 2, 2, peak)
+        bb = _conv_stage_bound(B, CLIP, C, 6, 4, 4, 2, peak)
+        f_mean, b_mean = sum(f_ms) / 4, sum(b_ms) / 4
+        print(f"K4 forward {precision} [{B}, {CLIP}, {C}] d=1/2/4/8: {fmt(f_ms)} ms, mean {f_mean:.4f}; "
+              f"bound {fb[0]:.4f} ms ({fb[1]}, {fb[0] / f_mean:.1%} of it) on {card}")
+        print(f"K4 backward {precision} [{B}, {CLIP}, {C}] d=1/2/4/8: {fmt(b_ms)} ms, mean {b_mean:.4f}; "
+              f"bound {bb[0]:.4f} ms ({bb[1]}, {bb[0] / b_mean:.1%} of it) on {card}")
+        for ms, n, key in split[:8]:
+            print(f"  K4 backward {precision} d=2 device split: {ms:.4f} ms, {n:g} launches a call: "
+                  f"{key[:90]}")
+    if hasattr(ckt, "train_weight_planes"):
+        prep = ("train_weight_planes", lambda: ckt.train_weight_planes(w1, w2))
+    else:
+        prep = ("_round, _transposed", lambda: [ckt._transposed(ckt._round(w, "default")) for w in (w1, w2)])
+    print(f"K4 backward default weight preparation ({prep[0]}): {_time_ms(prep[1], iters):.4f} ms a call "
+          f"on {card}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=_REPO, help="checkout whose video_gen_evals_tpu_torch is timed")
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--build-only", action="store_true", help="build the two sources and stop")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_conv: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path[:0] = [os.path.abspath(args.root), _REPO]
+    from chip_smoke import _card, _ptxas_summary
+    from video_gen_evals_tpu_torch.ops import conv_kernel as ck
+    from video_gen_evals_tpu_torch.ops import conv_kernel_train as ckt
+    from video_gen_evals_tpu_torch.ops.cuda_lib import load_library
+
+    card = _card()
+    lib = load_library(sources=("temporal_block.cu", "temporal_block_train.cu"))
+    print(f"root {os.path.abspath(args.root)}: build {lib.build_seconds:.1f} s on {card}, "
+          f"torch {torch.__version__}")
+    for line in _ptxas_summary(lib.build_log):   # empty when an earlier run built the library
+        if line.startswith(_CONV_KERNELS):
+            print(f"  ptxas {line}")
+    if args.build_only:
+        for name, n in _sass_hmma(lib.path) or []:
+            print(f"  SASS HMMA {n:5d} in {name}")
+        return 0
+    torch.backends.cuda.matmul.allow_tf32 = False   # as chip_smoke.py sets it
+    timing(torch, ck, ckt, args.iters, card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

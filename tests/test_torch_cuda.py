@@ -89,14 +89,20 @@ def test_gather_kernel_refuses_int64(cuda):
         gather_windows(bank, offsets, row_limit, z0, 4, idx, idx, 32)
 
 
-@pytest.mark.parametrize("t_len,channels", [(32, 256), (16, 64)])
+# batches that are no multiple of the "high" kernel's W = 128 / T windows a
+# block (1, 5, 37, 513) beside the multiples, over the T and C corners
+_STAGE_SHAPES = [(64, 32, 256), (64, 16, 64), (1, 8, 64), (5, 32, 256), (37, 8, 256),
+                 (37, 32, 128), (513, 16, 128), (513, 32, 256)]
+
+
+@pytest.mark.parametrize("batch,t_len,channels", _STAGE_SHAPES)
 @pytest.mark.parametrize("dilation", [1, 2, 4, 8])
 @pytest.mark.parametrize("precision,atol", [("highest", 1e-4), ("high", 1e-4)])
-def test_block_kernel_matches_plain(cuda, t_len, channels, dilation, precision, atol):
+def test_block_kernel_matches_plain(cuda, batch, t_len, channels, dilation, precision, atol):
     """Against the plain version at the same precision, computed on the card
     in fp32 (TF32 off): only the order of the sums differs."""
     gen = torch.Generator().manual_seed(dilation)
-    B = 64
+    B = batch
     x = torch.randn(B, t_len, channels, generator=gen)
     w1, w2 = (torch.randn(5, channels, channels, generator=gen) / (5 * channels) ** 0.5
               for _ in range(2))
@@ -110,6 +116,18 @@ def test_block_kernel_matches_plain(cuda, t_len, channels, dilation, precision, 
     assert fused_temporal_block.launches == before + 1
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("batch,t_len,channels", [(512, 32, 256), (5, 32, 256), (37, 8, 64),
+                                                   (513, 16, 128)])
+def test_block_kernel_high_is_bitwise_repeatable(cuda, batch, t_len, channels):
+    """K3 at "high" sums in a fixed order: two calls give the same bits."""
+    gen = torch.Generator().manual_seed(batch)
+    x = torch.randn(batch, t_len, channels, generator=gen)
+    args = [a.to(cuda) for a in (x,) + _stage_weights(gen, (), channels)]
+    runs = [fused_temporal_block(*args, 2, "high") for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
 
 
 def test_block_kernel_refuses_grad(cuda):
@@ -250,7 +268,9 @@ def _train_inputs(seed, batch, t_len, channels, with_mask):
     return x, w1, w2, gs, gb, mask, dy
 
 
-@pytest.mark.parametrize("batch,t_len,channels", [(960, 32, 256), (24, 16, 64), (5, 8, 128)])
+@pytest.mark.parametrize("batch,t_len,channels", [(960, 32, 256), (24, 16, 64), (5, 8, 128),
+                                                   (1, 32, 64), (37, 8, 256), (513, 16, 128),
+                                                   (5, 32, 256)])
 @pytest.mark.parametrize("dilation", [1, 2, 4, 8])
 @pytest.mark.parametrize("with_mask", [False, True])
 @pytest.mark.parametrize("precision", ["highest", "default"])
@@ -286,10 +306,12 @@ def test_train_kernels_match_plain(cuda, batch, t_len, channels, dilation, with_
         assert excess <= g_tol * max(1.0, w.abs().max().item()), name
 
 
+@pytest.mark.parametrize("batch,t_len,channels", [(960, 32, 256), (37, 8, 64), (513, 16, 128),
+                                                   (5, 32, 256)])
 @pytest.mark.parametrize("precision", ["highest", "default"])
-def test_train_backward_is_bitwise_repeatable(cuda, precision):
+def test_train_backward_is_bitwise_repeatable(cuda, precision, batch, t_len, channels):
     """No atomics and fixed-order sums: two backward calls give the same bits."""
-    x, w1, w2, gs, gb, mask, dy = (t.to(cuda) for t in _train_inputs(7, 960, 32, 256, True))
+    x, w1, w2, gs, gb, mask, dy = (t.to(cuda) for t in _train_inputs(7, batch, t_len, channels, True))
     runs = []
     for _ in range(2):
         leaves = [t.clone().requires_grad_() for t in (x, w1, w2, gs, gb)]

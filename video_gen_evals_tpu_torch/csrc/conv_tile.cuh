@@ -1,12 +1,18 @@
 // Device helpers shared by the fused conv-stage kernels (temporal_block.cu,
-// temporal_block_train.cu): a [T, C] conv-input tile in shared memory, read
-// as broadcasts, and each thread's output channels for all T rows in
-// registers. See temporal_block.cu for the design.
+// temporal_block_train.cu, temporal_chain.cu), two bodies:
+// - conv_columns (CUDA cores): a [T, C] conv-input tile in shared memory,
+//   read as broadcasts, and each thread's output channels for all T rows in
+//   registers. See temporal_block.cu for the design.
+// - tc_conv (tensor cores): the conv over several windows a block as bf16
+//   mma.sync products with fp32 sums, for K3 at "high" and K4's backward at
+//   "default". See the comment above TcConv.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -150,6 +156,420 @@ __device__ __forceinline__ void conv_columns(const float* tile, const float* __r
         for (int k = 0; k < kW; ++k) wv[c][k] = wn[c][k];
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core body: acc[r, co] = sum_j sum_ci in[r + (j - 2) d, ci] * w[j, ci, co]
+// for the kRows rows of the block's W = kRows / T windows, on mma.sync
+// m16n8k16 (bf16 operands, fp32 sums), with P products a term: hi*whi at
+// P = 1 (K4's backward at "default", one rounded plane), hi*whi + hi*wlo +
+// lo*whi at P = 3 (K3 at "high", hi and lo planes). Products of bf16 values
+// are exact in fp32, so only the order of the sums differs from the plain
+// versions.
+//
+// Operands. The conv input sits in shared memory as bf16 planes of kRows
+// rows and one zero row, at a pitch of C + 8 elements (ldmatrix's eight
+// 16-byte rows then fall in distinct banks). A comes through ldmatrix.x4 into
+// registers, and each lane names its own row: the row t + o of its window,
+// or the zero row when t + o lies outside [0, T) or the window lies past the
+// batch. So a tap's shift never crosses a window and no halo is stored. The
+// weights stream through a ring of kStages stages of kKc input channels
+// (every plane) by 16-byte cp.async, issued kStages - 1 stages ahead, and
+// come to the B operand through ldmatrix.x4.trans. Taps with |o| >= T are
+// skipped.
+//
+// Warps. 8 warps, kWM x kWN over [kRows, C]: each warp owns 64 columns and
+// kWarpRows rows (64, 32, 16 at C = 256, 128, 64), kMT x 8 accumulator tiles
+// (128 fp32 registers a thread at C = 256). At P = 3 the A fragments of one
+// plane at a time are in registers (hi*whi and hi*wlo, then lo*whi). A block
+// owns whole windows, so a GroupNorm over a window's rows is a reduction over
+// the window's threads (window_sum), after the accumulators have gone to an
+// fp32 staging area in shared memory (tc_stage_acc, tc_store_planes) and the
+// epilogues run element-wise on it (TcEpi).
+//
+// Weight traffic: every block reads all the weights of a conv once; W
+// windows a block divide the bytes read from L2 a launch by W against one
+// window a block (at T = 32, C = 256: W = 4).
+template <int T, int C, int P>
+struct TcConv {
+  static_assert(P == 1 || P == 3, "one or three bf16 products a term");
+  static constexpr int kRows = 128;                  // rows a block
+  static constexpr int kWindows = kRows / T;         // W
+  static constexpr int kPlanes = P == 3 ? 2 : 1;     // hi (and lo) planes of input and weights
+  // 8 warps (128 accumulators a thread at C = 256). 16 warps ran K3 8%
+  // faster on an H100 but spilled at their 128-register cap.
+  static constexpr int kWarps = 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kWN = C / 64;                 // warps across the columns
+  static constexpr int kWM = kWarps / kWN;           // warps across the rows
+  static constexpr int kWarpRows = kRows / kWM;
+  static constexpr int kMT = kWarpRows / 16;         // m16 tiles a warp
+  static_assert(kMT >= 1, "a warp owns at least 16 rows");
+  static constexpr int kNT = 8;                      // n8 tiles a warp
+  static constexpr int kLd = C + 8;                  // bf16 elements a shared row
+  static constexpr int kPlaneElems = (kRows + 1) * kLd;
+  // the weight ring: as deep as the shared memory beside the planes allows
+  // (P = 3: 5 stages of 16 input channels; P = 1: 4 stages of 64, whose
+  // bytes equal an fp32 [kRows, C + 8] staging area)
+  static constexpr int kKc = P == 3 ? 16 : 64;       // input channels a weight stage
+  static constexpr int kStages = P == 3 ? 5 : 4;
+  static constexpr int kStageElems = kPlanes * kKc * kLd;
+  static constexpr int kRedFloats = kWarps;
+  static constexpr size_t kSmem =
+      (size_t)(kPlanes * kPlaneElems + kStages * kStageElems) * 2 + kRedFloats * 4;
+  // the fp32 staging area of the element-wise epilogues (tc_stage_acc)
+  static constexpr int kLdF = C + 8;
+  static constexpr size_t kStageBytes = (size_t)kRows * kLdF * 4;
+};
+
+// The element-wise epilogues: a window's kGroup = 2T threads (thread j of
+// the window threadIdx.x / 2T, 256 threads a block) visit its float4s f = j +
+// 2T k, k < C / 8: row f / (C / 4), column (f % (C / 4)) * 4, so neighbouring
+// threads touch neighbouring 16 bytes. kShare threads share a channel of the
+// window (each owns rows slab, slab + kShare, ..., slab = j / (C / 4)); with
+// kShare = 1 a thread owns kColGroups float4 columns over all T rows.
+template <int T, int C>
+struct TcEpi {
+  static constexpr int kGroup = 2 * T;
+  static constexpr int kSteps = C / 8;
+  static constexpr int kShare = 8 * T > C ? 8 * T / C : 1;
+  static constexpr int kColGroups = 8 * T > C ? 1 : C / (8 * T);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+// 16 bytes, or zeros when !valid (the source is then not read)
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// two floats as round-to-nearest-even bf16, the first at the lower address
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// four floats as bf16 (round to nearest even), the first at the lowest address
+__device__ __forceinline__ uint2 pack4_bf16(float4 v) {
+  return make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
+// The block's rows of a [rows, C] fp32 input (x points at its first row) into
+// the planes: rounded to bf16, or split into hi and lo; also the zero rows.
+// Rows from valid_rows on are not read (the lanes' addresses send them to the
+// zero row). With xb, the rounded rows also go to device memory.
+template <int T, int C, int P>
+__device__ __forceinline__ void tc_load_input(__nv_bfloat16* planes, const float* __restrict__ x,
+                                              int valid_rows, __nv_bfloat16* __restrict__ xb) {
+  using L = TcConv<T, C, P>;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < L::kRows * C / 4; i += L::kThreads) {
+    const int r = i / (C / 4), c = (i % (C / 4)) * 4;
+    if (r < valid_rows) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(x + (size_t)r * C + c));
+      const uint2 hi = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+      *reinterpret_cast<uint2*>(planes + r * L::kLd + c) = hi;
+      if constexpr (L::kPlanes == 2) {
+        *reinterpret_cast<uint2*>(planes + L::kPlaneElems + r * L::kLd + c) =
+            make_uint2(pack_bf16(v.x - bf16_round(v.x), v.y - bf16_round(v.y)),
+                       pack_bf16(v.z - bf16_round(v.z), v.w - bf16_round(v.w)));
+      }
+      if (xb != nullptr) *reinterpret_cast<uint2*>(xb + (size_t)r * C + c) = hi;
+    }
+  }
+  for (int i = threadIdx.x; i < L::kPlanes * C / 8; i += L::kThreads) {
+    const int p = i / (C / 8), c = (i % (C / 8)) * 8;
+    *reinterpret_cast<uint4*>(planes + p * L::kPlaneElems + L::kRows * L::kLd + c) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// op(accumulator) (the next conv's input) into the planes, split into hi and
+// lo, through an fp32 staging area of half the rows at ys: the warps of each
+// half of the rows stage their accumulators in turn, and every thread then
+// applies op and splits four staged values at a time (which keeps op's
+// temporaries few beside the accumulators). The caller has made sure no warp
+// still reads the planes or the staging area.
+template <int T, int C, int P, typename Op>
+__device__ __forceinline__ void tc_store_planes(
+    __nv_bfloat16* planes, float* ys,
+    const float (&acc)[TcConv<T, C, P>::kMT][TcConv<T, C, P>::kNT][4], Op op) {
+  using L = TcConv<T, C, P>;
+  constexpr int kHalf = L::kRows / 2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / L::kWN;
+  const int row0 = (wm % (L::kWM / 2)) * L::kWarpRows + (lane >> 2);  // inside the half
+  const int col0 = (warp % L::kWN) * 64 + 2 * (lane & 3);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (wm / (L::kWM / 2) == half) {
+#pragma unroll
+      for (int mt = 0; mt < L::kMT; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < L::kNT; ++nt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            *reinterpret_cast<float2*>(ys + (row0 + mt * 16 + h * 8) * L::kLdF + col0 + nt * 8) =
+                make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int f = threadIdx.x; f < kHalf * C / 4; f += L::kThreads) {
+      const int r = f / (C / 4), c = (f % (C / 4)) * 4;
+      const float4 s = *reinterpret_cast<const float4*>(ys + r * L::kLdF + c);
+      const float4 v = make_float4(op(s.x), op(s.y), op(s.z), op(s.w));
+      const int at = (half * kHalf + r) * L::kLd + c;
+      *reinterpret_cast<uint2*>(planes + at) = pack4_bf16(v);
+      if constexpr (L::kPlanes == 2) {
+        *reinterpret_cast<uint2*>(planes + L::kPlaneElems + at) = pack4_bf16(
+            make_float4(v.x - bf16_round(v.x), v.y - bf16_round(v.y), v.z - bf16_round(v.z),
+                        v.w - bf16_round(v.w)));
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// One weight stage: input channels ci0 .. ci0 + kKc of tap j, every plane.
+template <int T, int C, int P>
+__device__ __forceinline__ void tc_load_stage(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ w,
+                                              size_t w_plane, int j, int ci0) {
+  using L = TcConv<T, C, P>;
+  constexpr int kPieces = L::kKc * C / 8;  // 16-byte pieces a plane
+#pragma unroll
+  for (int i = threadIdx.x; i < L::kPlanes * kPieces; i += L::kThreads) {
+    const int p = i / kPieces, e = i % kPieces;
+    const int r = e / (C / 8), c = (e % (C / 8)) * 8;
+    cp_async16(smem_u32(dst + (p * L::kKc + r) * L::kLd + c),
+               w + p * w_plane + (size_t)(j * C + ci0 + r) * C + c);
+  }
+}
+
+// acc = conv(planes, w) over the block's rows (see TcConv). w: kPlanes planes
+// of [5, C, C] bf16, w_plane elements apart. valid_rows: the rows of windows
+// inside the batch. Ends with a barrier, after which the planes and the ring
+// are free.
+template <int T, int C, int P>
+__device__ __forceinline__ void tc_conv(float (&acc)[TcConv<T, C, P>::kMT][TcConv<T, C, P>::kNT][4],
+                                        const __nv_bfloat16* planes, __nv_bfloat16* ring,
+                                        const __nv_bfloat16* __restrict__ w, size_t w_plane,
+                                        int dilation, int valid_rows) {
+  using L = TcConv<T, C, P>;
+  constexpr int kChunks = C / L::kKc;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / L::kWN, wn = warp % L::kWN;
+#pragma unroll
+  for (int mt = 0; mt < L::kMT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < L::kNT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+    }
+  }
+  // taps 2 - m .. 2 + m reach inside the window
+  const int m = min(kTaps / 2, (T - 1) / dilation);
+  const int n_stages = (2 * m + 1) * kChunks;
+  const uint32_t plane_s = smem_u32(planes);
+  // the lane's ldmatrix row (A) and column (B) inside a 16 x 16 piece
+  const uint32_t b_lane =
+      smem_u32(ring) + ((lane & 15) * L::kLd + wn * 64 + (lane >> 4) * 8) * 2;
+#pragma unroll
+  for (int s = 0; s < L::kStages - 1; ++s) {
+    if (s < n_stages)
+      tc_load_stage<T, C, P>(ring + s * L::kStageElems, w, w_plane, 2 - m + s / kChunks,
+                             (s % kChunks) * L::kKc);
+    cp_async_commit();
+  }
+  uint32_t a_row[L::kMT];
+  int stage = 0;
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<L::kStages - 2>();
+    __syncthreads();  // stage s has landed everywhere; stage s - 1 is free
+    {
+      const int sn = s + L::kStages - 1;
+      if (sn < n_stages) {
+        const int slot = stage == 0 ? L::kStages - 1 : stage - 1;
+        tc_load_stage<T, C, P>(ring + slot * L::kStageElems, w, w_plane, 2 - m + sn / kChunks,
+                               (sn % kChunks) * L::kKc);
+      }
+      cp_async_commit();
+    }
+    const int chunk = s % kChunks;
+    if (chunk == 0) {  // a new tap: each lane's shifted row, or the zero row
+      const int o = (s / kChunks - m) * dilation;
+#pragma unroll
+      for (int mt = 0; mt < L::kMT; ++mt) {
+        const int r = wm * L::kWarpRows + mt * 16 + (lane & 15);
+        const int t = r % T;
+        const int src = (r < valid_rows && t + o >= 0 && t + o < T) ? r + o : L::kRows;
+        a_row[mt] = plane_s + (src * L::kLd + (lane >> 4) * 8) * 2;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < L::kKc / 16; ++kk) {
+      const uint32_t a_col = (chunk * L::kKc + kk * 16) * 2;
+      const uint32_t b_step = b_lane + (stage * L::kStageElems + kk * 16 * L::kLd) * 2;
+      uint32_t a[L::kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < L::kMT; ++mt) ldsm_x4(a[mt], a_row[mt] + a_col);
+      if constexpr (P == 1) {
+        // the next 16 columns' weights load ahead of this step's products
+        uint32_t b[2][4];
+        ldsm_x4_trans(b[0], b_step);
+#pragma unroll
+        for (int np = 0; np < L::kNT / 2; ++np) {
+          if (np + 1 < L::kNT / 2) ldsm_x4_trans(b[(np + 1) & 1], b_step + (np + 1) * 16 * 2);
+#pragma unroll
+          for (int mt = 0; mt < L::kMT; ++mt) {
+            mma_bf16(acc[mt][2 * np], a[mt], b[np & 1][0], b[np & 1][1]);
+            mma_bf16(acc[mt][2 * np + 1], a[mt], b[np & 1][2], b[np & 1][3]);
+          }
+        }
+      } else {
+        // hi*whi and hi*wlo, then lo*whi: one A plane in registers at a time
+        constexpr uint32_t kLoW = L::kKc * L::kLd * 2;  // bytes from a stage's hi to its lo plane
+#pragma unroll
+        for (int np = 0; np < L::kNT / 2; ++np) {
+          uint32_t bh[4], bl[4];
+          ldsm_x4_trans(bh, b_step + np * 16 * 2);
+          ldsm_x4_trans(bl, b_step + kLoW + np * 16 * 2);
+#pragma unroll
+          for (int mt = 0; mt < L::kMT; ++mt) {
+            mma_bf16(acc[mt][2 * np], a[mt], bh[0], bh[1]);
+            mma_bf16(acc[mt][2 * np + 1], a[mt], bh[2], bh[3]);
+          }
+#pragma unroll
+          for (int mt = 0; mt < L::kMT; ++mt) {
+            mma_bf16(acc[mt][2 * np], a[mt], bl[0], bl[1]);
+            mma_bf16(acc[mt][2 * np + 1], a[mt], bl[2], bl[3]);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < L::kMT; ++mt) ldsm_x4(a[mt], a_row[mt] + L::kPlaneElems * 2 + a_col);
+#pragma unroll
+        for (int np = 0; np < L::kNT / 2; ++np) {
+          uint32_t bh[4];
+          ldsm_x4_trans(bh, b_step + np * 16 * 2);
+#pragma unroll
+          for (int mt = 0; mt < L::kMT; ++mt) {
+            mma_bf16(acc[mt][2 * np], a[mt], bh[0], bh[1]);
+            mma_bf16(acc[mt][2 * np + 1], a[mt], bh[2], bh[3]);
+          }
+        }
+      }
+    }
+    stage = stage + 1 == L::kStages ? 0 : stage + 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The accumulators as fp32 rows of kLdF floats at ys, for the element-wise
+// epilogues. The caller has made sure no one still reads that region.
+template <int T, int C, int P>
+__device__ __forceinline__ void tc_stage_acc(
+    float* ys, const float (&acc)[TcConv<T, C, P>::kMT][TcConv<T, C, P>::kNT][4]) {
+  using L = TcConv<T, C, P>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = (warp / L::kWN) * L::kWarpRows + (lane >> 2);
+  const int col0 = (warp % L::kWN) * 64 + 2 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < L::kMT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < L::kNT; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<float2*>(ys + (row0 + mt * 16 + h * 8) * L::kLdF + col0 + nt * 8) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// The sum of v over the 2T threads of a window (TcEpi); every one of them
+// gets the same value, summed in a fixed order. red: a float a warp.
+template <int T>
+__device__ __forceinline__ float window_sum(float v, float* red) {
+  constexpr int kGroup = 2 * T;
+#pragma unroll
+  for (int off = (kGroup < 32 ? kGroup : 32) / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  if constexpr (kGroup > 32) {  // two warps a window
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) red[warp] = v;
+    __syncthreads();
+    v = red[warp & ~1] + red[warp | 1];
+    __syncthreads();  // red is reused by the next call
+  }
+  return v;
+}
+
+// f(integral_constant T, integral_constant C) for the built shapes
+template <typename F>
+cudaError_t with_shape(int t_len, int channels, F&& f) {
+  auto by_c = [&](auto t) -> cudaError_t {
+    switch (channels) {
+      case 64:
+        return f(t, std::integral_constant<int, 64>{});
+      case 128:
+        return f(t, std::integral_constant<int, 128>{});
+      case 256:
+        return f(t, std::integral_constant<int, 256>{});
+      default:
+        return cudaErrorInvalidValue;
+    }
+  };
+  switch (t_len) {
+    case 8:
+      return by_c(std::integral_constant<int, 8>{});
+    case 16:
+      return by_c(std::integral_constant<int, 16>{});
+    case 32:
+      return by_c(std::integral_constant<int, 32>{});
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 

@@ -17,41 +17,58 @@
 //
 // Precision:
 //   "highest": fp32 products and sums.
-//   "high":    bf16x3, the class of split_bf16 / _block_kernel_high_mm. The
-//              wrapper splits the weights once into round-to-nearest-even bf16
-//              (hi, lo) pairs, stored interleaved as [K, Cin, Cout, 2] fp32;
-//              the kernel splits each conv's input tile the same way. Each tap
-//              adds hi*whi + hi*wlo + lo*whi in fp32; products of bf16 values
-//              are exact in fp32, so CUDA-core FMAs give the bf16x3 result.
+//   "high":    bf16x3, the class of split_bf16 / _block_kernel_high_mm. Each
+//              tap adds hi*whi + hi*wlo + lo*whi in fp32, with hi and lo the
+//              round-to-nearest-even bf16 split of a value; products of bf16
+//              values are exact in fp32.
 //
-// Bound on the H100: fp32 FMA issue. A stage is 2 convs * 5 taps * T * C * C
-// FMAs per window (21 M at T = 32, C = 256; three times that at "high"),
-// 10.7 G (32 G) per 512-window launch. Every block reads the same 2.6 MB
-// (5.2 MB at "high") of weights, which stay in the 50 MB L2.
+// "high" (temporal_block_high_kernel): the tensor-core body of conv_tile.cuh
+// (tc_conv, P = 3). The wrapper lays out the weights once a call as bf16 hi
+// and lo planes, [2 convs, 2 planes, 5, C, C]. A block of 8 warps owns W =
+// 128 / T windows (4 at T = 32): it splits x into hi and lo planes in shared
+// memory, runs conv1 as three mma.sync products a term, passes the
+// accumulators through an fp32 staging area in the ring (half the rows at a
+// time) to GELU and split them back into the same planes, runs conv2, stages
+// its accumulators over the planes, and adds the residual x (re-read from
+// device memory), applies GELU and GroupNorm over each window element-wise,
+// a window's 2T threads on its float4s. Bound on the H100: the bf16
+// tensor-core rate, 3 products of 2 convs * 5 taps * T * C * C a window (63
+// M multiply-adds at T = 32, C = 256; 64.4 GFLOP at 512 windows, 0.065 ms at
+// the H100 data sheet's 989 TFLOP/s, 0.056 ms counting only the rows a shifted
+// tap reaches). Each block reads the 2.6 MB of hi and lo weight planes once
+// from L2, so a 512-window launch reads 0.34 GB (1.34 GB at one window a
+// block). Shared memory 221 KB at C = 256 (two planes of 129 rows of C + 8
+// bf16, a 5-stage ring of 16 input channels), so one block an SM.
 //
-// Design: one block per window owns its whole [T, C] tile, so GroupNorm is a
-// block reduction over registers, with no second pass over device memory.
-// Each thread computes kCols output channels (co, co + C/kCols, ...) for all
-// T rows, in kCols * T fp32 registers: kCols = 4 at "highest", 2 at "high"
-// (64 or 128 threads at C = 256). The conv input tile sits in shared memory
-// and is read as broadcasts, four input channels per 16-byte load (two loads
-// at "high"); each load feeds 4 * kCols FMAs (12 * kCols at "high"), so the
-// shared-memory pipe stops being the limit. Weight rows are read coalesced
-// across threads (consecutive co) through the read-only path, each weight
-// once per block, and the next four input channels' weights are loaded
-// before the current ones are used, so the L2 latency hides behind the FMAs.
-// T and C are template parameters: tile addresses are immediate offsets and
-// the row loop unrolls. conv1's input x and conv2's input h share one shared
-// buffer (each thread keeps its h columns in registers across the barrier),
-// so the block holds one tile: T * C * 4 bytes, twice that at "high" (32 or
-// 64 KB at T = 32, C = 256); above 48 KB the dynamic shared memory limit is
-// raised with cudaFuncSetAttribute before the launch. The residual re-reads
-// x from device memory. Tensor cores (wgmma) and TMA are left to a later
-// change.
+// "highest" (temporal_block_kernel): CUDA-core FMAs, bound by the fp32 FMA
+// issue rate: 2 convs * 5 taps * T * C * C FMAs per window (21 M at T = 32,
+// C = 256), 10.7 G per 512-window launch. Every block reads the same 2.6 MB
+// of weights, which stay in the 50 MB L2.
+//
+// Design of the FMA body: one block per window owns its whole [T, C] tile, so
+// GroupNorm is a block reduction over registers, with no second pass over
+// device memory. Each thread computes kCols output channels (co, co + C/kCols,
+// ...) for all T rows, in kCols * T fp32 registers: kCols = 4 at "highest", 2
+// for K9's bf16x3 (64 or 128 threads at C = 256). The conv input tile sits in
+// shared memory and is read as broadcasts, four input channels per 16-byte
+// load (two loads for bf16x3); each load feeds 4 * kCols FMAs (12 * kCols for
+// bf16x3), so the shared-memory pipe stops being the limit. Weight rows are
+// read coalesced across threads (consecutive co) through the read-only path,
+// each weight once per block, and the next four input channels' weights are
+// loaded before the current ones are used, so the L2 latency hides behind the
+// FMAs. T and C are template parameters: tile addresses are immediate offsets
+// and the row loop unrolls. conv1's input x and conv2's input h share one
+// shared buffer (each thread keeps its h columns in registers across the
+// barrier), so the block holds one tile: T * C * 4 bytes, twice that for
+// bf16x3 (32 or 64 KB at T = 32, C = 256); above 48 KB the dynamic shared
+// memory limit is raised with cudaFuncSetAttribute before the launch. The
+// residual re-reads x from device memory. K9 keeps this body: its tensor-core
+// redesign is a later change.
 //
 // K9 (stacked chains): blockIdx.y picks the chain, and with it the chain's
 // slice of x, out, w1, w2, gn_scale and gn_bias; each block then runs the
-// body above unchanged. Bound: S times K3's FMAs. The windows are on
+// FMA body above unchanged, on (hi, lo) weight pairs held as [K, Cin, Cout,
+// 2] fp32. Bound: S times K3's FMAs. The windows are on
 // blockIdx.x and the chain on blockIdx.y because blocks are dispatched
 // x-fastest: the resident blocks then work through one chain's weights
 // (5.2 MB at "high") at a time, where a chain-fastest order would cycle
@@ -155,72 +172,142 @@ cudaError_t launch_kernel(const float* x, const float* w1, const float* w2, cons
   return cudaGetLastError();
 }
 
-// chains == 0: K3 (one chain, no chain axis); chains >= 1: K9, "high" only.
+// kSplit: K9 (stacked chains, "high"); else K3 at "highest".
 template <int T, int C, bool kSplit>
 cudaError_t launch(const float* x, const float* w1, const float* w2, const float* gs,
                    const float* gb, float* out, int chains, int batch, int dilation,
                    cudaStream_t stream) {
-  if (chains == 0)
-    return launch_kernel<T, C, kSplit, false>(x, w1, w2, gs, gb, out, 1, batch, dilation, stream);
   if constexpr (kSplit)
     return launch_kernel<T, C, true, true>(x, w1, w2, gs, gb, out, chains, batch, dilation, stream);
-  return cudaErrorInvalidValue;
+  else
+    return launch_kernel<T, C, false, false>(x, w1, w2, gs, gb, out, 1, batch, dilation, stream);
 }
 
-template <int T, bool kSplit>
-cudaError_t dispatch_c(int channels, const float* x, const float* w1, const float* w2,
-                       const float* gs, const float* gb, float* out, int chains, int batch,
-                       int dilation, cudaStream_t stream) {
-  switch (channels) {
-    case 64:
-      return launch<T, 64, kSplit>(x, w1, w2, gs, gb, out, chains, batch, dilation,
-                                        stream);
-    case 128:
-      return launch<T, 128, kSplit>(x, w1, w2, gs, gb, out, chains, batch, dilation,
-                                        stream);
-    case 256:
-      return launch<T, 256, kSplit>(x, w1, w2, gs, gb, out, chains, batch, dilation,
-                                        stream);
-    default:
-      return cudaErrorInvalidValue;
+// K3 at "high": W = 128 / T windows a block on the tensor cores (see the
+// header). w: [2 convs, 2 planes (hi, lo), 5, C, C] bf16.
+template <int T, int C>
+__global__ void __launch_bounds__(TcConv<T, C, 3>::kThreads, 1) temporal_block_high_kernel(
+    const float* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    const float* __restrict__ gn_scale, const float* __restrict__ gn_bias,
+    float* __restrict__ out, int batch, int dilation) {
+  using L = TcConv<T, C, 3>;
+  constexpr size_t kPlaneW = (size_t)kTaps * C * C;
+  extern __shared__ float4 smem_tc[];
+  __nv_bfloat16* planes = reinterpret_cast<__nv_bfloat16*>(smem_tc);
+  __nv_bfloat16* ring = planes + L::kPlanes * L::kPlaneElems;
+  float* red = reinterpret_cast<float*>(ring + L::kStages * L::kStageElems);
+  const int win0 = blockIdx.x * L::kWindows;
+  const int valid_rows = min(L::kWindows, batch - win0) * T;
+  const size_t base = (size_t)win0 * T * C;
+
+  tc_load_input<T, C, 3>(planes, x + base, valid_rows, nullptr);
+  __syncthreads();
+  float acc[L::kMT][L::kNT][4];
+  tc_conv<T, C, 3>(acc, planes, ring, w, kPlaneW, dilation, valid_rows);
+  static_assert((size_t)L::kRows / 2 * L::kLdF * 4 <= (size_t)L::kStages * L::kStageElems * 2,
+                "half the rows' staging fits the ring");
+  // h = GELU(conv1), split back into the planes
+  tc_store_planes<T, C, 3>(planes, reinterpret_cast<float*>(ring), acc,
+                           [](float v) { return gelu(v); });
+  tc_conv<T, C, 3>(acc, planes, ring, w + 2 * kPlaneW, kPlaneW, dilation, valid_rows);
+
+  // y = GELU(conv2 + x), GroupNorm over each window, element-wise from the
+  // accumulators staged over the planes
+  using E = TcEpi<T, C>;
+  static_assert(L::kStageBytes <= (size_t)L::kPlanes * L::kPlaneElems * 2, "staging fits the planes");
+  float* ys = reinterpret_cast<float*>(planes);
+  tc_stage_acc<T, C, 3>(ys, acc);
+  __syncthreads();
+  const int win = threadIdx.x / E::kGroup, j = threadIdx.x % E::kGroup;
+  const bool valid = win0 + win < batch;
+  const size_t wbase = base + (size_t)win * T * C;
+  float* yw = ys + win * T * L::kLdF;
+  constexpr float inv_n = 1.0f / (float)(T * C);
+  float sum = 0.0f;
+#pragma unroll 4
+  for (int k = 0; k < E::kSteps; ++k) {
+    const int f = j + E::kGroup * k, r = f / (C / 4), c = (f % (C / 4)) * 4;
+    float4 v = *reinterpret_cast<const float4*>(yw + r * L::kLdF + c);
+    float4 xv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (valid) xv = __ldg(reinterpret_cast<const float4*>(x + wbase + r * C + c));
+    v = make_float4(gelu(v.x + xv.x), gelu(v.y + xv.y), gelu(v.z + xv.z), gelu(v.w + xv.w));
+    *reinterpret_cast<float4*>(yw + r * L::kLdF + c) = v;
+    sum += v.x + v.y + v.z + v.w;
+  }
+  const float mean = window_sum<T>(sum, red) * inv_n;
+  float sq = 0.0f;
+#pragma unroll 4
+  for (int k = 0; k < E::kSteps; ++k) {
+    const int f = j + E::kGroup * k, r = f / (C / 4), c = (f % (C / 4)) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(yw + r * L::kLdF + c);
+    const float d0 = v.x - mean, d1 = v.y - mean, d2 = v.z - mean, d3 = v.w - mean;
+    sq += d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
+  }
+  const float rstd = rsqrtf(window_sum<T>(sq, red) * inv_n + 1e-5f);
+  if (!valid) return;
+#pragma unroll 4
+  for (int k = 0; k < E::kSteps; ++k) {
+    const int f = j + E::kGroup * k, r = f / (C / 4), c = (f % (C / 4)) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(yw + r * L::kLdF + c);
+    const float4 g = __ldg(reinterpret_cast<const float4*>(gn_scale + c));
+    const float4 bias = __ldg(reinterpret_cast<const float4*>(gn_bias + c));
+    *reinterpret_cast<float4*>(out + wbase + r * C + c) =
+        make_float4((v.x - mean) * rstd * g.x + bias.x, (v.y - mean) * rstd * g.y + bias.y,
+                    (v.z - mean) * rstd * g.z + bias.z, (v.w - mean) * rstd * g.w + bias.w);
   }
 }
 
-template <bool kSplit>
-cudaError_t dispatch(int t_len, int channels, const float* x, const float* w1, const float* w2,
-                     const float* gs, const float* gb, float* out, int chains, int batch,
-                     int dilation, cudaStream_t stream) {
-  switch (t_len) {
-    case 8:
-      return dispatch_c<8, kSplit>(channels, x, w1, w2, gs, gb, out, chains, batch, dilation,
-                                       stream);
-    case 16:
-      return dispatch_c<16, kSplit>(channels, x, w1, w2, gs, gb, out, chains, batch, dilation,
-                                       stream);
-    case 32:
-      return dispatch_c<32, kSplit>(channels, x, w1, w2, gs, gb, out, chains, batch, dilation,
-                                       stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <int T, int C>
+cudaError_t launch_high(const float* x, const __nv_bfloat16* w, const float* gs, const float* gb,
+                        float* out, int batch, int dilation, int windows_per_block,
+                        int smem_bytes, cudaStream_t stream) {
+  using L = TcConv<T, C, 3>;
+  // the caller's plan (ops/conv_kernel.py::tc_plan) must be this instantiation's
+  if (windows_per_block != L::kWindows || smem_bytes != (int)L::kSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(temporal_block_high_kernel<T, C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L::kSmem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (batch + L::kWindows - 1) / L::kWindows;
+  temporal_block_high_kernel<T, C><<<blocks, L::kThreads, L::kSmem, stream>>>(
+      x, w, gs, gb, out, batch, dilation);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// w1, w2: [5, C, C] fp32 for split_bf16 == 0, [5, C, C, 2] (hi, lo) otherwise.
+// K3 at "highest": w1, w2 [5, C, C] fp32.
 // Supported: t_len in {8, 16, 32}, channels in {64, 128, 256}.
 extern "C" int vge_temporal_block(int device, const float* x, const float* w1,
                                   const float* w2, const float* gs,
                                   const float* gb, float* out, int batch,
                                   int t_len, int channels, int dilation,
-                                  int split_bf16, cudaStream_t stream) {
+                                  cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (batch == 0) return (int)cudaSuccess;
-  err = split_bf16
-            ? dispatch<true>(t_len, channels, x, w1, w2, gs, gb, out, 0, batch, dilation, stream)
-            : dispatch<false>(t_len, channels, x, w1, w2, gs, gb, out, 0, batch, dilation, stream);
-  return (int)err;
+  return (int)with_shape(t_len, channels, [&](auto t, auto c) {
+    return launch<decltype(t)::value, decltype(c)::value, false>(x, w1, w2, gs, gb, out, 0, batch,
+                                                                 dilation, stream);
+  });
+}
+
+// K3 at "high" on the tensor cores: w [2 convs, 2 planes (hi, lo), 5, C, C]
+// bf16. windows_per_block and smem_bytes: the wrapper's plan, which must
+// match the instantiation's (else cudaErrorInvalidValue).
+extern "C" int vge_temporal_block_high(int device, const float* x, const void* w,
+                                       const float* gs, const float* gb, float* out, int batch,
+                                       int t_len, int channels, int dilation,
+                                       int windows_per_block, int smem_bytes,
+                                       cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (batch == 0) return (int)cudaSuccess;
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  return (int)with_shape(t_len, channels, [&](auto t, auto c) {
+    return launch_high<decltype(t)::value, decltype(c)::value>(
+        x, wb, gs, gb, out, batch, dilation, windows_per_block, smem_bytes, stream);
+  });
 }
 
 // K9: x, out [chains, batch, t_len, channels]; w1, w2 [chains, 5, C, C, 2]
@@ -234,6 +321,8 @@ extern "C" int vge_temporal_block_stacked(int device, const float* x, const floa
   if (err != cudaSuccess) return (int)err;
   if (batch == 0 || chains == 0) return (int)cudaSuccess;
   if (chains > 65535) return (int)cudaErrorInvalidValue;
-  return (int)dispatch<true>(t_len, channels, x, w1, w2, gs, gb, out, chains, batch, dilation,
-                             stream);
+  return (int)with_shape(t_len, channels, [&](auto t, auto c) {
+    return launch<decltype(t)::value, decltype(c)::value, true>(x, w1, w2, gs, gb, out, chains,
+                                                                batch, dilation, stream);
+  });
 }

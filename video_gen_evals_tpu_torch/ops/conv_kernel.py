@@ -18,20 +18,26 @@ Precision:
   bf16 (hi, lo) once per call, here in the wrapper; each conv's input is
   split the same way; each tap adds ``hi*whi + hi*wlo + lo*whi`` in fp32.
 
-Bound on the H100: fp32 FMA issue (21 M FMAs per window at T = 32, C = 256;
-three times that at ``"high"``); the 2.6 MB of weights all blocks share stay
-in L2. Design: one block per window owns its [T, C] tile, so GroupNorm is a
-block reduction over registers; each thread keeps 4 output channels (2 at
-``"high"``) for all T rows in registers; one shared tile holds the current
-conv input, read as broadcasts; the next weights are loaded before the
-current ones are used. The kernel is built for T in {8, 16, 32}
-and C in {64, 128, 256}. Details in the source.
+``"high"`` runs on the tensor cores (mma.sync, bf16 operands, fp32 sums),
+bound by their bf16 rate: 3 products of 2 convs * 5 taps * T * C * C a window,
+64.4 GFLOP at [512, 32, 256] (0.065 ms at the H100's data-sheet 989
+TFLOP/s). A block owns W = 128 / T windows (:func:`tc_plan`), so the 2.6 MB of
+hi and lo weight planes (:func:`high_weight_planes`, laid out once a call)
+are read from L2 once per W windows: 0.34 GB a 512-window launch instead of
+1.34 GB at one window a block. ``"highest"`` runs on the CUDA cores, bound by
+the fp32 FMA rate (21 M FMAs per window at T = 32, C = 256): one block per
+window owns its [T, C] tile, each thread keeps 4 output channels for all T
+rows in registers, one shared tile holds the current conv input. In both,
+a block owns whole windows, so GroupNorm is a block reduction. The kernels
+are built for T in {8, 16, 32} and C in {64, 128, 256}. Details in the
+source.
 
 :func:`fused_temporal_block_stacked` (K9) runs the ``"high"`` stage on
 ``xs [S, B, T, C]`` with per-chain weights ``[S, K, C, C]`` and norms
 ``[S, C]``: one launch for all S chains (4 a scoring batch instead of K3's
-40), a grid of (window, chain) blocks each running K3's body on its chain's
-slices. Bound: S times K3's. ``"high"`` only, as in JAX.
+40), a grid of (window, chain) blocks each running the CUDA-core body on its
+chain's slices, with bf16x3 products on :func:`split_pairs` weights. Bound:
+S times K3's. ``"high"`` only, as in JAX.
 
 :func:`fused_temporal_block` and :func:`fused_temporal_block_stacked` launch
 their kernel for CUDA tensors and run their plain versions for CPU tensors;
@@ -42,6 +48,7 @@ CUDA inputs that require grad.
 
 from __future__ import annotations
 
+import dataclasses
 import typing as T
 
 import torch
@@ -110,6 +117,66 @@ def split_pairs(w: torch.Tensor) -> torch.Tensor:
     return torch.stack([p.float() for p in split_bf16(w)], dim=-1)
 
 
+def high_weight_planes(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """The weights as the ``"high"`` tensor-core kernel reads them: ``[2 convs,
+    2 planes, K, Cin, Cout]`` bf16, the planes the (hi, lo) of :func:`split_bf16`."""
+    ws = torch.stack([w1, w2])
+    hi = ws.to(torch.bfloat16)
+    lo = (ws - hi).to(torch.bfloat16)   # hi promotes to fp32 exactly
+    return torch.stack([hi, lo], dim=1)
+
+
+# The tensor-core conv body's geometry (csrc/conv_tile.cuh TcConv, and
+# GradTc in csrc/temporal_block_train.cu); the C side refuses a plan that
+# differs from its own.
+_TC_ROWS = 128          # rows a block: W = 128 / T windows
+_TC_RING = {"block_high": (16, 5), "train_bwd": (64, 4)}   # (input channels a weight stage, stages)
+_GRAD_ROWS = 64         # rows a stage of the weight-gradient kernel
+_GRAD_STAGES = 3
+_MAX_GRAD_SPLITS = 16   # row ranges of the weight-gradient kernel
+SMEM_LIMIT = 232_448    # shared memory a block may use on Hopper (227 KB)
+
+
+@dataclasses.dataclass(frozen=True)
+class TcPlan:
+    """Launch geometry of a tensor-core conv kernel, from the shape alone."""
+
+    windows_per_block: int   # W
+    blocks: int              # ceil(B / W)
+    smem_bytes: int          # dynamic shared memory a block
+    slabs: int = 0           # backward: dgamma, dbeta partial rows a window
+    splits: int = 0          # backward: row ranges of the weight gradients
+    grad_smem_bytes: int = 0  # backward: the weight-gradient kernel's shared memory
+
+
+def tc_plan(t_len: int, channels: int, batch: int, kind: str) -> TcPlan:
+    """The plan of K3 at ``"high"`` (``kind="block_high"``, three bf16 products
+    on hi and lo planes) or K4's backward at ``"default"`` (``"train_bwd"``,
+    one product on a rounded plane, then the ten weight-gradient GEMMs over
+    ``splits`` row ranges). Depends on ``t_len``, ``channels``, ``batch`` and
+    ``kind`` only."""
+    if kind not in ("block_high", "train_bwd"):
+        raise ValueError(f"kind must be 'block_high' or 'train_bwd', got {kind!r}")
+    if t_len not in _KERNEL_T or channels not in _KERNEL_C or batch < 1:
+        raise ValueError(f"no tensor-core plan for T={t_len}, C={channels}, B={batch}")
+    planes = 2 if kind == "block_high" else 1
+    k_chunk, stages = _TC_RING[kind]
+    ld = channels + 8                     # bf16 a shared row, padded against bank conflicts
+    smem = 2 * (planes * (_TC_ROWS + 1) * ld + stages * planes * k_chunk * ld) + 4 * 8   # + a float a warp
+    W = _TC_ROWS // t_len
+    blocks = -(-batch // W)
+    if kind == "block_high":
+        return TcPlan(W, blocks, smem)
+    tile = 128 if channels >= 128 else 64
+    rows = batch * t_len
+    return TcPlan(
+        W, blocks, smem,
+        slabs=max(1, 8 * t_len // channels),   # threads of a window (2T) that share a channel
+        splits=max(1, min(_MAX_GRAD_SPLITS, rows // 2048)),
+        grad_smem_bytes=2 * _GRAD_STAGES * 2 * _GRAD_ROWS * (tile + 8),
+    )
+
+
 def validate_stage_args(name: str, x, w1, w2, gn_scale, gn_bias, lead: T.Tuple[int, ...] = (),
                         x_dims: str = "B, T, C") -> None:
     """Shapes, dtype and device of a conv stage's arguments: ``x`` of the
@@ -129,6 +196,13 @@ def validate_stage_args(name: str, x, w1, w2, gn_scale, gn_bias, lead: T.Tuple[i
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"all arguments must be on one device, got {devices}")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and on 16 bytes, as the tensor-core kernels read it
+    (a copy holds the same values)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_launchable(name: str, x: torch.Tensor, *tensors: torch.Tensor) -> None:
@@ -168,20 +242,24 @@ def fused_temporal_block(
         return fused_temporal_block_plain(x, w1, w2, gn_scale, gn_bias, dilation, precision)
     check_launchable("fused_temporal_block", x, w1, w2, gn_scale, gn_bias)
     B, t_len, C = x.shape
-    split = precision == "high"
-    if split:
-        w1k, w2k = split_pairs(w1), split_pairs(w2)
-    else:
-        w1k, w2k = w1.contiguous(), w2.contiguous()
-    x = x.contiguous()
-    gs, gb = gn_scale.contiguous(), gn_bias.contiguous()
+    x = aligned(x)
+    gs, gb = aligned(gn_scale), aligned(gn_bias)
     out = torch.empty_like(x)
     lib = load_library().lib
-    code = lib.vge_temporal_block(
-        x.device.index, x.data_ptr(), w1k.data_ptr(), w2k.data_ptr(),
-        gs.data_ptr(), gb.data_ptr(), out.data_ptr(), B, t_len, C,
-        int(dilation), int(split), stream_handle(x.device),
-    )
+    if precision == "high":
+        plan = tc_plan(t_len, C, B, "block_high")
+        wk = high_weight_planes(w1, w2)
+        code = lib.vge_temporal_block_high(
+            x.device.index, x.data_ptr(), wk.data_ptr(), gs.data_ptr(), gb.data_ptr(),
+            out.data_ptr(), B, t_len, C, int(dilation), plan.windows_per_block,
+            plan.smem_bytes, stream_handle(x.device),
+        )
+    else:
+        w1c, w2c = w1.contiguous(), w2.contiguous()   # held until the launch has read them
+        code = lib.vge_temporal_block(
+            x.device.index, x.data_ptr(), w1c.data_ptr(), w2c.data_ptr(), gs.data_ptr(),
+            gb.data_ptr(), out.data_ptr(), B, t_len, C, int(dilation), stream_handle(x.device),
+        )
     check(code, "fused_temporal_block launch")
     fused_temporal_block.launches += 1
     return out

@@ -16,7 +16,7 @@ given as a scaled keep mask (0 or 1/keep) that the caller draws::
 The backward saves only x, the weights, gamma and the mask, recomputes the
 forward, and returns dx, dw1, dw2, dgamma, dbeta (the formulas stand in
 :func:`fused_temporal_block_train_bwd_plain`). On the card it is
-``LAUNCHES_PER_BACKWARD`` launches: one block per window for dx and the per-row
+``LAUNCHES_PER_BACKWARD`` launches: a window kernel for dx and the per-row
 cotangents, a tiled weight-gradient kernel over row ranges, and a
 fixed-order sum of the partials. No atomics: two calls on the same inputs
 give the same bits.
@@ -30,9 +30,19 @@ Precision:
   ``d1`` and ``x`` of the weight gradients. The plain versions round at the
   same places.
 
-Bound on the H100: the fp32 FMA rate of the CUDA cores, 20.1 G FMA forward and
-60.4 G backward at ``[960, 32, 256]``. The kernels are built for T in
-{8, 16, 32} and C in {64, 128, 256}.
+The forward (both precisions) and the backward at ``"highest"`` run on the
+CUDA cores, one block per window, bound by the fp32 FMA rate: 20.1 G FMA
+forward and 60.4 G backward at ``[960, 32, 256]``. The backward at
+``"default"`` runs on the tensor cores (mma.sync, bf16 operands, fp32 sums),
+bound by their bf16 rate: 60.4 G multiply-adds, 0.12 ms at the H100's
+data-sheet 989 TFLOP/s. Its window kernel owns W = 128 / T windows a block
+(:func:`~.conv_kernel.tc_plan`; 4 at T = 32), so the four convs' 2.6 MB of
+bf16 weights (:func:`train_weight_planes`, laid out once a call) are read
+from L2 once per W windows: 0.63 GB a 960-window launch instead of 2.5 GB.
+It stores x, d1, dr and dh1 as bf16, the only values the weight-gradient
+kernel reads, which runs the ten ``dw[j]`` products as tensor-core GEMMs
+over ``B * T`` rows. The kernels are built for T in {8, 16, 32} and C in
+{64, 128, 256}.
 
 :func:`fused_temporal_block_train` launches the kernels for CUDA tensors and
 runs the two plain versions for CPU tensors, through the same
@@ -48,12 +58,12 @@ import typing as T
 import torch
 import torch.nn.functional as F
 
-from .conv_kernel import _K, _KERNEL_C, _KERNEL_T, _conv_taps
+from .conv_kernel import _K, _KERNEL_C, _KERNEL_T, _conv_taps, aligned, tc_plan
 from .cuda_lib import check, load_library, stream_handle
 
 _PRECISIONS = ("default", "highest")
 LAUNCHES_PER_BACKWARD = 3   # window kernel, weight-gradient kernel, fixed-order sums
-_MAX_ROW_SPLITS = 8         # row ranges of the weight-gradient kernel
+_MAX_ROW_SPLITS = 8         # row ranges of the "highest" weight-gradient kernel
 
 
 def _round(t: torch.Tensor, precision: str) -> torch.Tensor:
@@ -74,6 +84,14 @@ def _gelu_grad(u: torch.Tensor) -> torch.Tensor:
 def _transposed(w: torch.Tensor) -> torch.Tensor:
     """The transposed conv's weights: taps reversed, Cin and Cout swapped."""
     return w.flip(0).transpose(1, 2).contiguous()
+
+
+def train_weight_planes(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """The weights as the ``"default"`` backward's tensor-core window kernel
+    reads them, in the order of its four convs: ``[w1, w2, w2t, w1t]`` rounded
+    to bf16, ``[4, K, Cin, Cout]`` (``w2t``, ``w1t`` as :func:`_transposed`)."""
+    return torch.stack([w1, w2, w2.flip(0).transpose(1, 2), w1.flip(0).transpose(1, 2)]).to(
+        torch.bfloat16)
 
 
 def _tap_grads(a: torch.Tensor, g: torch.Tensor, dilation: int, precision: str) -> torch.Tensor:
@@ -199,9 +217,10 @@ def _forward_cuda(x, w1, w2, gs, gb, mask, dilation, precision) -> torch.Tensor:
 
 
 def _backward_cuda(x, w1, w2, gs, mask, dy, dilation, precision):
+    if precision == "default":
+        return _backward_cuda_tc(x, w1, w2, gs, mask, dy, dilation)
     B, t_len, C = x.shape
-    w1r, w2r = _round(w1, precision), _round(w2, precision)
-    w1t, w2t = _transposed(w1r), _transposed(w2r)
+    w1t, w2t = _transposed(w1), _transposed(w2)
     splits = max(1, min(_MAX_ROW_SPLITS, (B * t_len) // 1024))
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x.device)   # noqa: E731
     dx, d1, dr, dh1 = (torch.empty_like(x) for _ in range(4))
@@ -209,13 +228,38 @@ def _backward_cuda(x, w1, w2, gs, mask, dy, dilation, precision):
     partial = new(2, splits, _K, C, C)
     dw1, dw2, dgamma, dbeta = new(_K, C, C), new(_K, C, C), new(C), new(C)
     code = load_library().lib.vge_temporal_block_train_bwd(
-        x.device.index, x.data_ptr(), w1r.data_ptr(), w2r.data_ptr(), w1t.data_ptr(),
+        x.device.index, x.data_ptr(), w1.data_ptr(), w2.data_ptr(), w1t.data_ptr(),
         w2t.data_ptr(), gs.data_ptr(), dy.data_ptr(),
         None if mask is None else mask.data_ptr(), dx.data_ptr(), d1.data_ptr(),
         dr.data_ptr(), dh1.data_ptr(), pgamma.data_ptr(), pbeta.data_ptr(),
         partial.data_ptr(), dw1.data_ptr(), dw2.data_ptr(), dgamma.data_ptr(),
-        dbeta.data_ptr(), B, t_len, C, int(dilation), int(precision == "default"),
-        splits, stream_handle(x.device),
+        dbeta.data_ptr(), B, t_len, C, int(dilation), splits, stream_handle(x.device),
+    )
+    check(code, "fused_temporal_block_train backward launch")
+    fused_temporal_block_train.launches_bwd += LAUNCHES_PER_BACKWARD
+    return dx, dw1, dw2, dgamma, dbeta
+
+
+def _backward_cuda_tc(x, w1, w2, gs, mask, dy, dilation):
+    """The backward at ``"default"`` on the tensor cores."""
+    B, t_len, C = x.shape
+    plan = tc_plan(t_len, C, B, "train_bwd")
+    wk = train_weight_planes(w1, w2)
+    x, gs, dy = aligned(x), aligned(gs), aligned(dy)
+    mask = None if mask is None else aligned(mask)
+    new = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=x.device)  # noqa: E731
+    xb, d1, dr, dh1 = (new(B, t_len, C, dtype=torch.bfloat16) for _ in range(4))
+    dx, dr32 = torch.empty_like(x), torch.empty_like(x)
+    pgamma, pbeta = new(B * plan.slabs, C), new(B * plan.slabs, C)
+    partial = new(2, plan.splits, _K, C, C)
+    dw1, dw2, dgamma, dbeta = new(_K, C, C), new(_K, C, C), new(C), new(C)
+    code = load_library().lib.vge_temporal_block_train_bwd_tc(
+        x.device.index, x.data_ptr(), wk.data_ptr(), gs.data_ptr(), dy.data_ptr(),
+        None if mask is None else mask.data_ptr(), dx.data_ptr(), xb.data_ptr(), d1.data_ptr(),
+        dr.data_ptr(), dh1.data_ptr(), dr32.data_ptr(), pgamma.data_ptr(), pbeta.data_ptr(),
+        partial.data_ptr(), dw1.data_ptr(), dw2.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+        B, t_len, C, int(dilation), plan.windows_per_block, plan.smem_bytes, plan.slabs,
+        plan.splits, plan.grad_smem_bytes, stream_handle(x.device),
     )
     check(code, "fused_temporal_block_train backward launch")
     fused_temporal_block_train.launches_bwd += LAUNCHES_PER_BACKWARD

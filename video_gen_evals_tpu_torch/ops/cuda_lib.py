@@ -54,8 +54,11 @@ _SIGNATURES = {
     "vge_gather_windows_subblock": [_I, _P, ctypes.c_longlong, _I, _I, _P, _P, _I, _P, _I,
                                     _I, _P, _P, _I, _I, _P, _P],
     # device, x, w1, w2, gn_scale, gn_bias, out, batch, t_len, channels,
-    # dilation, split_bf16, stream
-    "vge_temporal_block": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dilation, stream ("highest")
+    "vge_temporal_block": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # device, x, w (bf16 planes), gn_scale, gn_bias, out, batch, t_len,
+    # channels, dilation, windows_per_block, smem_bytes, stream ("high")
+    "vge_temporal_block_high": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # device, x, w1s, w2s, gn_scales, gn_biases, out, chains, batch, t_len,
     # channels, dilation, stream
     "vge_temporal_block_stacked": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -68,8 +71,13 @@ _SIGNATURES = {
     "vge_temporal_block_train_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # device, x, w1, w2, w1t, w2t, gn_scale, dy, mask (or null), dx, d1, dr,
     # dh1, pgamma, pbeta, partial, dw1, dw2, dgamma, dbeta, batch, t_len,
-    # channels, dilation, round_bf16, splits, stream
-    "vge_temporal_block_train_bwd": [_I] + [_P] * 19 + [_I] * 6 + [_P],
+    # channels, dilation, splits, stream ("highest")
+    "vge_temporal_block_train_bwd": [_I] + [_P] * 19 + [_I] * 5 + [_P],
+    # device, x, w (bf16 planes), gn_scale, dy, mask (or null), dx, xb, d1, dr,
+    # dh1, dr32, pgamma, pbeta, partial, dw1, dw2, dgamma, dbeta, batch, t_len,
+    # channels, dilation, windows_per_block, smem_bytes, slabs, splits,
+    # grad_smem_bytes, stream ("default")
+    "vge_temporal_block_train_bwd_tc": [_I] + [_P] * 18 + [_I] * 9 + [_P],
     # device, q, k, v, out, (batch, row) strides of q, k, v in elements, batch,
     # n, heads, head width, scale, bf16_io, precision (0 highest, 1 default,
     # 2 high), stream; K6 and K7
