@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time the fused conv-stage kernels of the PyTorch + CUDA port (K3
-``fused_temporal_block``, K4 ``fused_temporal_block_train`` forward and
-backward) on one NVIDIA GPU, alone. It builds only ``csrc/temporal_block.cu``
-and ``csrc/temporal_block_train.cu`` (``cuda_lib.load_library`` with a subset
-of the sources).
+``fused_temporal_block``, K10 ``fused_temporal_chain``, K4
+``fused_temporal_block_train`` forward and backward) on one NVIDIA GPU,
+alone. It builds only ``csrc/temporal_block.cu``, ``csrc/temporal_chain.cu``
+and ``csrc/temporal_block_train.cu`` (``cuda_lib.load_library`` with a
+subset of the sources).
 
     python3 scripts/profile_torch_conv.py [--root DIR] [--iters 20] [--build-only]
 
@@ -18,13 +19,19 @@ phase 2; this script only times them.
 The run that builds prints the ptxas line (registers, spills) of every conv
 kernel the build instantiated; ``--build-only`` also the number of HMMA
 instructions in each conv kernel's SASS (``cuobjdump``). A timed run prints,
-at the main paths' shapes ([512, 32, 256] for K3, [960, 32, 256] with a keep
-mask for K4; dilations 1, 2, 4, 8 and their mean, as phase 2 reports it): ms
-a call from CUDA events, the bound and the kernel's share of it; K3 at
-``"high"`` and the backward split into their launches by ``torch.profiler``
-(device ms a call of each kernel, the weight preparation's small launches
-included); and what the weight preparation costs a call. Every line carries
-the card's name and power limit.
+at the main paths' shapes ([512, 32, 256] for K3 and K10, [960, 32, 256]
+with a keep mask for K4; dilations 1, 2, 4, 8 and their mean, as phase 2
+reports it; K10 over 4 stages and over chain2's two halves, as phase 6 does):
+ms a call from CUDA events, the bound and the kernel's share of it; K3 at
+``"high"``, K10 and the backward split into their launches by
+``torch.profiler`` (device ms a call of each kernel, the weight
+preparation's small launches included); K10's error at 1 to 4 stages
+against its plain version beside K3 ``"high"`` run once a stage (and
+whether the two agree bitwise); what the weight preparation costs a call;
+and K4's forward at ``"default"`` at 528, 960 and 1056 windows (one
+full wave of 132 blocks of 4 windows, the training step's 1.8 waves, two
+full waves), which shows what the step's tail wave costs. Every line
+carries the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import subprocess
 import sys
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CONV_KERNELS = ("temporal_block", "train_", "tap_grad", "reduce_partials")
+_CONV_KERNELS = ("temporal_block", "temporal_chain", "train_", "tap_grad", "reduce_partials")
 
 
 def _sass_hmma(path: str):
@@ -77,9 +84,9 @@ def _device_split(torch, fn, iters):
     return sorted(rows, reverse=True)
 
 
-def timing(torch, ck, ckt, iters, card):
-    from chip_smoke import (BATCH, CLIP, PEAK_BF16, PEAK_FP32, TRAIN_WINDOWS, _conv_stage_bound,
-                            _time_ms)
+def timing(torch, ck, ckc, ckt, iters, card):
+    from chip_smoke import (BATCH, CLIP, PEAK_BF16, PEAK_FP32, TRAIN_WINDOWS, _bound, _conv_fmas,
+                            _conv_stage_bound, _time_ms)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -103,15 +110,43 @@ def timing(torch, ck, ckt, iters, card):
         mean = sum(ms) / 4
         print(f"K3 {precision} [{BATCH}, {CLIP}, {C}] d=1/2/4/8: {fmt(ms)} ms, mean {mean:.4f}; "
               f"bound {bound:.4f} ms ({by}, {bound / mean:.1%} of it) on {card}")
-    if hasattr(ck, "high_weight_planes"):
-        prep = ("high_weight_planes", lambda: ck.high_weight_planes(w1, w2))
-    else:
-        prep = ("split_pairs x2", lambda: (ck.split_pairs(w1), ck.split_pairs(w2)))
-    print(f"K3 high weight preparation ({prep[0]}): {_time_ms(prep[1], iters):.4f} ms a call on {card}")
+    print(f"K3 high weight preparation (high_weight_planes): "
+          f"{_time_ms(lambda: ck.high_weight_planes(w1, w2), iters):.4f} ms a call on {card}")
     for name, rows in (("K3 high d=2", _device_split(torch, lambda: ck.fused_temporal_block(
             x, w1, w2, gs, gb, 2, "high"), iters)),):
         for ms, n, key in rows[:6]:
             print(f"  {name} device split: {ms:.4f} ms, {n:g} launches a call: {key[:90]}")
+
+    # K10 at [512, 32, 256]: one chain's 4 stages, and chain2's two halves
+    S = 4
+    w1s, w2s = ((torch.randn(S, 5, C, C, generator=gen) / math.sqrt(5 * C)).to(dev) for _ in range(2))
+    gss = (1.0 + 0.1 * torch.randn(S, C, generator=gen)).to(dev)
+    gbs = (0.1 * torch.randn(S, C, generator=gen)).to(dev)
+    for name, groups in (("4 stages", ((1, 2, 4, 8),)), ("chain2", ((1, 2), (4, 8)))):
+        ms, bounds = [], []
+        for dil in groups:
+            n = len(dil)
+            w = (w1s[:n], w2s[:n], gss[:n], gbs[:n])
+            ms.append(_time_ms(lambda: ckc.fused_temporal_chain(x, *w, dil), iters))
+            # x in, out; each conv's fp32 weights once; three bf16 products a term
+            bounds.append(_bound(4 * (2 * BATCH * CLIP * C + 2 * n * 5 * C * C),
+                                 6 * 2 * sum(_conv_fmas(BATCH, CLIP, C, d) for d in dil), PEAK_BF16))
+        mean, bound = sum(ms) / len(ms), sum(b[0] for b in bounds) / len(bounds)
+        print(f"K10 {name} [{BATCH}, {CLIP}, {C}] dilations {' and '.join(map(str, groups))}: {fmt(ms)} ms, "
+              f"mean {mean:.4f}; bound {bound:.4f} ms ({bounds[0][1]}, {bound / mean:.1%} of it) on {card}")
+    for ms, n, key in _device_split(torch, lambda: ckc.fused_temporal_chain(
+            x, w1s, w2s, gss, gbs, (1, 2, 4, 8)), iters)[:6]:
+        print(f"  K10 4 stages device split: {ms:.4f} ms, {n:g} launches a call: {key[:90]}")
+    # K10's error at 1 to 4 stages against its plain version, beside K3 "high"
+    # run once a stage: whether the kernel or the order of its sums sets it
+    y = x
+    for n in range(1, S + 1):
+        dil, w = (1, 2, 4, 8)[:n], (w1s[:n], w2s[:n], gss[:n], gbs[:n])
+        got, want = ckc.fused_temporal_chain(x, *w, dil), ckc.fused_temporal_chain_plain(x, *w, dil)
+        y = ck.fused_temporal_block(y, w1s[n - 1], w2s[n - 1], gss[n - 1], gbs[n - 1], dil[-1], "high")
+        print(f"K10 {n} stage(s): max |K10 - plain| {(got - want).abs().max().item():.3e}, "
+              f"|K3 run {n} times - plain| {(y - want).abs().max().item():.3e}, "
+              f"K10 bitwise K3's: {torch.equal(got, y)} on {card}")
     del x
 
     # K4 at [960, 32, 256] with a keep mask, as the training step calls it
@@ -142,19 +177,23 @@ def timing(torch, ck, ckt, iters, card):
         for ms, n, key in split[:8]:
             print(f"  K4 backward {precision} d=2 device split: {ms:.4f} ms, {n:g} launches a call: "
                   f"{key[:90]}")
-    if hasattr(ckt, "train_weight_planes"):
-        prep = ("train_weight_planes", lambda: ckt.train_weight_planes(w1, w2))
-    else:
-        prep = ("_round, _transposed", lambda: [ckt._transposed(ckt._round(w, "default")) for w in (w1, w2)])
-    print(f"K4 backward default weight preparation ({prep[0]}): {_time_ms(prep[1], iters):.4f} ms a call "
-          f"on {card}")
+    # the forward's tail wave: 960 windows are 240 blocks, 1.8 waves of 132
+    xt = torch.randn(1056, CLIP, C, generator=gen).to(dev)
+    mt = ((torch.rand(1056, CLIP, C, generator=gen) < 0.9).float() / 0.9).to(dev)
+    tail = {n: _time_ms(lambda: ckt.fused_temporal_block_train(
+        xt[:n], w1, w2, gs, gb, mt[:n], 2, "default"), iters) for n in (528, 960, 1056)}
+    print("K4 forward default d=2 by windows: " + ", ".join(f"{n}: {ms:.4f} ms" for n, ms in tail.items())
+          + f" on {card}")
+    del xt, mt
+    print(f"K4 backward default weight preparation (train_weight_planes): "
+          f"{_time_ms(lambda: ckt.train_weight_planes(w1, w2), iters):.4f} ms a call on {card}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=_REPO, help="checkout whose video_gen_evals_tpu_torch is timed")
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--build-only", action="store_true", help="build the two sources and stop")
+    ap.add_argument("--build-only", action="store_true", help="build the three sources and stop")
     args = ap.parse_args()
     import torch
 
@@ -163,12 +202,13 @@ def main() -> int:
         return 1
     sys.path[:0] = [os.path.abspath(args.root), _REPO]
     from chip_smoke import _card, _ptxas_summary
+    from video_gen_evals_tpu_torch.ops import chain_kernel as ckc
     from video_gen_evals_tpu_torch.ops import conv_kernel as ck
     from video_gen_evals_tpu_torch.ops import conv_kernel_train as ckt
     from video_gen_evals_tpu_torch.ops.cuda_lib import load_library
 
     card = _card()
-    lib = load_library(sources=("temporal_block.cu", "temporal_block_train.cu"))
+    lib = load_library(sources=("temporal_block.cu", "temporal_chain.cu", "temporal_block_train.cu"))
     print(f"root {os.path.abspath(args.root)}: build {lib.build_seconds:.1f} s on {card}, "
           f"torch {torch.__version__}")
     for line in _ptxas_summary(lib.build_log):   # empty when an earlier run built the library
@@ -179,7 +219,7 @@ def main() -> int:
             print(f"  SASS HMMA {n:5d} in {name}")
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False   # as chip_smoke.py sets it
-    timing(torch, ck, ckt, args.iters, card)
+    timing(torch, ck, ckc, ckt, args.iters, card)
     return 0
 
 

@@ -1,8 +1,9 @@
-"""Host-side preparation of the tensor-core conv kernels (K3 at "high", K4's
-backward at "default"), on the CPU: the bf16 weight planes the kernels read,
-held bitwise against split_bf16 and _round, and the launch plan (windows a
-block, shared memory, partial rows, row ranges), which covers every batch,
-fits Hopper's shared memory and depends on the shape alone."""
+"""Host-side preparation of the tensor-core conv kernels (K3 and K10 at
+"high", K4's forward and backward at "default"), on the CPU: the bf16 weight
+planes the kernels read, held bitwise against split_bf16 and _round, and the
+launch plan (windows a block, shared memory, partial rows, row ranges), which
+covers every batch, fits Hopper's shared memory and depends on the shape
+alone."""
 
 import math
 
@@ -31,40 +32,47 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _weights(seed, channels):
+def _weights(seed, channels, lead=()):
     gen = torch.Generator().manual_seed(seed)
-    return tuple(torch.randn(5, channels, channels, generator=gen) / math.sqrt(5 * channels)
+    return tuple(torch.randn(*lead, 5, channels, channels, generator=gen) / math.sqrt(5 * channels)
                  for _ in range(2))
 
 
+# lead (): K3's two convs; (S,): K10's S stages, each stage's planes K3's
+@pytest.mark.parametrize("lead", [(), (2,), (4,)])
 @pytest.mark.parametrize("channels", _C)
-def test_high_weight_planes_are_split_bf16(channels):
-    w1, w2 = _weights(channels, channels)
+def test_high_weight_planes_are_split_bf16(channels, lead):
+    w1, w2 = _weights(channels, channels, lead)
     planes = high_weight_planes(w1, w2)
     assert planes.dtype == torch.bfloat16 and planes.is_contiguous()
-    assert tuple(planes.shape) == (2, 2, 5, channels, channels)
-    for conv, w in enumerate((w1, w2)):
-        hi, lo = split_bf16(w)
-        assert torch.equal(planes[conv, 0], hi)
-        assert torch.equal(planes[conv, 1], lo)
+    assert tuple(planes.shape) == lead + (2, 2, 5, channels, channels)
+    stages = [(planes, w1, w2)] if not lead else list(zip(planes, w1, w2))
+    for stage_planes, sw1, sw2 in stages:
+        for conv, w in enumerate((sw1, sw2)):
+            hi, lo = split_bf16(w)
+            assert torch.equal(stage_planes[conv, 0], hi)
+            assert torch.equal(stage_planes[conv, 1], lo)
 
 
+# convs 2: the forward's w1, w2; 4: the backward window kernel's w1, w2, w2t, w1t
+@pytest.mark.parametrize("convs", [2, 4])
 @pytest.mark.parametrize("channels", _C)
-def test_train_weight_planes_are_rounded_and_transposed(channels):
+def test_train_weight_planes_are_rounded_and_transposed(channels, convs):
     w1, w2 = _weights(channels + 1, channels)
-    planes = train_weight_planes(w1, w2)
+    planes = train_weight_planes(w1, w2, convs)
     assert planes.dtype == torch.bfloat16 and planes.is_contiguous()
-    assert tuple(planes.shape) == (4, 5, channels, channels)
-    want = (w1, w2, _transposed(w2), _transposed(w1))
+    assert tuple(planes.shape) == (convs, 5, channels, channels)
+    want = (w1, w2, _transposed(w2), _transposed(w1))[:convs]
     for got, w in zip(planes, want):
         assert torch.equal(got.float(), _round(w, "default"))
-    # the transposed planes are the rounded weights transposed: rounding and
-    # transposing commute
-    assert torch.equal(planes[2].float(), _transposed(_round(w2, "default")))
-    assert torch.equal(planes[3].float(), _transposed(_round(w1, "default")))
+    if convs == 4:
+        # the transposed planes are the rounded weights transposed: rounding
+        # and transposing commute
+        assert torch.equal(planes[2].float(), _transposed(_round(w2, "default")))
+        assert torch.equal(planes[3].float(), _transposed(_round(w1, "default")))
 
 
-@pytest.mark.parametrize("kind", ["block_high", "train_bwd"])
+@pytest.mark.parametrize("kind", ["block_high", "train_fwd", "train_bwd"])
 @pytest.mark.parametrize("channels", _C)
 @pytest.mark.parametrize("t_len", _T)
 def test_tc_plan_covers_every_batch_and_fits(t_len, channels, kind):
@@ -74,7 +82,7 @@ def test_tc_plan_covers_every_batch_and_fits(t_len, channels, kind):
         assert W * t_len == 128, plan                       # a block owns whole windows, 128 rows
         assert plan.blocks * W >= batch > (plan.blocks - 1) * W, (batch, plan)
         assert 0 < plan.smem_bytes <= SMEM_LIMIT, plan
-        if kind == "block_high":
+        if kind != "train_bwd":
             assert (plan.slabs, plan.splits, plan.grad_smem_bytes) == (0, 0, 0)
             continue
         assert t_len % plan.slabs == 0 and plan.slabs >= 1, plan
@@ -86,7 +94,7 @@ def test_tc_plan_covers_every_batch_and_fits(t_len, channels, kind):
         assert (plan.splits - 1) * rows_per_split < rows, plan   # and none is empty past the end
 
 
-@pytest.mark.parametrize("kind", ["block_high", "train_bwd"])
+@pytest.mark.parametrize("kind", ["block_high", "train_fwd", "train_bwd"])
 def test_tc_plan_depends_on_the_shape_alone(kind, monkeypatch):
     """Same shape, same plan, and the plan never asks the device."""
     want = {(t, c, b): tc_plan(t, c, b, kind) for t in _T for c in _C for b in _BATCHES}
@@ -101,9 +109,13 @@ def test_tc_plan_depends_on_the_shape_alone(kind, monkeypatch):
 
 
 @pytest.mark.parametrize("t_len,channels,batch,kind,want", [
-    # the main paths' shapes: the scoring batch and the training step
+    # the main paths' shapes: the scoring batch (K3, K10) and the training
+    # step (K4 forward and backward)
     (32, 256, 512, "block_high", TcPlan(4, 128, 220_736)),
     (32, 256, 256, "block_high", TcPlan(4, 64, 220_736)),
+    (32, 128, 513, "block_high", TcPlan(4, 129, 113_728)),
+    (32, 256, 960, "train_fwd", TcPlan(4, 240, 203_312)),
+    (8, 64, 37, "train_fwd", TcPlan(16, 3, 55_472)),
     (32, 256, 960, "train_bwd", TcPlan(4, 240, 203_312, slabs=1, splits=15, grad_smem_bytes=104_448)),
     (16, 64, 5, "train_bwd", TcPlan(8, 1, 55_472, slabs=2, splits=1, grad_smem_bytes=55_296)),
     (32, 64, 37, "train_bwd", TcPlan(4, 10, 55_472, slabs=4, splits=1, grad_smem_bytes=55_296)),
@@ -112,7 +124,7 @@ def test_tc_plan_depends_on_the_shape_alone(kind, monkeypatch):
 def test_tc_plan_at_known_shapes(t_len, channels, batch, kind, want):
     """The plan the kernels' own geometry gives (csrc/conv_tile.cuh TcConv:
     planes of 129 rows of C + 8 bf16 (hi and lo at "high"), a weight ring of 5
-    stages of 16 input channels ("high") or 4 of 64 (backward), a float for
+    stages of 16 input channels ("high") or 4 of 64 ("default"), a float for
     each of 8 warps; TcEpi: 8T / C threads of a window share a channel)."""
     assert tc_plan(t_len, channels, batch, kind) == want
 

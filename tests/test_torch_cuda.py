@@ -189,7 +189,10 @@ def test_stacked_kernel_matches_plain(cuda, chains, batch, t_len, channels, dila
     assert (got - want).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("batch,t_len,channels", [(512, 32, 256), (37, 16, 64)])
+# batches that are no multiple of W = 128 / T windows a block (1, 5, 37, 513)
+# beside the multiples, over the T and C corners
+@pytest.mark.parametrize("batch,t_len,channels", [(512, 32, 256), (37, 16, 64), (1, 8, 128),
+                                                   (5, 32, 256), (513, 32, 128), (513, 8, 256)])
 @pytest.mark.parametrize("dilations", [(1, 2, 4, 8), (1, 2), (4, 8)])
 @pytest.mark.parametrize("variant", ["slice", "mm_first"])
 def test_chain_kernel_matches_plain(cuda, batch, t_len, channels, dilations, variant):
@@ -206,6 +209,19 @@ def test_chain_kernel_matches_plain(cuda, batch, t_len, channels, dilations, var
     assert fused_temporal_chain.launches == before + 1
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("batch,t_len,channels", [(512, 32, 256), (5, 8, 128), (513, 16, 64)])
+@pytest.mark.parametrize("dilations", [(1, 2, 4, 8), (4, 8)])
+def test_chain_kernel_is_bitwise_repeatable(cuda, batch, t_len, channels, dilations):
+    """K10 sums in a fixed order and each stage reads back only what its
+    block wrote: two calls give the same bits."""
+    gen = torch.Generator().manual_seed(batch)
+    x = torch.randn(batch, t_len, channels, generator=gen)
+    args = [a.to(cuda) for a in (x,) + _stage_weights(gen, (len(dilations),), channels)]
+    runs = [fused_temporal_chain(*args, dilations) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
 
 
 def test_block_kernel_forward_on_card_matches_module(cuda):
@@ -320,6 +336,20 @@ def test_train_backward_is_bitwise_repeatable(cuda, precision, batch, t_len, cha
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("batch,t_len,channels", [(960, 32, 256), (37, 8, 64), (513, 16, 128),
+                                                   (5, 32, 256)])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_train_forward_is_bitwise_repeatable(cuda, precision, with_mask, batch, t_len, channels):
+    """The forward writes each output once, no atomics: two calls give the
+    same bits."""
+    x, w1, w2, gs, gb, mask, _dy = (
+        None if t is None else t.to(cuda) for t in _train_inputs(11, batch, t_len, channels, with_mask))
+    runs = [fused_temporal_block_train(x, w1, w2, gs, gb, mask, 4, precision) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
 
 
 def test_train_kernel_carries_grads_through_permuted_weights(cuda):

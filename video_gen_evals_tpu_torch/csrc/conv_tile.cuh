@@ -4,8 +4,8 @@
 //   read as broadcasts, and each thread's output channels for all T rows in
 //   registers. See temporal_block.cu for the design.
 // - tc_conv (tensor cores): the conv over several windows a block as bf16
-//   mma.sync products with fp32 sums, for K3 at "high" and K4's backward at
-//   "default". See the comment above TcConv.
+//   mma.sync products with fp32 sums, for K3 and K10 at "high" and K4 at
+//   "default" (forward and backward). See the comment above TcConv.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -163,9 +163,10 @@ __device__ __forceinline__ void conv_columns(const float* tile, const float* __r
 // Tensor-core body: acc[r, co] = sum_j sum_ci in[r + (j - 2) d, ci] * w[j, ci, co]
 // for the kRows rows of the block's W = kRows / T windows, on mma.sync
 // m16n8k16 (bf16 operands, fp32 sums), with P products a term: hi*whi at
-// P = 1 (K4's backward at "default", one rounded plane), hi*whi + hi*wlo +
-// lo*whi at P = 3 (K3 at "high", hi and lo planes). Products of bf16 values
-// are exact in fp32, so only the order of the sums differs from the plain
+// P = 1 (K4 at "default", one rounded plane), hi*whi + hi*wlo + lo*whi at
+// P = 3 (K3 and K10 at "high", hi and lo planes; K10 sums the two small
+// products first, tc_conv_small_first). Products of bf16 values are exact in
+// fp32, so only the order and the rounding of the sums differ from the plain
 // versions.
 //
 // Operands. The conv input sits in shared memory as bf16 planes of kRows
@@ -296,8 +297,11 @@ __device__ __forceinline__ uint2 pack4_bf16(float4 v) {
 // The block's rows of a [rows, C] fp32 input (x points at its first row) into
 // the planes: rounded to bf16, or split into hi and lo; also the zero rows.
 // Rows from valid_rows on are not read (the lanes' addresses send them to the
-// zero row). With xb, the rounded rows also go to device memory.
-template <int T, int C, int P>
+// zero row). With xb, the rounded rows also go to device memory. kL2: x is
+// read through L2 only (ld.global.cg), for rows the block itself wrote
+// earlier in the launch (K10's stage outputs), which the read-only path
+// (__ldg) need not see.
+template <int T, int C, int P, bool kL2 = false>
 __device__ __forceinline__ void tc_load_input(__nv_bfloat16* planes, const float* __restrict__ x,
                                               int valid_rows, __nv_bfloat16* __restrict__ xb) {
   using L = TcConv<T, C, P>;
@@ -305,7 +309,8 @@ __device__ __forceinline__ void tc_load_input(__nv_bfloat16* planes, const float
   for (int i = threadIdx.x; i < L::kRows * C / 4; i += L::kThreads) {
     const int r = i / (C / 4), c = (i % (C / 4)) * 4;
     if (r < valid_rows) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(x + (size_t)r * C + c));
+      const float4* src = reinterpret_cast<const float4*>(x + (size_t)r * C + c);
+      const float4 v = kL2 ? __ldcg(src) : __ldg(src);
       const uint2 hi = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
       *reinterpret_cast<uint2*>(planes + r * L::kLd + c) = hi;
       if constexpr (L::kPlanes == 2) {
@@ -372,34 +377,28 @@ __device__ __forceinline__ void tc_store_planes(
   }
 }
 
-// One weight stage: input channels ci0 .. ci0 + kKc of tap j, every plane.
-template <int T, int C, int P>
+// One weight stage: input channels ci0 .. ci0 + kKc of tap j, kLoad planes.
+template <int T, int C, int P, int kLoad, int kKc>
 __device__ __forceinline__ void tc_load_stage(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ w,
                                               size_t w_plane, int j, int ci0) {
   using L = TcConv<T, C, P>;
-  constexpr int kPieces = L::kKc * C / 8;  // 16-byte pieces a plane
+  constexpr int kPieces = kKc * C / 8;  // 16-byte pieces a plane
 #pragma unroll
-  for (int i = threadIdx.x; i < L::kPlanes * kPieces; i += L::kThreads) {
+  for (int i = threadIdx.x; i < kLoad * kPieces; i += L::kThreads) {
     const int p = i / kPieces, e = i % kPieces;
     const int r = e / (C / 8), c = (e % (C / 8)) * 8;
-    cp_async16(smem_u32(dst + (p * L::kKc + r) * L::kLd + c),
+    cp_async16(smem_u32(dst + (p * kKc + r) * L::kLd + c),
                w + p * w_plane + (size_t)(j * C + ci0 + r) * C + c);
   }
 }
 
-// acc = conv(planes, w) over the block's rows (see TcConv). w: kPlanes planes
-// of [5, C, C] bf16, w_plane elements apart. valid_rows: the rows of windows
-// inside the batch. Ends with a barrier, after which the planes and the ring
-// are free.
+// Which products of each term a pass of tc_conv_terms adds: all P of them,
+// or at P = 3 the two small ones (hi*wlo + lo*whi) or the large one (hi*whi).
+enum TcTerms { kAllTerms, kSmallTerms, kLargeTerm };
+
 template <int T, int C, int P>
-__device__ __forceinline__ void tc_conv(float (&acc)[TcConv<T, C, P>::kMT][TcConv<T, C, P>::kNT][4],
-                                        const __nv_bfloat16* planes, __nv_bfloat16* ring,
-                                        const __nv_bfloat16* __restrict__ w, size_t w_plane,
-                                        int dilation, int valid_rows) {
+__device__ __forceinline__ void tc_zero(float (&acc)[TcConv<T, C, P>::kMT][TcConv<T, C, P>::kNT][4]) {
   using L = TcConv<T, C, P>;
-  constexpr int kChunks = C / L::kKc;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / L::kWN, wn = warp % L::kWN;
 #pragma unroll
   for (int mt = 0; mt < L::kMT; ++mt) {
 #pragma unroll
@@ -408,6 +407,26 @@ __device__ __forceinline__ void tc_conv(float (&acc)[TcConv<T, C, P>::kMT][TcCon
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
     }
   }
+}
+
+// acc += the kTerms products of conv(planes, w) over the block's rows (see
+// TcConv). w: kPlanes planes of [5, C, C] bf16, w_plane elements apart.
+// valid_rows: the rows of windows inside the batch. The large term's pass
+// streams the hi weight plane alone, twice the input channels a stage in the
+// same ring. Ends with a barrier, after which the planes and the ring are
+// free.
+template <int T, int C, int P, int kTerms>
+__device__ __forceinline__ void tc_conv_terms(
+    float (&acc)[TcConv<T, C, P>::kMT][TcConv<T, C, P>::kNT][4], const __nv_bfloat16* planes,
+    __nv_bfloat16* ring, const __nv_bfloat16* __restrict__ w, size_t w_plane, int dilation,
+    int valid_rows) {
+  using L = TcConv<T, C, P>;
+  static_assert(kTerms == kAllTerms || P == 3, "a pass of some terms needs the split planes");
+  constexpr int kLoad = kTerms == kLargeTerm ? 1 : L::kPlanes;   // weight planes a stage
+  constexpr int kKc = L::kKc * L::kPlanes / kLoad;                // input channels a stage
+  constexpr int kChunks = C / kKc;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / L::kWN, wn = warp % L::kWN;
   // taps 2 - m .. 2 + m reach inside the window
   const int m = min(kTaps / 2, (T - 1) / dilation);
   const int n_stages = (2 * m + 1) * kChunks;
@@ -418,8 +437,8 @@ __device__ __forceinline__ void tc_conv(float (&acc)[TcConv<T, C, P>::kMT][TcCon
 #pragma unroll
   for (int s = 0; s < L::kStages - 1; ++s) {
     if (s < n_stages)
-      tc_load_stage<T, C, P>(ring + s * L::kStageElems, w, w_plane, 2 - m + s / kChunks,
-                             (s % kChunks) * L::kKc);
+      tc_load_stage<T, C, P, kLoad, kKc>(ring + s * L::kStageElems, w, w_plane, 2 - m + s / kChunks,
+                                         (s % kChunks) * kKc);
     cp_async_commit();
   }
   uint32_t a_row[L::kMT];
@@ -431,8 +450,8 @@ __device__ __forceinline__ void tc_conv(float (&acc)[TcConv<T, C, P>::kMT][TcCon
       const int sn = s + L::kStages - 1;
       if (sn < n_stages) {
         const int slot = stage == 0 ? L::kStages - 1 : stage - 1;
-        tc_load_stage<T, C, P>(ring + slot * L::kStageElems, w, w_plane, 2 - m + sn / kChunks,
-                               (sn % kChunks) * L::kKc);
+        tc_load_stage<T, C, P, kLoad, kKc>(ring + slot * L::kStageElems, w, w_plane,
+                                           2 - m + sn / kChunks, (sn % kChunks) * kKc);
       }
       cp_async_commit();
     }
@@ -448,13 +467,13 @@ __device__ __forceinline__ void tc_conv(float (&acc)[TcConv<T, C, P>::kMT][TcCon
       }
     }
 #pragma unroll
-    for (int kk = 0; kk < L::kKc / 16; ++kk) {
-      const uint32_t a_col = (chunk * L::kKc + kk * 16) * 2;
+    for (int kk = 0; kk < kKc / 16; ++kk) {
+      const uint32_t a_col = (chunk * kKc + kk * 16) * 2;
       const uint32_t b_step = b_lane + (stage * L::kStageElems + kk * 16 * L::kLd) * 2;
       uint32_t a[L::kMT][4];
 #pragma unroll
       for (int mt = 0; mt < L::kMT; ++mt) ldsm_x4(a[mt], a_row[mt] + a_col);
-      if constexpr (P == 1) {
+      if constexpr (P == 1 || kTerms == kLargeTerm) {
         // the next 16 columns' weights load ahead of this step's products
         uint32_t b[2][4];
         ldsm_x4_trans(b[0], b_step);
@@ -467,9 +486,34 @@ __device__ __forceinline__ void tc_conv(float (&acc)[TcConv<T, C, P>::kMT][TcCon
             mma_bf16(acc[mt][2 * np + 1], a[mt], b[np & 1][2], b[np & 1][3]);
           }
         }
+      } else if constexpr (kTerms == kSmallTerms) {
+        // hi*wlo, then lo*whi: one A plane in registers at a time
+        constexpr uint32_t kLoW = kKc * L::kLd * 2;  // bytes from a stage's hi to its lo plane
+#pragma unroll
+        for (int np = 0; np < L::kNT / 2; ++np) {
+          uint32_t bl[4];
+          ldsm_x4_trans(bl, b_step + kLoW + np * 16 * 2);
+#pragma unroll
+          for (int mt = 0; mt < L::kMT; ++mt) {
+            mma_bf16(acc[mt][2 * np], a[mt], bl[0], bl[1]);
+            mma_bf16(acc[mt][2 * np + 1], a[mt], bl[2], bl[3]);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < L::kMT; ++mt) ldsm_x4(a[mt], a_row[mt] + L::kPlaneElems * 2 + a_col);
+#pragma unroll
+        for (int np = 0; np < L::kNT / 2; ++np) {
+          uint32_t bh[4];
+          ldsm_x4_trans(bh, b_step + np * 16 * 2);
+#pragma unroll
+          for (int mt = 0; mt < L::kMT; ++mt) {
+            mma_bf16(acc[mt][2 * np], a[mt], bh[0], bh[1]);
+            mma_bf16(acc[mt][2 * np + 1], a[mt], bh[2], bh[3]);
+          }
+        }
       } else {
         // hi*whi and hi*wlo, then lo*whi: one A plane in registers at a time
-        constexpr uint32_t kLoW = L::kKc * L::kLd * 2;  // bytes from a stage's hi to its lo plane
+        constexpr uint32_t kLoW = kKc * L::kLd * 2;  // bytes from a stage's hi to its lo plane
 #pragma unroll
         for (int np = 0; np < L::kNT / 2; ++np) {
           uint32_t bh[4], bl[4];
@@ -504,6 +548,32 @@ __device__ __forceinline__ void tc_conv(float (&acc)[TcConv<T, C, P>::kMT][TcCon
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// acc = conv(planes, w), all P products a term (see tc_conv_terms).
+template <int T, int C, int P>
+__device__ __forceinline__ void tc_conv(float (&acc)[TcConv<T, C, P>::kMT][TcConv<T, C, P>::kNT][4],
+                                        const __nv_bfloat16* planes, __nv_bfloat16* ring,
+                                        const __nv_bfloat16* __restrict__ w, size_t w_plane,
+                                        int dilation, int valid_rows) {
+  tc_zero<T, C, P>(acc);
+  tc_conv_terms<T, C, P, kAllTerms>(acc, planes, ring, w, w_plane, dilation, valid_rows);
+}
+
+// acc = conv(planes, w) at P = 3, the two small products of every term summed
+// first and the large one last. The tensor cores round each mma's fp32 sum
+// toward zero, an error of about an ulp of the accumulator: here only the 80
+// large-term mmas a conv output (C = 256) round at the output's own
+// magnitude, and the 160 small-term ones at 2^-8 of it, where tc_conv's
+// interleaved order rounds all 240 at the output's magnitude.
+template <int T, int C>
+__device__ __forceinline__ void tc_conv_small_first(
+    float (&acc)[TcConv<T, C, 3>::kMT][TcConv<T, C, 3>::kNT][4], const __nv_bfloat16* planes,
+    __nv_bfloat16* ring, const __nv_bfloat16* __restrict__ w, size_t w_plane, int dilation,
+    int valid_rows) {
+  tc_zero<T, C, 3>(acc);
+  tc_conv_terms<T, C, 3, kSmallTerms>(acc, planes, ring, w, w_plane, dilation, valid_rows);
+  tc_conv_terms<T, C, 3, kLargeTerm>(acc, planes, ring, w, w_plane, dilation, valid_rows);
 }
 
 // The accumulators as fp32 rows of kLdF floats at ys, for the element-wise

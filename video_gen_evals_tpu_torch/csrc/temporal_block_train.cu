@@ -31,12 +31,10 @@
 //              pass with fp32 accumulation. Products of bf16 values are exact
 //              in fp32.
 //
-// Forward, both precisions, and backward at "highest": CUDA-core FMAs, bound
-// by the fp32 FMA rate. Forward: 2 convs * 5 taps * T * C * C = 21 M FMAs per
-// window (20.1 G at 960 windows). Backward: six conv-sized products (two
-// recomputed, dd1, dx, dw1, dw2), 60.4 G at 960 windows. At "default" the
-// wrapper rounds the weights once per call and the forward rounds each conv's
-// input tile as it goes to shared memory.
+// "highest", forward and backward: CUDA-core FMAs, bound by the fp32 FMA
+// rate. Forward: 2 convs * 5 taps * T * C * C = 21 M FMAs per window (20.1 G
+// at 960 windows). Backward: six conv-sized products (two recomputed, dd1,
+// dx, dw1, dw2), 60.4 G at 960 windows.
 //
 // Design of the FMA kernels. The forward is the scoring kernel's
 // (temporal_block.cu): one block per window, each thread keeps 4 output
@@ -58,7 +56,22 @@
 //   3. reduce_partials_kernel: sums the row-range partials of dw1, dw2 and
 //      the per-window partials of dgamma, dbeta, each in a fixed order, so
 //      two calls on the same inputs give the same bits.
-// The forward's tensor-core redesign is a later change.
+//
+// Forward at "default": train_fwd_tc_kernel on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, fp32 sums), bound by their bf16 rate: 20.1 G
+// multiply-adds at [960, 32, 256] (0.041 ms at the H100 data sheet's 989
+// TFLOP/s, 0.035 ms counting only the rows a shifted tap reaches). W = 128 /
+// T windows a block (4 at T = 32) run the backward window kernel's first two
+// convs below (tc_conv, P = 1, on one rounded bf16 plane): h1 = conv(x, w1);
+// d1 = GELU(h1) * mask, rounded into the plane (the mask applied before
+// rounding, as the plain version does); r = conv(d1, w2) + x, with x re-read
+// in fp32 from device memory; GELU, GroupNorm and the affine element-wise on
+// the accumulators staged in shared memory (TcEpi), a window's 2T threads on
+// its float4s. The wrapper lays out w1 and w2 once a call as bf16 [2, 5, C,
+// C]; each block reads those 1.3 MB once from L2, 0.31 GB a 960-window
+// launch (the FMA body read 2.5 GB of fp32 weights, one window a block). It
+// writes only out, no atomics: two calls give the same bits. Shared memory
+// 199 KB at C = 256, so one block an SM: 240 blocks are 1.8 waves on 132 SMs.
 //
 // Backward at "default": the same three launches on the tensor cores
 // (mma.sync m16n8k16, bf16 operands, fp32 sums), bound by the bf16
@@ -98,18 +111,6 @@ __device__ __forceinline__ float gelu_grad(float u) {
   return 0.5f * (1.0f + erff(u * kInvSqrt2)) + u * expf(-0.5f * u * u) * kInvSqrt2Pi;
 }
 
-// The thread's columns of a [T, C] conv input into the shared tile, rounded
-// to bf16 values (held in fp32) at "default".
-template <int T, int C, bool kRound, int kCols>
-__device__ __forceinline__ void store_tile(float* tile, const float (&col)[kCols][T], int co) {
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int ch = co + c * (C / kCols);
-#pragma unroll
-    for (int t = 0; t < T; ++t) tile[t * C + ch] = kRound ? bf16_round(col[c][t]) : col[c][t];
-  }
-}
-
 // Mean and reciprocal standard deviation of the block's T * C values.
 template <int T, int C, int kCols>
 __device__ __forceinline__ void window_stats(const float (&col)[kCols][T], float* red,
@@ -137,7 +138,8 @@ __device__ __forceinline__ void window_stats(const float (&col)[kCols][T], float
 
 // ---------------------------------------------------------------- forward
 
-template <int T, int C, bool kRound>
+// The forward at "highest" (fp32 FMAs).
+template <int T, int C>
 __global__ void __launch_bounds__(C / Cols<C, false>::value) train_fwd_kernel(
     const float* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ w2,
     const float* __restrict__ gn_scale, const float* __restrict__ gn_bias,
@@ -156,7 +158,7 @@ __global__ void __launch_bounds__(C / Cols<C, false>::value) train_fwd_kernel(
 #pragma unroll
     for (int t = 0; t < T; ++t) col[c][t] = x[win + t * C + co + c * kThreads];
   }
-  store_tile<T, C, kRound, kCols>(tile, col, co);
+  store_columns<T, C, false, kCols>(tile, col, co);
   __syncthreads();
 
   conv_columns<T, C, false, kCols>(tile, w1, co, dilation, col);
@@ -170,7 +172,7 @@ __global__ void __launch_bounds__(C / Cols<C, false>::value) train_fwd_kernel(
     }
   }
   __syncthreads();  // every thread has finished reading x's tile
-  store_tile<T, C, kRound, kCols>(tile, col, co);
+  store_columns<T, C, false, kCols>(tile, col, co);
   __syncthreads();
 
   conv_columns<T, C, false, kCols>(tile, w2, co, dilation, col);
@@ -188,6 +190,94 @@ __global__ void __launch_bounds__(C / Cols<C, false>::value) train_fwd_kernel(
     const float bias = gn_bias[ch];
 #pragma unroll
     for (int t = 0; t < T; ++t) out[win + t * C + ch] = (col[c][t] - mean) * rstd * g + bias;
+  }
+}
+
+// The forward at "default" on the tensor cores: W = 128 / T windows a block
+// (see the header). w: [2, 5, C, C] bf16, the rounded w1 and w2. Each conv's
+// accumulators go through an fp32 staging area over the ring, and the
+// epilogues run element-wise on it (TcEpi), as in train_bwd_tc_kernel.
+template <int T, int C>
+__global__ void __launch_bounds__(TcConv<T, C, 1>::kThreads, 1) train_fwd_tc_kernel(
+    const float* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    const float* __restrict__ gn_scale, const float* __restrict__ gn_bias,
+    const float* __restrict__ mask, float* __restrict__ out, int batch, int dilation) {
+  using L = TcConv<T, C, 1>;
+  using E = TcEpi<T, C>;
+  static_assert(L::kStageBytes <= (size_t)L::kStages * L::kStageElems * 2, "staging fits the ring");
+  constexpr size_t kPlaneW = (size_t)kTaps * C * C;
+  constexpr float inv_n = 1.0f / (float)(T * C);
+  extern __shared__ float4 smem_tc[];
+  __nv_bfloat16* plane = reinterpret_cast<__nv_bfloat16*>(smem_tc);
+  __nv_bfloat16* ring = plane + L::kPlaneElems;
+  float* red = reinterpret_cast<float*>(ring + L::kStages * L::kStageElems);
+  float* ys = reinterpret_cast<float*>(ring);  // between convs
+  const int win0 = blockIdx.x * L::kWindows;
+  const int valid_rows = min(L::kWindows, batch - win0) * T;
+  const size_t base = (size_t)win0 * T * C;
+  // the thread's window and its place there (TcEpi)
+  const int win = threadIdx.x / E::kGroup, j = threadIdx.x % E::kGroup;
+  const bool valid = win0 + win < batch;
+  const size_t wbase = base + (size_t)win * T * C;
+  float* yw = ys + win * T * L::kLdF;
+  __nv_bfloat16* pw = plane + win * T * L::kLd;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  tc_load_input<T, C, 1>(plane, x + base, valid_rows, nullptr);
+  __syncthreads();
+  float acc[L::kMT][L::kNT][4];
+
+  // h1 = conv(x, w1); d1 = GELU(h1) * mask, rounded into the plane
+  tc_conv<T, C, 1>(acc, plane, ring, w, 0, dilation, valid_rows);
+  tc_stage_acc<T, C, 1>(ys, acc);
+  __syncthreads();
+#pragma unroll 4
+  for (int k = 0; k < E::kSteps; ++k) {
+    const int f = j + E::kGroup * k, r = f / (C / 4), c = (f % (C / 4)) * 4;
+    float4 v = *reinterpret_cast<const float4*>(yw + r * L::kLdF + c);
+    v = make_float4(gelu(v.x), gelu(v.y), gelu(v.z), gelu(v.w));
+    if (mask != nullptr && valid) {
+      const float4 m = __ldg(reinterpret_cast<const float4*>(mask + wbase + r * C + c));
+      v = make_float4(v.x * m.x, v.y * m.y, v.z * m.z, v.w * m.w);
+    }
+    *reinterpret_cast<uint2*>(pw + r * L::kLd + c) = pack4_bf16(v);
+  }
+  __syncthreads();  // d1's plane is whole; nobody reads the staging area any more
+
+  // r = conv(d1, w2) + x; h = GELU(r); the window's mean and rstd
+  tc_conv<T, C, 1>(acc, plane, ring, w + kPlaneW, 0, dilation, valid_rows);
+  tc_stage_acc<T, C, 1>(ys, acc);
+  __syncthreads();
+  float sum = 0.0f;
+#pragma unroll 4
+  for (int k = 0; k < E::kSteps; ++k) {
+    const int f = j + E::kGroup * k, r = f / (C / 4), c = (f % (C / 4)) * 4;
+    float4 v = *reinterpret_cast<const float4*>(yw + r * L::kLdF + c);
+    const float4 xv = valid ? __ldg(reinterpret_cast<const float4*>(x + wbase + r * C + c)) : zero;
+    v = make_float4(gelu(v.x + xv.x), gelu(v.y + xv.y), gelu(v.z + xv.z), gelu(v.w + xv.w));
+    *reinterpret_cast<float4*>(yw + r * L::kLdF + c) = v;
+    sum += v.x + v.y + v.z + v.w;
+  }
+  const float mean = window_sum<T>(sum, red) * inv_n;
+  float sq = 0.0f;
+#pragma unroll 4
+  for (int k = 0; k < E::kSteps; ++k) {
+    const int f = j + E::kGroup * k, r = f / (C / 4), c = (f % (C / 4)) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(yw + r * L::kLdF + c);
+    const float d0 = v.x - mean, d1 = v.y - mean, d2 = v.z - mean, d3 = v.w - mean;
+    sq += d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
+  }
+  const float rstd = rsqrtf(window_sum<T>(sq, red) * inv_n + 1e-5f);
+  if (!valid) return;
+#pragma unroll 4
+  for (int k = 0; k < E::kSteps; ++k) {
+    const int f = j + E::kGroup * k, r = f / (C / 4), c = (f % (C / 4)) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(yw + r * L::kLdF + c);
+    const float4 g = __ldg(reinterpret_cast<const float4*>(gn_scale + c));
+    const float4 bias = __ldg(reinterpret_cast<const float4*>(gn_bias + c));
+    *reinterpret_cast<float4*>(out + wbase + r * C + c) =
+        make_float4((v.x - mean) * rstd * g.x + bias.x, (v.y - mean) * rstd * g.y + bias.y,
+                    (v.z - mean) * rstd * g.z + bias.z, (v.w - mean) * rstd * g.w + bias.w);
   }
 }
 
@@ -221,7 +311,7 @@ __global__ void __launch_bounds__(C / Cols<C, false>::value) train_bwd_window_ke
 #pragma unroll
     for (int t = 0; t < T; ++t) col[c][t] = x[win + t * C + co + c * kThreads];
   }
-  store_tile<T, C, false, kCols>(tile, col, co);
+  store_columns<T, C, false, kCols>(tile, col, co);
   __syncthreads();
 
   // h1 = conv(x, w1); d1 = GELU(h1) * mask
@@ -239,7 +329,7 @@ __global__ void __launch_bounds__(C / Cols<C, false>::value) train_bwd_window_ke
     }
   }
   __syncthreads();  // every thread has finished reading x's tile
-  store_tile<T, C, false, kCols>(tile, col, co);
+  store_columns<T, C, false, kCols>(tile, col, co);
   __syncthreads();
 
   // r = conv(d1, w2) + x, kept in the tile (own columns); h = GELU(r)
@@ -295,7 +385,7 @@ __global__ void __launch_bounds__(C / Cols<C, false>::value) train_bwd_window_ke
     }
   }
   // r was read by its owner only, so the tile is free for dr
-  store_tile<T, C, false, kCols>(tile, col, co);
+  store_columns<T, C, false, kCols>(tile, col, co);
   __syncthreads();
 
   // dd1 = conv(dr, w2t) * mask; dh1 = dd1 * GELU'(h1)
@@ -313,7 +403,7 @@ __global__ void __launch_bounds__(C / Cols<C, false>::value) train_bwd_window_ke
     }
   }
   __syncthreads();  // every thread has finished reading dr's tile
-  store_tile<T, C, false, kCols>(tile, col, co);
+  store_columns<T, C, false, kCols>(tile, col, co);
   __syncthreads();
 
   // dx = dr + conv(dh1, w1t); dr is read back by the thread that wrote it
@@ -805,14 +895,30 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-template <int T, int C, bool kRound>
+template <int T, int C>
 cudaError_t launch_fwd(const FwdArgs& a) {
   constexpr size_t smem = (size_t)T * C * 4;
-  cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<T, C, kRound>,
+  cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<T, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  train_fwd_kernel<T, C, kRound><<<a.batch, C / Cols<C, false>::value, smem, a.stream>>>(
+  train_fwd_kernel<T, C><<<a.batch, C / Cols<C, false>::value, smem, a.stream>>>(
       a.x, a.w1, a.w2, a.gs, a.gb, a.mask, a.out, a.dilation);
+  return cudaGetLastError();
+}
+
+template <int T, int C>
+cudaError_t launch_fwd_tc(const float* x, const __nv_bfloat16* w, const float* gs, const float* gb,
+                          const float* mask, float* out, int batch, int dilation,
+                          int windows_per_block, int smem_bytes, cudaStream_t stream) {
+  using L = TcConv<T, C, 1>;
+  // the caller's plan (ops/conv_kernel.py::tc_plan) must be this instantiation's
+  if (windows_per_block != L::kWindows || smem_bytes != (int)L::kSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(train_fwd_tc_kernel<T, C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (batch + L::kWindows - 1) / L::kWindows;
+  train_fwd_tc_kernel<T, C><<<blocks, L::kThreads, L::kSmem, stream>>>(x, w, gs, gb, mask, out,
+                                                                      batch, dilation);
   return cudaGetLastError();
 }
 
@@ -883,21 +989,36 @@ cudaError_t launch_bwd_tc(const BwdTcArgs& a) {
 
 }  // namespace
 
-// Supported: t_len in {8, 16, 32}, channels in {64, 128, 256}. mask may be
-// null. With round_bf16 the caller passes weights already rounded to bf16
-// values (held in fp32).
+// The forward at "highest": w1, w2 [5, C, C] fp32. Supported: t_len in {8,
+// 16, 32}, channels in {64, 128, 256}. mask may be null.
 extern "C" int vge_temporal_block_train_fwd(int device, const float* x, const float* w1,
                                             const float* w2, const float* gs, const float* gb,
                                             const float* mask, float* out, int batch, int t_len,
-                                            int channels, int dilation, int round_bf16,
-                                            cudaStream_t stream) {
+                                            int channels, int dilation, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (batch == 0) return (int)cudaSuccess;
   const FwdArgs a{x, w1, w2, gs, gb, mask, out, batch, dilation, stream};
   return (int)with_shape(t_len, channels, [&](auto t, auto c) {
-    constexpr int kT = decltype(t)::value, kC = decltype(c)::value;
-    return round_bf16 ? launch_fwd<kT, kC, true>(a) : launch_fwd<kT, kC, false>(a);
+    return launch_fwd<decltype(t)::value, decltype(c)::value>(a);
+  });
+}
+
+// The forward at "default" on the tensor cores: w [2, 5, C, C] bf16 (w1, w2,
+// rounded). mask may be null. windows_per_block and smem_bytes: the wrapper's
+// plan, which must match the instantiation's (else cudaErrorInvalidValue).
+extern "C" int vge_temporal_block_train_fwd_tc(int device, const float* x, const void* w,
+                                               const float* gs, const float* gb, const float* mask,
+                                               float* out, int batch, int t_len, int channels,
+                                               int dilation, int windows_per_block, int smem_bytes,
+                                               cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (batch == 0) return (int)cudaErrorInvalidValue;
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  return (int)with_shape(t_len, channels, [&](auto t, auto c) {
+    return launch_fwd_tc<decltype(t)::value, decltype(c)::value>(
+        x, wb, gs, gb, mask, out, batch, dilation, windows_per_block, smem_bytes, stream);
   });
 }
 

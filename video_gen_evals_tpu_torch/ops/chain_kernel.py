@@ -13,12 +13,17 @@ with ``w1s[s]``, ``w2s[s]``, ``gn_scales[s]``, ``gn_biases[s]`` and
 JAX bodies differ only in the order in which taps are summed, so one kernel
 serves both.
 
-Bound on the H100: fp32 FMA issue, S times K3's. Design: K3's block (one
-window a block, a thread's output columns in registers, the conv input in
-shared memory) run S times, with the residual and the stage-to-stage
-activations in a second register array, so the activations leave the chip
-only once, at the end. The S stages' split weights (21 MB for 4 stages at
-C = 256) stay in L2.
+Bound on the H100: the bf16 tensor-core rate, S times K3's. Design: K3
+``"high"``'s tensor-core stage (mma.sync, W = 128 / T windows a block,
+:func:`~.conv_kernel.tc_plan` ``"block_high"``) run S times in one block.
+Every stage's hi and lo weight planes (:func:`~.conv_kernel.high_weight_planes`,
+``[S, 2, 2, K, C, C]`` bf16, 10.5 MB for 4 stages at C = 256) are laid out
+once a call and read from L2 once per W windows. A stage's output is the next
+stage's exact fp32 residual and does not fit on chip beside the planes, so it
+waits in ``out`` (in L2) and the next stage reads it back. Each conv sums the
+two small products of every term before the large one: in K3's interleaved
+order the tensor cores' rounding compounds over 4 stages to 1.4e-4 from the
+plain version, in this one to ~6e-5 (details in the source).
 
 :func:`fused_temporal_chain` launches the kernel for CUDA tensors and runs
 :func:`fused_temporal_chain_plain` for CPU tensors;
@@ -34,9 +39,11 @@ import typing as T
 import torch
 
 from .conv_kernel import (
+    aligned,
     check_launchable,
     fused_temporal_block_plain,
-    split_pairs,
+    high_weight_planes,
+    tc_plan,
     validate_stage_args,
 )
 from .cuda_lib import check, load_library, stream_handle
@@ -89,15 +96,16 @@ def fused_temporal_chain(
     check_launchable("fused_temporal_chain", x, w1s, w2s, gn_scales, gn_biases)
     B, t_len, C = x.shape
     S = len(dilations)
-    x = x.contiguous()
-    w1k, w2k = split_pairs(w1s), split_pairs(w2s)
-    gs, gb = gn_scales.contiguous(), gn_biases.contiguous()
+    plan = tc_plan(t_len, C, B, "block_high")
+    x = aligned(x)
+    wk = high_weight_planes(w1s, w2s)
+    gs, gb = aligned(gn_scales), aligned(gn_biases)
     out = torch.empty_like(x)
     lib = load_library().lib
     code = lib.vge_temporal_chain(
-        x.device.index, x.data_ptr(), w1k.data_ptr(), w2k.data_ptr(),
-        gs.data_ptr(), gb.data_ptr(), out.data_ptr(), B, t_len, C, S,
-        (ctypes.c_int * S)(*dilations), stream_handle(x.device),
+        x.device.index, x.data_ptr(), wk.data_ptr(), gs.data_ptr(), gb.data_ptr(),
+        out.data_ptr(), B, t_len, C, S, (ctypes.c_int * S)(*dilations),
+        plan.windows_per_block, plan.smem_bytes, stream_handle(x.device),
     )
     check(code, "fused_temporal_chain launch")
     fused_temporal_chain.launches += 1

@@ -113,24 +113,27 @@ def fused_temporal_block_plain(
 
 def split_pairs(w: torch.Tensor) -> torch.Tensor:
     """``[..., Cin, Cout]`` fp32 -> ``[..., Cin, Cout, 2]`` fp32 holding each
-    weight's (hi, lo) bf16 pair: the layout the ``"high"`` kernels read."""
+    weight's (hi, lo) bf16 pair: the layout K9's CUDA-core body reads."""
     return torch.stack([p.float() for p in split_bf16(w)], dim=-1)
 
 
 def high_weight_planes(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """The weights as the ``"high"`` tensor-core kernel reads them: ``[2 convs,
-    2 planes, K, Cin, Cout]`` bf16, the planes the (hi, lo) of :func:`split_bf16`."""
-    ws = torch.stack([w1, w2])
+    """The weights as the ``"high"`` tensor-core kernels read them: ``[..., 2
+    convs, 2 planes, K, Cin, Cout]`` bf16, the planes the (hi, lo) of
+    :func:`split_bf16`. ``[K, C, C]`` weights give K3's ``[2, 2, K, C, C]``,
+    ``[S, K, C, C]`` ones K10's ``[S, 2, 2, K, C, C]``, stage after stage."""
+    ws = torch.stack([w1, w2], dim=-4)
     hi = ws.to(torch.bfloat16)
     lo = (ws - hi).to(torch.bfloat16)   # hi promotes to fp32 exactly
-    return torch.stack([hi, lo], dim=1)
+    return torch.stack([hi, lo], dim=-4)
 
 
 # The tensor-core conv body's geometry (csrc/conv_tile.cuh TcConv, and
 # GradTc in csrc/temporal_block_train.cu); the C side refuses a plan that
 # differs from its own.
 _TC_ROWS = 128          # rows a block: W = 128 / T windows
-_TC_RING = {"block_high": (16, 5), "train_bwd": (64, 4)}   # (input channels a weight stage, stages)
+# (input channels a weight stage, stages): P = 3 ("high") and P = 1 ("default")
+_TC_RING = {"block_high": (16, 5), "train_fwd": (64, 4), "train_bwd": (64, 4)}
 _GRAD_ROWS = 64         # rows a stage of the weight-gradient kernel
 _GRAD_STAGES = 3
 _MAX_GRAD_SPLITS = 16   # row ranges of the weight-gradient kernel
@@ -150,13 +153,14 @@ class TcPlan:
 
 
 def tc_plan(t_len: int, channels: int, batch: int, kind: str) -> TcPlan:
-    """The plan of K3 at ``"high"`` (``kind="block_high"``, three bf16 products
-    on hi and lo planes) or K4's backward at ``"default"`` (``"train_bwd"``,
-    one product on a rounded plane, then the ten weight-gradient GEMMs over
-    ``splits`` row ranges). Depends on ``t_len``, ``channels``, ``batch`` and
-    ``kind`` only."""
-    if kind not in ("block_high", "train_bwd"):
-        raise ValueError(f"kind must be 'block_high' or 'train_bwd', got {kind!r}")
+    """The plan of K3 and K10 at ``"high"`` (``kind="block_high"``, three bf16
+    products on hi and lo planes), K4's forward at ``"default"``
+    (``"train_fwd"``, one product on a rounded plane) or K4's backward at
+    ``"default"`` (``"train_bwd"``, the same, then the ten weight-gradient
+    GEMMs over ``splits`` row ranges). Depends on ``t_len``, ``channels``,
+    ``batch`` and ``kind`` only."""
+    if kind not in _TC_RING:
+        raise ValueError(f"kind must be one of {tuple(_TC_RING)}, got {kind!r}")
     if t_len not in _KERNEL_T or channels not in _KERNEL_C or batch < 1:
         raise ValueError(f"no tensor-core plan for T={t_len}, C={channels}, B={batch}")
     planes = 2 if kind == "block_high" else 1
@@ -165,7 +169,7 @@ def tc_plan(t_len: int, channels: int, batch: int, kind: str) -> TcPlan:
     smem = 2 * (planes * (_TC_ROWS + 1) * ld + stages * planes * k_chunk * ld) + 4 * 8   # + a float a warp
     W = _TC_ROWS // t_len
     blocks = -(-batch // W)
-    if kind == "block_high":
+    if kind != "train_bwd":
         return TcPlan(W, blocks, smem)
     tile = 128 if channels >= 128 else 64
     rows = batch * t_len

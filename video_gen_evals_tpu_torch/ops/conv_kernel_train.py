@@ -30,19 +30,20 @@ Precision:
   ``d1`` and ``x`` of the weight gradients. The plain versions round at the
   same places.
 
-The forward (both precisions) and the backward at ``"highest"`` run on the
-CUDA cores, one block per window, bound by the fp32 FMA rate: 20.1 G FMA
-forward and 60.4 G backward at ``[960, 32, 256]``. The backward at
-``"default"`` runs on the tensor cores (mma.sync, bf16 operands, fp32 sums),
-bound by their bf16 rate: 60.4 G multiply-adds, 0.12 ms at the H100's
-data-sheet 989 TFLOP/s. Its window kernel owns W = 128 / T windows a block
-(:func:`~.conv_kernel.tc_plan`; 4 at T = 32), so the four convs' 2.6 MB of
-bf16 weights (:func:`train_weight_planes`, laid out once a call) are read
-from L2 once per W windows: 0.63 GB a 960-window launch instead of 2.5 GB.
-It stores x, d1, dr and dh1 as bf16, the only values the weight-gradient
-kernel reads, which runs the ten ``dw[j]`` products as tensor-core GEMMs
-over ``B * T`` rows. The kernels are built for T in {8, 16, 32} and C in
-{64, 128, 256}.
+At ``"highest"`` the forward and the backward run on the CUDA cores, one
+block per window, bound by the fp32 FMA rate: 20.1 G FMA forward and 60.4 G
+backward at ``[960, 32, 256]``. At ``"default"`` both run on the tensor cores
+(mma.sync, bf16 operands, fp32 sums), bound by their bf16 rate: 20.1 G and
+60.4 G multiply-adds, 0.04 and 0.12 ms at the H100's data-sheet 989 TFLOP/s.
+The forward kernel and the backward's window kernel own W = 128 / T windows
+a block (:func:`~.conv_kernel.tc_plan`; 4 at T = 32), so the convs' bf16
+weights (:func:`train_weight_planes`, laid out once a call: two convs' 1.3
+MB for the forward, four convs' 2.6 MB for the backward) are read from L2
+once per W windows: 0.31 and 0.63 GB a 960-window launch instead of 1.3 and
+2.5 GB. The backward stores x, d1, dr and dh1 as bf16, the only values the
+weight-gradient kernel reads, which runs the ten ``dw[j]`` products as
+tensor-core GEMMs over ``B * T`` rows. The kernels are built for T in {8, 16,
+32} and C in {64, 128, 256}.
 
 :func:`fused_temporal_block_train` launches the kernels for CUDA tensors and
 runs the two plain versions for CPU tensors, through the same
@@ -86,12 +87,14 @@ def _transposed(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0).transpose(1, 2).contiguous()
 
 
-def train_weight_planes(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """The weights as the ``"default"`` backward's tensor-core window kernel
-    reads them, in the order of its four convs: ``[w1, w2, w2t, w1t]`` rounded
-    to bf16, ``[4, K, Cin, Cout]`` (``w2t``, ``w1t`` as :func:`_transposed`)."""
-    return torch.stack([w1, w2, w2.flip(0).transpose(1, 2), w1.flip(0).transpose(1, 2)]).to(
-        torch.bfloat16)
+def train_weight_planes(w1: torch.Tensor, w2: torch.Tensor, convs: int = 4) -> torch.Tensor:
+    """The weights as the ``"default"`` tensor-core kernels read them, in the
+    order of their convs: the first ``convs`` of ``[w1, w2, w2t, w1t]``
+    rounded to bf16, ``[convs, K, Cin, Cout]`` (``w2t``, ``w1t`` as
+    :func:`_transposed`). The forward reads two, the backward's window kernel
+    four."""
+    ws = (w1, w2, w2.flip(0).transpose(1, 2), w1.flip(0).transpose(1, 2))[:convs]
+    return torch.stack(ws).to(torch.bfloat16)
 
 
 def _tap_grads(a: torch.Tensor, g: torch.Tensor, dilation: int, precision: str) -> torch.Tensor:
@@ -205,12 +208,23 @@ def _validate(x, w1, w2, gn_scale, gn_bias, mask, precision) -> None:
 def _forward_cuda(x, w1, w2, gs, gb, mask, dilation, precision) -> torch.Tensor:
     out = torch.empty_like(x)
     B, t_len, C = x.shape
-    w1r, w2r = _round(w1, precision), _round(w2, precision)
-    code = load_library().lib.vge_temporal_block_train_fwd(
-        x.device.index, x.data_ptr(), w1r.data_ptr(), w2r.data_ptr(), gs.data_ptr(), gb.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(), B, t_len, C,
-        int(dilation), int(precision == "default"), stream_handle(x.device),
-    )
+    lib = load_library().lib
+    if precision == "default":
+        plan = tc_plan(t_len, C, B, "train_fwd")
+        wk = train_weight_planes(w1, w2, convs=2)
+        x, gs, gb = aligned(x), aligned(gs), aligned(gb)
+        mask = None if mask is None else aligned(mask)
+        code = lib.vge_temporal_block_train_fwd_tc(
+            x.device.index, x.data_ptr(), wk.data_ptr(), gs.data_ptr(), gb.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(), B, t_len, C,
+            int(dilation), plan.windows_per_block, plan.smem_bytes, stream_handle(x.device),
+        )
+    else:
+        code = lib.vge_temporal_block_train_fwd(
+            x.device.index, x.data_ptr(), w1.data_ptr(), w2.data_ptr(), gs.data_ptr(),
+            gb.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(), B, t_len, C,
+            int(dilation), stream_handle(x.device),
+        )
     check(code, "fused_temporal_block_train forward launch")
     fused_temporal_block_train.launches += 1
     return out

@@ -62,13 +62,18 @@ _SIGNATURES = {
     # device, x, w1s, w2s, gn_scales, gn_biases, out, chains, batch, t_len,
     # channels, dilation, stream
     "vge_temporal_block_stacked": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # device, x, w1s, w2s, gn_scales, gn_biases, out, batch, t_len, channels,
-    # n_stages, dilations (host int array), stream
-    "vge_temporal_chain": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           ctypes.POINTER(ctypes.c_int), _P],
+    # device, x, w (bf16 planes of every stage), gn_scales, gn_biases, out,
+    # batch, t_len, channels, n_stages, dilations (host int array),
+    # windows_per_block, smem_bytes, stream
+    "vge_temporal_chain": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           ctypes.POINTER(ctypes.c_int), _I, _I, _P],
     # device, x, w1, w2, gn_scale, gn_bias, mask (or null), out, batch, t_len,
-    # channels, dilation, round_bf16, stream
-    "vge_temporal_block_train_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # channels, dilation, stream ("highest")
+    "vge_temporal_block_train_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # device, x, w (bf16 planes), gn_scale, gn_bias, mask (or null), out,
+    # batch, t_len, channels, dilation, windows_per_block, smem_bytes, stream
+    # ("default")
+    "vge_temporal_block_train_fwd_tc": [_I] + [_P] * 6 + [_I] * 6 + [_P],
     # device, x, w1, w2, w1t, w2t, gn_scale, dy, mask (or null), dx, d1, dr,
     # dh1, pgamma, pbeta, partial, dw1, dw2, dgamma, dbeta, batch, t_len,
     # channels, dilation, splits, stream ("highest")
