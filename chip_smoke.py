@@ -98,10 +98,27 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    (levels, RPN outputs and box_forward logits 1e-4, detections 5e-3).
    Detector frames/s, ms per 8-frame chunk split into resize, backbone + FPN,
    RPN + proposals (NMS apart), pool (K5) and box head + postprocess, peak
-   memory.
+   memory. The seeded R-CNN's person logit is raised (RCNN_PERSON_GAIN,
+   RCNN_PERSON_BIAS) so that its frames hold person boxes.
+9. The detector modes on the same video, weights drawn from the same seed.
+   K5's bf16 instantiation against its plain version on a detect chunk's own
+   levels cast to bf16 with RCNNConfig.fast()'s proposals (window 32) and on
+   phase 8's over-span boxes (K5_TOL), ms and bound. process_video(frames)
+   with no boxes under fast() in fp32 and in the bf16 mode, and under the
+   exact R-CNN in the bf16 mode, ViT-H at full depth: contract shapes, K5
+   launched once a chunk in the pyramid's type and never in the other, K6
+   as in phase 7, and the detect stage's boxes against phase 8's exact fp32
+   run (MODE_IOU, MODE_FLIPS); detector frames/s and the chunk's split for
+   each. Then the default mesh_detector "yolox" at DetectorConfig.yolox_l()
+   (Megvii's YOLOX-L, 54.1 M parameters, weights drawn on the card):
+   process_video(frames) with keep_all_frames (contract, K6, finite boxes)
+   and without (None or the frames of the detector's single mask), frames/s,
+   ms per 32-frame chunk split into letterbox, detector and postprocess (NMS
+   apart), peak memory; the small YOLOX on the card against the CPU (raw
+   outputs within 1e-4 of scale, equal detections).
 
-Then a JSON line listing the kernels, the card's name and power limit, and
-as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
+Then the smoke's wall time, a JSON line listing the kernels, the card's name
+and power limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; so does a machine without a CUDA device.
 """
 
@@ -1362,6 +1379,138 @@ def _k5_cells(torch, geom, n_images, rois_per_image, buffer_hw):
     return int(read.sum().item())
 
 
+# the seeded R-CNN scores every class alike, so no box passes 0.5 on a frame:
+# the person class's logit weights are scaled by this power of two and its
+# bias set, on every mode's weights (fp32 or bf16, exactly), so that the
+# smoke's video holds frames with one person box and frames with several
+RCNN_PERSON_GAIN, RCNN_PERSON_BIAS = 64.0, -2.0
+
+
+def _person_class_(torch, rcnn):
+    with torch.no_grad():
+        cls_score = rcnn.roi_heads.box_predictor.cls_score
+        cls_score.weight[0] *= RCNN_PERSON_GAIN
+        cls_score.bias[0] = RCNN_PERSON_BIAS
+
+
+def _reset_k5_counts():
+    from video_gen_evals_tpu_torch.ops.roi_align import roi_align_pyramid_dma
+
+    roi_align_pyramid_dma.launches = 0
+    for key in roi_align_pyramid_dma.launches_by_dtype:
+        roi_align_pyramid_dma.launches_by_dtype[key] = 0
+
+
+def _over_span_boxes(torch):
+    """100 boxes an image of a detect chunk on p2, wider than any window."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x0 = torch.rand(RCNN_BATCH, 100, generator=g, device="cuda") * 300
+    y0 = torch.rand(RCNN_BATCH, 100, generator=g, device="cuda") * 600
+    wide = torch.stack([x0, y0, x0 + 240 + torch.rand(RCNN_BATCH, 100, generator=g, device="cuda") * 780,
+                        y0 + 8 + torch.rand(RCNN_BATCH, 100, generator=g, device="cuda") * 40], dim=-1)
+    return wide, torch.zeros(RCNN_BATCH, 100, dtype=torch.int32, device="cuda")
+
+
+def _k5_check(torch, buf, offs, lhw, strides, props, levels, window, valid):
+    """K5 against its plain version on one detect chunk's packed pyramid and
+    proposals and on over-span boxes of the same buffer (within K5_TOL x
+    max(1, max |plain|)), ms of both in turns, and the bound: each buffer cell
+    some ROI weights read once at the buffer's width, the boxes and levels,
+    the float32 output written once. Returns the kernels-line entry."""
+    from video_gen_evals_tpu_torch.ops.roi_align import (
+        dma_geometry, roi_align_pyramid_dma, roi_align_pyramid_dma_plain)
+
+    args = (buf, offs, lhw, strides, props, levels)
+    dtype = str(buf.dtype).replace("torch.", "")
+    with torch.inference_mode():
+        got = roi_align_pyramid_dma(*args, window=window)
+        want = roi_align_pyramid_dma_plain(*args, window=window)
+        torch.cuda.synchronize()
+        scale = max(1.0, want.abs().max().item())
+        err = (got - want).abs().max().item()
+        _check(bool(torch.isfinite(got).all()) and got.dtype == torch.float32, f"K5[{dtype}]: output not finite float32")
+        _check(err <= K5_TOL * scale, f"K5[{dtype}] on the detect chunk: max |kernel - plain| {err:.3e} > {K5_TOL} * {scale:.2f}")
+        hist = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+        wide, wl = _over_span_boxes(torch)
+        ow = roi_align_pyramid_dma(buf, offs, lhw, strides, wide, wl, window=window)
+        pw = roi_align_pyramid_dma_plain(buf, offs, lhw, strides, wide, wl, window=window)
+        torch.cuda.synchronize()
+        scale_w = max(1.0, pw.abs().max().item())
+        err_w = (ow - pw).abs().max().item()
+        _check(err_w <= K5_TOL * scale_w, f"K5[{dtype}] over-span: max |kernel - plain| {err_w:.3e} > {K5_TOL} * {scale_w:.2f}")
+        ms, plain_ms = _interleaved_ms(lambda: roi_align_pyramid_dma(*args, window=window),
+                                       lambda: roi_align_pyramid_dma_plain(*args, window=window), 5)
+        geom = dma_geometry(tuple(buf.shape[1:3]), offs, lhw, strides, props.reshape(-1, 4), levels.reshape(-1),
+                            window=window)
+        fmas = _k5_work(torch, geom, buf.shape[-1])
+        cells = _k5_cells(torch, geom, *props.shape[:2], tuple(buf.shape[1:3]))
+    level_cells = props.shape[0] * sum(h * w for h, w in lhw)
+    nbytes = buf.element_size() * cells * buf.shape[-1] + 4 * (props.numel() + levels.numel() + got.numel())
+    bound_ms, bound_by = _bound(nbytes, 2 * fmas, PEAK_FP32)
+    print(f"K5 roi_align_pyramid_dma[{dtype}] on one detect chunk, window {geom[4]} x {geom[5]}: buffer "
+          f"{tuple(buf.shape)} {dtype} ({buf.numel() * buf.element_size() / 1e6:.1f} MB, {level_cells} level cells, "
+          f"{cells} of them weighted by some ROI), {props.shape[0]} x {props.shape[1]} proposals "
+          f"({int(valid.sum())} valid; levels p2..p5 {hist}): max |kernel - plain| {err:.2e} (tol {K5_TOL} x "
+          f"{scale:.2f} = {K5_TOL * scale:.2e}); over-span boxes {err_w:.2e} (tol {K5_TOL} x {scale_w:.2f} = "
+          f"{K5_TOL * scale_w:.2e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}: {nbytes / 1e6:.1f} MB, {2 * fmas / 1e9:.2f} GFLOP of weighted taps); "
+          f"no single PyTorch call computes ROIAlign (and no torchvision on the card)")
+    return dict(max_abs_err=max(err, err_w), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def _detect_fps(torch, ex, frames_dev, reps=2):
+    """Seconds of one detect_stage pass over the video (host clock after a
+    synchronize; the results stay on the card), and the peak memory in GiB."""
+    with torch.inference_mode():
+        ex.detect_stage(frames_dev)   # warm
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ex.detect_stage(frames_dev)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _rcnn_split(torch, ex, frames_dev) -> str:
+    """CUDA-event ms of one detect chunk's parts: resize, backbone + FPN, RPN
+    + proposals, pool (pack + K5), box head + postprocess, and the two NMS
+    loops alone at the chunk's shapes (1000 steps of two launches each,
+    whatever the boxes): frames x 5 levels of rpn_pre_nms_topk candidates,
+    then frames x second_stage_candidates."""
+    from video_gen_evals_tpu_torch.models.rcnn import fast_rcnn_postprocess, nms_masked, predictor_canvas
+
+    rc, rcnn = ex.cfg.rcnn, ex.rcnn
+    with torch.inference_mode():
+        chunk = frames_dev[:RCNN_BATCH]
+        canvas, hw = predictor_canvas(chunk, rc)
+        feats = rcnn.backbone_features(canvas)
+        props, valid = rcnn.proposals(feats, hw)
+        pooled = rcnn.pool(feats, props)
+        K = props.shape[1]
+
+        def head_post():
+            c, d = rcnn.box_head(pooled.reshape(-1, *pooled.shape[2:]))
+            return fast_rcnn_postprocess(c.reshape(RCNN_BATCH, K, -1), d.reshape(RCNN_BATCH, K, -1), props, valid,
+                                         hw, rc)
+
+        parts = {
+            "resize": _time_ms(lambda: predictor_canvas(chunk, rc), 3),
+            "backbone + FPN": _time_ms(lambda: rcnn.backbone_features(canvas), 3),
+            "RPN + proposals": _time_ms(lambda: rcnn.proposals(feats, hw), 3),
+            "pool (pack + K5)": _time_ms(lambda: rcnn.pool(feats, props), 3),
+            "box head + postprocess": _time_ms(head_post, 3),
+        }
+        rpn_boxes = props.repeat(len(feats), 1, 1)
+        rpn_valid = torch.ones(rpn_boxes.shape[:2], dtype=torch.bool, device=rpn_boxes.device)
+        nms_ms = [_time_ms(lambda: nms_masked(rpn_boxes, rpn_valid, rc.rpn_nms_thresh), 3),
+                  _time_ms(lambda: nms_masked(props, valid, rc.test_nms_thresh), 3)]
+    return (", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+            + f"; NMS loops alone: RPN {nms_ms[0]:.2f} ({rc.rpn_pre_nms_topk} steps over {RCNN_BATCH} x 5 levels), "
+            f"second stage {nms_ms[1]:.2f}")
+
+
 def phase_detector(torch, card):
     """Phase 8: the R-CNN detect stage at full width, K5 on its own tensors,
     process_video from raw frames, the small config against the CPU, timings."""
@@ -1369,12 +1518,10 @@ def phase_detector(torch, card):
 
     import numpy as np
 
-    from video_gen_evals_tpu_torch.models.rcnn import (
-        FasterRCNN, RCNNConfig, fast_rcnn_postprocess, init_rcnn_weights_, nms_masked, predictor_canvas)
+    from video_gen_evals_tpu_torch.models.rcnn import FasterRCNN, RCNNConfig, init_rcnn_weights_, predictor_canvas
     from video_gen_evals_tpu_torch.models.vit import ViTConfig
     from video_gen_evals_tpu_torch.ops.attention_core import mha_core
-    from video_gen_evals_tpu_torch.ops.roi_align import (
-        assign_fpn_levels, dma_geometry, pack_pyramid, roi_align_pyramid_dma, roi_align_pyramid_dma_plain)
+    from video_gen_evals_tpu_torch.ops.roi_align import assign_fpn_levels, pack_pyramid, roi_align_pyramid_dma
     from video_gen_evals_tpu_torch.pipelines.extract import Extractor, ExtractorConfig
 
     frames, _boxes, _large = mesh_video()
@@ -1384,20 +1531,23 @@ def phase_detector(torch, card):
                           matmul_precision="highest", mesh_detector="rcnn", keep_all_frames=True)
     t0 = time.perf_counter()
     ex = Extractor(cfg, seed=SEED)
+    _person_class_(torch, ex.rcnn)
     torch.cuda.synchronize()
     n_det = sum(p.numel() for p in ex.rcnn.parameters())
     print(f"rcnn: X101-32x8d-FPN ({n_det / 1e6:.1f} M parameters) + ViT-H depth 32 + SMPL head drawn on the "
           f"card in {time.perf_counter() - t0:.1f} s")
 
     # the main path: process_video from raw frames, counts set to 0 just before
-    roi_align_pyramid_dma.launches = mha_core.launches = 0
+    _reset_k5_counts()
+    mha_core.launches = 0
     t0 = time.perf_counter()
     mesh = ex.process_video(frames)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = (roi_align_pyramid_dma.launches, mha_core.launches)
     worst = _check_contract(torch, np, mesh, n, "rcnn process_video")
-    _check(counts == (chunks, 32 * -(-n // 32)), f"rcnn process_video: launches (K5, K6) {counts}")
+    _check(counts == (chunks, 32 * -(-n // 32)) and roi_align_pyramid_dma.launches_by_dtype["float32"] == chunks,
+           f"rcnn process_video: launches (K5, K6) {counts}, K5 by type {roi_align_pyramid_dma.launches_by_dtype}")
     print(f"rcnn: process_video({n} frames of {MESH_HW[0]} x {MESH_HW[1]}), mesh_detector rcnn, no boxes: "
           f"{wall:.2f} s cold; K5 launched {counts[0]} times ({chunks} chunks of {RCNN_BATCH}), K6 {counts[1]}; "
           f"contract shapes, finite, rotations within {worst:.1e}")
@@ -1406,7 +1556,7 @@ def phase_detector(torch, card):
     frames_dev = torch.from_numpy(frames).cuda()
     det = ex.detect_stage(frames_dev)
     single = det["single"].cpu().numpy()
-    box = det["box"]
+    box = det["box_mesh"]
     _check(bool(torch.isfinite(box).all()) and bool((box[:, 2] <= MESH_HW[1]).all())
            and bool((box[:, 3] <= MESH_HW[0]).all()) and bool((box[:, :2] >= 0).all()),
            "rcnn: detect-stage boxes not finite or outside the frame")
@@ -1423,18 +1573,7 @@ def phase_detector(torch, card):
           f"{int(det['present'].sum())}; keep_all_frames=False -> "
           f"{'None (rejected)' if filtered is None else str(len(filtered['frame_idx'])) + ' frames'}, as the rule says")
 
-    # detector frames/s over the video, and the peak memory of the stage
-    # (both nets' weights resident)
-    with torch.inference_mode():
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        reps = 2
-        for _ in range(reps):
-            ex.detect_stage(frames_dev)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / reps
-        peak = torch.cuda.max_memory_allocated() / 2**30
+    dt, peak = _detect_fps(torch, ex, frames_dev)
 
     # K5 against its plain version on chunk 0's own pyramid and proposals
     results = {}
@@ -1445,81 +1584,13 @@ def phase_detector(torch, card):
         props, valid = ex.rcnn.proposals(feats, hw)
         levels = assign_fpn_levels(props)
         buf, offs, lhw = pack_pyramid(feats[:4])
-        args = (buf, offs, lhw, rc.strides[:4], props, levels)
-        got = roi_align_pyramid_dma(*args, window=rc.roi_window)
-        want = roi_align_pyramid_dma_plain(*args, window=rc.roi_window)
-        torch.cuda.synchronize()
-        scale = max(1.0, want.abs().max().item())
-        err = (got - want).abs().max().item()
-        _check(bool(torch.isfinite(got).all()), "K5: non-finite output")
-        _check(err <= K5_TOL * scale, f"K5 on the detect chunk: max |kernel - plain| {err:.3e} > {K5_TOL} * {scale:.2f}")
-        hist = torch.bincount(levels.flatten().long(), minlength=4).tolist()
-        # over-span boxes on the same buffer: 100 an image, wider than the 56-column window on p2
-        g = torch.Generator(device="cuda").manual_seed(SEED)
-        x0 = torch.rand(RCNN_BATCH, 100, generator=g, device="cuda") * 300
-        y0 = torch.rand(RCNN_BATCH, 100, generator=g, device="cuda") * 600
-        wide = torch.stack([x0, y0, x0 + 240 + torch.rand(RCNN_BATCH, 100, generator=g, device="cuda") * 780,
-                            y0 + 8 + torch.rand(RCNN_BATCH, 100, generator=g, device="cuda") * 40], dim=-1)
-        wl = torch.zeros(RCNN_BATCH, 100, dtype=torch.int32, device="cuda")
-        ow = roi_align_pyramid_dma(buf, offs, lhw, rc.strides[:4], wide, wl, window=rc.roi_window)
-        pw = roi_align_pyramid_dma_plain(buf, offs, lhw, rc.strides[:4], wide, wl, window=rc.roi_window)
-        torch.cuda.synchronize()
-        scale_w = max(1.0, pw.abs().max().item())
-        err_w = (ow - pw).abs().max().item()
-        _check(err_w <= K5_TOL * scale_w, f"K5 over-span: max |kernel - plain| {err_w:.3e} > {K5_TOL} * {scale_w:.2f}")
-        ms, plain_ms = _interleaved_ms(lambda: roi_align_pyramid_dma(*args, window=rc.roi_window),
-                                       lambda: roi_align_pyramid_dma_plain(*args, window=rc.roi_window), 5)
-        geom = dma_geometry(tuple(buf.shape[1:3]), offs, lhw, rc.strides[:4], props.reshape(-1, 4),
-                            levels.reshape(-1), window=rc.roi_window)
-        fmas = _k5_work(torch, geom, buf.shape[-1])
-        cells = _k5_cells(torch, geom, *props.shape[:2], tuple(buf.shape[1:3]))
-    level_cells = RCNN_BATCH * sum(h * w for h, w in lhw)
-    # each weighted cell read once, the boxes and levels, the output written once
-    nbytes = 4 * (cells * buf.shape[-1] + props.numel() + levels.numel() + got.numel())
-    bound_ms, bound_by = _bound(nbytes, 2 * fmas, PEAK_FP32)
-    print(f"K5 roi_align_pyramid_dma on one detect chunk: buffer {tuple(buf.shape)} ({buf.numel() * 4 / 1e6:.1f} MB, "
-          f"{level_cells} level cells, {cells} of them weighted by some ROI), "
-          f"{props.shape[0]} x {props.shape[1]} proposals ({int(valid.sum())} valid; levels p2..p5 {hist}): "
-          f"max |kernel - plain| {err:.2e} (tol {K5_TOL} x {scale:.2f} = {K5_TOL * scale:.2e}); over-span boxes "
-          f"{err_w:.2e} (tol {K5_TOL} x {scale_w:.2f} = {K5_TOL * scale_w:.2e}); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}: {nbytes / 1e6:.1f} MB, {2 * fmas / 1e9:.2f} GFLOP of weighted taps); "
-          f"no single PyTorch call computes ROIAlign (and no torchvision on the card)")
-    results["roi_align_pyramid_dma"] = dict(max_abs_err=max(err, err_w), ms=ms, plain_ms=plain_ms,
-                                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-
-    # the split of one chunk
-    with torch.inference_mode():
-        chunk = frames_dev[:RCNN_BATCH]
-        rcnn = ex.rcnn
-        pooled = rcnn.pool(feats, props)
-        K = props.shape[1]
-
-        def head_post():
-            c, d = rcnn.box_head(pooled.reshape(-1, *pooled.shape[2:]))
-            return fast_rcnn_postprocess(c.reshape(RCNN_BATCH, K, -1), d.reshape(RCNN_BATCH, K, -1), props, valid,
-                                         hw, rc)
-
-        parts = {
-            "resize": _time_ms(lambda: predictor_canvas(chunk, rc), 3),
-            "backbone + FPN": _time_ms(lambda: rcnn.backbone_features(canvas), 3),
-            "RPN + proposals": _time_ms(lambda: rcnn.proposals(feats, hw), 3),
-            "pool (pack + K5)": _time_ms(lambda: rcnn.pool(feats, props), 3),
-            "box head + postprocess": _time_ms(head_post, 3),
-        }
-        # the two NMS loops alone at the chunk's shapes (1000 steps of two
-        # launches each, whatever the boxes): frames x 5 levels of
-        # rpn_pre_nms_topk candidates, then frames x second_stage_candidates
-        rpn_boxes = props.repeat(len(feats), 1, 1)
-        rpn_valid = torch.ones(rpn_boxes.shape[:2], dtype=torch.bool, device=rpn_boxes.device)
-        nms_ms = [_time_ms(lambda: nms_masked(rpn_boxes, rpn_valid, rc.rpn_nms_thresh), 3),
-                  _time_ms(lambda: nms_masked(props, valid, rc.test_nms_thresh), 3)]
-    split = ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+    results["roi_align_pyramid_dma"] = _k5_check(torch, buf, offs, lhw, rc.strides[:4], props, levels,
+                                                 rc.roi_window, valid)
+    split = _rcnn_split(torch, ex, frames_dev)
     print(f"rcnn timing: detect stage {n / dt:.1f} frames/s ({dt * 1e3 / chunks:.1f} ms per {RCNN_BATCH}-frame chunk, "
-          f"upload excluded, the chunks' results kept on the card); one chunk: {split} ms; NMS loops alone: RPN "
-          f"{nms_ms[0]:.2f} ms ({rc.rpn_pre_nms_topk} steps over {RCNN_BATCH} x 5 levels), second stage "
-          f"{nms_ms[1]:.2f} ms; peak memory {peak:.2f} GiB with both nets' weights on {card}")
-    del ex, feats, buf, canvas, pooled, got, want
+          f"upload excluded, the chunks' results kept on the card); one chunk: {split} ms; "
+          f"peak memory {peak:.2f} GiB with both nets' weights on {card}")
+    del ex, feats, buf, canvas
     torch.cuda.empty_cache()
 
     # the small config on the card against the CPU's plain versions, K5 pinned on both
@@ -1555,6 +1626,187 @@ def phase_detector(torch, card):
           f"{'equal' if same else 'DIFFER'}, boxes {d_det:.2e} (tol 5e-3)")
     _check(max(d_feat, d_rpn, d_box) <= 1e-4, "rcnn small: card vs CPU beyond 1e-4")
     _check(same and d_det <= 5e-3, "rcnn small: detections differ between card and CPU")
+    return results, launches, {"box_mesh": box.cpu(), "single": torch.from_numpy(single),
+                               "present": det["present"].cpu()}
+
+
+# the detect-stage boxes of another detector mode against the exact fp32 run's:
+# the best person box of each frame where both runs find a person, where the
+# two are the same person (IoU >= 0.5; the class-wise NMS at 0.5 leaves no two
+# kept person boxes of one run overlapping more, so a frame whose best box
+# switched to another detection drops out), the median IoU at least 0.9.
+# fast() changes only the pool (the levels rounded to bf16, 2^-9 relative, and
+# a 32-row window), the bf16 mode every layer of the detector (2^-8 relative
+# through 33 blocks); with the seeded weights a box is its proposal refined by
+# small deltas (the box predictor's std is 0.001), so the same detection moves
+# by a fraction of a pixel. And at most a sixth of the frames may flip between
+# one person and not, or between a person and none.
+MODE_IOU, MODE_FLIPS = 0.9, 1 / 6
+
+
+def _compare_boxes(torch, det, exact, tag):
+    """Flips of the single-person and person-present masks, and the IoU of
+    the best person boxes where both runs find a person, against the exact
+    fp32 run's detect stage."""
+    from video_gen_evals_tpu_torch.models.detector import box_iou
+
+    single, present = det["single"].cpu(), det["present"].cpu()
+    n = len(single)
+    flips = (int((single != exact["single"]).sum()), int((present != exact["present"]).sum()))
+    both = present & exact["present"]
+    a, b = det["box_mesh"].cpu()[both], exact["box_mesh"][both]
+    iou = box_iou(a[:, None], b[:, None])[:, 0, 0]
+    same = iou >= 0.5
+    med = float(iou[same].median()) if same.any() else float("nan")
+    d = (a[same] - b[same]).abs()
+    print(f"{tag}: single-person frames {int(single.sum())} (exact fp32 {int(exact['single'].sum())}), frames with a "
+          f"person {int(present.sum())} ({int(exact['present'].sum())}); flips {flips[0]} and {flips[1]} of {n}; "
+          f"{int(both.sum())} frames with a person in both, the best box the same person (IoU >= 0.5) in "
+          f"{int(same.sum())}: median IoU {med:.4f} (tol >= {MODE_IOU}), max |d box| "
+          f"{float(d.max()) if len(d) else 0.0:.3f} px, mean {float(d.mean()) if len(d) else 0.0:.4f} px")
+    _check(max(flips) <= MODE_FLIPS * n, f"{tag}: {flips} of {n} frames flip the single / present masks")
+    _check(not same.any() or med >= MODE_IOU, f"{tag}: median IoU {med:.4f} < {MODE_IOU} against the exact fp32 run")
+
+
+def phase_detector_modes(torch, card, exact):
+    """Phase 9: K5 over a bf16 pyramid on its own tensors; process_video from
+    raw frames under RCNNConfig.fast() in fp32 and in the bf16 mode, and the
+    bf16 mode with the exact R-CNN, each held against phase 8's exact fp32
+    detect stage; the default YOLOX-L detect stage end to end; the small
+    YOLOX on the card against the CPU."""
+    import numpy as np
+
+    from video_gen_evals_tpu_torch.models.detector import (
+        DetectorConfig, YOLOXDetector, dwpose_person_detections, init_yolox_weights_, nms_xla_indexed)
+    from video_gen_evals_tpu_torch.models.rcnn import RCNNConfig, predictor_canvas
+    from video_gen_evals_tpu_torch.models.vit import ViTConfig
+    from video_gen_evals_tpu_torch.ops.attention_core import mha_core
+    from video_gen_evals_tpu_torch.ops.roi_align import assign_fpn_levels, pack_pyramid, roi_align_pyramid_dma
+    from video_gen_evals_tpu_torch.ops.upstream_crops import yolox_letterbox
+    from video_gen_evals_tpu_torch.pipelines.extract import Extractor, ExtractorConfig
+
+    frames, _boxes, _large = mesh_video()
+    n = len(frames)
+    chunks, mesh_chunks = -(-n // RCNN_BATCH), -(-n // 32)
+    frames_dev = torch.from_numpy(frames).cuda()
+    results, launches = {}, {}
+    modes = (("fast() fp32", RCNNConfig.fast(), False, "bfloat16"),
+             ("fast() bf16 mode", RCNNConfig.fast(), True, "bfloat16"),
+             ("exact bf16 mode", RCNNConfig.x101_32x8d(), True, "float32"))
+    for tag, rc, bf16, pyramid in modes:
+        cfg = ExtractorConfig(vit=ViTConfig(depth=32, attention_impl="core"), frame_batch=32, mesh_detector="rcnn",
+                              rcnn=rc, keep_all_frames=True, matmul_precision="default" if bf16 else "highest",
+                              param_dtype="bfloat16" if bf16 else "float32")
+        ex = Extractor(cfg, seed=SEED)
+        _person_class_(torch, ex.rcnn)
+        if tag == "fast() fp32":   # K5 over chunk 0's own levels cast to bf16, fast()'s proposals, window 32
+            with torch.inference_mode():
+                canvas, hw = predictor_canvas(frames_dev[:RCNN_BATCH], rc)
+                feats = ex.rcnn.backbone_features(canvas)
+                props, valid = ex.rcnn.proposals(feats, hw)
+                buf, offs, lhw = pack_pyramid([f.bfloat16() for f in feats[:4]])
+            results["roi_align_pyramid_dma[bfloat16]"] = _k5_check(
+                torch, buf, offs, lhw, rc.strides[:4], props, assign_fpn_levels(props), rc.roi_window, valid)
+            del canvas, feats, buf
+        # the main path, counts set to 0 just before and read just after
+        _reset_k5_counts()
+        mha_core.launches = 0
+        t0 = time.perf_counter()
+        mesh = ex.process_video(frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_dtype = dict(roi_align_pyramid_dma.launches_by_dtype)
+        k6 = mha_core.launches
+        worst = _check_contract(torch, np, mesh, n, f"{tag} process_video")
+        want = {"float32": 0, "bfloat16": 0, pyramid: chunks}
+        _check(by_dtype == want and k6 == 32 * mesh_chunks,
+               f"{tag} process_video: K5 launches by pyramid type {by_dtype} != {want}, K6 {k6}")
+        if tag == "fast() fp32":
+            launches["roi_align_pyramid_dma[bfloat16]"] = by_dtype["bfloat16"]
+        print(f"{tag}: process_video({n} frames), mesh_detector rcnn, no boxes: {wall:.2f} s cold; K5[{pyramid}] "
+              f"launched {by_dtype[pyramid]} times ({chunks} chunks), K6 {k6}; contract shapes, finite, rotations "
+              f"within {worst:.1e}")
+        det = ex.detect_stage(frames_dev)
+        _check(bool(torch.isfinite(det["box_mesh"]).all()), f"{tag}: non-finite detect-stage boxes")
+        _compare_boxes(torch, det, exact, tag)
+        dt, peak = _detect_fps(torch, ex, frames_dev)
+        print(f"{tag} timing: detect stage {n / dt:.1f} frames/s ({dt * 1e3 / chunks:.1f} ms per {RCNN_BATCH}-frame "
+              f"chunk); one chunk: {_rcnn_split(torch, ex, frames_dev)} ms; peak memory {peak:.2f} GiB on {card}")
+        del ex
+        torch.cuda.empty_cache()
+
+    # the default detector: YOLOX-L at full width, weights drawn on the card
+    cfg = ExtractorConfig(det=DetectorConfig.yolox_l(), vit=ViTConfig(depth=32, attention_impl="core"),
+                          frame_batch=32, matmul_precision="highest", keep_all_frames=True)
+    t0 = time.perf_counter()
+    ex = Extractor(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_det = sum(p.numel() for p in ex.detector.parameters())
+    print(f"yolox: YOLOX-L ({n_det / 1e6:.2f} M parameters; Megvii's README gives 54.2 M) + ViT-H depth 32 + SMPL "
+          f"head drawn on the card in {time.perf_counter() - t0:.1f} s")
+    _check(54.0e6 < n_det < 54.4e6, f"yolox: YOLOX-L has {n_det} parameters")
+    mha_core.launches = 0
+    t0 = time.perf_counter()
+    mesh = ex.process_video(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    worst = _check_contract(torch, np, mesh, n, "yolox process_video")
+    _check(mha_core.launches == 32 * mesh_chunks, f"yolox process_video: K6 launched {mha_core.launches}")
+    det = ex.detect_stage(frames_dev)
+    single = det["single"].cpu().numpy()
+    _check(bool(torch.isfinite(det["box_mesh"]).all()) and bool(torch.isfinite(det["box_pose"]).all()),
+           "yolox: non-finite detect-stage boxes")
+    ex.cfg.keep_all_frames = False
+    filtered = ex.process_video(frames)
+    ex.cfg.keep_all_frames = True
+    if single.sum() > 0 and single.mean() >= cfg.min_single_ratio:
+        _check(filtered is not None and np.array_equal(filtered["frame_idx"], np.flatnonzero(single)),
+               "yolox keep_all_frames=False: kept frames differ from the detector's single mask")
+    else:
+        _check(filtered is None, "yolox keep_all_frames=False: a video below min_single_ratio was kept")
+    print(f"yolox: process_video({n} frames), mesh_detector yolox, no boxes, keep_all_frames: {wall:.2f} s cold; "
+          f"K6 {mha_core.launches}; contract shapes, finite, rotations within {worst:.1e}; single-person mask "
+          f"{int(single.sum())} of {n} frames, a pose person in {int(det['present'].sum())}; keep_all_frames=False "
+          f"-> {'None (rejected)' if filtered is None else str(len(filtered['frame_idx'])) + ' frames'}, as the rule says")
+    dt, peak = _detect_fps(torch, ex, frames_dev)
+    size = cfg.det.input_hw[0]
+    with torch.inference_mode():
+        chunk = frames_dev[:32]
+        canvas, _ratio = yolox_letterbox(chunk.float(), size)
+        raw = ex.detector(canvas)
+        best = (raw["obj"][..., None] * raw["cls"]).amax(-1)
+        cand = torch.where(best > cfg.pose_det_prefilter, best, 0.0)
+        parts = {
+            "letterbox": _time_ms(lambda: yolox_letterbox(chunk.float(), size), 3),
+            "detector": _time_ms(lambda: ex.detector(canvas), 3),
+            "postprocess": _time_ms(lambda: dwpose_person_detections(raw, cfg.pose_det_prefilter, cfg.pose_det_iou,
+                                                                     cfg.det.max_detections), 3),
+            "NMS": _time_ms(lambda: nms_xla_indexed(raw["boxes"], cand, cfg.pose_det_iou, cfg.det.max_detections), 3),
+        }
+    print(f"yolox timing: detect stage {n / dt:.1f} frames/s ({dt * 1e3 / mesh_chunks:.1f} ms per 32-frame chunk); "
+          f"one chunk: letterbox {parts['letterbox']:.2f} ms, detector {parts['detector']:.2f} ms, postprocess "
+          f"{parts['postprocess']:.2f} ms of which NMS {parts['NMS']:.2f} ms ({4 * cfg.det.max_detections} steps); "
+          f"peak memory {peak:.2f} GiB with YOLOX-L and ViT-H on {card}")
+    del ex, raw, canvas
+    torch.cuda.empty_cache()
+
+    # the small YOLOX on the card against the CPU, on 4 letterboxed frames
+    small = DetectorConfig(input_hw=(128, 128), width=0.125)
+    on_card = YOLOXDetector(small).cuda().eval()
+    init_yolox_weights_(on_card, torch.Generator(device="cuda").manual_seed(SEED))
+    on_cpu = YOLOXDetector(small).eval()
+    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    with torch.inference_mode():
+        x, _ratio = yolox_letterbox(frames_dev[np.arange(4) * 17].float(), 128)
+        a, b = on_card(x), on_cpu(x.cpu())
+        d_raw = max((a[k].cpu() - b[k]).abs().max().item() / max(1.0, b[k].abs().max().item()) for k in b)
+        da, db = dwpose_person_detections(a), dwpose_person_detections(b)
+    m = db[2]
+    same = torch.equal(da[2].cpu(), m) and bool(
+        ((da[0].cpu()[m] - db[0][m]).abs() <= 1e-4 * max(1.0, db[0][m].abs().max().item() if m.any() else 1.0)).all())
+    print(f"yolox small config, 4 frames, card vs CPU: raw boxes, obj and cls within {d_raw:.2e} of max(1, max|x|) "
+          f"(tol 1e-4); {int(db[2].sum())} person detections, {'equal' if same else 'DIFFER'}")
+    _check(d_raw <= 1e-4 and same, "yolox small: card vs CPU differ")
     return results, launches
 
 
@@ -1566,6 +1818,7 @@ def main() -> int:
         return 1
     from video_gen_evals_tpu_torch.ops.cuda_lib import load_library
 
+    t_start = time.perf_counter()
     card = _card()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1587,8 +1840,10 @@ def main() -> int:
     fused_launches = phase_fused_sweep(torch, card)
     train_launches = phase_training(torch, card)
     mesh_launches = phase_mesh_stage(torch, card)
-    det_kern, det_launches = phase_detector(torch, card)
+    det_kern, det_launches, exact_det = phase_detector(torch, card)
     kern.update(det_kern)
+    mode_kern, mode_launches = phase_detector_modes(torch, card, exact_det)
+    kern.update(mode_kern)
 
     src = "video_gen_evals_tpu_torch/csrc/"
     rows = [
@@ -1627,6 +1882,8 @@ def main() -> int:
                  fused_launches["mha_core[high]"]))
     rows.append(("roi_align_pyramid_dma", "roi_align.cu", "video_gen_evals_tpu/ops/roi_align.py:335",
                  det_launches["roi_align_pyramid_dma"]))
+    rows.append(("roi_align_pyramid_dma[bfloat16]", "roi_align.cu", "video_gen_evals_tpu/ops/roi_align.py:335",
+                 mode_launches["roi_align_pyramid_dma[bfloat16]"]))
     for name, _f, _rep, n in rows:
         _check(n > 0, f"{name} was never launched on its main path")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1635,6 +1892,7 @@ def main() -> int:
          **{k: kern[name][k] for k in keys}}
         for name, f, rep, n in rows
     ]}))
+    print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (kernel build included) on {card}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -648,12 +648,34 @@ def test_roi_align_kernel_matches_plain(cuda, batch, canvas, channels, n_rois):
     assert got[:, 3].abs().max().item() == 0.0            # the empty box
 
 
+@pytest.mark.parametrize("batch,canvas,channels,n_rois,window", [
+    (2, (768, 1344), 256, 1000, 32), (1, (768, 1344), 256, 300, 48), (3, (96, 160), 16, 37, 32),
+    (2, (160, 224), 40, 64, 32)])
+def test_roi_align_bf16_kernel_matches_plain(cuda, batch, canvas, channels, n_rois, window):
+    """K5's bfloat16 instantiation (``RCNNConfig.fast()``'s pyramid, window 32
+    or the exact 48) against its plain version on the same bfloat16 buffer:
+    within _ROI_TOL (the cells widen exactly, the sums are float32 in
+    another order), float32 out, one bfloat16 launch a call."""
+    gen = torch.Generator().manual_seed(11)
+    (buf, offs, hw), boxes, levels = _roi_inputs(gen, batch, canvas, channels, n_rois)
+    buf = buf.bfloat16()
+    want = roi_align_pyramid_dma_plain(buf, offs, hw, (4, 8, 16, 32), boxes, levels, window=window)
+    before = dict(roi_align_pyramid_dma.launches_by_dtype)
+    got = roi_align_pyramid_dma(buf.to(cuda), offs, hw, (4, 8, 16, 32), boxes.to(cuda), levels.to(cuda),
+                                window=window)
+    torch.cuda.synchronize()
+    assert roi_align_pyramid_dma.launches_by_dtype == dict(before, bfloat16=before["bfloat16"] + 1)
+    assert got.shape == (batch, n_rois, 7, 7, channels) and got.dtype == torch.float32
+    assert (got.cpu() - want).abs().max().item() <= _ROI_TOL
+    assert got[:, 3].abs().max().item() == 0.0            # the empty box
+
+
 def test_roi_align_kernel_refuses(cuda):
     gen = torch.Generator().manual_seed(8)
     (buf, offs, hw), boxes, levels = _roi_inputs(gen, 1, (96, 160), 16, 5)
     buf, boxes, levels = buf.to(cuda), boxes.to(cuda), levels.to(cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        roi_align_pyramid_dma(buf.bfloat16(), offs, hw, (4, 8, 16, 32), boxes, levels)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        roi_align_pyramid_dma(buf.half(), offs, hw, (4, 8, 16, 32), boxes, levels)
     with pytest.raises(ValueError, match="7 x 7"):
         roi_align_pyramid_dma(buf, offs, hw, (4, 8, 16, 32), boxes, levels, out_size=5)
     with pytest.raises(ValueError, match="one device"):

@@ -14,6 +14,7 @@ from video_gen_evals_tpu.models import vit as jax_vit
 from video_gen_evals_tpu.pipelines import extract as jax_extract
 from video_gen_evals_tpu_torch.data.features import ModalityPaths, load_video_arrays
 from video_gen_evals_tpu_torch.data.manifest import VideoItem
+from video_gen_evals_tpu_torch.models.detector import DetectorConfig
 from video_gen_evals_tpu_torch.models.smpl_head import SMPLHeadConfig
 from video_gen_evals_tpu_torch.models.torch_compat import (
     head_state_dict_from_jax_tree,
@@ -36,6 +37,17 @@ RESCALE = 2.0
 EXACT = [(45.25, 24.5, 55.25, 56.5), (100.0, 60.25, 108.0, 76.25), (0.25, 70.0, 10.25, 86.0)]
 LARGE = [(30.3, 5.2, 90.9, 90.7), (50.1, 2.0, 120.4, 95.3), (-20.0, 5.5, 60.2, 92.9)]
 OUT_KEYS = ("pose", "betas", "global_orient", "vit")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread: the suite runs six workers on the host's cores, and
+    more threads a worker oversubscribe them (each Extractor here also draws
+    and calibrates the default YOLOX)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _video(seed, n):
@@ -157,20 +169,39 @@ def test_seeded_weights_and_checkpoint_file(tmp_path, weights, port):
     with pytest.raises(ValueError, match="no keys under prefix"):
         Extractor.from_checkpoints(bare, tokenhmr=path, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Extractor.from_checkpoints(bare, yolox="yolox_l.pth", device="cpu")
+        Extractor.from_checkpoints(bare, dwpose="dw-ll_ucoco_384.pth", device="cpu")
+    # a Megvii YOLOX file of the lite geometry loads into the detector (a det
+    # the caller set, here with 8 detections a frame, is kept; a default one
+    # would become yolox_l())
+    det_sd = {k: v.clone() for k, v in port.detector.state_dict().items()}
+    det_sd["head.obj_preds.0.bias"] += 1.0
+    torch.save({"model": det_sd}, path)
+    with_det = Extractor.from_checkpoints(dataclasses.replace(cfg, det=DetectorConfig(max_detections=8)),
+                                         yolox=path, device="cpu")
+    assert torch.equal(with_det.detector.state_dict()["head.obj_preds.0.bias"], det_sd["head.obj_preds.0.bias"])
 
 
 def test_calls_that_need_a_detector_raise(port):
+    """The keypoint branch's entries (they need the pose net on the
+    detector's pose boxes) and the legacy preprocessing still raise. Without
+    boxes, process_video runs the default YOLOX detect stage (its seeded lite
+    net here) under JAX's default rule (keep_all_frames False): the result is
+    None or the frames of the detector's single-person mask."""
     frames, boxes = _video(5, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.process_video(frames)
+    assert ExtractorConfig().keep_all_frames is False and port.cfg.mesh_detector == "yolox"
+    single = port.detect_stage(torch.from_numpy(frames))["single"].numpy()
+    out = port.process_video(frames)
+    if single.mean() < port.cfg.min_single_ratio or not single.any():
+        assert out is None
+    else:
+        np.testing.assert_array_equal(out["frame_idx"], np.flatnonzero(single))
     for call in (port.process_video_keypoints, port.run_tree, port_extract.main):
         with pytest.raises(NotImplementedError, match="detector"):
             call()
     with pytest.raises(NotImplementedError, match="legacy"):
         ExtractorConfig(preproc="legacy")
-    with pytest.raises(NotImplementedError, match="detector"):
-        ExtractorConfig(keep_all_frames=False)
+    with pytest.raises(ValueError, match="square"):
+        ExtractorConfig(det=DetectorConfig(input_hw=(416, 320)))
     with pytest.raises(ValueError, match="not a mode"):
         ExtractorConfig(matmul_precision="default", param_dtype="float32")
     with pytest.raises(ValueError, match=r"\[2, 4\]"):

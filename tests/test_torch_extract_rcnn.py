@@ -69,7 +69,7 @@ def weights():
     rcnn_sd["roi_heads.box_predictor.cls_score.bias"][0] += 2.0
     cfg = ExtractorConfig(vit=ViTConfig(**TINY_VIT), head=SMPLHeadConfig(**TINY_HEAD), frame_batch=FRAME_BATCH,
                           vitdet_rescale=RESCALE, matmul_precision="highest", mesh_detector="rcnn",
-                          rcnn=RCNNConfig.small())
+                          rcnn=RCNNConfig.small(), keep_all_frames=True)
     sds = {"vit": vit_state_dict_from_jax_tree(vit_tree, cfg.vit),
            "head": head_state_dict_from_jax_tree(head_tree, cfg.head),
            "rcnn": {k: torch.from_numpy(v) for k, v in rcnn_sd.items()}}
@@ -102,10 +102,10 @@ def test_detect_stage_matches_jax(pair):
     want = jex._batched(lambda f: jex._detect_rcnn(jex.params["rcnn"], f), jex._upload_frames(frames),
                         batch=FRAME_BATCH)
     got = port.detect_stage(torch.from_numpy(frames))
-    np.testing.assert_allclose(got["box"].numpy(), np.asarray(want[0]), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got["box_mesh"].numpy(), np.asarray(want[0]), rtol=0, atol=1e-4)
     np.testing.assert_array_equal(got["single"].numpy(), np.asarray(want[1]))
     np.testing.assert_array_equal(got["present"].numpy(), np.asarray(want[2]))
-    assert got["present"].any() and (got["box"][:, 2] <= W).all() and (got["box"][:, 3] <= H).all()
+    assert got["present"].any() and (got["box_mesh"][:, 2] <= W).all() and (got["box_mesh"][:, 3] <= H).all()
 
 
 @pytest.mark.parametrize("keep_all_frames,min_single_ratio,kept", [(True, 0.8, 9), (False, 0.5, 5), (False, 0.8, None)])
@@ -146,7 +146,7 @@ def test_accept_reject_rule_on_a_stub_detect_stage(weights):
     def stub(frames):
         idx = frames[:, 0, 0, 0].long()
         box = torch.tensor([[10.0, 12.0, 70.0, 90.0]]).expand(len(idx), 4)
-        return {"box": box, "single": idx % 3 == 1, "present": idx % 3 >= 1}
+        return {"box_mesh": box, "single": idx % 3 == 1, "present": idx % 3 >= 1}
 
     ex.detect_rcnn = stub
     frames = np.broadcast_to(np.arange(9, dtype=np.uint8)[:, None, None, None], (9, H, W, 3)).copy()
@@ -168,8 +168,10 @@ def test_accept_reject_rule_on_a_stub_detect_stage(weights):
 
 def test_rcnn_checkpoint_selects_the_mode(tmp_path, weights, pair):
     """A detectron2 ``.pkl`` given to from_checkpoints switches the default
-    (yolox) configuration to mesh_detector="rcnn" with those weights; the
-    modes this slice leaves out raise."""
+    (yolox) configuration to mesh_detector="rcnn" with those weights. The
+    bf16 mode with the R-CNN and the reference's rule in yolox mode are
+    modes of the port (tests/test_torch_extract_yolox.py runs them); an
+    unknown detector and a net the mode does not have raise."""
     path = str(tmp_path / "model_final_68b088.pkl")
     with open(path, "wb") as f:
         pickle.dump({"model": dict(weights["rcnn_sd"], pixel_mean=np.zeros((3, 1, 1), np.float32))}, f)
@@ -180,11 +182,10 @@ def test_rcnn_checkpoint_selects_the_mode(tmp_path, weights, pair):
     want = pair[0].rcnn(torch.zeros(1, 64, 64, 3))
     got = ex.rcnn(torch.zeros(1, 64, 64, 3))
     assert all(torch.equal(got[k], want[k]) for k in want)
-    assert torch.equal(ex.detect_stage(frames)["box"], pair[0].detect_stage(frames)["box"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(weights["cfg"], param_dtype="bfloat16", matmul_precision="default")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(base, keep_all_frames=False)
+    assert torch.equal(ex.detect_stage(frames)["box_mesh"], pair[0].detect_stage(frames)["box_mesh"])
+    assert dataclasses.replace(weights["cfg"], param_dtype="bfloat16",
+                               matmul_precision="default").working_dtype == torch.bfloat16
+    assert not dataclasses.replace(base, keep_all_frames=False).keep_all_frames
     with pytest.raises(ValueError, match="mesh_detector"):
         dataclasses.replace(base, mesh_detector="dino")
     with pytest.raises(ValueError, match="does not have"):

@@ -221,6 +221,32 @@ def test_full_forward_matches_jax(pair):
     assert (got["boxes"].numpy()[v][:, 2] <= 90).all() and (got["boxes"].numpy()[v][:, 3] <= 60).all()
 
 
+def test_fast_matches_jax(pair):
+    """``RCNNConfig.fast()``'s two changes (the levels packed in bfloat16, a
+    32-row window) on the small geometry against JAX's ``fast()`` small on
+    the same weights and canvases: the levels are cast to bfloat16 before the
+    pool on both sides, so valid masks and classes are equal, and boxes and
+    scores within the exact mode's tolerances (5e-3 and 1e-4)."""
+    assert port_rcnn.RCNNConfig.fast() == dataclasses.replace(
+        port_rcnn.RCNNConfig(), roi_dtype="bfloat16", roi_window=32)
+    assert jax_rcnn.RCNNConfig.fast().roi_dtype == "bfloat16" and jax_rcnn.RCNNConfig.fast().roi_window == 32
+    cfg = dataclasses.replace(pair["cfg"], roi_dtype="bfloat16", roi_window=32)
+    jcfg = dataclasses.replace(pair["jcfg"], roi_dtype="bfloat16", roi_window=32)
+    x = _canvas(6)
+    with torch.no_grad():
+        got = port_model(cfg, pair["sd"])(torch.from_numpy(x), image_hw=(60, 90))
+        exact = pair["port"](torch.from_numpy(x), image_hw=(60, 90))
+    jmodel = jax_rcnn.FasterRCNN(jcfg)
+    want = jax.jit(lambda p, a: jmodel.apply({"params": p}, a, image_hw=(60, 90)))(pair["params"], jnp.asarray(x))
+    v = np.asarray(want["valid"])
+    assert v.sum() > 0
+    np.testing.assert_array_equal(got["valid"].numpy(), v)
+    np.testing.assert_array_equal(got["classes"].numpy()[v], np.asarray(want["classes"])[v])
+    np.testing.assert_allclose(got["boxes"].numpy()[v], np.asarray(want["boxes"])[v], rtol=0, atol=5e-3)
+    np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), rtol=0, atol=1e-4)
+    assert (got["scores"] - exact["scores"]).abs().max() > 0       # the bfloat16 pyramid shows
+
+
 def test_x101_key_and_shape_set_matches_jax():
     """The port's X101-32x8d-FPN state_dict, built on the meta device, is the
     key set JAX's converter takes, and converts to the shapes of the JAX
@@ -268,10 +294,12 @@ def test_pkl_checkpoint_loads(tmp_path, pair):
 
 
 def test_left_out_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_rcnn.RCNNConfig.fast()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_rcnn.RCNNConfig(roi_dtype="bfloat16")
+    """``fast()`` and a bfloat16 pyramid are modes of the port now; other
+    pyramid types and pools are refused."""
+    assert port_rcnn.RCNNConfig.fast().roi_dtype == "bfloat16"
+    assert port_rcnn.RCNNConfig(roi_dtype="bfloat16").roi_window == 48
+    with pytest.raises(ValueError, match="roi_dtype"):
+        port_rcnn.RCNNConfig(roi_dtype="float16")
     with pytest.raises(ValueError, match="roi_impl"):
         port_rcnn.RCNNConfig(roi_impl="gather")
     assert port_rcnn.resize_shortest_edge((360, 640)) == (750, 1333)

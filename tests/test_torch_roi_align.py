@@ -133,6 +133,47 @@ def test_matmul_pool_matches_jax(pyramid, group):
     np.testing.assert_allclose(got, want, rtol=0, atol=_tol(want))
 
 
+@pytest.mark.parametrize("window", [48, 32])
+def test_k5_plain_at_bf16_matches_jax_dma_kernel(pyramid, window):
+    """A bfloat16 buffer (``RCNNConfig.fast()``'s pyramid) through K5's plain
+    version against JAX ``roi_align_pyramid_dma`` on the same bfloat16 buffer
+    (the Pallas kernel in interpret mode), at window 48 and at fast()'s 32,
+    in-span and over-span ROIs: within 1e-6 x max(1, max|x|), since the
+    cells widen exactly and both sum in float32. The wrapper on the CPU
+    tensor is the plain version, and equals the float32 pool on the buffer
+    rounded to bfloat16 and back."""
+    boxes, levels = _rois(IN_SPAN, OVER_SPAN)
+    want = np.asarray(jax_roi.roi_align_pyramid_dma(
+        pyramid["jbuf"].astype(jnp.bfloat16), pyramid["joffs"], pyramid["jhw"], STRIDES, jnp.asarray(boxes),
+        jnp.asarray(levels), window=window, interpret=True))
+    args = (pyramid["offs"], pyramid["hw"], STRIDES, torch.from_numpy(boxes), torch.from_numpy(levels))
+    buf16 = pyramid["buf"].bfloat16()
+    got = port_roi.roi_align_pyramid_dma_plain(buf16, *args, window=window).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * max(1.0, np.abs(want).max()))
+    np.testing.assert_array_equal(port_roi.roi_align_pyramid_dma(buf16, *args, window=window).numpy(), got)
+    np.testing.assert_array_equal(
+        port_roi.roi_align_pyramid_dma_plain(buf16.float(), *args, window=window).numpy(), got)
+    fp32 = port_roi.roi_align_pyramid_dma_plain(pyramid["buf"], *args, window=window).numpy()
+    assert np.abs(got - fp32).max() > 1e-4     # the buffer's rounding shows
+
+
+def test_matmul_pool_at_bf16_matches_jax(pyramid):
+    """The matmul pool over a bfloat16 buffer against JAX ``roi_align_pyramid``
+    over the same buffer (which casts each window to float32), at fast()'s
+    window 32, in-span and over-span ROIs: within the float32 pool's
+    tolerance (two products, each summed in another order)."""
+    boxes, levels = _rois(IN_SPAN, OVER_SPAN)
+    want = np.asarray(jax_roi.roi_align_pyramid(
+        pyramid["jbuf"].astype(jnp.bfloat16), pyramid["joffs"], pyramid["jhw"], STRIDES, jnp.asarray(boxes),
+        jnp.asarray(levels), window=32, chunk=4))
+    got = port_roi.roi_align_pyramid(
+        pyramid["buf"].bfloat16(), pyramid["offs"], pyramid["hw"], STRIDES, torch.from_numpy(boxes),
+        torch.from_numpy(levels), window=32, chunk=4).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=_tol(want))
+
+
 def test_both_pools_match_the_cuda_transcription_in_span(pyramid):
     """In-span ROIs: both pools are ROIAlignV2 itself (``roi_align_reference``,
     the published CUDA kernel's per-sample loop in float64)."""
@@ -194,8 +235,10 @@ def test_assign_fpn_levels_matches_jax():
 def test_refusals():
     buf = torch.zeros(120, 72, 8)
     boxes, levels = torch.zeros(1, 4), torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_roi.roi_align_pyramid_dma(buf.bfloat16(), (0,), ((120, 72),), (4,), boxes, levels)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        port_roi.roi_align_pyramid_dma(buf.half(), (0,), ((120, 72),), (4,), boxes, levels)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        port_roi.roi_align_pyramid(buf.double(), (0,), ((120, 72),), (4,), boxes, levels)
     with pytest.raises(ValueError, match="8-padded"):
         port_roi.roi_align_pyramid_dma(buf[:, :70], (0,), ((120, 70),), (4,), boxes, levels)
     with pytest.raises(ValueError, match="boxes"):

@@ -12,8 +12,13 @@
 // sample count, a tap beyond the window counting for the window's last cell.
 // Then
 //   out[r, p, q, c] = sum_w Wx[q, w] * sum_h Wy[p, h] * buf[i, wy0 + h, wx0 + w, c]
-// The buffer is channels last, [n_images, buf_h, buf_w, C] float32, and the
-// output [n_rois, 7, 7, C] float32 (the JAX layout). The geometry and the
+// The buffer is channels last, [n_images, buf_h, buf_w, C], float32 or
+// bfloat16 (the JAX package's RCNNConfig.fast() packs its levels in bfloat16,
+// rcnn.py:560-568), and the output [n_rois, 7, 7, C] float32 (the JAX
+// layout). A bfloat16 cell is widened to float32 as it is loaded, and the
+// weights and sums stay float32: what the TPU kernel computes with
+// preferred_element_type float32 (in interpret mode it equals the float32
+// pool on the buffer rounded to bfloat16 and back). The geometry and the
 // weights are computed here from the box with IEEE round-to-nearest
 // operations in JAX's order (no contraction into FMAs), so the taps are the
 // plain version's.
@@ -23,7 +28,9 @@
 // packed buffer carries no weight. For a chunk of 8 images that is at most
 // the levels' 85,680 cells of 256 floats an image (702 MB of the buffer's
 // 991 MB), plus 8000 x 49 x 256 output floats (401 MB): at most 0.329 ms at
-// 3.35 TB/s (chip_smoke.py counts the cells its proposals weight). The
+// 3.35 TB/s (chip_smoke.py counts the cells its proposals weight); a bfloat16
+// buffer halves the cell bytes, and fast()'s window of 32 rows x 40 columns
+// clips the widest ROIs' spans. The
 // operations (about 2 x 7 FMAs per cell read) are far below the fp32 rate. The TPU kernel fed the MXU one dense product
 // [49, window * window_x] @ [window * window_x, C] per ROI with outer-product
 // weights built in XLA (527 KB a ROI, 4.2 GB for the chunk); here those weights
@@ -41,6 +48,7 @@
 // device memory about once. The sums run in the plain version's order (rows
 // first, then columns), so the two differ by rounding only.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -86,8 +94,13 @@ __device__ float axis_weight(float start, float length, int extent, int win_star
   return acc;
 }
 
+// A buffer cell widened to float32 (exact for bfloat16).
+__device__ __forceinline__ float load_cell(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_cell(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+
+template <typename Cell>
 __global__ void __launch_bounds__(kMaxThreads) roi_align_kernel(
-    const float* __restrict__ buf, int buf_h, int buf_w, int channels,
+    const Cell* __restrict__ buf, int buf_h, int buf_w, int channels,
     const float* __restrict__ boxes, const int* __restrict__ levels,
     const int* __restrict__ level_info,   // [3, n_levels]: row offset, H_l, W_l
     const float* __restrict__ strides, int n_levels,
@@ -165,12 +178,12 @@ __global__ void __launch_bounds__(kMaxThreads) roi_align_kernel(
 
   const int img = r / rois_per_image;
   const size_t row_stride = (size_t)buf_w * channels;
-  const float* base = buf + ((size_t)img * buf_h + g.buf_y) * row_stride + (size_t)g.buf_x * channels;
+  const Cell* base = buf + ((size_t)img * buf_h + g.buf_y) * row_stride + (size_t)g.buf_x * channels;
   const int xlo = xlo_s, xhi = xhi_s;
   float* out_r = out + (size_t)r * kBins * kBins * channels;
 
   for (int c = tid; c < channels; c += blockDim.x) {
-    const float* col_c = base + c;
+    const Cell* col_c = base + c;
     for (int p = 0; p < kBins; ++p) {
       float acc[kBins];
 #pragma unroll
@@ -178,10 +191,10 @@ __global__ void __launch_bounds__(kMaxThreads) roi_align_kernel(
       const int h0 = ylo[p], h1 = yhi[p];
       const float* wy_p = wy + p * window;
       for (int w = xlo; w <= xhi; ++w) {
-        const float* cell = col_c + (size_t)w * channels;
+        const Cell* cell = col_c + (size_t)w * channels;
         float t = 0.0f;
 #pragma unroll 4
-        for (int h = h0; h <= h1; ++h) t = fmaf(wy_p[h], __ldg(cell + (size_t)h * row_stride), t);
+        for (int h = h0; h <= h1; ++h) t = fmaf(wy_p[h], load_cell(cell + (size_t)h * row_stride), t);
 #pragma unroll
         for (int q = 0; q < kBins; ++q) acc[q] = fmaf(wx[q * window_x + w], t, acc[q]);
       }
@@ -191,16 +204,11 @@ __global__ void __launch_bounds__(kMaxThreads) roi_align_kernel(
   }
 }
 
-}  // namespace
-
-// boxes [n_rois, 4] float32 xyxy (image coords), levels [n_rois] int32,
-// level_info [3, n_levels] int32, strides [n_levels] float32; ROI r belongs
-// to image r / rois_per_image of the [n_images, buf_h, buf_w, channels] buffer.
-extern "C" int vge_roi_align(
-    int device, const float* buf, int buf_h, int buf_w, int channels,
-    const float* boxes, const int* levels, const int* level_info, const float* strides,
-    int n_levels, int n_rois, int rois_per_image, int window, int window_x, int max_samples,
-    float* out, cudaStream_t stream) {
+template <typename Cell>
+int launch_roi_align(int device, const Cell* buf, int buf_h, int buf_w, int channels, const float* boxes,
+                     const int* levels, const int* level_info, const float* strides, int n_levels, int n_rois,
+                     int rois_per_image, int window, int window_x, int max_samples, float* out,
+                     cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (channels < 1 || window < 1 || window_x < 1 || rois_per_image < 1 || n_levels < 1 ||
@@ -211,8 +219,32 @@ extern "C" int vge_roi_align(
   const int threads = channels >= kMaxThreads ? kMaxThreads : (channels + 31) / 32 * 32;
   const size_t smem = (size_t)kBins * (window + window_x) * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  roi_align_kernel<<<n_rois, threads, smem, stream>>>(
+  roi_align_kernel<Cell><<<n_rois, threads, smem, stream>>>(
       buf, buf_h, buf_w, channels, boxes, levels, level_info, strides, n_levels,
       rois_per_image, window, window_x, max_samples, out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// boxes [n_rois, 4] float32 xyxy (image coords), levels [n_rois] int32,
+// level_info [3, n_levels] int32, strides [n_levels] float32; ROI r belongs
+// to image r / rois_per_image of the [n_images, buf_h, buf_w, channels]
+// buffer, float32 here and bfloat16 in vge_roi_align_bf16.
+extern "C" int vge_roi_align(
+    int device, const float* buf, int buf_h, int buf_w, int channels,
+    const float* boxes, const int* levels, const int* level_info, const float* strides,
+    int n_levels, int n_rois, int rois_per_image, int window, int window_x, int max_samples,
+    float* out, cudaStream_t stream) {
+  return launch_roi_align(device, buf, buf_h, buf_w, channels, boxes, levels, level_info, strides, n_levels,
+                          n_rois, rois_per_image, window, window_x, max_samples, out, stream);
+}
+
+extern "C" int vge_roi_align_bf16(
+    int device, const __nv_bfloat16* buf, int buf_h, int buf_w, int channels,
+    const float* boxes, const int* levels, const int* level_info, const float* strides,
+    int n_levels, int n_rois, int rois_per_image, int window, int window_x, int max_samples,
+    float* out, cudaStream_t stream) {
+  return launch_roi_align(device, buf, buf_h, buf_w, channels, boxes, levels, level_info, strides, n_levels,
+                          n_rois, rois_per_image, window, window_x, max_samples, out, stream);
 }

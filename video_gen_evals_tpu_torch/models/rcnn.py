@@ -21,8 +21,13 @@ stably, so ties keep JAX's order.
 The grouped 3x3 convs are ``F.conv2d(groups=32)``; the JAX package's
 ``grouped_conv_impl``, ``grouped_conv_width``, ``roi_chunk`` and
 ``roi_rois_per_step`` are TPU lowering choices and are not carried over.
-Only the float32 pyramid is ported: ``RCNNConfig.fast()`` (bfloat16 pyramid,
-window 32) raises (ROADMAP.md, Queue 1).
+``RCNNConfig.fast()`` is JAX's throughput preset: the levels packed in
+bfloat16 and a 32-row window, pooled by K5's bfloat16 instantiation.
+
+The detector runs in the type of its weights: cast to bfloat16 (the
+extraction's bf16 mode), the canvas, the convolutions and the box head work
+in bfloat16, while anchors are decoded, proposals ranked and suppressed, the
+pool sums and the second stage decoded in float32.
 
 On a CUDA device every entry point sets and checks TF32 off
 (``utils/device.py::disable_tf32``): cuDNN would run a float32 convolution in
@@ -44,10 +49,8 @@ from torch import nn
 from ..ops.image import resize_pil_matmul
 from ..ops.roi_align import assign_fpn_levels, pack_pyramid, roi_align_pyramid, roi_align_pyramid_dma
 from ..utils.device import disable_tf32
+from .detector import nms_masked
 from .pose2d import BatchNormInference
-
-_NOT_PORTED = "{what} is not ported (ROADMAP.md, Queue 1: the R-CNN's fast mode)"
-
 
 @dataclasses.dataclass(frozen=True)
 class RCNNConfig:
@@ -81,11 +84,13 @@ class RCNNConfig:
     # picks per backend; "dma" pins K5 (its plain version on the CPU);
     # "matmul" pins the matmul pool, on the CPU only
     roi_impl: str = "auto"
+    # the packed pyramid's type: "bfloat16" halves the bytes K5 reads, and
+    # rounds each pooled cell to 8 bits (fast())
     roi_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.roi_dtype != "float32":
-            raise NotImplementedError(_NOT_PORTED.format(what=f"roi_dtype={self.roi_dtype!r}"))
+        if self.roi_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown roi_dtype {self.roi_dtype!r}")
         if self.roi_impl not in ("auto", "dma", "matmul"):
             raise ValueError(f"unknown roi_impl {self.roi_impl!r}")
 
@@ -99,7 +104,11 @@ class RCNNConfig:
 
     @classmethod
     def fast(cls) -> "RCNNConfig":
-        raise NotImplementedError(_NOT_PORTED.format(what="RCNNConfig.fast() (bfloat16 pyramid, window 32)"))
+        """JAX's throughput preset: a bfloat16 pyramid and a 32-row window.
+        Not the reference's numbers: pooled cells carry bfloat16's rounding,
+        and a tap span beyond 32 cells (a tall or wide box at the largest
+        size of its level) clamps to the window's edge."""
+        return cls(roi_dtype="bfloat16", roi_window=32)
 
     @classmethod
     def small(cls) -> "RCNNConfig":
@@ -260,28 +269,6 @@ def clip_boxes(boxes: torch.Tensor, hw: T.Tuple) -> torch.Tensor:
                         boxes[..., 2].clamp(0, w), boxes[..., 3].clamp(0, h)], dim=-1)
 
 
-def nms_masked(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
-    """Exact greedy NMS keep-mask over score-sorted candidates ``[..., N, 4]``
-    with ``valid [..., N]``, batched over the leading axes: the IoU matrix
-    once, then a loop over ``i`` in which a kept ``i`` drops every later box
-    above the threshold. The loop runs on the device with no host sync (two
-    launches a step)."""
-    n = boxes.shape[-2]
-    area = (boxes[..., 2] - boxes[..., 0]).clamp_min(0) * (boxes[..., 3] - boxes[..., 1]).clamp_min(0)
-    lt = torch.maximum(boxes[..., :, None, :2], boxes[..., None, :, :2])
-    rb = torch.minimum(boxes[..., :, None, 2:], boxes[..., None, :, 2:])
-    wh = (rb - lt).clamp_min(0.0)
-    inter = wh[..., 0] * wh[..., 1]
-    iou = inter / torch.clamp_min(area[..., :, None] + area[..., None, :] - inter, 1e-9)
-    later = torch.ones(n, n, dtype=torch.bool, device=boxes.device).triu(diagonal=1)
-    over = (iou > iou_thresh) & later
-    del lt, rb, wh, inter, iou
-    keep = valid.clone()
-    for i in range(n):
-        keep.masked_fill_(over[..., i, :] & keep[..., i:i + 1], False)
-    return keep
-
-
 def _top_k(x: torch.Tensor, k: int) -> T.Tuple[torch.Tensor, torch.Tensor]:
     """``jax.lax.top_k`` along the last axis: descending, ties in index order."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
@@ -399,11 +386,15 @@ class FasterRCNN(nn.Module):
         self.roi_heads = _ROIHeads(config)
         self._anchors: T.Dict[T.Tuple, torch.Tensor] = {}
 
-    @staticmethod
-    def _prepare(images: torch.Tensor) -> torch.Tensor:
+    @property
+    def dtype(self) -> torch.dtype:
+        """The type the convolutions and the box head work in: the weights'."""
+        return self.roi_heads.box_head.fc1.weight.dtype
+
+    def _prepare(self, images: torch.Tensor) -> torch.Tensor:
         if images.is_cuda:
             disable_tf32()
-        return images.permute(0, 3, 1, 2).contiguous()
+        return images.permute(0, 3, 1, 2).contiguous().to(self.dtype)
 
     def backbone_features(self, images: torch.Tensor) -> T.List[torch.Tensor]:
         """p2..p6, each ``[B, C, H_l, W_l]``."""
@@ -424,21 +415,23 @@ class FasterRCNN(nn.Module):
         return out
 
     def proposals(self, feats: T.Sequence[torch.Tensor], image_hw: T.Tuple):
-        """RPN head and :func:`rpn_proposals` on the backbone's levels."""
-        rpn_outs = self.proposal_generator.rpn_head(feats)
+        """RPN head and :func:`rpn_proposals` (in float32) on the backbone's levels."""
+        rpn_outs = [(o.float(), d.float()) for o, d in self.proposal_generator.rpn_head(feats)]
         return rpn_proposals(rpn_outs, self.anchors(feats), image_hw, self.config)
 
     def pool(self, feats: T.Sequence[torch.Tensor], boxes: torch.Tensor,
              levels: T.Optional[torch.Tensor] = None) -> torch.Tensor:
         """``[B, N, 7, 7, C]`` ROIAlignV2 of ``boxes [B, N, 4]`` from p2..p5,
         at ``levels`` or at the canonical FPN level of each box; one pool
-        call for the whole batch. ``roi_impl="auto"`` pools with K5 on
-        CUDA tensors and with the matmul form on the CPU, as JAX picks per
-        backend; ``"matmul"`` on CUDA tensors raises."""
+        call for the whole batch, the levels packed in ``roi_dtype`` (cast
+        as JAX casts them) and the output float32. ``roi_impl="auto"``
+        pools with K5 on CUDA tensors and with the matmul form on the CPU,
+        as JAX picks per backend; ``"matmul"`` on CUDA tensors raises."""
         cfg = self.config
         if levels is None:
             levels = assign_fpn_levels(boxes)
-        buf, offs, hw = pack_pyramid(feats[:4])
+        roi_dtype = getattr(torch, cfg.roi_dtype)
+        buf, offs, hw = pack_pyramid([f.to(roi_dtype) for f in feats[:4]])
         impl = cfg.roi_impl if cfg.roi_impl != "auto" else ("dma" if buf.is_cuda else "matmul")
         if impl == "matmul" and buf.is_cuda:
             raise ValueError('roi_impl="matmul" is the CPU\'s pool: on CUDA tensors the detector pools with K5')
@@ -447,14 +440,14 @@ class FasterRCNN(nn.Module):
                     window=cfg.roi_window)
 
     def box_head(self, pooled: torch.Tensor) -> T.Tuple[torch.Tensor, torch.Tensor]:
-        """``pooled [N, 7, 7, C]`` -> (class logits, class-major deltas).
-        fc1 keeps torch's weight layout, so the pool is flattened channel
-        first, as detectron2 flattens its NCHW pool."""
+        """``pooled [N, 7, 7, C]`` -> (class logits, class-major deltas),
+        float32. fc1 keeps torch's weight layout, so the pool is flattened
+        channel first, as detectron2 flattens its NCHW pool."""
         rh = self.roi_heads
-        x = pooled.permute(0, 3, 1, 2).reshape(pooled.shape[0], -1)
+        x = pooled.permute(0, 3, 1, 2).reshape(pooled.shape[0], -1).to(self.dtype)
         x = F.relu(rh.box_head.fc1(x))
         x = F.relu(rh.box_head.fc2(x))
-        return rh.box_predictor.cls_score(x), rh.box_predictor.bbox_pred(x)
+        return rh.box_predictor.cls_score(x).float(), rh.box_predictor.bbox_pred(x).float()
 
     def box_forward(self, images: torch.Tensor, boxes: torch.Tensor, levels: torch.Tensor):
         """Pool the fixed ``boxes [B, N, 4]`` at ``levels [B, N]`` and run the

@@ -24,8 +24,9 @@ any tree shaped like the params (gradients, Adam moments) to the port's
 parameter names and layouts, and :func:`load_optax_adam_state` continues a
 JAX run's AdamW moments in a torch optimizer.
 
-The detector crosses by :func:`rcnn_state_dict_from_jax_tree`, the inverse of
-the JAX package's ``detectron2_to_flax``.
+The detectors cross by :func:`rcnn_state_dict_from_jax_tree` and
+:func:`yolox_state_dict_from_jax_tree`, the inverses of the JAX package's
+``detectron2_to_flax`` and ``yolox_to_flax``.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import typing as T
 import numpy as np
 import torch
 
+from .detector import DetectorConfig
 from .fusion_encoder import _PE_MAX_LEN, EncoderConfig, HumanActionScorer, sinusoidal_positional_embedding
 from .rcnn import RCNNConfig
 from .smpl_head import SMPLHeadConfig
@@ -360,3 +362,59 @@ def rcnn_state_dict_from_jax_tree(params: FlaxParams, config: RCNNConfig) -> T.D
     _put_dense(sd, "roi_heads.box_predictor.cls_score", params["cls_score"])
     _put_dense(sd, "roi_heads.box_predictor.bbox_pred", params["bbox_pred"])
     return _as_tensors(sd)
+
+
+def yolox_state_dict_from_jax_tree(params: FlaxParams, config: DetectorConfig) -> T.Dict[str, torch.Tensor]:
+    """The JAX package's ``YOLOXDetector`` params (numpy leaves) -> the port's
+    ``YOLOXDetector`` state_dict in Megvii's names: the inverse of the JAX
+    package's ``yolox_to_flax``. Convs ``[kh, kw, in, out]`` -> ``[out, in,
+    kh, kw]``; norms ``scale``/``mean``/``var`` -> ``weight``/``running_mean``/
+    ``running_var``, with the ``num_batches_tracked`` counter (0) that
+    ``nn.BatchNorm2d`` checkpoints carry."""
+    sd: T.Dict[str, T.Any] = {}
+
+    def pred(prefix, p):
+        sd[f"{prefix}.weight"] = np.ascontiguousarray(np.transpose(_np(p["kernel"]), (3, 2, 0, 1)))
+        if "bias" in p:
+            sd[f"{prefix}.bias"] = _np(p["bias"])
+
+    def convbn(prefix, p):
+        pred(f"{prefix}.conv", p["conv"])
+        n = p["bn"]
+        for ours, theirs in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                             ("running_var", "var")):
+            sd[f"{prefix}.bn.{ours}"] = _np(n[theirs])
+        sd[f"{prefix}.bn.num_batches_tracked"] = np.zeros((), np.int64)
+
+    def csp(prefix, p):
+        for name in ("conv1", "conv2", "conv3"):
+            convbn(f"{prefix}.{name}", p[name])
+        i = 0
+        while f"m{i}" in p:
+            convbn(f"{prefix}.m.{i}.conv1", p[f"m{i}"]["conv1"])
+            convbn(f"{prefix}.m.{i}.conv2", p[f"m{i}"]["conv2"])
+            i += 1
+
+    neck, bb = params["neck"], "backbone.backbone"
+    dark = neck["backbone"]
+    convbn(f"{bb}.stem.conv", dark["stem"]["conv"])
+    for stage in (2, 3, 4, 5):
+        convbn(f"{bb}.dark{stage}.0", dark[f"dark{stage}_conv"])
+    for stage in (2, 3, 4):
+        csp(f"{bb}.dark{stage}.1", dark[f"dark{stage}_csp"])
+    convbn(f"{bb}.dark5.1.conv1", dark["dark5_spp"]["conv1"])
+    convbn(f"{bb}.dark5.1.conv2", dark["dark5_spp"]["conv2"])
+    csp(f"{bb}.dark5.2", dark["dark5_csp"])
+    for name in ("lateral_conv0", "reduce_conv1", "bu_conv2", "bu_conv1"):
+        convbn(f"backbone.{name}", neck[name])
+    for name in ("C3_p4", "C3_p3", "C3_n3", "C3_n4"):
+        csp(f"backbone.{name}", neck[name])
+    for i in range(len(config.strides)):
+        convbn(f"head.stems.{i}", params[f"stem{i}"])
+        for j in range(2):
+            convbn(f"head.cls_convs.{i}.{j}", params[f"cls_conv{i}_{j}"])
+            convbn(f"head.reg_convs.{i}.{j}", params[f"reg_conv{i}_{j}"])
+        for name in ("cls", "reg", "obj"):
+            pred(f"head.{name}_preds.{i}", params[f"{name}_pred{i}"])
+    return {k: torch.from_numpy(np.array(v, dtype=np.int64 if k.endswith("num_batches_tracked") else np.float32))
+            for k, v in sd.items()}

@@ -92,8 +92,9 @@ _SIGNATURES = {
     "vge_flash_attention": [_I, _P, _P, _P, _P] + [_L] * 9 + [_I, _I, _I, _I, _F, _I, _I, _I, _P],
     # device, buffer, buf_h, buf_w, channels, boxes, levels, level_info,
     # strides, n_levels, n_rois, rois_per_image, window, window_x,
-    # max_samples, out, stream
+    # max_samples, out, stream; the buffer float32, or bfloat16 in the _bf16 entry
     "vge_roi_align": [_I, _P, _I, _I, _I, _P, _P, _P, _P] + [_I] * 6 + [_P, _P],
+    "vge_roi_align_bf16": [_I, _P, _I, _I, _I, _P, _P, _P, _P] + [_I] * 6 + [_P, _P],
 }
 # entry points that return a size in bytes, not a CUDA error code
 _SIZE_QUERIES = {

@@ -33,8 +33,15 @@ The kernel computes each ROI's geometry and separable weights from its box
 (in shared memory, with the plain version's rounding), never the dense outer
 product ``[R, 49, window * window_x]`` that the TPU kernel is fed, and reads
 only the window cells that carry weight. ``roi_align_pyramid_dma.launches``
-counts its launches. Only a float32 pyramid is taken: the bfloat16 buffer of the JAX
-package's ``fast()`` preset is not ported (ROADMAP.md, Queue 1).
+counts its launches, and ``roi_align_pyramid_dma.launches_by_dtype`` splits
+them by the buffer's type.
+
+The buffer is float32 or bfloat16: the JAX package's ``RCNNConfig.fast()``
+packs its levels in bfloat16 (``models/rcnn.py:560-568``). Either way the
+weights and sums are float32 and so is the output; a bfloat16 cell is widened
+to float32 where it is read, in the kernel (its ``__nv_bfloat16``
+instantiation) and in both plain pools, which is what the JAX pools compute
+(the matmul pool casts its window, the DMA kernel sums into float32).
 """
 
 from __future__ import annotations
@@ -198,13 +205,14 @@ def _batched(buffer: torch.Tensor, boxes: torch.Tensor, levels: torch.Tensor):
 
 def _windows(buffer: torch.Tensor, img: torch.Tensor, wy0: torch.Tensor, wx0: torch.Tensor,
              window: int, window_x: int) -> torch.Tensor:
-    """``[R, window, window_x, C]`` slices of the batched buffer."""
+    """``[R, window, window_x, C]`` float32 slices of the batched buffer
+    (a bfloat16 buffer's cells widened, which is exact)."""
     B, bufh, bufw, C = buffer.shape
     dev = buffer.device
     rows = img.long()[:, None] * bufh + wy0.long()[:, None] + torch.arange(window, device=dev)
     cols = wx0.long()[:, None] + torch.arange(window_x, device=dev)
     flat = rows[:, :, None] * bufw + cols[:, None, :]
-    return buffer.reshape(-1, C)[flat]
+    return buffer.reshape(-1, C)[flat].to(torch.float32)
 
 
 def _separable_pool(win: torch.Tensor, Wy: torch.Tensor, Wx: torch.Tensor) -> torch.Tensor:
@@ -213,11 +221,12 @@ def _separable_pool(win: torch.Tensor, Wy: torch.Tensor, Wx: torch.Tensor) -> to
     return torch.einsum("rqw,rpwc->rpqc", Wx, t)
 
 
+_BUFFER_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+
 def _check_buffer(buffer: torch.Tensor) -> None:
-    if buffer.dtype != torch.float32:
-        raise NotImplementedError(
-            f"ROIAlign over a {buffer.dtype} pyramid is not ported: only float32 (the JAX "
-            "package's fast() preset with its bfloat16 buffer is in ROADMAP.md, Queue 1)")
+    if buffer.dtype not in _BUFFER_DTYPES:
+        raise ValueError(f"ROIAlign takes a float32 or bfloat16 pyramid, not {buffer.dtype}")
 
 
 def roi_align_pyramid(
@@ -234,8 +243,8 @@ def roi_align_pyramid(
 ) -> torch.Tensor:
     """The matmul pool (JAX ``roi_align_pyramid``), in plain PyTorch on any
     device: a square ``window`` slice whose column start is clipped to the
-    level, two products per ROI, ``chunk`` ROIs at a time. Returns
-    ``[(B,) R, out, out, C]`` float32."""
+    level, two products per ROI, ``chunk`` ROIs at a time. The buffer is
+    float32 or bfloat16. Returns ``[(B,) R, out, out, C]`` float32."""
     _check_buffer(buffer)
     buf, bx, lv, unbatched = _batched(buffer, boxes, levels)
     B, bufh, bufw, C = buf.shape
@@ -273,8 +282,9 @@ def roi_align_pyramid_dma_plain(
     chunk: int = 512,
 ) -> torch.Tensor:
     """Plain PyTorch version of K5 on any device: the DMA pool's geometry,
-    each ROI's ``[window, window_x, C]`` slice gathered and contracted with
-    the separable weights, ``chunk`` ROIs at a time. ``[(B,) R, out, out, C]``."""
+    each ROI's ``[window, window_x, C]`` slice gathered (widened to float32)
+    and contracted with the separable weights, ``chunk`` ROIs at a time.
+    ``[(B,) R, out, out, C]`` float32."""
     _check_buffer(buffer)
     buf, bx, lv, unbatched = _batched(buffer, boxes, levels)
     wy0, wx0, Wy, Wx, window, window_x = dma_geometry(
@@ -299,7 +309,7 @@ def _device_tables(row_offsets, level_hw, strides, device):
 
 
 def roi_align_pyramid_dma(
-    buffer: torch.Tensor,                      # [sumH, Wmax8, C] or [B, sumH, Wmax8, C] float32
+    buffer: torch.Tensor,                      # [sumH, Wmax8, C] or [B, sumH, Wmax8, C] f32 or bf16
     row_offsets: T.Tuple[int, ...],
     level_hw: T.Tuple[T.Tuple[int, int], ...],
     strides: T.Tuple[int, ...],
@@ -314,7 +324,8 @@ def roi_align_pyramid_dma(
     an optional leading image axis; ``rois_per_step`` and ``precision`` are
     TPU knobs and are not taken). On a CUDA buffer one launch pools every ROI
     of every image, the kernel computing each ROI's geometry and weights from
-    its box; on a CPU buffer :func:`roi_align_pyramid_dma_plain` runs.
+    its box, in its float32 or its bfloat16 instantiation after the buffer's
+    type; on a CPU buffer :func:`roi_align_pyramid_dma_plain` runs.
     Returns ``[(B,) R, out, out, C]`` float32."""
     if buffer.device.type == "cpu":
         return roi_align_pyramid_dma_plain(buffer, row_offsets, level_hw, strides, boxes, levels,
@@ -339,17 +350,20 @@ def roi_align_pyramid_dma(
     info, strides_t = _device_tables(tuple(row_offsets), tuple(level_hw), tuple(strides[:n_levels]), buf.device)
     out = torch.empty((B * R, out_size, out_size, C), dtype=torch.float32, device=buf.device)
     lib = load_library().lib
-    code = lib.vge_roi_align(
+    entry = lib.vge_roi_align if buf.dtype == torch.float32 else lib.vge_roi_align_bf16
+    code = entry(
         buf.device.index, buf.data_ptr(), bufh, bufw, C, boxes_f.data_ptr(), levels_i.data_ptr(),
         info.data_ptr(), strides_t.data_ptr(), n_levels, B * R, R, window, window_x, max_samples,
         out.data_ptr(), stream_handle(buf.device))
     check(code, "roi_align_pyramid_dma launch")
     roi_align_pyramid_dma.launches += 1
+    roi_align_pyramid_dma.launches_by_dtype[_BUFFER_DTYPES[buf.dtype]] += 1
     out = out.reshape(B, R, out_size, out_size, C)
     return out[0] if unbatched else out
 
 
 roi_align_pyramid_dma.launches = 0
+roi_align_pyramid_dma.launches_by_dtype = dict.fromkeys(_BUFFER_DTYPES.values(), 0)
 
 
 def assign_fpn_levels(

@@ -20,7 +20,12 @@ The blur is composed into the warp weights. Where the JAX function maps one
 frame with ``vmap``, the batch axis is written out here. The products run in
 true fp32 (callers keep TF32 off).
 
-The DWPose and YOLOX halves of the JAX module come with their networks.
+:func:`yolox_letterbox` is the Megvii/DWPose detector canvas: an
+aspect-preserving ``cv2.resize(INTER_LINEAR)`` by ``r = min(S/h, S/w)``
+(half-pixel centres, taps clamped at the edges, rounded half to even and
+clipped as the uint8 path does), pasted at the top-left of a 114-filled
+``S x S`` canvas, raw BGR 0..255 with no mean or std. The DWPose crop half of
+the JAX module comes with the pose net.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 # hmr2/TokenHMR DEFAULT_MEAN/STD (0..255 scale, RGB)
 VITDET_MEAN_RGB = np.array([0.485, 0.456, 0.406], np.float32) * 255.0
 VITDET_STD_RGB = np.array([0.229, 0.224, 0.225], np.float32) * 255.0
+LETTERBOX_FILL = 114.0
 
 
 def cv2_affine_coords(s_inv: torch.Tensor, t: torch.Tensor, dst_idx: torch.Tensor) -> torch.Tensor:
@@ -51,6 +57,19 @@ def _border0_weights(coords: torch.Tensor, n_in: int, dtype: torch.dtype) -> tor
     i0 = f.to(torch.int32)[..., None]
     idx = torch.arange(n_in, dtype=torch.int32, device=coords.device)
     return ((idx == i0) * (1.0 - frac) + (idx == i0 + 1) * frac).to(dtype)
+
+
+def _clamp_weights(coords: torch.Tensor, n_in: int, dtype: torch.dtype) -> torch.Tensor:
+    """``[n_out, n_in]`` linear-tap weights of ``cv2.resize``: continuous
+    ``coords``, the coordinate clamped to ``[0, n_in - 1]``, so a sample
+    beyond an edge replicates the edge pixel."""
+    coords = coords.clamp(0.0, float(n_in - 1))
+    f = torch.floor(coords)
+    frac = (coords - f)[:, None]
+    i0 = f.to(torch.int32)[:, None]
+    i1 = (i0 + 1).clamp(0, n_in - 1)
+    idx = torch.arange(n_in, dtype=torch.int32, device=coords.device)[None, :]
+    return ((idx == i0) * (1.0 - frac) + (idx == i1) * frac).to(dtype)
 
 
 def _compose_gaussian(
@@ -199,3 +218,33 @@ def vitdet_mesh_crop(
     mean_t = torch.as_tensor(np.asarray(mean), dtype=crops.dtype, device=crops.device)
     std_t = torch.as_tensor(np.asarray(std), dtype=crops.dtype, device=crops.device)
     return (crops - mean_t) / std_t
+
+
+def letterbox_geometry(frame_hw: T.Tuple[int, int], size: int = 640) -> T.Tuple[float, int, int]:
+    """``(ratio, resized_h, resized_w)`` of the Megvii letterbox: ``r =
+    min(S / h, S / w)`` and the content size ``(int(h * r), int(w * r))``,
+    the published code's host arithmetic (truncation included)."""
+    H, W = frame_hw
+    r = min(size / H, size / W)
+    return r, int(H * r), int(W * r)
+
+
+def yolox_letterbox(frames_rgb: torch.Tensor, size: int = 640) -> T.Tuple[torch.Tensor, float]:
+    """``(canvas [B, size, size, 3], ratio)`` of ``frames_rgb`` (``[B, H, W,
+    3]`` float32 RGB 0..255): raw BGR 0..255 floats, the resized frame at the
+    top-left, the rest 114. Boxes decoded on the canvas map back to the frame
+    by ``boxes / ratio``, unclipped, as the published pipeline keeps them."""
+    B, H, W, _ = frames_rgb.shape
+    r, rh, rw = letterbox_geometry((H, W), size)
+    bgr = frames_rgb.flip(-1)
+    if (rh, rw) == (H, W):
+        resized = bgr
+    else:
+        dev, dt = frames_rgb.device, frames_rgb.dtype
+        ys = (torch.arange(rh, dtype=torch.float32, device=dev) + 0.5) * (H / rh) - 0.5
+        xs = (torch.arange(rw, dtype=torch.float32, device=dev) + 0.5) * (W / rw) - 0.5
+        wy, wx = _clamp_weights(ys, H, dt), _clamp_weights(xs, W, dt)
+        t = torch.matmul(wy, bgr.reshape(B, H, W * 3)).reshape(B, rh, W, 3)
+        resized = torch.round(torch.einsum("bywc,xw->byxc", t, wx)).clamp(0.0, 255.0)
+    canvas = torch.nn.functional.pad(resized, (0, 0, 0, size - rw, 0, size - rh), value=LETTERBOX_FILL)
+    return canvas, r

@@ -10,15 +10,18 @@ of ``frame_batch`` frames. The output is the extraction contract the scoring
 path reads: ``pose [T,23,3,3]``, ``betas [T,10]``, ``global_orient
 [T,1,3,3]``, ``vit [T,1024]`` and ``frame_idx [T]``.
 
-The boxes come from the caller, or, with ``mesh_detector="rcnn"``, from the
-Faster R-CNN X101-32x8d-FPN detect stage (``models/rcnn.py``, the reference's
-mesh-path detector, ref ``mesh_generator.py:69-74``): a frame is kept iff
-exactly one person box scores above ``det_score_thresh``, and a video is
-rejected when fewer than ``min_single_ratio`` of its frames are kept (ref
-``:103-117``). The YOLOX detector and the 2D pose net (the keypoint branch)
-are not ported yet (ROADMAP.md, Queue 1, items 1 and 2): the default
-``mesh_detector="yolox"`` without boxes, the keypoint entry, ``run_tree`` and
-the CLI raise ``NotImplementedError``.
+The boxes come from the caller, or from the detect stage: with the default
+``mesh_detector="yolox"`` the YOLOX person detector on Megvii's letterbox
+canvas with DWPose's postprocessing (``models/detector.py``), which also gives
+the keypoint branch's pose boxes; with ``"rcnn"`` the Faster R-CNN
+X101-32x8d-FPN (``models/rcnn.py``, the reference's mesh-path detector, ref
+``mesh_generator.py:69-74``), in its exact configuration or JAX's ``fast()``.
+A frame is kept iff exactly one person box scores above ``det_score_thresh``,
+and a video is rejected when fewer than ``min_single_ratio`` of its frames
+are kept (ref ``:103-117``); ``keep_all_frames`` turns the rule off. The 2D
+pose net (the keypoint branch) is not ported yet (ROADMAP.md, Queue 1, item
+2): the keypoint entry, ``run_tree`` and the CLI raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.detector import (
+    DetectorConfig,
+    YOLOXDetector,
+    dwpose_person_detections,
+    init_yolox_weights_,
+    single_person_mask,
+)
 from ..models.rcnn import (
     FasterRCNN,
     RCNNConfig,
@@ -41,14 +51,11 @@ from ..models.rcnn import (
 )
 from ..models.smpl_head import SMPLHeadConfig, SMPLTokenDecoderHead
 from ..models.vit import ViTBackbone, ViTConfig
-from ..ops.upstream_crops import vitdet_mesh_crop
+from ..ops.upstream_crops import vitdet_mesh_crop, yolox_letterbox
 from ..utils.device import disable_tf32, resolve_device
 
-_NEEDS_YOLOX = ("{what} needs the YOLOX person detector, which is not ported yet "
-                "(ROADMAP.md, Queue 1, item 1): use mesh_detector='rcnn' or pass one box a "
-                "frame to Extractor.process_video")
-_NEEDS_POSE = ("{what} needs the YOLOX detector and the 2D pose net of the keypoint branch, "
-               "which are not ported yet (ROADMAP.md, Queue 1, items 1 to 3)")
+_NEEDS_POSE = ("{what} needs the 2D pose net of the keypoint branch, which runs on the YOLOX "
+               "detector's pose boxes and is not ported yet (ROADMAP.md, Queue 1, item 2)")
 # (matmul_precision, param_dtype) -> the dtype the two networks work in
 _WORKING_DTYPE = {
     ("highest", "float32"): torch.float32,
@@ -59,17 +66,22 @@ _WORKING_DTYPE = {
 
 @dataclasses.dataclass
 class ExtractorConfig:
-    """The fields of the JAX package's ``ExtractorConfig`` that the mesh stage
-    reads.
+    """The fields of the JAX package's ``ExtractorConfig`` that the detect
+    and mesh stages read.
 
     Numerics, named by what is computed: ``matmul_precision="highest"`` runs
     every product in true fp32 (TF32 off) and the attention kernels at
     ``"highest"``. ``"high"`` (the JAX default, bf16x3 on the TPU) runs the
     same fp32 path here, which is at least as exact. ``"default"`` with
     ``param_dtype="bfloat16"`` is the fast mode: bf16 parameters and
-    activations, fp32 sums, the attention kernels at ``"default"``, and the
-    rotation matrices orthonormalised in fp32. Other pairs are refused."""
+    activations in every network (both detectors too), fp32 sums, the
+    attention kernels at ``"default"``, the rotation matrices orthonormalised
+    in fp32, and boxes decoded, ranked and suppressed in fp32. Other pairs
+    are refused. (JAX's bf16 mode casts the parameters only: flax promotes
+    the detectors' fp32 activations, so there they run in fp32 on
+    bf16-rounded weights.)"""
 
+    det: DetectorConfig = dataclasses.field(default_factory=DetectorConfig)
     vit: ViTConfig = dataclasses.field(default_factory=ViTConfig)
     head: SMPLHeadConfig = dataclasses.field(default_factory=SMPLHeadConfig)
     frame_batch: int = 32
@@ -78,24 +90,31 @@ class ExtractorConfig:
     vitdet_antialias: bool = True  # hmr2 gaussian pre-blur (df > 1.1)
     matmul_precision: str = "high"
     param_dtype: str = "float32"   # "float32" | "bfloat16"
-    # mesh-path box provenance when process_video gets no boxes: "rcnn" is the
-    # Faster R-CNN X101-FPN; "yolox" (JAX's default) is not ported yet
+    # mesh-path box provenance when process_video gets no boxes: "yolox" is the
+    # YOLOX detector that also gives the keypoint branch its boxes; "rcnn" the
+    # Faster R-CNN X101-FPN (the reference's mesh detector)
     mesh_detector: str = "yolox"
     rcnn: T.Optional[RCNNConfig] = None   # None: RCNNConfig.x101_32x8d()
     # the detect stage's canvas is ~70x a crop's pixel area, so it chunks smaller
     rcnn_frame_batch: int = 8
     det_score_thresh: float = 0.5
     min_single_ratio: float = 0.8
-    # every frame counts as single-person (the JAX package defaults to False).
-    # False applies the reference's rule to the R-CNN's boxes; without a
-    # detector there is no mask, so it is refused there
-    keep_all_frames: bool = True
+    # DWPose onnxdet thresholds: candidates > 0.1 before NMS, class-agnostic
+    # NMS at 0.45, the keypoint branch's person boxes > 0.3
+    pose_det_prefilter: float = 0.1
+    pose_det_iou: float = 0.45
+    pose_det_score_thresh: float = 0.3
+    # onnxpose poses the full frame where no person is detected
+    pose_fullframe_fallback: bool = True
+    # every frame counts as single-person: the detector still runs, but the
+    # reference's rule neither drops frames nor rejects the video
+    keep_all_frames: bool = False
 
     def __post_init__(self):
         if self.preproc == "legacy":
             raise NotImplementedError(
                 "preproc='legacy' (batched_person_crops, ops/image.py) is not ported: "
-                "ROADMAP.md, Queue 1, 'left out of the mesh stage'")
+                "ROADMAP.md, Queue 1, item 3")
         if self.preproc != "upstream":
             raise ValueError(f"unknown preproc {self.preproc!r}")
         if (self.matmul_precision, self.param_dtype) not in _WORKING_DTYPE:
@@ -106,12 +125,8 @@ class ExtractorConfig:
             self.rcnn = RCNNConfig.x101_32x8d()
         if self.mesh_detector not in ("yolox", "rcnn"):
             raise ValueError(f"unknown mesh_detector {self.mesh_detector!r}")
-        if not self.keep_all_frames and self.mesh_detector != "rcnn":
-            raise NotImplementedError(_NEEDS_YOLOX.format(what="keep_all_frames=False"))
-        if self.mesh_detector == "rcnn" and self.param_dtype != "float32":
-            raise NotImplementedError(
-                "the bfloat16 extraction mode with the R-CNN detector is not ported: "
-                "ROADMAP.md, Queue 1, item 0")
+        if self.det.input_hw[0] != self.det.input_hw[1]:
+            raise ValueError(f"the letterbox needs a square detector input, not {self.det.input_hw}")
         if self.frame_batch < 1 or self.rcnn_frame_batch < 1:
             raise ValueError(f"frame_batch {self.frame_batch} and rcnn_frame_batch "
                              f"{self.rcnn_frame_batch} must be positive")
@@ -171,28 +186,33 @@ def _build_net(factory, config, state_dict, generator, device, dtype) -> nn.Modu
     return net.to(dtype).eval()
 
 
-def _build_rcnn(config: RCNNConfig, state_dict, generator, device) -> FasterRCNN:
-    """The detector on ``device`` in float32, its weights from a detectron2
-    state_dict (every key used, none missing) or drawn from ``generator``."""
+def _build_detector(factory, config, state_dict, init_, generator, device, dtype) -> nn.Module:
+    """A detector on ``device`` in ``dtype``, its weights from a checkpoint's
+    state_dict in its published names (every key used, none missing) or
+    drawn from ``generator`` by ``init_``."""
     with torch.device("meta"):
-        net = FasterRCNN(config)
+        net = factory(config)
     net.to_empty(device=device)
     if state_dict is None:
-        init_rcnn_weights_(net, generator)
+        init_(net, generator)
     else:
-        net.load_state_dict(canonical_rcnn_state_dict(state_dict), strict=True)
-    return net.eval()
+        net.load_state_dict(state_dict, strict=True)
+    return net.to(dtype).eval()
 
 
 class Extractor:
-    """Detect stage (with ``mesh_detector="rcnn"``), crops, ViT backbone and
-    SMPL head of the mesh stage, in fixed chunks.
+    """Detect stage, crops, ViT backbone and SMPL head of the mesh stage, in
+    fixed chunks.
 
-    ``state_dicts`` may hold ``"vit"`` and ``"head"`` (state_dicts in the
-    modules' own names) and, in rcnn mode, ``"rcnn"`` (detectron2's names);
-    a net without one is drawn from a generator seeded with ``seed`` (the
-    detector last, so the other two do not depend on the mode).
-    ``device=None`` means the card and raises without one."""
+    The YOLOX net is built in both modes, as in JAX (in rcnn mode the
+    keypoint branch takes its pose boxes). ``state_dicts`` may hold ``"vit"``
+    and ``"head"`` (state_dicts in the modules' own names), ``"det"``
+    (Megvii's names) and, in rcnn mode, ``"rcnn"`` (detectron2's names). A
+    net without one is drawn on the device: the ViT and then the head from a
+    generator seeded with ``seed``, YOLOX from one seeded with ``seed + 1``
+    and the R-CNN from one seeded with ``seed + 2``, so that no net's weights
+    depend on another's size or on the mode. ``device=None`` means the card
+    and raises without one."""
 
     def __init__(self, config: T.Optional[ExtractorConfig] = None,
                  state_dicts: T.Optional[T.Mapping[str, T.Mapping[str, torch.Tensor]]] = None,
@@ -201,7 +221,7 @@ class Extractor:
         self.device = resolve_device("cuda" if device is None else device)
         disable_tf32()
         state_dicts = dict(state_dicts or {})
-        nets = {"vit", "head"} | ({"rcnn"} if cfg.mesh_detector == "rcnn" else set())
+        nets = {"vit", "head", "det"} | ({"rcnn"} if cfg.mesh_detector == "rcnn" else set())
         unknown = set(state_dicts) - nets
         if unknown:
             raise ValueError(f"state_dicts holds nets this configuration does not have: {sorted(unknown)}")
@@ -212,7 +232,12 @@ class Extractor:
         self.backbone = _build_net(ViTBackbone, cfg.vit, state_dicts.get("vit"), generator, self.device, dtype)
         self.head = _build_net(SMPLTokenDecoderHead, cfg.head, state_dicts.get("head"), generator,
                                self.device, dtype)
-        self.rcnn = (_build_rcnn(cfg.rcnn, state_dicts.get("rcnn"), generator, self.device)
+        self.detector = _build_detector(YOLOXDetector, cfg.det, state_dicts.get("det"), init_yolox_weights_,
+                                        torch.Generator(device=self.device).manual_seed(seed + 1), self.device, dtype)
+        rcnn_sd = state_dicts.get("rcnn")
+        self.rcnn = (_build_detector(FasterRCNN, cfg.rcnn, None if rcnn_sd is None else canonical_rcnn_state_dict(rcnn_sd),
+                                     init_rcnn_weights_, torch.Generator(device=self.device).manual_seed(seed + 2),
+                                     self.device, dtype)
                      if cfg.mesh_detector == "rcnn" else None)
 
     @classmethod
@@ -223,15 +248,17 @@ class Extractor:
         """An Extractor with the published weights: TokenHMR (a ``.ckpt``,
         ``.pt`` or ``.npz`` whose ``backbone.*`` and ``smpl_head.*`` keys are
         the two networks'; the head's classifier geometry is read from the
-        file) and the detectron2 Faster R-CNN (``.pkl`` or ``.pt``), which
-        selects ``mesh_detector="rcnn"``. The DWPose and YOLOX checkpoints
-        belong to networks not ported yet."""
+        file), Megvii's YOLOX (``yolox_l.pth``; a default ``det`` becomes
+        ``yolox_l()``) and the detectron2 Faster R-CNN (``.pkl`` or ``.pt``),
+        which selects ``mesh_detector="rcnn"``. The DWPose checkpoint belongs
+        to the pose net, not ported yet."""
         from .weights import extraction_params_from_checkpoints, load_torch_state_dict, published_config
 
         tokenhmr = load_torch_state_dict(tokenhmr) if tokenhmr else None
         cfg = published_config(config or ExtractorConfig(), tokenhmr=tokenhmr, dwpose=dwpose,
                                yolox=yolox, rcnn=rcnn)
-        converted = extraction_params_from_checkpoints(cfg, tokenhmr=tokenhmr, rcnn=rcnn)
+        converted = extraction_params_from_checkpoints(cfg, tokenhmr=tokenhmr, dwpose=dwpose, yolox=yolox,
+                                                       rcnn=rcnn)
         return cls(cfg, state_dicts=converted, seed=seed, device=device)
 
     def set_attention_impl(self, impl: str) -> None:
@@ -261,13 +288,44 @@ class Extractor:
         return {k: v.float() for k, v in self.head(tokens).items()}
 
     @torch.inference_mode()
+    def detect_yolox(self, frames: torch.Tensor) -> T.Dict[str, torch.Tensor]:
+        """The YOLOX detect stage on one chunk ``[B, H, W, 3]`` (RGB 0..255),
+        JAX's ``detect`` with upstream preprocessing: Megvii's letterbox, the
+        detector, DWPose's postprocess (:func:`dwpose_person_detections`),
+        boxes divided by the letterbox ratio (unclipped). The mesh rule keeps
+        person boxes above ``det_score_thresh``, the keypoint rule those above
+        ``pose_det_score_thresh``. Returns ``box_mesh [B, 4]`` (the best mesh
+        person box, or slot 0's box where there is none), ``box_pose [B, 4]``
+        (the best pose box, or the full frame where there is none and
+        ``pose_fullframe_fallback``), ``single [B]`` (exactly one mesh person)
+        and ``present [B]`` (at least one pose person)."""
+        cfg = self.cfg
+        H, W = frames.shape[1:3]
+        canvas, ratio = yolox_letterbox(frames.to(torch.float32), size=cfg.det.input_hw[0])
+        boxes, scores, person = dwpose_person_detections(
+            self.detector(canvas), prefilter_thresh=cfg.pose_det_prefilter, iou_thresh=cfg.pose_det_iou,
+            max_out=cfg.det.max_detections)
+        boxes = boxes * (1.0 / ratio)
+        mesh_valid = person & (scores > cfg.det_score_thresh)
+        pose_valid = person & (scores > cfg.pose_det_score_thresh)
+        present = pose_valid.any(dim=-1)
+        best_m = torch.argmax(torch.where(mesh_valid, scores, -1.0), dim=-1)
+        best_p = torch.argmax(torch.where(pose_valid, scores, -1.0), dim=-1)
+        box_pose = torch.take_along_dim(boxes, best_p[:, None, None], dim=1)[:, 0]
+        if cfg.pose_fullframe_fallback:   # onnxpose: no detection -> pose on [0, 0, W, H]
+            full = torch.tensor([0.0, 0.0, float(W), float(H)], device=boxes.device)
+            box_pose = torch.where(present[:, None], box_pose, full)
+        return {"box_mesh": torch.take_along_dim(boxes, best_m[:, None, None], dim=1)[:, 0],
+                "box_pose": box_pose, "single": single_person_mask(mesh_valid), "present": present}
+
+    @torch.inference_mode()
     def detect_rcnn(self, frames: torch.Tensor) -> T.Dict[str, torch.Tensor]:
         """The R-CNN detect stage on one chunk ``[B, H, W, 3]`` (RGB 0..255):
         detectron2's DefaultPredictor preprocessing (``predictor_canvas``),
         the detector, boxes rescaled and clipped to the
         frame, then the reference's rule: the person boxes (class 0) scoring
-        above ``det_score_thresh``. Returns ``box [B, 4]`` (the best person
-        box, or the top detection where there is none), ``single [B]``
+        above ``det_score_thresh``. Returns ``box_mesh [B, 4]`` (the best
+        person box, or the top detection where there is none), ``single [B]``
         (exactly one person box) and ``present [B]`` (at least one)."""
         cfg = self.cfg
         H, W = frames.shape[1:3]
@@ -277,12 +335,15 @@ class Extractor:
         boxes = clip_boxes(det["boxes"] * torch.tensor([sx, sy, sx, sy], device=canvas.device), (H, W))
         person = (det["classes"] == 0) & (det["scores"] > cfg.det_score_thresh) & det["valid"]
         best = torch.argmax(torch.where(person, det["scores"], -1.0), dim=-1)
-        return {"box": torch.take_along_dim(boxes, best[:, None, None], dim=1)[:, 0],
-                "single": person.sum(dim=-1) == 1, "present": person.any(dim=-1)}
+        return {"box_mesh": torch.take_along_dim(boxes, best[:, None, None], dim=1)[:, 0],
+                "single": single_person_mask(person), "present": person.any(dim=-1)}
 
     def detect_stage(self, frames: torch.Tensor) -> T.Dict[str, torch.Tensor]:
-        """:meth:`detect_rcnn` over a video on the device, in chunks of
-        ``min(rcnn_frame_batch, frame_batch)``; the results stay there."""
+        """The mode's detect stage over a video on the device, the results
+        kept there: :meth:`detect_yolox` in chunks of ``frame_batch``, or
+        :meth:`detect_rcnn` in chunks of ``min(rcnn_frame_batch, frame_batch)``."""
+        if self.rcnn is None:
+            return self._batched(self.detect_yolox, frames, fetch=False)
         return self._batched(self.detect_rcnn, frames,
                              batch=min(self.cfg.rcnn_frame_batch, self.cfg.frame_batch), fetch=False)
 
@@ -312,9 +373,9 @@ class Extractor:
         RGB, uploaded once and cast on the device chunk by chunk.
 
         With ``boxes_xyxy`` (``[T, 4]``, one person box a frame in frame
-        pixels) every frame is kept. Without, the R-CNN detect stage
-        (``mesh_detector="rcnn"``) gives the boxes and the single-person
-        mask: with ``keep_all_frames=False`` the video is rejected (``None``)
+        pixels) every frame is kept. Without, the mode's detect stage gives
+        the boxes and the single-person mask: unless ``keep_all_frames``,
+        the video is rejected (``None``)
         when no frame, or fewer than ``min_single_ratio`` of them, hold
         exactly one person, and otherwise only those frames are returned
         (``frame_idx``), as JAX's ``process_video_full`` does. The mask is
@@ -331,11 +392,9 @@ class Extractor:
             boxes_dev = torch.as_tensor(boxes_xyxy, dtype=torch.float32).to(self.device)
             if tuple(boxes_dev.shape) != (n, 4):
                 raise ValueError(f"boxes must be [{n}, 4], got {tuple(boxes_dev.shape)}")
-        elif self.rcnn is None:
-            raise NotImplementedError(_NEEDS_YOLOX.format(what="process_video without boxes"))
         else:
             det = self.detect_stage(frames_dev)
-            boxes_dev = det["box"]
+            boxes_dev = det["box_mesh"]
             if not self.cfg.keep_all_frames:
                 keep = det["single"].cpu().numpy()
                 if keep.sum() == 0 or keep.mean() < self.cfg.min_single_ratio:

@@ -1,6 +1,6 @@
-"""Published-checkpoint loading for the mesh-recovery stage and its detector.
+"""Published-checkpoint loading for the mesh-recovery stage and its detectors.
 
-Port of the TokenHMR and Faster R-CNN branches of
+Port of the TokenHMR, YOLOX and Faster R-CNN branches of
 ``video_gen_evals_tpu/pipelines/weights.py``.
 The reference loads ``tokenhmr_model_latest.ckpt`` (ref
 ``mesh_generator.py:35-78``); its ``backbone.*`` keys are the ViT-H's and its
@@ -12,12 +12,14 @@ tokenizer decoder's nesting prefixes).
 The reference's mesh detector is detectron2's X101-32x8d-FPN (a model-zoo
 ``.pkl``); the port's ``FasterRCNN`` carries detectron2's names, so its
 state_dict loads as it is (``models/rcnn.py::canonical_rcnn_state_dict``).
+DWPose's person detector is Megvii's YOLOX-L (``yolox_l.pth``, its state_dict
+under ``model``); the port's ``YOLOXDetector`` carries Megvii's names.
 
 Accepted containers: torch ``.pt/.pth/.ckpt`` (bare state_dicts or
 ``state_dict`` / ``model_state_dict`` / ``model`` wrappers), ``.npz`` of
 torch-named arrays and detectron2 ``.pkl``. ``module.`` and ``model.``
-wrapper prefixes are stripped. The DWPose and YOLOX branches come with their
-networks (ROADMAP.md, Queue 1).
+wrapper prefixes are stripped. The DWPose branch comes with the pose net
+(ROADMAP.md, Queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import typing as T
 import numpy as np
 import torch
 
+from ..models.detector import DetectorConfig
 from ..models.rcnn import canonical_rcnn_state_dict, load_detectron2_pkl
 from ..models.smpl_head import canonical_head_state_dict, classifier_config_from_state_dict
 
@@ -39,8 +42,8 @@ __all__ = [
 ]
 
 StateDict = T.Dict[str, torch.Tensor]
-_NOT_PORTED = ("the {net} checkpoint branch is not ported yet: it comes with its "
-               "network (ROADMAP.md, Queue 1)")
+_NOT_PORTED = ("the {net} checkpoint branch is not ported yet: it comes with the 2D pose net "
+               "(ROADMAP.md, Queue 1, item 2)")
 
 
 def load_torch_state_dict(path: str) -> StateDict:
@@ -95,15 +98,17 @@ def _refuse_unported(**nets) -> None:
 def extraction_params_from_checkpoints(cfg, *, tokenhmr=None, dwpose=None, yolox=None,
                                        rcnn=None) -> T.Dict[str, StateDict]:
     """The state_dicts of the nets whose checkpoint was given (each a path
-    or a loaded state_dict): ``vit`` and ``head`` from ``tokenhmr``, ``rcnn``
-    from a detectron2 checkpoint. ``cfg`` must hold the matching geometry
-    already (:func:`published_config`)."""
-    _refuse_unported(dwpose=dwpose, yolox=yolox)
+    or a loaded state_dict): ``vit`` and ``head`` from ``tokenhmr``, ``det``
+    from a Megvii YOLOX checkpoint, ``rcnn`` from a detectron2 one. ``cfg``
+    must hold the matching geometry already (:func:`published_config`)."""
+    _refuse_unported(dwpose=dwpose)
     out: T.Dict[str, StateDict] = {}
     if tokenhmr is not None:
         sd = _as_state_dict(tokenhmr)
         out["vit"] = sub_state_dict(sd, "backbone.")
         out["head"] = canonical_head_state_dict(sub_state_dict(sd, "smpl_head."))
+    if yolox is not None:
+        out["det"] = _as_state_dict(yolox)
     if rcnn is not None:
         out["rcnn"] = canonical_rcnn_state_dict(_as_state_dict(rcnn))
     return out
@@ -111,9 +116,13 @@ def extraction_params_from_checkpoints(cfg, *, tokenhmr=None, dwpose=None, yolox
 
 def published_config(cfg, *, tokenhmr=None, dwpose=None, yolox=None, rcnn=None):
     """``cfg`` with the head's TokenClassfier geometry read from the
-    checkpoint's shapes, and ``mesh_detector="rcnn"`` when an R-CNN file is
-    given. The ViT-H and X101-FPN defaults are the published geometry."""
-    _refuse_unported(dwpose=dwpose, yolox=yolox)
+    checkpoint's shapes, ``det`` switched to ``DetectorConfig.yolox_l()``
+    when a YOLOX file is given and the caller left ``det`` at its (lite)
+    default, and ``mesh_detector="rcnn"`` when an R-CNN file is given. The
+    ViT-H and X101-FPN defaults are the published geometry."""
+    _refuse_unported(dwpose=dwpose)
+    if yolox is not None and cfg.det == DetectorConfig():
+        cfg = dataclasses.replace(cfg, det=DetectorConfig.yolox_l())
     if tokenhmr is not None:
         head_sd = sub_state_dict(_as_state_dict(tokenhmr), "smpl_head.")
         cfg = dataclasses.replace(cfg, head=classifier_config_from_state_dict(head_sd, cfg.head))
