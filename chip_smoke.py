@@ -14,7 +14,8 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    [960, 32, 256], dilations 1/2/4/8, with a seeded keep mask (keep 0.9) and
    without, at "highest" and at "default" against the plain version of the
    same precision (tolerances at K4_TOL), and two backward calls on the same
-   inputs bitwise equal. Milliseconds per call of kernel and plain from CUDA
+   inputs bitwise equal; each backward split into its three launches by
+   torch.profiler at every dilation. Milliseconds per call of kernel and plain from CUDA
    events (plain, kernel, kernel, plain), each kernel's bound from its shapes
    and the card's data-sheet peaks and the kernel's share of it, and the
    time of one library call where one computes the same function (for K1
@@ -194,10 +195,12 @@ def _card() -> str:
 
 # the bool template arguments of the attention kernels, in order
 _ATTN_FLAGS = {"attention_fma_kernel": ("split", "flash"), "attention_resident_kernel": ("flash",)}
-# the tensor-core conv kernels (K3 and K10 at "high", K4's forward and backward
-# at "default"): every instantiation's ptxas line is printed
+# the multi-window conv kernels: the tensor-core ones (K3 and K10 at "high", K4's
+# forward and backward at "default") and the FMA ones (K3 and K4's backward at
+# "highest"); every instantiation's ptxas line is printed
 _TC_KERNELS = ("temporal_block_high_kernel", "temporal_chain_tc_kernel", "train_fwd_tc_kernel",
-               "train_bwd_tc_kernel", "tap_grad_tc_kernel")
+               "train_bwd_tc_kernel", "tap_grad_tc_kernel", "temporal_block_fma_kernel",
+               "train_bwd_fma_kernel", "tap_grad_fma_kernel")
 
 
 def _ptxas_summary(log: str):
@@ -248,6 +251,26 @@ def _interleaved_ms(kernel, plain, iters: int):
     """plain, kernel, kernel, plain; the mean of each pair."""
     p1, k1, k2, p2 = (_time_ms(f, iters) for f in (plain, kernel, kernel, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _device_split(torch, fn, iters):
+    """Device ms a call and launches a call of each kernel ``fn`` runs
+    (torch.profiler), largest first; empty when the profiler sees no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and e.count > 0:
+            rows.append((us / 1e3 / iters, e.count / iters, e.key))
+    return sorted(rows, reverse=True)
 
 
 def _conv_fmas(windows: int, t_len: int, channels: int, dilation: int) -> int:
@@ -419,7 +442,14 @@ def phase_train_kernels(torch, dev, gen):
               f"max |grad - plain| / scale {max(g_errs):.2e} (tol {g_tol}); backward twice: bitwise equal")
         print(f"   forward kernel ms {fmt(f_ms)}; plain ms {fmt(f_pms)}; bound {f_bound[0]:.4f} ms ({f_bound[1]}, "
               f"{f_bound[0] / (sum(f_ms) / 4):.1%} of the mean)")
-        print(f"   backward kernel ms {fmt(b_ms)}; plain ms {fmt(b_pms)}; bound {b_bound[0]:.4f} ms ({b_bound[1]})")
+        print(f"   backward kernel ms {fmt(b_ms)}; plain ms {fmt(b_pms)}; bound {b_bound[0]:.4f} ms ({b_bound[1]}, "
+              f"{b_bound[0] / (sum(b_ms) / 4):.1%} of the mean)")
+        # the backward's three launches by torch.profiler (weight preparation's small launches beside)
+        for d in (1, 2, 4, 8):
+            out, leaves = kernel_backward(keep_mask, d, precision)
+            split = _device_split(torch, lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True), 5)
+            print(f"   backward d={d} device split: " + "; ".join(
+                f"{key[:40]} {ms:.4f} ms x{n:g}" for ms, n, key in split[:5]))
         results[f"fused_temporal_block_train[{precision}]"] = dict(
             max_abs_err=max(f_errs), ms=sum(f_ms) / 4, plain_ms=sum(f_pms) / 4,
             bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None)

@@ -17,15 +17,18 @@ their plain versions by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``
 phase 2; this script only times them.
 
 The run that builds prints the ptxas line (registers, spills) of every conv
-kernel the build instantiated; ``--build-only`` also the number of HMMA
-instructions in each conv kernel's SASS (``cuobjdump``). A timed run prints,
+kernel the build instantiated; ``--build-only`` also the number of HMMA, FFMA
+and LDS instructions in each conv kernel's SASS (``cuobjdump``). The
+measurement helpers come from this checkout's ``chip_smoke.py``, the package
+from ``--root``. A timed run prints,
 at the main paths' shapes ([512, 32, 256] for K3 and K10, [960, 32, 256]
 with a keep mask for K4; dilations 1, 2, 4, 8 and their mean, as phase 2
 reports it; K10 over 4 stages and over chain2's two halves, as phase 6 does):
 ms a call from CUDA events, the bound and the kernel's share of it; K3 at
 ``"high"``, K10 and the backward split into their launches by
 ``torch.profiler`` (device ms a call of each kernel, the weight
-preparation's small launches included); K10's error at 1 to 4 stages
+preparation's small launches included; K3 at both precisions, K4's backward
+at "highest" at every dilation); K10's error at 1 to 4 stages
 against its plain version beside K3 ``"high"`` run once a stage (and
 whether the two agree bitwise); what the weight preparation costs a call;
 and K4's forward at ``"default"`` at 528, 960 and 1056 windows (one
@@ -48,8 +51,9 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CONV_KERNELS = ("temporal_block", "temporal_chain", "train_", "tap_grad", "reduce_partials")
 
 
-def _sass_hmma(path: str):
-    """(kernel, HMMA count) for each conv kernel in the library's SASS."""
+def _sass_counts(path: str):
+    """(kernel, {HMMA, FFMA, LDS: count}) for each conv kernel in the
+    library's SASS: tensor-core products, fp32 FMAs and shared-memory loads."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -59,34 +63,17 @@ def _sass_hmma(path: str):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = 0
-        elif name and "HMMA" in line:
-            counts[name] += 1
+            counts[name] = dict.fromkeys(("HMMA", "FFMA", "LDS"), 0)
+        elif name:
+            op = re.search(r"\b(HMMA|FFMA|LDS)\b", line)
+            if op:
+                counts[name][op.group(1)] += 1
     return [(n, c) for n, c in counts.items() if any(k in n for k in _CONV_KERNELS)]
-
-
-def _device_split(torch, fn, iters):
-    """Device ms a call and launches a call of each kernel ``fn`` runs
-    (torch.profiler); empty when the profiler sees no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-        if us > 0 and e.count > 0:
-            rows.append((us / 1e3 / iters, e.count / iters, e.key))
-    return sorted(rows, reverse=True)
 
 
 def timing(torch, ck, ckc, ckt, iters, card):
     from chip_smoke import (BATCH, CLIP, PEAK_BF16, PEAK_FP32, TRAIN_WINDOWS, _bound, _conv_fmas,
-                            _conv_stage_bound, _time_ms)
+                            _conv_stage_bound, _device_split, _time_ms)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -112,10 +99,10 @@ def timing(torch, ck, ckc, ckt, iters, card):
               f"bound {bound:.4f} ms ({by}, {bound / mean:.1%} of it) on {card}")
     print(f"K3 high weight preparation (high_weight_planes): "
           f"{_time_ms(lambda: ck.high_weight_planes(w1, w2), iters):.4f} ms a call on {card}")
-    for name, rows in (("K3 high d=2", _device_split(torch, lambda: ck.fused_temporal_block(
-            x, w1, w2, gs, gb, 2, "high"), iters)),):
-        for ms, n, key in rows[:6]:
-            print(f"  {name} device split: {ms:.4f} ms, {n:g} launches a call: {key[:90]}")
+    for precision in ("high", "highest"):
+        for ms, n, key in _device_split(torch, lambda: ck.fused_temporal_block(
+                x, w1, w2, gs, gb, 2, precision), iters)[:6]:
+            print(f"  K3 {precision} d=2 device split: {ms:.4f} ms, {n:g} launches a call: {key[:90]}")
 
     # K10 at [512, 32, 256]: one chain's 4 stages, and chain2's two halves
     S = 4
@@ -157,16 +144,16 @@ def timing(torch, ck, ckc, ckt, iters, card):
     mask = ((torch.rand(B, CLIP, C, generator=gen) < 0.9).float() / 0.9).to(dev)
     for precision in ("default", "highest"):
         peak = PEAK_FP32 if precision == "highest" else PEAK_BF16
-        f_ms, b_ms = [], []
+        f_ms, b_ms, splits = [], [], {}
         for d in (1, 2, 4, 8):
             f_ms.append(_time_ms(
                 lambda: ckt.fused_temporal_block_train(x, w1, w2, gs, gb, mask, d, precision), iters))
             leaves = [t.detach().requires_grad_() for t in (x, w1, w2, gs, gb)]
             out = ckt.fused_temporal_block_train(*leaves, mask, d, precision)
             b_ms.append(_time_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True), iters))
-            if d == 2:
-                split = _device_split(torch, lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True),
-                                      iters)
+            if d == 2 or precision == "highest":
+                splits[d] = _device_split(torch, lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True),
+                                          iters)
         fb = _conv_stage_bound(B, CLIP, C, 2, 3, 2, 2, peak)
         bb = _conv_stage_bound(B, CLIP, C, 6, 4, 4, 2, peak)
         f_mean, b_mean = sum(f_ms) / 4, sum(b_ms) / 4
@@ -174,9 +161,10 @@ def timing(torch, ck, ckc, ckt, iters, card):
               f"bound {fb[0]:.4f} ms ({fb[1]}, {fb[0] / f_mean:.1%} of it) on {card}")
         print(f"K4 backward {precision} [{B}, {CLIP}, {C}] d=1/2/4/8: {fmt(b_ms)} ms, mean {b_mean:.4f}; "
               f"bound {bb[0]:.4f} ms ({bb[1]}, {bb[0] / b_mean:.1%} of it) on {card}")
-        for ms, n, key in split[:8]:
-            print(f"  K4 backward {precision} d=2 device split: {ms:.4f} ms, {n:g} launches a call: "
-                  f"{key[:90]}")
+        for d, split in splits.items():
+            for ms, n, key in split[:8]:
+                print(f"  K4 backward {precision} d={d} device split: {ms:.4f} ms, {n:g} launches a call: "
+                      f"{key[:90]}")
     # the forward's tail wave: 960 windows are 240 blocks, 1.8 waves of 132
     xt = torch.randn(1056, CLIP, C, generator=gen).to(dev)
     mt = ((torch.rand(1056, CLIP, C, generator=gen) < 0.9).float() / 0.9).to(dev)
@@ -200,8 +188,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_conv: no CUDA device", file=sys.stderr)
         return 1
-    sys.path[:0] = [os.path.abspath(args.root), _REPO]
-    from chip_smoke import _card, _ptxas_summary
+    sys.path.insert(0, _REPO)
+    from chip_smoke import _card, _ptxas_summary   # this checkout's measurement helpers
+    sys.path.insert(0, os.path.abspath(args.root))   # the root's package
     from video_gen_evals_tpu_torch.ops import chain_kernel as ckc
     from video_gen_evals_tpu_torch.ops import conv_kernel as ck
     from video_gen_evals_tpu_torch.ops import conv_kernel_train as ckt
@@ -215,8 +204,8 @@ def main() -> int:
         if line.startswith(_CONV_KERNELS):
             print(f"  ptxas {line}")
     if args.build_only:
-        for name, n in _sass_hmma(lib.path) or []:
-            print(f"  SASS HMMA {n:5d} in {name}")
+        for name, n in _sass_counts(lib.path) or []:
+            print(f"  SASS HMMA {n['HMMA']:5d} FFMA {n['FFMA']:6d} LDS {n['LDS']:5d} in {name}")
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False   # as chip_smoke.py sets it
     timing(torch, ck, ckc, ckt, args.iters, card)

@@ -1,9 +1,9 @@
 """Host-side preparation of the tensor-core conv kernels (K3 and K10 at
-"high", K4's forward and backward at "default"), on the CPU: the bf16 weight
-planes the kernels read, held bitwise against split_bf16 and _round, and the
-launch plan (windows a block, shared memory, partial rows, row ranges), which
-covers every batch, fits Hopper's shared memory and depends on the shape
-alone."""
+"high", K4's forward and backward at "default") and of the FMA conv kernels
+(K3 and K4's backward at "highest"), on the CPU: the bf16 weight planes the
+tensor-core kernels read, held bitwise against split_bf16 and _round, and the
+launch plans (windows a block, shared memory, partial rows, row ranges), which
+cover every batch, fit Hopper's shared memory and depend on the shape alone."""
 
 import math
 
@@ -13,6 +13,7 @@ import torch
 from video_gen_evals_tpu_torch.ops.conv_kernel import (
     SMEM_LIMIT,
     TcPlan,
+    fma_plan,
     high_weight_planes,
     split_bf16,
     tc_plan,
@@ -134,3 +135,75 @@ def test_tc_plan_at_known_shapes(t_len, channels, batch, kind, want):
 def test_tc_plan_refuses_unbuilt_shapes(args):
     with pytest.raises(ValueError):
         tc_plan(*args)
+
+
+@pytest.mark.parametrize("kind", ["block", "train_bwd"])
+@pytest.mark.parametrize("channels", _C)
+@pytest.mark.parametrize("t_len", _T)
+def test_fma_plan_covers_every_batch_and_fits(t_len, channels, kind):
+    for batch in _BATCHES:
+        plan = fma_plan(t_len, channels, batch, kind)
+        W = plan.windows_per_block
+        assert W * t_len == 128, plan                       # a block owns whole windows, 128 rows
+        assert plan.blocks * W >= batch > (plan.blocks - 1) * W, (batch, plan)
+        assert 0 < plan.smem_bytes <= SMEM_LIMIT, plan
+        if kind == "block":
+            assert (plan.slabs, plan.splits, plan.grad_smem_bytes) == (0, 0, 0)
+            continue
+        assert plan.slabs == 0, plan   # one dgamma and dbeta partial row a window, always
+        assert 0 < plan.grad_smem_bytes <= SMEM_LIMIT // 2, plan   # two weight-gradient blocks an SM
+        assert 1 <= plan.splits <= 16, plan
+        # each tap's rows whose shifted row stays inside the window, B * (T - |o|),
+        # cut into `splits` ranges as the C side cuts them: every row in one range
+        for dilation in (1, 2, 4, 8):
+            for j in range(5):
+                span = t_len - abs((j - 2) * dilation)
+                if span <= 0:
+                    continue
+                total = batch * span
+                per = -(-total // plan.splits)
+                ranges = [(min(total, s * per), min(total, s * per + per)) for s in range(plan.splits)]
+                assert ranges[0][0] == 0 and ranges[-1][1] == total, (plan, dilation, j)
+                assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:])), (plan, dilation, j)
+
+
+@pytest.mark.parametrize("kind", ["block", "train_bwd"])
+def test_fma_plan_depends_on_the_shape_alone(kind, monkeypatch):
+    """Same shape, same plan, and the plan never asks the device."""
+    want = {(t, c, b): fma_plan(t, c, b, kind) for t in _T for c in _C for b in _BATCHES}
+
+    def no_device(*_a, **_k):
+        raise AssertionError("fma_plan asked the device")
+
+    monkeypatch.setattr(torch.cuda, "is_available", no_device)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", no_device)
+    for (t, c, b), plan in want.items():
+        assert fma_plan(t, c, b, kind) == plan
+
+
+@pytest.mark.parametrize("t_len,channels,batch,kind,want", [
+    # the main paths' shapes: the scoring batch (K3) and the training step
+    # (K4's backward)
+    (32, 256, 512, "block", TcPlan(4, 128, 198_192)),
+    (32, 256, 256, "block", TcPlan(4, 64, 198_192)),
+    (32, 128, 513, "block", TcPlan(4, 129, 99_376)),
+    (8, 64, 37, "block", TcPlan(16, 3, 49_968)),
+    (32, 256, 960, "train_bwd", TcPlan(4, 240, 198_192, splits=13, grad_smem_bytes=98_304)),
+    (16, 64, 5, "train_bwd", TcPlan(8, 1, 49_968, splits=1, grad_smem_bytes=49_152)),
+    (8, 256, 37, "train_bwd", TcPlan(16, 3, 198_192, splits=1, grad_smem_bytes=98_304)),
+    (32, 128, 5000, "train_bwd", TcPlan(4, 1250, 99_376, splits=16, grad_smem_bytes=98_304)),
+])
+def test_fma_plan_at_known_shapes(t_len, channels, batch, kind, want):
+    """The plan the FMA body's own geometry gives (csrc/conv_tile.cuh FmaConv:
+    the input tile, 129 rows of C + 1 floats to 16 bytes; a weight ring of 4 stages of 16
+    input channels of C floats; a float for each of 8 warps; GradFma: 3 stages
+    of 32 rows of a and g, 128 wide (64 at C = 64))."""
+    assert fma_plan(t_len, channels, batch, kind) == want
+
+
+@pytest.mark.parametrize("args", [(12, 64, 4, "block"), (32, 96, 4, "train_bwd"),
+                                  (32, 64, 0, "block"), (32, 64, 4, "highest"),
+                                  (32, 64, 4, "block_high")])
+def test_fma_plan_refuses_unbuilt_shapes(args):
+    with pytest.raises(ValueError):
+        fma_plan(*args)

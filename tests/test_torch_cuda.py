@@ -22,6 +22,7 @@ from video_gen_evals_tpu_torch.ops.attention_core import (
 )
 from video_gen_evals_tpu_torch.ops.chain_kernel import fused_temporal_chain, fused_temporal_chain_plain
 from video_gen_evals_tpu_torch.ops.conv_kernel import (
+    fma_plan,
     fused_temporal_block,
     fused_temporal_block_plain,
     fused_temporal_block_stacked,
@@ -120,14 +121,36 @@ def test_block_kernel_matches_plain(cuda, batch, t_len, channels, dilation, prec
 
 @pytest.mark.parametrize("batch,t_len,channels", [(512, 32, 256), (5, 32, 256), (37, 8, 64),
                                                    (513, 16, 128)])
-def test_block_kernel_high_is_bitwise_repeatable(cuda, batch, t_len, channels):
-    """K3 at "high" sums in a fixed order: two calls give the same bits."""
+@pytest.mark.parametrize("precision", ["high", "highest"])
+def test_block_kernel_high_is_bitwise_repeatable(cuda, batch, t_len, channels, precision):
+    """K3 at "high" and at "highest" sums in a fixed order: two calls give the
+    same bits."""
     gen = torch.Generator().manual_seed(batch)
     x = torch.randn(batch, t_len, channels, generator=gen)
     args = [a.to(cuda) for a in (x,) + _stage_weights(gen, (), channels)]
-    runs = [fused_temporal_block(*args, 2, "high") for _ in range(2)]
+    runs = [fused_temporal_block(*args, 2, precision) for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(*runs)
+
+
+# K3 at "highest" on the FMA body: W = 128 / T windows a block (16 at T = 8,
+# 8 at T = 16, 4 at T = 32) against batches that are no multiple of it, and
+# taps whose shift reaches T or beyond (T = 8 at d = 4 and 8), which the
+# kernel skips
+@pytest.mark.parametrize("batch,t_len,channels,dilation", [
+    (1, 8, 64, 4), (37, 8, 128, 8), (5, 8, 256, 4), (513, 8, 64, 8), (37, 16, 64, 8),
+    (513, 16, 256, 2), (5, 32, 128, 8), (513, 32, 256, 1), (1, 32, 256, 4)])
+def test_block_kernel_highest_edges(cuda, batch, t_len, channels, dilation):
+    plan = fma_plan(t_len, channels, batch, "block")
+    assert plan.windows_per_block == 128 // t_len and batch % plan.windows_per_block
+    gen = torch.Generator().manual_seed(batch + dilation)
+    x = torch.randn(batch, t_len, channels, generator=gen)
+    args = [a.to(cuda) for a in (x,) + _stage_weights(gen, (), channels)]
+    want = fused_temporal_block_plain(*args, dilation, "highest")
+    got = fused_temporal_block(*args, dilation, "highest")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4
 
 
 def test_block_kernel_refuses_grad(cuda):
@@ -350,6 +373,26 @@ def test_train_forward_is_bitwise_repeatable(cuda, precision, with_mask, batch, 
     runs = [fused_temporal_block_train(x, w1, w2, gs, gb, mask, 4, precision) for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(*runs)
+
+
+# K4's backward at "highest": row counts that are no multiple of the
+# weight-gradient kernel's 128-row tile or 32-row stage, with one and with
+# several row ranges (splits 1, 2, 4)
+@pytest.mark.parametrize("batch,t_len,channels,dilation", [
+    (77, 16, 128, 1), (37, 8, 256, 2), (300, 16, 64, 4), (301, 32, 128, 8), (1, 32, 256, 2)])
+def test_train_highest_grads_at_ragged_rows(cuda, batch, t_len, channels, dilation):
+    """Gradients within K4_TOL's "highest" bound (5e-4 * scale + 5e-4 *
+    |plain|, as test_train_kernels_match_plain)."""
+    assert (batch * t_len) % 128
+    x, w1, w2, gs, gb, mask, dy = (t.to(cuda) for t in _train_inputs(batch, batch, t_len, channels, True))
+    want_g = fused_temporal_block_train_bwd_plain(x, w1, w2, gs, mask, dy, dilation, "highest")
+    leaves = [t.clone().requires_grad_() for t in (x, w1, w2, gs, gb)]
+    got_g = torch.autograd.grad(fused_temporal_block_train(*leaves, mask, dilation, "highest"), leaves, dy)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "dw1", "dw2", "dgamma", "dbeta"), got_g, want_g):
+        assert torch.isfinite(g).all(), name
+        excess = ((g - w).abs() - 5e-4 * w.abs()).max().item()
+        assert excess <= 5e-4 * max(1.0, w.abs().max().item()), name
 
 
 def test_train_kernel_carries_grads_through_permuted_weights(cuda):

@@ -1,11 +1,15 @@
 // Device helpers shared by the fused conv-stage kernels (temporal_block.cu,
-// temporal_block_train.cu, temporal_chain.cu), two bodies:
+// temporal_block_train.cu, temporal_chain.cu), three bodies:
 // - conv_columns (CUDA cores): a [T, C] conv-input tile in shared memory,
 //   read as broadcasts, and each thread's output channels for all T rows in
-//   registers. See temporal_block.cu for the design.
+//   registers, one window a block, for K9 and K4's forward at "highest". See
+//   temporal_block.cu for the design.
 // - tc_conv (tensor cores): the conv over several windows a block as bf16
 //   mma.sync products with fp32 sums, for K3 and K10 at "high" and K4 at
 //   "default" (forward and backward). See the comment above TcConv.
+// - fma_conv (CUDA cores): the conv over several windows a block in fp32,
+//   weights through a shared-memory ring, register-tiled outer products, for
+//   K3 and K4's backward at "highest". See the comment above FmaConv.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -614,6 +618,243 @@ __device__ __forceinline__ float window_sum(float v, float* red) {
     __syncthreads();  // red is reused by the next call
   }
   return v;
+}
+
+// ---------------------------------------------------------------------------
+// FMA body: acc[r, co] = sum_j sum_ci in[r + (j - 2) d, ci] * w[j, ci, co] for
+// the kRows = 128 rows of the block's W = 128 / T windows, fp32 products and
+// fp32 sums on the CUDA cores (K3 and K4's backward at "highest").
+//
+// Bound: the fp32 FMA rate. An SM sub-partition issues one warp instruction a
+// cycle, and an FFMA takes a full issue slot, so every shared-memory load
+// costs an FMA; each load has to feed many of them.
+// - Threads. 256 threads in a 16 x 16 grid (ty, tx); a warp covers 4 ty x 8
+//   tx (fma_ty, fma_tx). Thread (ty, tx) owns rows ty + 16 i (i < 8) and the
+//   float4 column groups tx * 4 + 64 q (q < C / 64): an 8 x 16 register tile
+//   at C = 256 (128 accumulators).
+// - The conv input sits in shared memory row-major, [kRows + 1][C + 1] fp32.
+//   An input channel costs 8 scalar loads of the input (one a row, at any
+//   tap shift) and C / 64 16-byte loads of the weights for 32 C / 64 FMAs
+//   (12 loads for 128 FMAs at C = 256); a warp's loads are 4 distinct words
+//   and 8 distinct float4s. The odd pitch puts a warp's 4 rows, and its
+//   scalar stores of 4 rows x 32 columns, in distinct banks, and it keeps the
+//   compiler from merging a row's loads of neighbouring channels into 16-byte
+//   loads, whose 32 registers of fragments beside the 128 accumulators made
+//   the kernel spill and run 10-13% slower on an H100. Row kRows holds
+//   zeros. Each lane resolves, once a tap, row t + o of its own window, or
+//   the zero row when t + o lies outside [0, T) or the row lies past the
+//   batch: so a tap never crosses a window and no halo is stored. Taps with
+//   |o| >= T are skipped.
+// - Rows that read the zero row are skipped where a whole warp agrees. At
+//   T = 32 a thread's rows are t = ty (even i) and ty + 16 (odd i) of each
+//   window, so at a shift o that is a multiple of 4 every lane of a warp finds
+//   the same rows inside the window: all, the even ones, the odd ones or none
+//   (at d = 8 the taps o = +-16 keep half the rows for every warp, o = +-8
+//   for half the warps). fma_conv runs a stage body for that set, decided
+//   once a tap; a warp whose lanes differ runs all 8 rows. Warp w holds warp
+//   row wy = w / 2 and warp column wx = w % 2, so the two warps on each SM
+//   sub-partition (w and w + 4) are warp rows wy and wy + 2: the halved work
+//   of the taps o = +-8 falls on every sub-partition alike (1.5 warps' FMAs
+//   each), and the stage's barrier waits for none of them.
+// - The weights stream through a ring of kStages stages of kKc input channels
+//   ([kKc][C] fp32) by 16-byte cp.async, issued kStages - 1 stages ahead, as
+//   tc_conv's ring does; every block reads each conv's weights from L2 once per
+//   W windows (0.34 GB for K3's 512 windows, 1.34 GB at one window a block).
+// - Epilogues in shared memory: the accumulators go to the tile
+//   (fma_store_input), whose input the conv no longer needs, and the
+//   element-wise epilogues (GELU and its derivative, GroupNorm and its
+//   backward) run there (fma_epilogue), a window's 2T threads on whole
+//   columns of it, the window's sums by window_sum in a fixed order; the
+//   next conv's input is written in place. In registers beside the 128
+//   accumulators the erf and exp of the epilogues spilled.
+// No atomics and every sum in a fixed order: two calls give the same bits.
+template <int T, int C>
+struct FmaConv {
+  static constexpr int kRows = 128;                  // rows a block
+  static constexpr int kWindows = kRows / T;         // W
+  static constexpr int kThreads = 256;
+  static constexpr int kTX = 16;                     // tx of the 16 x 16 grid
+  static constexpr int kRM = 8;                      // rows a thread: ty + 16 i
+  static constexpr int kColStep = 4 * kTX;           // columns between a thread's float4s
+  static constexpr int kNQ = C / kColStep;           // float4 columns a thread: tx * 4 + kColStep q
+  static constexpr int kCols = 4 * kNQ;
+  static constexpr int kLd = C + 1;                  // floats a row of the input tile
+  // the ring follows the tile, on 16 bytes
+  static constexpr int kTileFloats = ((kRows + 1) * kLd + 3) / 4 * 4;
+  static constexpr int kKc = 16;                     // input channels a weight stage
+  static constexpr int kStages = 4;
+  static constexpr int kStageFloats = kKc * C;
+  static constexpr int kRedFloats = kThreads / 32;    // window_sum: a float a warp
+  static constexpr size_t kSmem = (size_t)(kTileFloats + kStages * kStageFloats + kRedFloats) * 4;
+};
+
+// the 16 x 16 grid of 256 threads: warp w is warp column w % 2 (tx / 8) and
+// warp row w / 2 (ty / 4); lane l is tx % 8 = l % 8 and ty % 4 = l / 8
+__device__ __forceinline__ int fma_wx() { return (threadIdx.x >> 5) & 1; }
+__device__ __forceinline__ int fma_wy() { return threadIdx.x >> 6; }
+__device__ __forceinline__ int fma_tx() { return (fma_wx() << 3) | (threadIdx.x & 7); }
+__device__ __forceinline__ int fma_ty() { return (fma_wy() << 2) | ((threadIdx.x >> 3) & 3); }
+
+// Rows [0, valid_rows) of a [rows, C] fp32 input (x points at its first row)
+// into the tile, and the zero row.
+template <int T, int C>
+__device__ __forceinline__ void fma_load_input(float* in, const float* __restrict__ x, int valid_rows) {
+  using L = FmaConv<T, C>;
+#pragma unroll 4
+  for (int f = threadIdx.x; f < L::kRows * C / 4; f += L::kThreads) {
+    const int r = f / (C / 4), c = (f % (C / 4)) * 4;
+    if (r < valid_rows) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(x + (size_t)r * C + c));
+      float* dst = in + r * L::kLd + c;
+      dst[0] = v.x, dst[1] = v.y, dst[2] = v.z, dst[3] = v.w;
+    }
+  }
+  for (int c = threadIdx.x; c < C; c += L::kThreads) in[L::kRows * L::kLd + c] = 0.0f;
+}
+
+// The thread's values (row ty + 16 i, column tx * 4 + 64 q + e at [i][4q + e])
+// into the tile, as the next conv's input. The caller has made sure no one
+// still reads the tile.
+template <int T, int C>
+__device__ __forceinline__ void fma_store_input(
+    float* in, const float (&v)[FmaConv<T, C>::kRM][FmaConv<T, C>::kCols]) {
+  using L = FmaConv<T, C>;
+  const int tx = fma_tx(), ty = fma_ty();
+#pragma unroll
+  for (int i = 0; i < L::kRM; ++i) {
+#pragma unroll
+    for (int c = 0; c < L::kCols; ++c)
+      in[(ty + 16 * i) * L::kLd + tx * 4 + L::kColStep * (c / 4) + c % 4] = v[i][c];
+  }
+}
+
+// One weight stage: input channels ci0 .. ci0 + kKc of tap j, [kKc][C] fp32.
+template <int T, int C>
+__device__ __forceinline__ void fma_load_stage(float* dst, const float* __restrict__ w, int j, int ci0) {
+  using L = FmaConv<T, C>;
+  const float* src = w + (size_t)(j * C + ci0) * C;
+#pragma unroll
+  for (int i = threadIdx.x; i < L::kStageFloats / 4; i += L::kThreads)
+    cp_async16(smem_u32(dst + 4 * i), src + 4 * i);
+}
+
+// One weight stage's kKc input channels for the rows in kRowSet (bit i: row
+// ty + 16 i); src: each row's input row offset in the tile at this tap.
+template <int T, int C, unsigned kRowSet>
+__device__ __forceinline__ void fma_stage(float (&acc)[FmaConv<T, C>::kRM][FmaConv<T, C>::kCols],
+                                          const float* a_chunk, const int (&src)[FmaConv<T, C>::kRM],
+                                          const float4* b_stage) {
+  using L = FmaConv<T, C>;
+  // 8 channels unrolled, not all 16: a stage body of 16 is ~36 KB of code, and
+  // warps running different bodies (the row sets) at once thrashed the
+  // instruction cache (K3 at d = 4 read 0.70 ms at 16, 0.55 at 8 on an H100)
+#pragma unroll 8
+  for (int k = 0; k < L::kKc; ++k) {
+    float a[L::kRM];
+#pragma unroll
+    for (int i = 0; i < L::kRM; ++i) {
+      if (kRowSet >> i & 1u) a[i] = a_chunk[src[i] + k];
+    }
+#pragma unroll
+    for (int q = 0; q < L::kNQ; ++q) {
+      const float4 b = b_stage[k * (C / 4) + L::kTX * q];
+#pragma unroll
+      for (int i = 0; i < L::kRM; ++i) {
+        if (!(kRowSet >> i & 1u)) continue;
+        acc[i][4 * q + 0] = fmaf(a[i], b.x, acc[i][4 * q + 0]);
+        acc[i][4 * q + 1] = fmaf(a[i], b.y, acc[i][4 * q + 1]);
+        acc[i][4 * q + 2] = fmaf(a[i], b.z, acc[i][4 * q + 2]);
+        acc[i][4 * q + 3] = fmaf(a[i], b.w, acc[i][4 * q + 3]);
+      }
+    }
+  }
+}
+
+// acc = conv(in, w) over the block's rows (see FmaConv). w: [5, C, C] fp32 on
+// 16 bytes. valid_rows: the rows of windows inside the batch. Ends with a
+// barrier, after which the tile and the ring are free.
+template <int T, int C>
+__device__ __forceinline__ void fma_conv(float (&acc)[FmaConv<T, C>::kRM][FmaConv<T, C>::kCols],
+                                         const float* in, float* ring, const float* __restrict__ w,
+                                         int dilation, int valid_rows) {
+  using L = FmaConv<T, C>;
+  constexpr int kChunks = C / L::kKc;
+#pragma unroll
+  for (int i = 0; i < L::kRM; ++i) {
+#pragma unroll
+    for (int c = 0; c < L::kCols; ++c) acc[i][c] = 0.0f;
+  }
+  const int tx = fma_tx(), ty = fma_ty();
+  // taps 2 - m .. 2 + m reach inside the window
+  const int m = min(kTaps / 2, (T - 1) / dilation);
+  const int n_stages = (2 * m + 1) * kChunks;
+#pragma unroll
+  for (int s = 0; s < L::kStages - 1; ++s) {
+    if (s < n_stages)
+      fma_load_stage<T, C>(ring + s * L::kStageFloats, w, 2 - m + s / kChunks, (s % kChunks) * L::kKc);
+    cp_async_commit();
+  }
+  int src[L::kRM];   // the tile offset of the lane's input row of each of its rows at this tap
+  unsigned rows = 0xffu;   // the rows the warp runs at this tap (bit i: row ty + 16 i)
+  int stage = 0;
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<L::kStages - 2>();
+    __syncthreads();  // stage s has landed everywhere; stage s - 1 is free
+    {
+      const int sn = s + L::kStages - 1;
+      if (sn < n_stages) {
+        const int slot = stage == 0 ? L::kStages - 1 : stage - 1;
+        fma_load_stage<T, C>(ring + slot * L::kStageFloats, w, 2 - m + sn / kChunks,
+                             (sn % kChunks) * L::kKc);
+      }
+      cp_async_commit();
+    }
+    const int chunk = s % kChunks;
+    if (chunk == 0) {  // a new tap: the row t + o of the lane's window, or the zero row
+      const int o = (s / kChunks - m) * dilation;
+      unsigned inside = 0;
+#pragma unroll
+      for (int i = 0; i < L::kRM; ++i) {
+        const int r = ty + 16 * i, t = r % T;
+        const bool ok = r < valid_rows && t + o >= 0 && t + o < T;
+        src[i] = (ok ? r + o : L::kRows) * L::kLd;
+        inside |= (unsigned)ok << i;
+      }
+      // a set every lane of the warp shares and a body exists for, else all rows
+      const unsigned first = __shfl_sync(0xffffffffu, inside, 0);
+      rows = __all_sync(0xffffffffu, inside == first) &&
+                     (first == 0u || first == 0x55u || first == 0xaau) ? first : 0xffu;
+    }
+    const float* a_chunk = in + chunk * L::kKc;
+    const float4* b_stage = reinterpret_cast<const float4*>(ring + stage * L::kStageFloats) + tx;
+    if (rows == 0xffu)
+      fma_stage<T, C, 0xffu>(acc, a_chunk, src, b_stage);
+    else if (rows == 0x55u)
+      fma_stage<T, C, 0x55u>(acc, a_chunk, src, b_stage);
+    else if (rows == 0xaau)
+      fma_stage<T, C, 0xaau>(acc, a_chunk, src, b_stage);
+    stage = stage + 1 == L::kStages ? 0 : stage + 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The element-wise pass of an epilogue over the staged tile: the 2T threads
+// of window w = threadIdx.x / 2T visit its T x C elements, thread j =
+// threadIdx.x % 2T the columns j + 2T m (m < C / 2T) of every row, so neighbouring threads
+// touch neighbouring columns and each thread owns whole columns of its window.
+// f(r, c, m): r the row in the block, c the column, m its column index in the
+// thread (a constant after unrolling).
+template <int T, int C, typename F>
+__device__ __forceinline__ void fma_epilogue(F f) {
+  constexpr int kGroup = 2 * T;
+  static_assert(C % kGroup == 0, "whole columns a thread");
+  const int w = threadIdx.x / kGroup, j = threadIdx.x % kGroup;
+#pragma unroll 2
+  for (int t = 0; t < T; ++t) {
+#pragma unroll
+    for (int m = 0; m < C / kGroup; ++m) f(w * T + t, j + kGroup * m, m);
+  }
 }
 
 // f(integral_constant T, integral_constant C) for the built shapes

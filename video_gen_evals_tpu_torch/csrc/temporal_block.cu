@@ -40,35 +40,47 @@
 // block). Shared memory 221 KB at C = 256 (two planes of 129 rows of C + 8
 // bf16, a 5-stage ring of 16 input channels), so one block an SM.
 //
-// "highest" (temporal_block_kernel): CUDA-core FMAs, bound by the fp32 FMA
-// issue rate: 2 convs * 5 taps * T * C * C FMAs per window (21 M at T = 32,
-// C = 256), 10.7 G per 512-window launch. Every block reads the same 2.6 MB
-// of weights, which stay in the 50 MB L2.
+// "highest" (temporal_block_fma_kernel): the FMA body of conv_tile.cuh
+// (fma_conv), fp32 products and sums on the CUDA cores, bound by their FMA
+// rate: 2 convs * 5 taps * T * C * C FMAs a window (21 M at T = 32, C = 256;
+// 10.3 G at 512 windows counting only the rows a shifted tap reaches, 0.31 ms
+// at d = 1 at the H100 data sheet's 67 TFLOP/s). A block of 256 threads owns W
+// = 128 / T windows (4 at T = 32): it stores x in shared memory, runs conv1 as
+// register-tiled outer products (8 rows x 16 columns a thread at C = 256) with
+// the fp32 weights streaming through a cp.async ring, stages the
+// accumulators in the tile and applies GELU there in place, runs conv2,
+// stages again, and adds the residual x (re-read from device memory),
+// applies GELU and GroupNorm over each window on the staged tile, a window's
+// 2T threads on whole columns of it. Each block reads the two convs' 2.6 MB of
+// fp32 weights once from L2, 0.34 GB a 512-window launch (1.34 GB at one
+// window a block). Shared memory 195 KB at C = 256 (the input tile of 129
+// rows of C + 1 floats 130 KB, a 4-stage ring of 16 input channels 64 KB),
+// so one block an SM: 128 blocks on 132 SMs.
 //
-// Design of the FMA body: one block per window owns its whole [T, C] tile, so
-// GroupNorm is a block reduction over registers, with no second pass over
-// device memory. Each thread computes kCols output channels (co, co + C/kCols,
-// ...) for all T rows, in kCols * T fp32 registers: kCols = 4 at "highest", 2
-// for K9's bf16x3 (64 or 128 threads at C = 256). The conv input tile sits in
-// shared memory and is read as broadcasts, four input channels per 16-byte
-// load (two loads for bf16x3); each load feeds 4 * kCols FMAs (12 * kCols for
-// bf16x3), so the shared-memory pipe stops being the limit. Weight rows are
-// read coalesced across threads (consecutive co) through the read-only path,
-// each weight once per block, and the next four input channels' weights are
-// loaded before the current ones are used, so the L2 latency hides behind the
-// FMAs. T and C are template parameters: tile addresses are immediate offsets
-// and the row loop unrolls. conv1's input x and conv2's input h share one
-// shared buffer (each thread keeps its h columns in registers across the
-// barrier), so the block holds one tile: T * C * 4 bytes, twice that for
-// bf16x3 (32 or 64 KB at T = 32, C = 256); above 48 KB the dynamic shared
+// K9 (temporal_block_kernel, kSplit and kStacked): CUDA-core FMAs on bf16x3
+// (hi, lo) weight pairs, bound by the fp32 FMA issue rate. One block per
+// window owns its whole [T, C] tile, so GroupNorm is a block reduction over
+// registers, with no second pass over device memory. Each thread computes
+// kCols = 2 output channels (co, co + C/2) for all T rows, in 2T fp32
+// registers. The conv input tile sits in shared memory as (hi, lo) pairs and
+// is read as broadcasts, two 16-byte loads for four input channels, each
+// feeding 24 FMAs, so the shared-memory pipe stops being the limit. Weight
+// rows are read coalesced across threads (consecutive co) through the
+// read-only path, each weight once per block, and the next four input
+// channels' weights are loaded before the current ones are used, so the L2
+// latency hides behind the FMAs. T and C are template parameters: tile
+// addresses are immediate offsets and the row loop unrolls. conv1's input x
+// and conv2's input h share one shared buffer (each thread keeps its h
+// columns in registers across the barrier), so the block holds one tile: T *
+// C * 8 bytes (64 KB at T = 32, C = 256); above 48 KB the dynamic shared
 // memory limit is raised with cudaFuncSetAttribute before the launch. The
-// residual re-reads x from device memory. K9 keeps this body: its tensor-core
-// redesign is a later change.
+// residual re-reads x from device memory. K9's tensor-core redesign is a
+// later change.
 //
 // K9 (stacked chains): blockIdx.y picks the chain, and with it the chain's
 // slice of x, out, w1, w2, gn_scale and gn_bias; each block then runs the
 // FMA body above unchanged, on (hi, lo) weight pairs held as [K, Cin, Cout,
-// 2] fp32. Bound: S times K3's FMAs. The windows are on
+// 2] fp32. Bound: S times K3's at "high". The windows are on
 // blockIdx.x and the chain on blockIdx.y because blocks are dispatched
 // x-fastest: the resident blocks then work through one chain's weights
 // (5.2 MB at "high") at a time, where a chain-fastest order would cycle
@@ -79,9 +91,8 @@
 
 namespace {
 
-// kStacked: K9's chain axis on blockIdx.y. It is a template flag so that K3's
-// instantiations keep their pointer arguments in the parameter bank: with the
-// offsets, K3 at "highest" (T = 32, C = 256) needed 255 registers and spilled.
+// kSplit: bf16x3 (hi, lo) pairs; kStacked: K9's chain axis on blockIdx.y. K9
+// is built with both; the flags name what the body does with them.
 template <int T, int C, bool kSplit, bool kStacked>
 __global__ void __launch_bounds__(C / Cols<C, kSplit>::value) temporal_block_kernel(
     const float* __restrict__ x, const float* __restrict__ w1,
@@ -170,17 +181,6 @@ cudaError_t launch_kernel(const float* x, const float* w1, const float* w2, cons
       <<<dim3(batch, chains), C / Cols<C, kSplit>::value, smem, stream>>>(
           x, w1, w2, gs, gb, out, dilation);
   return cudaGetLastError();
-}
-
-// kSplit: K9 (stacked chains, "high"); else K3 at "highest".
-template <int T, int C, bool kSplit>
-cudaError_t launch(const float* x, const float* w1, const float* w2, const float* gs,
-                   const float* gb, float* out, int chains, int batch, int dilation,
-                   cudaStream_t stream) {
-  if constexpr (kSplit)
-    return launch_kernel<T, C, true, true>(x, w1, w2, gs, gb, out, chains, batch, dilation, stream);
-  else
-    return launch_kernel<T, C, false, false>(x, w1, w2, gs, gb, out, 1, batch, dilation, stream);
 }
 
 // K3 at "high": W = 128 / T windows a block on the tensor cores (see the
@@ -274,21 +274,94 @@ cudaError_t launch_high(const float* x, const __nv_bfloat16* w, const float* gs,
   return cudaGetLastError();
 }
 
+// K3 at "highest": W = 128 / T windows a block on the FMA body (see the
+// header). w1, w2: [5, C, C] fp32.
+template <int T, int C>
+__global__ void __launch_bounds__(FmaConv<T, C>::kThreads, 1) temporal_block_fma_kernel(
+    const float* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ w2,
+    const float* __restrict__ gn_scale, const float* __restrict__ gn_bias, float* __restrict__ out,
+    int batch, int dilation) {
+  using L = FmaConv<T, C>;
+  constexpr float inv_n = 1.0f / (float)(T * C);
+  extern __shared__ float4 smem_f[];
+  float* in = reinterpret_cast<float*>(smem_f);
+  float* ring = in + L::kTileFloats;
+  float* red = ring + L::kStages * L::kStageFloats;
+  const int win0 = blockIdx.x * L::kWindows;
+  const int valid_rows = min(L::kWindows, batch - win0) * T;
+  const size_t base = (size_t)win0 * T * C;
+  // the thread's window in the epilogues is inside the batch
+  const bool valid = win0 + (int)threadIdx.x / (2 * T) < batch;
+
+  fma_load_input<T, C>(in, x + base, valid_rows);
+  __syncthreads();
+  float acc[L::kRM][L::kCols];
+  fma_conv<T, C>(acc, in, ring, w1, dilation, valid_rows);
+  // h = GELU(conv1), in place in the tile
+  fma_store_input<T, C>(in, acc);
+  __syncthreads();
+  fma_epilogue<T, C>([&](int r, int c, int) { in[r * L::kLd + c] = gelu(in[r * L::kLd + c]); });
+  __syncthreads();
+  fma_conv<T, C>(acc, in, ring, w2, dilation, valid_rows);
+
+  // y = GELU(conv2 + x), GroupNorm over each window, on the staged tile
+  fma_store_input<T, C>(in, acc);
+  __syncthreads();
+  float sum = 0.0f;
+  fma_epilogue<T, C>([&](int r, int c, int) {
+    const float xv = valid ? __ldg(x + base + (size_t)r * C + c) : 0.0f;
+    const float v = gelu(in[r * L::kLd + c] + xv);
+    in[r * L::kLd + c] = v;
+    sum += v;
+  });
+  const float mean = window_sum<T>(sum, red) * inv_n;
+  float sq = 0.0f;
+  fma_epilogue<T, C>([&](int r, int c, int) {
+    const float dv = in[r * L::kLd + c] - mean;
+    sq += dv * dv;
+  });
+  const float rstd = rsqrtf(window_sum<T>(sq, red) * inv_n + 1e-5f);
+  if (!valid) return;
+  fma_epilogue<T, C>([&](int r, int c, int) {
+    out[base + (size_t)r * C + c] =
+        (in[r * L::kLd + c] - mean) * rstd * __ldg(gn_scale + c) + __ldg(gn_bias + c);
+  });
+}
+
+template <int T, int C>
+cudaError_t launch_highest(const float* x, const float* w1, const float* w2, const float* gs,
+                           const float* gb, float* out, int batch, int dilation, int windows_per_block,
+                           int smem_bytes, cudaStream_t stream) {
+  using L = FmaConv<T, C>;
+  // the caller's plan (ops/conv_kernel.py::fma_plan) must be this instantiation's
+  if (windows_per_block != L::kWindows || smem_bytes != (int)L::kSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(temporal_block_fma_kernel<T, C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (batch + L::kWindows - 1) / L::kWindows;
+  temporal_block_fma_kernel<T, C><<<blocks, L::kThreads, L::kSmem, stream>>>(x, w1, w2, gs, gb, out,
+                                                                           batch, dilation);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// K3 at "highest": w1, w2 [5, C, C] fp32.
-// Supported: t_len in {8, 16, 32}, channels in {64, 128, 256}.
+// K3 at "highest" on the FMA body: w1, w2 [5, C, C] fp32. Supported: t_len in
+// {8, 16, 32}, channels in {64, 128, 256}. windows_per_block and smem_bytes:
+// the wrapper's plan, which must match the instantiation's (else
+// cudaErrorInvalidValue).
 extern "C" int vge_temporal_block(int device, const float* x, const float* w1,
                                   const float* w2, const float* gs,
                                   const float* gb, float* out, int batch,
                                   int t_len, int channels, int dilation,
+                                  int windows_per_block, int smem_bytes,
                                   cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (batch == 0) return (int)cudaSuccess;
   return (int)with_shape(t_len, channels, [&](auto t, auto c) {
-    return launch<decltype(t)::value, decltype(c)::value, false>(x, w1, w2, gs, gb, out, 0, batch,
-                                                                 dilation, stream);
+    return launch_highest<decltype(t)::value, decltype(c)::value>(
+        x, w1, w2, gs, gb, out, batch, dilation, windows_per_block, smem_bytes, stream);
   });
 }
 
@@ -322,7 +395,7 @@ extern "C" int vge_temporal_block_stacked(int device, const float* x, const floa
   if (batch == 0 || chains == 0) return (int)cudaSuccess;
   if (chains > 65535) return (int)cudaErrorInvalidValue;
   return (int)with_shape(t_len, channels, [&](auto t, auto c) {
-    return launch<decltype(t)::value, decltype(c)::value, true>(x, w1, w2, gs, gb, out, chains,
-                                                                batch, dilation, stream);
+    return launch_kernel<decltype(t)::value, decltype(c)::value, true, true>(
+        x, w1, w2, gs, gb, out, chains, batch, dilation, stream);
   });
 }

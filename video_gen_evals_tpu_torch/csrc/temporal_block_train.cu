@@ -36,26 +36,41 @@
 // at 960 windows). Backward: six conv-sized products (two recomputed, dd1,
 // dx, dw1, dw2), 60.4 G at 960 windows.
 //
-// Design of the FMA kernels. The forward is the scoring kernel's
-// (temporal_block.cu): one block per window, each thread keeps 4 output
-// channels for all T rows in registers, the conv input sits in a shared tile.
-// The backward is three launches, because Hopper's blocks run in no order and
-// nothing carries a sum from one block to the next, as the TPU's sequential
-// grid did:
-//   1. train_bwd_window_kernel, one block per window: recomputes the forward,
-//      then dr, dh1 and dx with the same column scheme (four convs). h1 is
-//      kept in a second shared tile (thread-private columns) and r in the
-//      conv-input tile once d1 has been consumed, so one register array of
-//      T * 4 values per thread is enough. It writes dx, and d1, dr, dh1 for
-//      the weight gradients, and per-window partials of dgamma and dbeta
-//      (each thread owns its channels for all rows of the window).
-//   2. tap_grad_kernel: dw1 and dw2 as ten [C, N] x [N, C] products (N =
-//      B * T rows) tiled 64 x 64 over (tap, Cin tile, Cout tile), with the
-//      rows split into a fixed number of ranges; each block writes its
-//      partial tile. No atomics.
+// The forward at "highest" (train_fwd_kernel) is K9's CUDA-core body
+// (conv_columns): one block per window, each thread keeps 4 output channels
+// for all T rows in registers, the conv input sits in a shared tile. Its move
+// onto the FMA body below is a later change.
+//
+// Backward at "highest": three launches, because Hopper's blocks run in no
+// order and nothing carries a sum from one block to the next, as the TPU's
+// sequential grid did. 60.4 G FMAs at [960, 32, 256], 58.1 G counting only
+// the rows a shifted tap reaches (1.73 ms at d = 1 at the H100 data sheet's
+// 67 TFLOP/s):
+//   1. train_bwd_fma_kernel: W = 128 / T windows a block (4 at T = 32), its
+//      four convs (h1 and r recomputed, dd1 through w2t, dx through w1t) on
+//      the FMA body of conv_tile.cuh (fma_conv: the conv input in shared
+//      memory, fp32 weights through a cp.async ring, an 8 x 16 register tile
+//      a thread at C = 256). Each conv's accumulators are staged in the
+//      tile and the epilogues (GELU and its derivative, GroupNorm and its
+//      backward) run there element-wise (fma_epilogue), a window's 2T
+//      threads on whole columns of it, a window's sums by window_sum in a
+//      fixed order; the next conv's input is written in place. GELU'(h1) *
+//      mask waits in dx, GELU'(r) and then dr in dr. It writes d1, dr and
+//      dh1 in fp32 (the weight gradients read unrounded values), dx, and one
+//      partial row of dgamma and dbeta a window (each thread sums its own
+//      columns over the window's rows). Each block reads the four convs' 5.2
+//      MB of fp32 weights once from L2: 1.26 GB a 960-window launch (5 GB at
+//      one window a block). Shared memory 194 KB at C = 256, one block an
+//      SM: 240 blocks are 1.8 waves.
+//   2. tap_grad_fma_kernel: dw1 and dw2 as ten [C, N] x [N, C] fp32 products
+//      over (tap, Cin tile, Cout tile) tiles of 128 x 128 (64 x 64 at C =
+//      64), an 8 x 8 register tile a thread; the rows come through a cp.async
+//      ring, only those whose shifted row stays inside its window (B * (T -
+//      |o|) of them), split into a fixed number of ranges; each block writes
+//      its partial tile. No atomics.
 //   3. reduce_partials_kernel: sums the row-range partials of dw1, dw2 and
-//      the per-window partials of dgamma, dbeta, each in a fixed order, so
-//      two calls on the same inputs give the same bits.
+//      the partial rows of dgamma, dbeta, each in a fixed order, so two calls
+//      on the same inputs give the same bits.
 //
 // Forward at "default": train_fwd_tc_kernel on the tensor cores (mma.sync
 // m16n8k16, bf16 operands, fp32 sums), bound by their bf16 rate: 20.1 G
@@ -283,226 +298,276 @@ __global__ void __launch_bounds__(TcConv<T, C, 1>::kThreads, 1) train_fwd_tc_ker
 
 // ---------------------------------------------------------------- backward
 
-// Launch 1 of 3 at "highest": per window, the recomputed forward, then dr, dh1, dx.
-// d1_out, dr_out, dh1_out feed the weight-gradient kernel; pgamma, pbeta are
-// [B, C] per-window partials.
+// Launch 1 of 3 at "highest": W = 128 / T windows a block on the FMA body
+// (see the header). Writes dx; d1, dr and dh1 in fp32 for the weight
+// gradients (dr: GELU'(r) until dr replaces it; dx: GELU'(h1) * mask until dx
+// replaces it); pgamma, pbeta [B, C]: the sums of dy * hn and dy over each
+// window's rows. Each conv's accumulators are staged in the tile and the
+// epilogues run there (fma_epilogue), a window's 2T threads on whole columns.
 template <int T, int C>
-__global__ void __launch_bounds__(C / Cols<C, false>::value) train_bwd_window_kernel(
+__global__ void __launch_bounds__(FmaConv<T, C>::kThreads, 1) train_bwd_fma_kernel(
     const float* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ w2,
     const float* __restrict__ w1t, const float* __restrict__ w2t,
     const float* __restrict__ gn_scale, const float* __restrict__ dy,
     const float* __restrict__ mask, float* __restrict__ dx, float* __restrict__ d1_out,
-    float* dr_out, float* __restrict__ dh1_out, float* __restrict__ pgamma,
-    float* __restrict__ pbeta, int dilation) {
-  constexpr int kCols = Cols<C, false>::value;
-  constexpr int kThreads = C / kCols;
-  constexpr int kWarps = kThreads / 32;
+    float* __restrict__ dr_out, float* __restrict__ dh1_out, float* __restrict__ pgamma,
+    float* __restrict__ pbeta, int batch, int dilation) {
+  using L = FmaConv<T, C>;
   constexpr float inv_n = 1.0f / (float)(T * C);
-  extern __shared__ float4 smem[];
-  __shared__ float red[kWarps];
-  float* tile = reinterpret_cast<float*>(smem);  // the current conv's input; r in between
-  float* keep = tile + T * C;                    // h1, thread-private columns
-  const int co = threadIdx.x;
-  const size_t win = (size_t)blockIdx.x * T * C;
+  constexpr int kColsPer = C / (2 * T);   // columns a thread owns in the epilogues
+  extern __shared__ float4 smem_f[];
+  float* in = reinterpret_cast<float*>(smem_f);
+  float* ring = in + L::kTileFloats;
+  float* red = ring + L::kStages * L::kStageFloats;
+  const int win0 = blockIdx.x * L::kWindows;
+  const int valid_rows = min(L::kWindows, batch - win0) * T;
+  const size_t base = (size_t)win0 * T * C;
+  // the thread's window in the epilogues is inside the batch
+  const int win = threadIdx.x / (2 * T);
+  const bool valid = win0 + win < batch;
+  auto g = [&](int r, int c) { return base + (size_t)r * C + c; };   // device offset of tile (r, c)
+  auto t = [](int r, int c) { return r * L::kLd + c; };                // tile offset
 
-  float col[kCols][T];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) col[c][t] = x[win + t * C + co + c * kThreads];
-  }
-  store_columns<T, C, false, kCols>(tile, col, co);
+  fma_load_input<T, C>(in, x + base, valid_rows);
+  __syncthreads();
+  float acc[L::kRM][L::kCols];
+
+  // h1 = conv(x, w1); d1 = GELU(h1) * mask to d1_out and the tile; GELU'(h1) * mask to dx
+  fma_conv<T, C>(acc, in, ring, w1, dilation, valid_rows);
+  fma_store_input<T, C>(in, acc);
+  __syncthreads();
+  fma_epilogue<T, C>([&](int r, int c, int) {
+    if (!valid) return;
+    const float u = in[t(r, c)];
+    const float m = mask != nullptr ? __ldg(mask + g(r, c)) : 1.0f;
+    const float erf_u = erff(u * kInvSqrt2);
+    const float d = 0.5f * u * (1.0f + erf_u) * m;
+    in[t(r, c)] = d;
+    d1_out[g(r, c)] = d;
+    dx[g(r, c)] = (0.5f * (1.0f + erf_u) + u * expf(-0.5f * u * u) * kInvSqrt2Pi) * m;
+  });
   __syncthreads();
 
-  // h1 = conv(x, w1); d1 = GELU(h1) * mask
-  conv_columns<T, C, false, kCols>(tile, w1, co, dilation, col);
+  // r = conv(d1, w2) + x; h = GELU(r), GELU'(r) to dr_out; the window's mean and rstd
+  fma_conv<T, C>(acc, in, ring, w2, dilation, valid_rows);
+  fma_store_input<T, C>(in, acc);
+  __syncthreads();
+  float sum = 0.0f;
+  fma_epilogue<T, C>([&](int r, int c, int) {
+    const float rv = in[t(r, c)] + (valid ? __ldg(x + g(r, c)) : 0.0f);
+    const float erf_r = erff(rv * kInvSqrt2);
+    const float h = 0.5f * rv * (1.0f + erf_r);
+    in[t(r, c)] = h;
+    sum += h;
+    if (valid) dr_out[g(r, c)] = 0.5f * (1.0f + erf_r) + rv * expf(-0.5f * rv * rv) * kInvSqrt2Pi;
+  });
+  const float mean = window_sum<T>(sum, red) * inv_n;
+  float sq = 0.0f;
+  fma_epilogue<T, C>([&](int r, int c, int) {
+    const float dv = in[t(r, c)] - mean;
+    sq += dv * dv;
+  });
+  const float rstd = rsqrtf(window_sum<T>(sq, red) * inv_n + 1e-5f);
+
+  // hn in the tile; the window's sums of dhn = dy * gamma and dhn * hn, and
+  // the thread's columns' sums of dy * hn and dy (dgamma's and dbeta's partial
+  // row of the window)
+  float s1 = 0.0f, s2 = 0.0f, pg[kColsPer], pb[kColsPer];
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
+  for (int m = 0; m < kColsPer; ++m) pg[m] = pb[m] = 0.0f;
+  fma_epilogue<T, C>([&](int r, int c, int m) {
+    const float hn = (in[t(r, c)] - mean) * rstd;
+    in[t(r, c)] = hn;
+    const float dyv = valid ? __ldg(dy + g(r, c)) : 0.0f;
+    const float dhn = dyv * __ldg(gn_scale + c);
+    s1 += dhn;
+    s2 += dhn * hn;
+    pg[m] += dyv * hn;
+    pb[m] += dyv;
+  });
+  if (valid) {
+    const int j = threadIdx.x % (2 * T);
 #pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const int at = t * C + co + c * kThreads;
-      keep[at] = col[c][t];
-      float v = gelu(col[c][t]);
-      if (mask != nullptr) v *= mask[win + at];
-      col[c][t] = v;
-      d1_out[win + at] = v;
+    for (int m = 0; m < kColsPer; ++m) {
+      pgamma[(size_t)(win0 + win) * C + j + 2 * T * m] = pg[m];
+      pbeta[(size_t)(win0 + win) * C + j + 2 * T * m] = pb[m];
     }
   }
-  __syncthreads();  // every thread has finished reading x's tile
-  store_columns<T, C, false, kCols>(tile, col, co);
+  const float m1 = window_sum<T>(s1, red) * inv_n;
+  const float m2 = window_sum<T>(s2, red) * inv_n;
+
+  // dr = rstd * (dhn - m1 - hn * m2) * GELU'(r) to dr_out and the tile
+  fma_epilogue<T, C>([&](int r, int c, int) {
+    float dr = 0.0f;
+    if (valid) {
+      dr = rstd * (__ldg(dy + g(r, c)) * __ldg(gn_scale + c) - m1 - in[t(r, c)] * m2) * dr_out[g(r, c)];
+      dr_out[g(r, c)] = dr;
+    }
+    in[t(r, c)] = dr;
+  });
   __syncthreads();
 
-  // r = conv(d1, w2) + x, kept in the tile (own columns); h = GELU(r)
-  conv_columns<T, C, false, kCols>(tile, w2, co, dilation, col);
-  __syncthreads();  // every thread has finished reading d1's tile
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const int at = t * C + co + c * kThreads;
-      const float r = col[c][t] + x[win + at];
-      tile[at] = r;
-      col[c][t] = gelu(r);
+  // dd1 = conv(dr, w2t); dh1 = dd1 * (GELU'(h1) * mask) to dh1_out and the tile
+  fma_conv<T, C>(acc, in, ring, w2t, dilation, valid_rows);
+  fma_store_input<T, C>(in, acc);
+  __syncthreads();
+  fma_epilogue<T, C>([&](int r, int c, int) {
+    float dh1 = 0.0f;
+    if (valid) {
+      dh1 = in[t(r, c)] * dx[g(r, c)];
+      dh1_out[g(r, c)] = dh1;
     }
-  }
-  float mean, rstd;
-  window_stats<T, C, kCols>(col, red, mean, rstd);
-
-  // hn in col; the window's partials of dgamma and dbeta; means of dhn, dhn * hn
-  float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int ch = co + c * kThreads;
-    const float g = gn_scale[ch];
-    float pg = 0.0f, pb = 0.0f;
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const float hn = (col[c][t] - mean) * rstd;
-      col[c][t] = hn;
-      const float dyv = dy[win + t * C + ch];
-      pb += dyv;
-      pg += dyv * hn;
-      s1 += dyv * g;
-      s2 += dyv * g * hn;
-    }
-    pgamma[(size_t)blockIdx.x * C + ch] = pg;
-    pbeta[(size_t)blockIdx.x * C + ch] = pb;
-  }
-  const float m1 = block_sum<kWarps>(s1, red) * inv_n;
-  const float m2 = block_sum<kWarps>(s2, red) * inv_n;
-
-  // dr = rstd * (dhn - m1 - hn * m2) * GELU'(r)
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int ch = co + c * kThreads;
-    const float g = gn_scale[ch];
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const int at = t * C + ch;
-      const float v = rstd * (dy[win + at] * g - m1 - col[c][t] * m2) * gelu_grad(tile[at]);
-      col[c][t] = v;
-      dr_out[win + at] = v;
-    }
-  }
-  // r was read by its owner only, so the tile is free for dr
-  store_columns<T, C, false, kCols>(tile, col, co);
+    in[t(r, c)] = dh1;
+  });
   __syncthreads();
 
-  // dd1 = conv(dr, w2t) * mask; dh1 = dd1 * GELU'(h1)
-  conv_columns<T, C, false, kCols>(tile, w2t, co, dilation, col);
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const int at = t * C + co + c * kThreads;
-      float v = col[c][t];
-      if (mask != nullptr) v *= mask[win + at];
-      v *= gelu_grad(keep[at]);
-      col[c][t] = v;
-      dh1_out[win + at] = v;
-    }
-  }
-  __syncthreads();  // every thread has finished reading dr's tile
-  store_columns<T, C, false, kCols>(tile, col, co);
+  // dx = dr + conv(dh1, w1t); dr comes back from device memory, written by
+  // this block's threads before the barriers above
+  fma_conv<T, C>(acc, in, ring, w1t, dilation, valid_rows);
+  fma_store_input<T, C>(in, acc);
   __syncthreads();
+  if (!valid) return;
+  fma_epilogue<T, C>([&](int r, int c, int) { dx[g(r, c)] = in[t(r, c)] + dr_out[g(r, c)]; });
+}
 
-  // dx = dr + conv(dh1, w1t); dr is read back by the thread that wrote it
-  conv_columns<T, C, false, kCols>(tile, w1t, co, dilation, col);
+// Launch 2 of 3 at "highest": partial[p][s][j][ci][co] = sum over the rows
+// of row range s of a_p[n + (j-2)d, ci] * g_p[n, co]; p = 0: (x, dh1) -> dw1,
+// p = 1: (d1, dr) -> dw2, fp32. Only the rows whose shifted row lies inside
+// its window are visited: tap j's V = B * (T - |o|) rows, row v of them n =
+// (v / (T - |o|)) T + v % (T - |o|) + max(0, -o), split into `splits` ranges.
+// Grid: x = Cin tile * Cout tile, y = p * 5 + j, z = s. 256 threads in a 16 x
+// 16 grid as in FmaConv, each kH x kH corners of 4 x 4, 64 apart (an 8 x 8
+// tile a thread at kTile = 128): per row, 2 kH 16-byte shared loads for 16
+// kH^2 FMAs. kRows rows a stage through a kStages ring by 16-byte cp.async,
+// the next kStages - 1 stages in flight; one division a thread a stage finds
+// its row (a division a piece cost 12% on an H100). No atomics.
+template <int C>
+struct GradFma {
+  static constexpr int kTile = C >= 128 ? 128 : 64;
+  static constexpr int kThreads = 256;
+  static constexpr int kH = kTile / 64;
+  static constexpr int kRows = 32;
+  static constexpr int kStages = 3;                      // 96 KB at kTile = 128: two blocks an SM
+  static constexpr int kStageFloats = 2 * kRows * kTile;  // a, then g
+  static constexpr size_t kSmem = (size_t)kStages * kStageFloats * 4;
+};
+
+// One stage: rows v0 .. v0 + kRows of the visited rows (zeros from v_end on),
+// a's shifted row and g's row. kThreads / kRows threads a row, so each thread
+// finds its row's n with one division a stage.
+template <int C>
+__device__ __forceinline__ void grad_fma_load_stage(float* dst, const float* __restrict__ a,
+                                                    const float* __restrict__ g, int v0, int v_end,
+                                                    int span, int lo, int t_len, int o, int ci0,
+                                                    int co0) {
+  using G = GradFma<C>;
+  constexpr int kPerRow = G::kThreads / G::kRows;   // threads a row
+  constexpr int kQ = G::kTile / 4;                  // 16-byte pieces a row of a (and of g)
+  static_assert(kQ % kPerRow == 0, "whole pieces a thread");
+  const int r = threadIdx.x / kPerRow, sub = threadIdx.x % kPerRow;
+  const int v = v0 + r;
+  const bool ok = v < v_end;
+  const int n = ok ? (v / span) * t_len + v % span + lo : 0;
+  const float* a_row = a + (size_t)(n + o) * C + ci0;
+  const float* g_row = g + (size_t)n * C + co0;
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const int at = t * C + co + c * kThreads;
-      dx[win + at] = col[c][t] + dr_out[win + at];
-    }
+  for (int p = sub; p < kQ; p += kPerRow) {
+    cp_async16_zfill(smem_u32(dst + r * G::kTile + 4 * p), ok ? a_row + 4 * p : a, ok);
+    cp_async16_zfill(smem_u32(dst + (G::kRows + r) * G::kTile + 4 * p), ok ? g_row + 4 * p : g, ok);
   }
 }
 
-// Launch 2 of 3 at "highest": partial[p][s][j][ci][co] = sum over the rows n = (b, t) of
-// row range s of a_p[b, t + (j-2)d, ci] * g_p[b, t, co], rows outside the
-// window reading zero; p = 0: (x, dh1) -> dw1, p = 1: (d1, dr) -> dw2.
-// Grid: x = Cin tile * Cout tile, y = p * 5 + j, z = s. 256 threads, each a
-// 4 x 4 corner of the 64 x 64 tile; 16 rows per step through shared memory,
-// the next step's rows loaded before the current ones are used.
-constexpr int kGradTile = 64;
-constexpr int kGradRows = 16;
-
-__global__ void __launch_bounds__(256) tap_grad_kernel(
+template <int C>
+__global__ void __launch_bounds__(GradFma<C>::kThreads, 2) tap_grad_fma_kernel(
     const float* __restrict__ a0, const float* __restrict__ g0, const float* __restrict__ a1,
-    const float* __restrict__ g1, float* __restrict__ partial, int n_rows, int t_len,
-    int channels, int dilation, int rows_per_split) {
-  __shared__ __align__(16) float as[kGradRows][kGradTile];
-  __shared__ __align__(16) float gs[kGradRows][kGradTile];
-  const int tiles = channels / kGradTile;
-  const int ci0 = (blockIdx.x / tiles) * kGradTile;
-  const int co0 = (blockIdx.x % tiles) * kGradTile;
+    const float* __restrict__ g1, float* __restrict__ partial, int batch, int t_len, int dilation) {
+  using G = GradFma<C>;
+  constexpr int kTiles = C / G::kTile;
+  constexpr int kTM = 4 * G::kH;
+  extern __shared__ float4 smem_f[];
+  float* ring = reinterpret_cast<float*>(smem_f);
+  const int ci0 = (blockIdx.x / kTiles) * G::kTile;
+  const int co0 = (blockIdx.x % kTiles) * G::kTile;
   const int problem = blockIdx.y / kTaps;
   const int j = blockIdx.y % kTaps;
   const float* __restrict__ a = problem ? a1 : a0;
   const float* __restrict__ g = problem ? g1 : g0;
   const int o = (j - kTaps / 2) * dilation;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;  // the thread's 4 x 4 corner
-  const int lr = threadIdx.x / 16, lc = (threadIdx.x % 16) * 4;  // the float4 it loads
+  const int tx = fma_tx(), ty = fma_ty();
 
-  float acc[4][4];
+  float acc[kTM][kTM];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int r = 0; r < kTM; ++r) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) acc[i][k] = 0.0f;
+    for (int c = 0; c < kTM; ++c) acc[r][c] = 0.0f;
   }
-
-  const int n_begin = blockIdx.z * rows_per_split;
-  const int n_end = min(n_rows, n_begin + rows_per_split);
-  auto load = [&](int n0, float4& av, float4& gv) {
-    av = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    gv = av;
-    const int n = n0 + lr;
-    if (n < n_end) {
-      const int ts = n % t_len + o;
-      if (ts >= 0 && ts < t_len) {
-        av = __ldg(reinterpret_cast<const float4*>(a + (size_t)(n + o) * channels + ci0 + lc));
-        gv = __ldg(reinterpret_cast<const float4*>(g + (size_t)n * channels + co0 + lc));
-      }
+  const int span = t_len - abs(o);   // rows of a window whose shifted row stays inside
+  if (span > 0) {
+    const int total = batch * span;
+    const int per = (total + gridDim.z - 1) / gridDim.z;
+    const int v_begin = min(total, (int)blockIdx.z * per);
+    const int v_end = min(total, v_begin + per);
+    const int lo = max(0, -o);
+    const int steps = (v_end - v_begin + G::kRows - 1) / G::kRows;
+#pragma unroll
+    for (int s = 0; s < G::kStages - 1; ++s) {
+      if (s < steps)
+        grad_fma_load_stage<C>(ring + s * G::kStageFloats, a, g, v_begin + s * G::kRows, v_end, span,
+                               lo, t_len, o, ci0, co0);
+      cp_async_commit();
     }
-  };
-
-  if (o < t_len && o > -t_len && n_begin < n_end) {  // else the tap lies outside every window
-    float4 av, gv;
-    load(n_begin, av, gv);
-    for (int n0 = n_begin; n0 < n_end; n0 += kGradRows) {
-      __syncthreads();  // the previous step's reads are done
-      *reinterpret_cast<float4*>(&as[lr][lc]) = av;
-      *reinterpret_cast<float4*>(&gs[lr][lc]) = gv;
+    int stage = 0;
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<G::kStages - 2>();
       __syncthreads();
-      if (n0 + kGradRows < n_end) load(n0 + kGradRows, av, gv);
+      {
+        const int sn = s + G::kStages - 1;
+        if (sn < steps) {
+          const int slot = stage == 0 ? G::kStages - 1 : stage - 1;
+          grad_fma_load_stage<C>(ring + slot * G::kStageFloats, a, g, v_begin + sn * G::kRows, v_end,
+                                 span, lo, t_len, o, ci0, co0);
+        }
+        cp_async_commit();
+      }
+      const float* as = ring + stage * G::kStageFloats + ty * 4;
+      const float* gs = ring + stage * G::kStageFloats + G::kRows * G::kTile + tx * 4;
 #pragma unroll
-      for (int k = 0; k < kGradRows; ++k) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&as[k][ty * 4]);
-        const float4 g4 = *reinterpret_cast<const float4*>(&gs[k][tx * 4]);
-        const float ar[4] = {a4.x, a4.y, a4.z, a4.w};
-        const float gr[4] = {g4.x, g4.y, g4.z, g4.w};
+      for (int k = 0; k < G::kRows; ++k) {
+        float av[kTM], gv[kTM];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int h = 0; h < G::kH; ++h) {
+          const float4 a4 = *reinterpret_cast<const float4*>(as + k * G::kTile + 64 * h);
+          const float4 g4 = *reinterpret_cast<const float4*>(gs + k * G::kTile + 64 * h);
+          av[4 * h] = a4.x, av[4 * h + 1] = a4.y, av[4 * h + 2] = a4.z, av[4 * h + 3] = a4.w;
+          gv[4 * h] = g4.x, gv[4 * h + 1] = g4.y, gv[4 * h + 2] = g4.z, gv[4 * h + 3] = g4.w;
+        }
 #pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(ar[i], gr[q], acc[i][q]);
+        for (int r = 0; r < kTM; ++r) {
+#pragma unroll
+          for (int c = 0; c < kTM; ++c) acc[r][c] = fmaf(av[r], gv[c], acc[r][c]);
         }
       }
+      stage = stage + 1 == G::kStages ? 0 : stage + 1;
     }
+    cp_async_wait<0>();
   }
-  const size_t base =
-      (((size_t)problem * gridDim.z + blockIdx.z) * kTaps + j) * channels * channels;
+  const size_t base = (((size_t)problem * gridDim.z + blockIdx.z) * kTaps + j) * C * C;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    *reinterpret_cast<float4*>(partial + base + (size_t)(ci0 + ty * 4 + i) * channels + co0 +
-                               tx * 4) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  for (int r = 0; r < kTM; ++r) {
+    const int ci = ci0 + ty * 4 + 64 * (r / 4) + r % 4;
+#pragma unroll
+    for (int h = 0; h < G::kH; ++h) {
+      *reinterpret_cast<float4*>(partial + base + (size_t)ci * C + co0 + tx * 4 + 64 * h) =
+          make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2], acc[r][4 * h + 3]);
+    }
   }
 }
 
 // Launch 3 of 3, both precisions: fixed-order sums. Blocks below w_blocks:
 // one thread per element of dw1 and dw2 adds its row-range partials in order.
 // The other blocks: one warp per channel of dgamma and dbeta; lane l adds
-// partial rows l, l + 32, ... (n_part of them: windows, or window slabs at
-// "default") in order, then the lanes join in a fixed tree.
+// partial rows l, l + 32, ... (n_part of them: one a window at "highest",
+// TcEpi::kShare at "default") in order, then the lanes join in a fixed tree.
 __global__ void __launch_bounds__(256) reduce_partials_kernel(
     const float* __restrict__ partial, int splits, int n_w, float* __restrict__ dw1,
     float* __restrict__ dw2, const float* __restrict__ pgamma, const float* __restrict__ pbeta,
@@ -890,8 +955,8 @@ struct FwdArgs {
 
 struct BwdArgs {
   const float *x, *w1, *w2, *w1t, *w2t, *gs, *dy, *mask;
-  float *dx, *d1, *dr, *dh1, *pgamma, *pbeta;
-  int batch, dilation;
+  float *dx, *d1, *dr, *dh1, *pgamma, *pbeta, *partial, *dw1, *dw2, *dgamma, *dbeta;
+  int batch, dilation, windows_per_block, smem_bytes, splits, grad_smem_bytes;
   cudaStream_t stream;
 };
 
@@ -922,15 +987,40 @@ cudaError_t launch_fwd_tc(const float* x, const __nv_bfloat16* w, const float* g
   return cudaGetLastError();
 }
 
+// The three launches of the backward at "highest" (see the header).
 template <int T, int C>
 cudaError_t launch_bwd(const BwdArgs& a) {
-  constexpr size_t smem = (size_t)T * C * 4 * 2;
-  cudaError_t err = cudaFuncSetAttribute(train_bwd_window_kernel<T, C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using L = FmaConv<T, C>;
+  using G = GradFma<C>;
+  // the caller's plan (ops/conv_kernel.py::fma_plan) must be this instantiation's
+  if (a.windows_per_block != L::kWindows || a.smem_bytes != (int)L::kSmem ||
+      a.grad_smem_bytes != (int)G::kSmem || a.splits < 1 || a.splits > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(train_bwd_fma_kernel<T, C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
   if (err != cudaSuccess) return err;
-  train_bwd_window_kernel<T, C><<<a.batch, C / Cols<C, false>::value, smem, a.stream>>>(
-      a.x, a.w1, a.w2, a.w1t, a.w2t, a.gs, a.dy, a.mask, a.dx, a.d1, a.dr, a.dh1, a.pgamma,
-      a.pbeta, a.dilation);
+  const int blocks = (a.batch + L::kWindows - 1) / L::kWindows;
+  train_bwd_fma_kernel<T, C><<<blocks, L::kThreads, L::kSmem, a.stream>>>(
+      a.x, a.w1, a.w2, a.w1t, a.w2t, a.gs, a.dy, a.mask, a.dx, a.d1, a.dr, a.dh1, a.pgamma, a.pbeta,
+      a.batch, a.dilation);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = cudaFuncSetAttribute(tap_grad_fma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)G::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((C / G::kTile) * (C / G::kTile), 2 * kTaps, a.splits);
+  tap_grad_fma_kernel<C><<<grid, G::kThreads, G::kSmem, a.stream>>>(a.x, a.dh1, a.d1, a.dr, a.partial,
+                                                                    a.batch, T, a.dilation);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int n_w = kTaps * C * C;
+  const int w_blocks = (2 * n_w + 255) / 256;
+  const int c_blocks = (2 * C + 7) / 8;
+  reduce_partials_kernel<<<w_blocks + c_blocks, 256, 0, a.stream>>>(
+      a.partial, a.splits, n_w, a.dw1, a.dw2, a.pgamma, a.pbeta, a.batch, C, a.dgamma, a.dbeta,
+      w_blocks);
   return cudaGetLastError();
 }
 
@@ -1022,42 +1112,28 @@ extern "C" int vge_temporal_block_train_fwd_tc(int device, const float* x, const
   });
 }
 
-// The three launches of one stage backward at "highest". w1t, w2t: the
-// weights tap-reversed with Cin and Cout swapped. Scratch, allocated by the
-// caller: d1, dr, dh1 [B, T, C]; pgamma, pbeta [B, C]; partial [2, splits, 5,
-// C, C].
+// The three launches of one stage backward at "highest", on the FMA body.
+// w1, w2 [5, C, C] fp32; w1t, w2t: the weights tap-reversed with Cin and Cout
+// swapped. Scratch, allocated by the caller: d1, dr, dh1 [B, T, C] fp32;
+// pgamma, pbeta [B, C]; partial [2, splits, 5, C, C]. Every pointer on 16
+// bytes. windows_per_block, smem_bytes, grad_smem_bytes: the wrapper's plan,
+// which must match the instantiation's (else cudaErrorInvalidValue). mask may
+// be null.
 extern "C" int vge_temporal_block_train_bwd(
     int device, const float* x, const float* w1, const float* w2, const float* w1t,
     const float* w2t, const float* gs, const float* dy, const float* mask, float* dx, float* d1,
     float* dr, float* dh1, float* pgamma, float* pbeta, float* partial, float* dw1, float* dw2,
-    float* dgamma, float* dbeta, int batch, int t_len, int channels, int dilation, int splits,
-    cudaStream_t stream) {
+    float* dgamma, float* dbeta, int batch, int t_len, int channels, int dilation,
+    int windows_per_block, int smem_bytes, int splits, int grad_smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (batch == 0 || splits < 1) return (int)cudaErrorInvalidValue;
-  const BwdArgs a{x, w1, w2, w1t, w2t, gs, dy, mask, dx, d1, dr, dh1, pgamma, pbeta,
-                  batch, dilation, stream};
-  err = with_shape(t_len, channels, [&](auto t, auto c) {
+  if (batch == 0) return (int)cudaErrorInvalidValue;
+  const BwdArgs a{x, w1, w2, w1t, w2t, gs, dy, mask, dx, d1, dr, dh1, pgamma, pbeta, partial, dw1,
+                  dw2, dgamma, dbeta, batch, dilation, windows_per_block, smem_bytes, splits,
+                  grad_smem_bytes, stream};
+  return (int)with_shape(t_len, channels, [&](auto t, auto c) {
     return launch_bwd<decltype(t)::value, decltype(c)::value>(a);
   });
-  if (err != cudaSuccess) return (int)err;
-
-  const int n_rows = batch * t_len;
-  int rows_per_split = (n_rows + splits - 1) / splits;
-  rows_per_split = (rows_per_split + kGradRows - 1) / kGradRows * kGradRows;
-  const int tiles = channels / kGradTile;
-  const dim3 grid(tiles * tiles, 2 * kTaps, splits);
-  tap_grad_kernel<<<grid, 256, 0, stream>>>(x, dh1, d1, dr, partial, n_rows, t_len, channels,
-                                            dilation, rows_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const int n_w = kTaps * channels * channels;
-  const int w_blocks = (2 * n_w + 255) / 256;
-  const int c_blocks = (2 * channels + 7) / 8;
-  reduce_partials_kernel<<<w_blocks + c_blocks, 256, 0, stream>>>(
-      partial, splits, n_w, dw1, dw2, pgamma, pbeta, batch, channels, dgamma, dbeta, w_blocks);
-  return (int)cudaGetLastError();
 }
 
 // The three launches of one stage backward at "default", on the tensor

@@ -24,13 +24,14 @@ bound by their bf16 rate: 3 products of 2 convs * 5 taps * T * C * C a window,
 TFLOP/s). A block owns W = 128 / T windows (:func:`tc_plan`), so the 2.6 MB of
 hi and lo weight planes (:func:`high_weight_planes`, laid out once a call)
 are read from L2 once per W windows: 0.34 GB a 512-window launch instead of
-1.34 GB at one window a block. ``"highest"`` runs on the CUDA cores, bound by
-the fp32 FMA rate (21 M FMAs per window at T = 32, C = 256): one block per
-window owns its [T, C] tile, each thread keeps 4 output channels for all T
-rows in registers, one shared tile holds the current conv input. In both,
-a block owns whole windows, so GroupNorm is a block reduction. The kernels
-are built for T in {8, 16, 32} and C in {64, 128, 256}. Details in the
-source.
+1.34 GB at one window a block. ``"highest"`` runs on the CUDA cores (the FMA
+body), bound by the fp32 FMA rate (21 M FMAs per window at T = 32, C = 256):
+a block owns the same W windows (:func:`fma_plan`), holds the conv input
+in shared memory, streams the fp32 weights through a ring and
+keeps an 8 x 16 tile of (rows, output channels) a thread in registers. In
+both, a block owns whole windows, so GroupNorm is a reduction inside the
+block. The kernels are built for T in {8, 16, 32} and C in {64, 128, 256}.
+Details in the source.
 
 :func:`fused_temporal_block_stacked` (K9) runs the ``"high"`` stage on
 ``xs [S, B, T, C]`` with per-chain weights ``[S, K, C, C]`` and norms
@@ -142,12 +143,13 @@ SMEM_LIMIT = 232_448    # shared memory a block may use on Hopper (227 KB)
 
 @dataclasses.dataclass(frozen=True)
 class TcPlan:
-    """Launch geometry of a tensor-core conv kernel, from the shape alone."""
+    """Launch geometry of a tensor-core (:func:`tc_plan`) or FMA
+    (:func:`fma_plan`) conv kernel, from the shape alone."""
 
     windows_per_block: int   # W
     blocks: int              # ceil(B / W)
     smem_bytes: int          # dynamic shared memory a block
-    slabs: int = 0           # backward: dgamma, dbeta partial rows a window
+    slabs: int = 0           # backward at "default": dgamma, dbeta partial rows a window
     splits: int = 0          # backward: row ranges of the weight gradients
     grad_smem_bytes: int = 0  # backward: the weight-gradient kernel's shared memory
 
@@ -178,6 +180,43 @@ def tc_plan(t_len: int, channels: int, batch: int, kind: str) -> TcPlan:
         slabs=max(1, 8 * t_len // channels),   # threads of a window (2T) that share a channel
         splits=max(1, min(_MAX_GRAD_SPLITS, rows // 2048)),
         grad_smem_bytes=2 * _GRAD_STAGES * 2 * _GRAD_ROWS * (tile + 8),
+    )
+
+
+# The FMA conv body's geometry (csrc/conv_tile.cuh FmaConv, and GradFma in
+# csrc/temporal_block_train.cu); the C side refuses a plan that differs.
+_FMA_ROWS = 128         # rows a block: W = 128 / T windows
+_FMA_RING = (16, 4)     # input channels a weight stage, stages
+_FMA_GRAD_ROWS = 32     # rows a stage of the weight-gradient kernel
+_FMA_GRAD_STAGES = 3
+_FMA_GRAD_ROWS_PER_SPLIT = 2304   # 13 row ranges at [960, 32, C]: 520 blocks, 2 waves of 2 an SM
+_FMA_KINDS = ("block", "train_bwd")
+
+
+def fma_plan(t_len: int, channels: int, batch: int, kind: str) -> TcPlan:
+    """The plan of K3 at ``"highest"`` (``kind="block"``) or K4's backward at
+    ``"highest"`` (``"train_bwd"``: the window kernel, then the ten fp32
+    weight-gradient products over ``splits`` row ranges), on the FMA body:
+    W = 128 / T windows a block, the conv input in shared memory (129 rows
+    of C + 1 floats) beside a ring of 4 stages of 16 input channels and a
+    float for each of 8 warps. Depends on ``t_len``, ``channels``, ``batch``
+    and ``kind`` only."""
+    if kind not in _FMA_KINDS:
+        raise ValueError(f"kind must be one of {_FMA_KINDS}, got {kind!r}")
+    if t_len not in _KERNEL_T or channels not in _KERNEL_C or batch < 1:
+        raise ValueError(f"no FMA plan for T={t_len}, C={channels}, B={batch}")
+    k_chunk, stages = _FMA_RING
+    W = _FMA_ROWS // t_len
+    tile = -(-(_FMA_ROWS + 1) * (channels + 1) // 4) * 4   # rows of C + 1 floats, to 16 bytes
+    smem = 4 * (tile + stages * k_chunk * channels + 8)   # + a float a warp
+    blocks = -(-batch // W)
+    if kind == "block":
+        return TcPlan(W, blocks, smem)
+    grad_tile = 128 if channels >= 128 else 64
+    return TcPlan(
+        W, blocks, smem,
+        splits=max(1, min(_MAX_GRAD_SPLITS, batch * t_len // _FMA_GRAD_ROWS_PER_SPLIT)),
+        grad_smem_bytes=4 * _FMA_GRAD_STAGES * 2 * _FMA_GRAD_ROWS * grad_tile,
     )
 
 
@@ -259,10 +298,12 @@ def fused_temporal_block(
             plan.smem_bytes, stream_handle(x.device),
         )
     else:
-        w1c, w2c = w1.contiguous(), w2.contiguous()   # held until the launch has read them
+        plan = fma_plan(t_len, C, B, "block")
+        w1c, w2c = aligned(w1), aligned(w2)   # held until the launch has read them
         code = lib.vge_temporal_block(
             x.device.index, x.data_ptr(), w1c.data_ptr(), w2c.data_ptr(), gs.data_ptr(),
-            gb.data_ptr(), out.data_ptr(), B, t_len, C, int(dilation), stream_handle(x.device),
+            gb.data_ptr(), out.data_ptr(), B, t_len, C, int(dilation), plan.windows_per_block,
+            plan.smem_bytes, stream_handle(x.device),
         )
     check(code, "fused_temporal_block launch")
     fused_temporal_block.launches += 1

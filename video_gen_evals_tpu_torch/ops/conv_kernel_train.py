@@ -30,9 +30,14 @@ Precision:
   ``d1`` and ``x`` of the weight gradients. The plain versions round at the
   same places.
 
-At ``"highest"`` the forward and the backward run on the CUDA cores, one
-block per window, bound by the fp32 FMA rate: 20.1 G FMA forward and 60.4 G
-backward at ``[960, 32, 256]``. At ``"default"`` both run on the tensor cores
+At ``"highest"`` the forward and the backward run on the CUDA cores, bound by
+the fp32 FMA rate: 20.1 G FMA forward and 60.4 G backward at ``[960, 32,
+256]``. The forward owns one window a block; the backward's window kernel
+owns W = 128 / T windows a block on the FMA body
+(:func:`~.conv_kernel.fma_plan`), which streams the four convs' fp32 weights
+through a shared-memory ring, and writes d1, dr and dh1 in fp32 for the ten
+fp32 weight-gradient products, which visit only the rows whose shifted row
+stays inside its window. At ``"default"`` both run on the tensor cores
 (mma.sync, bf16 operands, fp32 sums), bound by their bf16 rate: 20.1 G and
 60.4 G multiply-adds, 0.04 and 0.12 ms at the H100's data-sheet 989 TFLOP/s.
 The forward kernel and the backward's window kernel own W = 128 / T windows
@@ -59,12 +64,11 @@ import typing as T
 import torch
 import torch.nn.functional as F
 
-from .conv_kernel import _K, _KERNEL_C, _KERNEL_T, _conv_taps, aligned, tc_plan
+from .conv_kernel import _K, _KERNEL_C, _KERNEL_T, _conv_taps, aligned, fma_plan, tc_plan
 from .cuda_lib import check, load_library, stream_handle
 
 _PRECISIONS = ("default", "highest")
 LAUNCHES_PER_BACKWARD = 3   # window kernel, weight-gradient kernel, fixed-order sums
-_MAX_ROW_SPLITS = 8         # row ranges of the "highest" weight-gradient kernel
 
 
 def _round(t: torch.Tensor, precision: str) -> torch.Tensor:
@@ -234,12 +238,14 @@ def _backward_cuda(x, w1, w2, gs, mask, dy, dilation, precision):
     if precision == "default":
         return _backward_cuda_tc(x, w1, w2, gs, mask, dy, dilation)
     B, t_len, C = x.shape
+    plan = fma_plan(t_len, C, B, "train_bwd")
     w1t, w2t = _transposed(w1), _transposed(w2)
-    splits = max(1, min(_MAX_ROW_SPLITS, (B * t_len) // 1024))
+    x, w1, w2, gs, dy = (aligned(t) for t in (x, w1, w2, gs, dy))
+    mask = None if mask is None else aligned(mask)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x.device)   # noqa: E731
     dx, d1, dr, dh1 = (torch.empty_like(x) for _ in range(4))
     pgamma, pbeta = new(B, C), new(B, C)
-    partial = new(2, splits, _K, C, C)
+    partial = new(2, plan.splits, _K, C, C)
     dw1, dw2, dgamma, dbeta = new(_K, C, C), new(_K, C, C), new(C), new(C)
     code = load_library().lib.vge_temporal_block_train_bwd(
         x.device.index, x.data_ptr(), w1.data_ptr(), w2.data_ptr(), w1t.data_ptr(),
@@ -247,7 +253,8 @@ def _backward_cuda(x, w1, w2, gs, mask, dy, dilation, precision):
         None if mask is None else mask.data_ptr(), dx.data_ptr(), d1.data_ptr(),
         dr.data_ptr(), dh1.data_ptr(), pgamma.data_ptr(), pbeta.data_ptr(),
         partial.data_ptr(), dw1.data_ptr(), dw2.data_ptr(), dgamma.data_ptr(),
-        dbeta.data_ptr(), B, t_len, C, int(dilation), splits, stream_handle(x.device),
+        dbeta.data_ptr(), B, t_len, C, int(dilation), plan.windows_per_block, plan.smem_bytes,
+        plan.splits, plan.grad_smem_bytes, stream_handle(x.device),
     )
     check(code, "fused_temporal_block_train backward launch")
     fused_temporal_block_train.launches_bwd += LAUNCHES_PER_BACKWARD

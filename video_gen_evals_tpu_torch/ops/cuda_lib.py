@@ -54,8 +54,8 @@ _SIGNATURES = {
     "vge_gather_windows_subblock": [_I, _P, ctypes.c_longlong, _I, _I, _P, _P, _I, _P, _I,
                                     _I, _P, _P, _I, _I, _P, _P],
     # device, x, w1, w2, gn_scale, gn_bias, out, batch, t_len, channels,
-    # dilation, stream ("highest")
-    "vge_temporal_block": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dilation, windows_per_block, smem_bytes, stream ("highest")
+    "vge_temporal_block": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # device, x, w (bf16 planes), gn_scale, gn_bias, out, batch, t_len,
     # channels, dilation, windows_per_block, smem_bytes, stream ("high")
     "vge_temporal_block_high": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -76,8 +76,9 @@ _SIGNATURES = {
     "vge_temporal_block_train_fwd_tc": [_I] + [_P] * 6 + [_I] * 6 + [_P],
     # device, x, w1, w2, w1t, w2t, gn_scale, dy, mask (or null), dx, d1, dr,
     # dh1, pgamma, pbeta, partial, dw1, dw2, dgamma, dbeta, batch, t_len,
-    # channels, dilation, splits, stream ("highest")
-    "vge_temporal_block_train_bwd": [_I] + [_P] * 19 + [_I] * 5 + [_P],
+    # channels, dilation, windows_per_block, smem_bytes, splits,
+    # grad_smem_bytes, stream ("highest")
+    "vge_temporal_block_train_bwd": [_I] + [_P] * 19 + [_I] * 8 + [_P],
     # device, x, w (bf16 planes), gn_scale, dy, mask (or null), dx, xb, d1, dr,
     # dh1, dr32, pgamma, pbeta, partial, dw1, dw2, dgamma, dbeta, batch, t_len,
     # channels, dilation, windows_per_block, smem_bytes, slabs, splits,
