@@ -15,7 +15,8 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    without, at "highest" and at "default" against the plain version of the
    same precision (tolerances at K4_TOL), and two backward calls on the same
    inputs bitwise equal; each backward split into its three launches by
-   torch.profiler at every dilation. Milliseconds per call of kernel and plain from CUDA
+   torch.profiler at every dilation; the ptxas line of the forward's kernel
+   at "highest" (K3's fma_block_kernel, with the mask). Milliseconds per call of kernel and plain from CUDA
    events (plain, kernel, kernel, plain), each kernel's bound from its shapes
    and the card's data-sheet peaks and the kernel's share of it, and the
    time of one library call where one computes the same function (for K1
@@ -90,7 +91,9 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    on the card from a seed) on the same 72-frame video. K5
    (roi_align_pyramid_dma) against its plain version on one detect chunk's
    own packed pyramid and proposals (8 x 1000 ROIs) and on over-span boxes
-   of the same buffer (K5_TOL), ms and bound. Extractor.process_video(frames)
+   of the same buffer (K5_TOL), ms and bound, the kernel's ptxas line, and
+   the cells its loads cover beside the union the bound counts.
+   Extractor.process_video(frames)
    with mesh_detector "rcnn" and no boxes, ViT-H at full depth,
    keep_all_frames: contract shapes, finite values, K5 launched once a chunk
    (9), K6 as in phase 7; then keep_all_frames=False, whose result is None or
@@ -104,7 +107,8 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
 9. The detector modes on the same video, weights drawn from the same seed.
    K5's bf16 instantiation against its plain version on a detect chunk's own
    levels cast to bf16 with RCNNConfig.fast()'s proposals (window 32) and on
-   phase 8's over-span boxes (K5_TOL), ms and bound. process_video(frames)
+   phase 8's over-span boxes (K5_TOL), ms and bound, ptxas line and cells
+   loaded, as in phase 8. process_video(frames)
    with no boxes under fast() in fp32 and in the bf16 mode, and under the
    exact R-CNN in the bf16 mode, ViT-H at full depth: contract shapes, K5
    launched once a chunk in the pyramid's type and never in the other, K6
@@ -196,11 +200,12 @@ def _card() -> str:
 # the bool template arguments of the attention kernels, in order
 _ATTN_FLAGS = {"attention_fma_kernel": ("split", "flash"), "attention_resident_kernel": ("flash",)}
 # the multi-window conv kernels: the tensor-core ones (K3 and K10 at "high", K4's
-# forward and backward at "default") and the FMA ones (K3 and K4's backward at
-# "highest"); every instantiation's ptxas line is printed
+# forward and backward at "default") and the FMA ones (K3 and K4's forward and
+# backward at "highest"); every instantiation's ptxas line is printed, and
+# K5's (roi_align_kernel, by cell type and load width)
 _TC_KERNELS = ("temporal_block_high_kernel", "temporal_chain_tc_kernel", "train_fwd_tc_kernel",
-               "train_bwd_tc_kernel", "tap_grad_tc_kernel", "temporal_block_fma_kernel",
-               "train_bwd_fma_kernel", "tap_grad_fma_kernel")
+               "train_bwd_tc_kernel", "tap_grad_tc_kernel", "fma_block_kernel",
+               "train_bwd_fma_kernel", "tap_grad_fma_kernel", "roi_align_kernel")
 
 
 def _ptxas_summary(log: str):
@@ -215,20 +220,28 @@ def _ptxas_summary(log: str):
             spill = line.strip()
         m = re.search(r"Used (\d+) registers", line)
         if name and m:
-            t = re.search(r"(\d+)([a-z_]+kernel)ILi(\d+)ELi(\d+)ELb([01])E(?:Lb([01])E)?", name)
+            ra = re.search(r"roi_align_kernelI(f|13__nv_bfloat16)Lb([01])E", name)
             tc = re.search(r"\d+([a-z_]+kernel)ILi(\d+)ELi(\d+)EE", name)
             a = re.search(r"\d+([a-z_]+kernel)ILi(\d+)E((?:Lb[01]E)*)", name)
             g = re.search(r"\d+([a-z_]+kernel)", name)
             flags = "".join(f", {k}={b}" for k, b in zip(_ATTN_FLAGS.get(a.group(1), ()),
                                                          re.findall(r"Lb([01])E", a.group(3)))) if a else ""
-            short = (f"{t.group(2)}<T={t.group(3)}, C={t.group(4)}, bf16={t.group(5)}"
-                     + (f", stacked={t.group(6)}>" if t.group(6) else ">") if t
+            short = (f"roi_align_kernel<{'float' if ra.group(1) == 'f' else 'bf16'}, vec16={ra.group(2)}>" if ra
                      else f"{tc.group(1)}<T={tc.group(2)}, C={tc.group(3)}>" if tc
                      else f"{a.group(1)}<C={a.group(2)}>" if a and a.group(1) in _TC_KERNELS
                      else f"{a.group(1)}<hd={a.group(2)}{flags}>" if a
                      else g.group(1) if g else name)
             yield f"{short}: {m.group(1)} registers; {spill}"
             name = None
+
+
+def _ptxas_line(prefix: str) -> str:
+    """The ptxas line of the built kernel whose summary starts with
+    ``prefix`` (a kernel instantiated in two sources prints alike in both)."""
+    from video_gen_evals_tpu_torch.ops.cuda_lib import load_library
+
+    lines = [line for line in _ptxas_summary(load_library().build_log) if line.startswith(prefix)]
+    return lines[0] if lines else f"{prefix}: not in this process's build log (the library was loaded, not built)"
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -444,6 +457,8 @@ def phase_train_kernels(torch, dev, gen):
               f"{f_bound[0] / (sum(f_ms) / 4):.1%} of the mean)")
         print(f"   backward kernel ms {fmt(b_ms)}; plain ms {fmt(b_pms)}; bound {b_bound[0]:.4f} ms ({b_bound[1]}, "
               f"{b_bound[0] / (sum(b_ms) / 4):.1%} of the mean)")
+        if precision == "highest":
+            print(f"   forward on the FMA body (K3's kernel with the mask): ptxas {_ptxas_line('fma_block_kernel<T=32, C=256>')}")
         # the backward's three launches by torch.profiler (weight preparation's small launches beside)
         for d in (1, 2, 4, 8):
             out, leaves = kernel_backward(keep_mask, d, precision)
@@ -1416,6 +1431,14 @@ def _k5_cells(torch, geom, n_images, rois_per_image, buffer_hw):
 RCNN_PERSON_GAIN, RCNN_PERSON_BIAS = 64.0, -2.0
 
 
+def _k5_loaded_cells(torch, geom) -> int:
+    """Cells K5's loads cover on these ROIs: each ROI's weighted rows times
+    its weighted columns (the kernel loads a cell once a ROI; overlapping
+    ROIs load it again, mostly from L2)."""
+    _wy0, _wx0, Wy, Wx, _w, _wx = geom
+    return int(((Wy != 0).any(dim=1).sum(-1) * (Wx != 0).any(dim=1).sum(-1)).sum().item())
+
+
 def _person_class_(torch, rcnn):
     with torch.no_grad():
         cls_score = rcnn.roi_heads.box_predictor.cls_score
@@ -1474,6 +1497,7 @@ def _k5_check(torch, buf, offs, lhw, strides, props, levels, window, valid):
                             window=window)
         fmas = _k5_work(torch, geom, buf.shape[-1])
         cells = _k5_cells(torch, geom, *props.shape[:2], tuple(buf.shape[1:3]))
+        loaded = _k5_loaded_cells(torch, geom)
     level_cells = props.shape[0] * sum(h * w for h, w in lhw)
     nbytes = buf.element_size() * cells * buf.shape[-1] + 4 * (props.numel() + levels.numel() + got.numel())
     bound_ms, bound_by = _bound(nbytes, 2 * fmas, PEAK_FP32)
@@ -1485,6 +1509,11 @@ def _k5_check(torch, buf, offs, lhw, strides, props, levels, window, valid):
           f"{K5_TOL * scale_w:.2e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}: {nbytes / 1e6:.1f} MB, {2 * fmas / 1e9:.2f} GFLOP of weighted taps); "
           f"no single PyTorch call computes ROIAlign (and no torchvision on the card)")
+    cell_bytes = buf.element_size() * buf.shape[-1]
+    vec = "vec16=1" if buf.shape[-1] % (16 // buf.element_size()) == 0 else "vec16=0"
+    print(f"   its loads cover {loaded} cells a chunk, {loaded * cell_bytes / 1e6:.1f} MB ({loaded / cells:.2f} x the "
+          f"union of {cells} weighted cells, {cells * cell_bytes / 1e6:.1f} MB, that the bound counts); ptxas "
+          f"{_ptxas_line('roi_align_kernel<' + ('float' if dtype == 'float32' else 'bf16') + ', ' + vec)}")
     return dict(max_abs_err=max(err, err_w), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None)
 
@@ -1856,8 +1885,8 @@ def main() -> int:
     lib = load_library()
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"kernel build {lib.build_seconds:.1f} s -> {os.path.relpath(lib.path)}")
-    for line in _ptxas_summary(lib.build_log):
-        # the flagship instantiations, and every tensor-core conv instantiation
+    for line in dict.fromkeys(_ptxas_summary(lib.build_log)):
+        # the flagship instantiations, and every multi-window conv and K5 instantiation
         if "<" not in line or "T=32, C=256" in line or "hd=80" in line or line.startswith(_TC_KERNELS):
             print(f"  ptxas: {line}")
 

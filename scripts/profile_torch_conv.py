@@ -31,9 +31,9 @@ preparation's small launches included; K3 at both precisions, K4's backward
 at "highest" at every dilation); K10's error at 1 to 4 stages
 against its plain version beside K3 ``"high"`` run once a stage (and
 whether the two agree bitwise); what the weight preparation costs a call;
-and K4's forward at ``"default"`` at 528, 960 and 1056 windows (one
-full wave of 132 blocks of 4 windows, the training step's 1.8 waves, two
-full waves), which shows what the step's tail wave costs. Every line
+and K4's forward at ``"default"`` and ``"highest"`` at 528, 960 and 1056
+windows (one full wave of 132 blocks of 4 windows, the training step's 1.8
+waves, two full waves), which shows what the step's tail wave costs. Every line
 carries the card's name and power limit.
 """
 
@@ -48,7 +48,7 @@ import subprocess
 import sys
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CONV_KERNELS = ("temporal_block", "temporal_chain", "train_", "tap_grad", "reduce_partials")
+_CONV_KERNELS = ("temporal_block", "temporal_chain", "fma_block", "train_", "tap_grad", "reduce_partials")
 
 
 def _sass_counts(path: str):
@@ -168,10 +168,11 @@ def timing(torch, ck, ckc, ckt, iters, card):
     # the forward's tail wave: 960 windows are 240 blocks, 1.8 waves of 132
     xt = torch.randn(1056, CLIP, C, generator=gen).to(dev)
     mt = ((torch.rand(1056, CLIP, C, generator=gen) < 0.9).float() / 0.9).to(dev)
-    tail = {n: _time_ms(lambda: ckt.fused_temporal_block_train(
-        xt[:n], w1, w2, gs, gb, mt[:n], 2, "default"), iters) for n in (528, 960, 1056)}
-    print("K4 forward default d=2 by windows: " + ", ".join(f"{n}: {ms:.4f} ms" for n, ms in tail.items())
-          + f" on {card}")
+    for precision in ("default", "highest"):
+        tail = {n: _time_ms(lambda: ckt.fused_temporal_block_train(
+            xt[:n], w1, w2, gs, gb, mt[:n], 2, precision), iters) for n in (528, 960, 1056)}
+        print(f"K4 forward {precision} d=2 by windows: "
+              + ", ".join(f"{n}: {ms:.4f} ms" for n, ms in tail.items()) + f" on {card}")
     del xt, mt
     print(f"K4 backward default weight preparation (train_weight_planes): "
           f"{_time_ms(lambda: ckt.train_weight_planes(w1, w2), iters):.4f} ms a call on {card}")

@@ -24,6 +24,17 @@ from video_gen_evals_tpu_torch.ops.attention_core import (
     mha_head_batched_plain,
 )
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one thread for the whole module, module fixtures included:
+    the suite runs in several workers, and torch's default threads in each
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32_ATOL = 2e-5    # fp32 against fp32: the order of the sums differs
 BF16_TOL = 0.03    # bf16 inputs, p and output: three roundings of 2^-9 relative
 

@@ -1,6 +1,6 @@
 """Host-side preparation of the tensor-core conv kernels (K3 and K10 at
 "high", K4's forward and backward at "default") and of the FMA conv kernels
-(K3 and K4's backward at "highest"), on the CPU: the bf16 weight planes the
+(K3 and K4's forward and backward at "highest"), on the CPU: the bf16 weight planes the
 tensor-core kernels read, held bitwise against split_bf16 and _round, and the
 launch plans (windows a block, shared memory, partial rows, row ranges), which
 cover every batch, fit Hopper's shared memory and depend on the shape alone."""
@@ -137,7 +137,7 @@ def test_tc_plan_refuses_unbuilt_shapes(args):
         tc_plan(*args)
 
 
-@pytest.mark.parametrize("kind", ["block", "train_bwd"])
+@pytest.mark.parametrize("kind", ["block", "train_fwd", "train_bwd"])
 @pytest.mark.parametrize("channels", _C)
 @pytest.mark.parametrize("t_len", _T)
 def test_fma_plan_covers_every_batch_and_fits(t_len, channels, kind):
@@ -147,7 +147,7 @@ def test_fma_plan_covers_every_batch_and_fits(t_len, channels, kind):
         assert W * t_len == 128, plan                       # a block owns whole windows, 128 rows
         assert plan.blocks * W >= batch > (plan.blocks - 1) * W, (batch, plan)
         assert 0 < plan.smem_bytes <= SMEM_LIMIT, plan
-        if kind == "block":
+        if kind != "train_bwd":
             assert (plan.slabs, plan.splits, plan.grad_smem_bytes) == (0, 0, 0)
             continue
         assert plan.slabs == 0, plan   # one dgamma and dbeta partial row a window, always
@@ -167,7 +167,7 @@ def test_fma_plan_covers_every_batch_and_fits(t_len, channels, kind):
                 assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:])), (plan, dilation, j)
 
 
-@pytest.mark.parametrize("kind", ["block", "train_bwd"])
+@pytest.mark.parametrize("kind", ["block", "train_fwd", "train_bwd"])
 def test_fma_plan_depends_on_the_shape_alone(kind, monkeypatch):
     """Same shape, same plan, and the plan never asks the device."""
     want = {(t, c, b): fma_plan(t, c, b, kind) for t in _T for c in _C for b in _BATCHES}
@@ -183,8 +183,11 @@ def test_fma_plan_depends_on_the_shape_alone(kind, monkeypatch):
 
 @pytest.mark.parametrize("t_len,channels,batch,kind,want", [
     # the main paths' shapes: the scoring batch (K3) and the training step
-    # (K4's backward)
+    # (K4's forward and backward); K4's forward is K3's kernel, so its plan
     (32, 256, 512, "block", TcPlan(4, 128, 198_192)),
+    (32, 256, 960, "train_fwd", TcPlan(4, 240, 198_192)),
+    (8, 64, 37, "train_fwd", TcPlan(16, 3, 49_968)),
+    (16, 128, 961, "train_fwd", TcPlan(8, 121, 99_376)),
     (32, 256, 256, "block", TcPlan(4, 64, 198_192)),
     (32, 128, 513, "block", TcPlan(4, 129, 99_376)),
     (8, 64, 37, "block", TcPlan(16, 3, 49_968)),
@@ -203,7 +206,8 @@ def test_fma_plan_at_known_shapes(t_len, channels, batch, kind, want):
 
 @pytest.mark.parametrize("args", [(12, 64, 4, "block"), (32, 96, 4, "train_bwd"),
                                   (32, 64, 0, "block"), (32, 64, 4, "highest"),
-                                  (32, 64, 4, "block_high")])
+                                  (32, 64, 4, "block_high"), (24, 256, 960, "train_fwd"),
+                                  (32, 256, 0, "train_fwd")])
 def test_fma_plan_refuses_unbuilt_shapes(args):
     with pytest.raises(ValueError):
         fma_plan(*args)

@@ -309,7 +309,7 @@ def _train_inputs(seed, batch, t_len, channels, with_mask):
 
 @pytest.mark.parametrize("batch,t_len,channels", [(960, 32, 256), (24, 16, 64), (5, 8, 128),
                                                    (1, 32, 64), (37, 8, 256), (513, 16, 128),
-                                                   (5, 32, 256)])
+                                                   (5, 32, 256), (961, 32, 256)])
 @pytest.mark.parametrize("dilation", [1, 2, 4, 8])
 @pytest.mark.parametrize("with_mask", [False, True])
 @pytest.mark.parametrize("precision", ["highest", "default"])
@@ -362,7 +362,7 @@ def test_train_backward_is_bitwise_repeatable(cuda, precision, batch, t_len, cha
 
 
 @pytest.mark.parametrize("batch,t_len,channels", [(960, 32, 256), (37, 8, 64), (513, 16, 128),
-                                                   (5, 32, 256)])
+                                                   (5, 32, 256), (961, 32, 256), (1, 8, 256)])
 @pytest.mark.parametrize("with_mask", [False, True])
 @pytest.mark.parametrize("precision", ["highest", "default"])
 def test_train_forward_is_bitwise_repeatable(cuda, precision, with_mask, batch, t_len, channels):
@@ -373,6 +373,54 @@ def test_train_forward_is_bitwise_repeatable(cuda, precision, with_mask, batch, 
     runs = [fused_temporal_block_train(x, w1, w2, gs, gb, mask, 4, precision) for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(*runs)
+
+
+# K4's forward at "highest" on the FMA body (K3's kernel with the mask): W =
+# 128 / T windows a block against batches that are no multiple of it, and
+# taps whose shift reaches T or beyond (T = 8 at d = 4 and 8)
+@pytest.mark.parametrize("batch,t_len,channels,dilation", [
+    (1, 32, 256, 2), (5, 32, 256, 1), (37, 16, 128, 8), (961, 32, 256, 4), (961, 8, 64, 4),
+    (37, 8, 256, 8), (5, 8, 128, 4)])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_train_highest_forward_edges(cuda, batch, t_len, channels, dilation, with_mask):
+    """Within K4_TOL's "highest" forward bound (1e-4) of the plain version."""
+    plan = fma_plan(t_len, channels, batch, "train_fwd")
+    assert plan.windows_per_block == 128 // t_len and batch % plan.windows_per_block
+    x, w1, w2, gs, gb, mask, _dy = (
+        None if t is None else t.to(cuda)
+        for t in _train_inputs(batch + dilation, batch, t_len, channels, with_mask))
+    want = fused_temporal_block_train_plain(x, w1, w2, gs, gb, mask, dilation, "highest")
+    before = fused_temporal_block_train.launches
+    got = fused_temporal_block_train(x, w1, w2, gs, gb, mask, dilation, "highest")
+    torch.cuda.synchronize()
+    assert fused_temporal_block_train.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_train_highest_forward_refuses_a_foreign_plan(cuda):
+    """The C entry point launches only with its instantiation's plan: another
+    window count or shared-memory size is refused before any launch."""
+    from video_gen_evals_tpu_torch.ops.cuda_lib import load_library, stream_handle
+
+    x, w1, w2, gs, gb, mask, _dy = (t.to(cuda) for t in _train_inputs(1, 8, 32, 256, True))
+    out = torch.full_like(x, float("nan"))
+    plan = fma_plan(32, 256, 8, "train_fwd")
+    lib = load_library().lib
+
+    def launch(windows_per_block, smem_bytes):
+        return lib.vge_temporal_block_train_fwd(
+            x.device.index, x.data_ptr(), w1.data_ptr(), w2.data_ptr(), gs.data_ptr(), gb.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), 8, 32, 256, 1, windows_per_block, smem_bytes,
+            stream_handle(x.device))
+
+    assert launch(plan.windows_per_block + 1, plan.smem_bytes) != 0
+    assert launch(plan.windows_per_block, plan.smem_bytes - 16) != 0
+    torch.cuda.synchronize()
+    assert torch.isnan(out).all()   # nothing ran
+    assert launch(plan.windows_per_block, plan.smem_bytes) == 0
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
 
 
 # K4's backward at "highest": row counts that are no multiple of the
@@ -674,7 +722,8 @@ def _roi_inputs(gen, batch, canvas, channels, n_rois):
     return pack_pyramid(feats), boxes, levels
 
 
-@pytest.mark.parametrize("batch,canvas,channels,n_rois", [(2, (768, 1344), 256, 1000), (3, (96, 160), 16, 37)])
+@pytest.mark.parametrize("batch,canvas,channels,n_rois", [(2, (768, 1344), 256, 1000), (3, (96, 160), 16, 37),
+                                                          (2, (96, 160), 13, 37), (1, (96, 160), 260, 20)])
 def test_roi_align_kernel_matches_plain(cuda, batch, canvas, channels, n_rois):
     """K5 on the detector's full canvas (p2..p5 packed into 360 x 336 x 256)
     and on a small one, in-span proposals and over-span boxes: within
@@ -693,7 +742,7 @@ def test_roi_align_kernel_matches_plain(cuda, batch, canvas, channels, n_rois):
 
 @pytest.mark.parametrize("batch,canvas,channels,n_rois,window", [
     (2, (768, 1344), 256, 1000, 32), (1, (768, 1344), 256, 300, 48), (3, (96, 160), 16, 37, 32),
-    (2, (160, 224), 40, 64, 32)])
+    (2, (160, 224), 40, 64, 32), (2, (96, 160), 21, 37, 32), (1, (96, 160), 264, 20, 48)])
 def test_roi_align_bf16_kernel_matches_plain(cuda, batch, canvas, channels, n_rois, window):
     """K5's bfloat16 instantiation (``RCNNConfig.fast()``'s pyramid, window 32
     or the exact 48) against its plain version on the same bfloat16 buffer:
@@ -711,6 +760,44 @@ def test_roi_align_bf16_kernel_matches_plain(cuda, batch, canvas, channels, n_ro
     assert got.shape == (batch, n_rois, 7, 7, channels) and got.dtype == torch.float32
     assert (got.cpu() - want).abs().max().item() <= _ROI_TOL
     assert got[:, 3].abs().max().item() == 0.0            # the empty box
+
+
+def _edge_boxes(canvas, batch):
+    """Per image: zero-area boxes, boxes wider and taller than any window,
+    boxes against the canvas's right and bottom edges and past them, all on
+    p2 (where the windows clip most), and a few on p5."""
+    H, W = canvas
+    boxes = torch.tensor([
+        [20.0, 30.0, 20.0, 30.0], [W * 0.3, 10.0, W * 0.3, 50.0], [5.0, H * 0.5, W - 5.0, H * 0.5],
+        [0.0, 0.0, W * 1.0, H * 1.0], [10.0, 5.0, W - 1.0, 40.0], [4.0, 4.0, 60.0, H - 2.0],
+        [W - 40.0, 10.0, W * 1.0, 70.0], [W - 3.0, H - 9.0, W - 1.0, H - 1.0], [W - 20.0, 20.0, W + 30.0, 36.0],
+        [W * 0.5, H - 30.0, W * 0.6, H + 20.0], [-30.0, -20.0, 12.0, 9.0], [W - 8.0, 0.0, W * 1.0, 3.0],
+    ])
+    levels = torch.zeros(len(boxes), dtype=torch.int32)
+    levels[-3:] = 3
+    return boxes.expand(batch, -1, -1).contiguous(), levels.expand(batch, -1).contiguous()
+
+
+# K5 at the edges, both pyramid types: a channel count that is no multiple of
+# the 16-byte vector (the scalar tail), zero-area, over-span and right- and
+# bottom-edge boxes; two calls bitwise equal (fixed-order sums, no atomics)
+@pytest.mark.parametrize("dtype,window", [(torch.float32, 48), (torch.bfloat16, 32), (torch.bfloat16, 48)])
+@pytest.mark.parametrize("channels", [256, 13, 21, 40])
+def test_roi_align_kernel_edges_and_repeatable(cuda, dtype, window, channels):
+    gen = torch.Generator().manual_seed(channels)
+    (buf, offs, hw), boxes, levels = _roi_inputs(gen, 2, (160, 288), channels, 24)
+    edge, edge_levels = _edge_boxes((160, 288), 2)
+    boxes, levels = torch.cat([boxes, edge], 1), torch.cat([levels, edge_levels], 1)
+    buf = buf.to(dtype)
+    want = roi_align_pyramid_dma_plain(buf, offs, hw, (4, 8, 16, 32), boxes, levels, window=window)
+    args = (buf.to(cuda), offs, hw, (4, 8, 16, 32), boxes.to(cuda), levels.to(cuda))
+    got = roi_align_pyramid_dma(*args, window=window)
+    again = roi_align_pyramid_dma(*args, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.cpu() - want).abs().max().item() <= _ROI_TOL
+    assert torch.equal(got, again)
+    assert got[:, 24].abs().max().item() == 0.0 and got[:, 25].abs().max().item() == 0.0   # zero area
 
 
 def test_roi_align_kernel_refuses(cuda):

@@ -30,8 +30,11 @@ DIMS_DIFF = {"vit": 16, "global": 3, "pose": 6, "beta": 10, "kp2d": 12}
 CLIP = 16
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
+    """torch on one thread for the whole module, module fixtures included:
+    the suite runs in several workers, and torch's default threads in each
+    oversubscribe the cores."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -52,7 +55,7 @@ def _jax_params(jcfg, pcfg, seed):
 
 
 @pytest.fixture(scope="module")
-def jax_model():
+def jax_model(_one_thread):
     jcfg, pcfg = _configs(DIMS_RAW, DIMS_DIFF, layers=2)
     return jcfg, pcfg, _jax_params(jcfg, pcfg, seed=0)
 

@@ -40,8 +40,11 @@ from video_gen_evals_tpu_torch.ops.window_kernel import (
 HIGH_ATOL = 1e-4
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
+    """torch on one thread for the whole module, module fixtures included:
+    the suite runs in several workers, and torch's default threads in each
+    oversubscribe the cores."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -212,7 +215,7 @@ def _assert_outputs_close(got, want, atol):
 
 
 @pytest.fixture(scope="module")
-def block_models():
+def block_models(_one_thread):
     return _models(_ONE_MODALITY, d_model=64, layers=1, heads=4, seed=3)
 
 

@@ -37,6 +37,17 @@ JAX_IMPL = {"plain": "xla", "core": "core_interpret", "head_batched": "head_batc
             "flash": "pallas_interpret"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one thread for the whole module, module fixtures included:
+    the suite runs in several workers, and torch's default threads in each
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def highest():
     """JAX matmuls in fp32 for the test, the flag and the compiled

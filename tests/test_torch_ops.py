@@ -28,8 +28,11 @@ from video_gen_evals_tpu_torch.ops.conv_kernel import (
 from video_gen_evals_tpu_torch.ops.window_kernel import gather_windows
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
+    """torch on one thread for the whole module, module fixtures included:
+    the suite runs in several workers, and torch's default threads in each
+    oversubscribe the cores."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -36,8 +36,11 @@ DIMS_RAW = {"vit": 64, "global": 9, "pose": 207, "beta": 10, "kp2d": 120}
 DIMS_DIFF = {"vit": 64, "global": 3, "pose": 69, "beta": 10, "kp2d": 120}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
+    """torch on one thread for the whole module, module fixtures included:
+    the suite runs in several workers, and torch's default threads in each
+    oversubscribe the cores."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -45,7 +48,7 @@ def _one_thread():
 
 
 @pytest.fixture(scope="module")
-def env(tmp_path_factory):
+def env(_one_thread, tmp_path_factory):
     """The tree of tests/test_score_pipeline.py: 2 classes x 4 real videos,
     6 generated videos with class-coded names, human scores."""
     root = tmp_path_factory.mktemp("torch_e2e")
@@ -122,7 +125,7 @@ def _models(seed, d_model=32, layers=1, heads=4):
 
 
 @pytest.fixture(scope="module")
-def jax_run(env, tmp_path_factory):
+def jax_run(_one_thread, env, tmp_path_factory):
     """The JAX slice, run once: stats of the real train split, the JAX
     score_generated (module forward, sliced gather, f32) with the weights
     of :func:`_models`, and the train split's bank. The JAX CPU backend compiles for tens of seconds
@@ -243,7 +246,7 @@ def test_score_cli_runs_on_cpu_from_a_reference_checkpoint(env, tmp_path):
 
 
 @pytest.fixture(scope="module")
-def fused_scores(env, tmp_path_factory):
+def fused_scores(_one_thread, env, tmp_path_factory):
     """score_generated's AC and TC per encoder_impl, one set of weights, at
     "high" on the CPU (the kernels' plain versions)."""
     _root, mesh_root, kp_root, gen_dir, gen_kp, _human, _names = env

@@ -29,6 +29,17 @@ from video_gen_evals_tpu_torch.ops.conv_kernel_train import (
 from video_gen_evals_tpu_torch.train import losses
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one thread for the whole module, module fixtures included:
+    the suite runs in several workers, and torch's default threads in each
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.asarray(a))
 

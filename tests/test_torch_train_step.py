@@ -44,8 +44,11 @@ B, T_LEN, LR, TOTAL_STEPS, HARD_WEIGHT = 8, 8, 3e-4, 100, 10.0
 KW = dict(d_model=32, time_layers=1, time_heads=4, dropout=0.0)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
+    """torch on one thread for the whole module, module fixtures included:
+    the suite runs in several workers, and torch's default threads in each
+    oversubscribe the cores."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -80,7 +83,7 @@ def _stacked_as_jax(feats: np.ndarray, step_rng) -> torch.Tensor:
 
 
 @pytest.fixture(scope="module")
-def jax_run():
+def jax_run(_one_thread):
     """The JAX side, run once: loss components and gradients of one batch,
     then four optimizer steps (states kept after the third and the fourth).
     XLA's CPU compiles dominate, and its optimization passes do not change

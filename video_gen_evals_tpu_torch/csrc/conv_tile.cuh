@@ -2,14 +2,15 @@
 // temporal_block_train.cu, temporal_chain.cu), three bodies:
 // - conv_columns (CUDA cores): a [T, C] conv-input tile in shared memory,
 //   read as broadcasts, and each thread's output channels for all T rows in
-//   registers, one window a block, for K9 and K4's forward at "highest". See
-//   temporal_block.cu for the design.
+//   registers, one window a block, for K9. See temporal_block.cu for the
+//   design.
 // - tc_conv (tensor cores): the conv over several windows a block as bf16
 //   mma.sync products with fp32 sums, for K3 and K10 at "high" and K4 at
 //   "default" (forward and backward). See the comment above TcConv.
 // - fma_conv (CUDA cores): the conv over several windows a block in fp32,
 //   weights through a shared-memory ring, register-tiled outer products, for
-//   K3 and K4's backward at "highest". See the comment above FmaConv.
+//   K3 and K4 (forward and backward) at "highest". See the comment above
+//   FmaConv; fma_block_kernel is the fused stage forward of K3 and K4 on it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,13 +24,12 @@ namespace {
 
 constexpr int kTaps = 5;
 
-// Output channels per thread (co, co + C/kCols, ...): 4 at "highest" and 2
-// at "high", whose split weights take twice the registers (4 there spills
-// and runs 1.6x slower on the H100), and never fewer than 32 threads.
-template <int C, bool kSplit>
+// Output channels per thread of conv_columns (co, co + C/kCols): 2, whose
+// split weights take two registers each (4 spilled and ran 1.6x slower on
+// the H100), and never fewer than 32 threads.
+template <int C>
 struct Cols {
-  static constexpr int kWant = kSplit ? 2 : 4;
-  static constexpr int value = kWant < C / 32 ? kWant : C / 32;
+  static constexpr int value = 2 < C / 32 ? 2 : C / 32;
 };
 
 __device__ __forceinline__ float gelu(float v) {
@@ -54,54 +54,47 @@ __device__ float block_sum(float v, float* red) {
   return total;
 }
 
-// The thread's columns of a [T, C] conv input into shared memory: fp32
-// values, or (hi, lo) bf16 pairs held in fp32 for "high".
-template <int T, int C, bool kSplit, int kCols>
+// The thread's columns of a [T, C] conv input into shared memory as (hi,
+// lo) bf16 pairs held in fp32.
+template <int T, int C, int kCols>
 __device__ __forceinline__ void store_columns(float* tile, const float (&col)[kCols][T], int co) {
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
     const int ch = co + c * (C / kCols);
 #pragma unroll
     for (int t = 0; t < T; ++t) {
-      if constexpr (kSplit) {
-        const float hi = bf16_round(col[c][t]);
-        const float lo = bf16_round(col[c][t] - hi);
-        reinterpret_cast<float2*>(tile)[t * C + ch] = make_float2(hi, lo);
-      } else {
-        tile[t * C + ch] = col[c][t];
-      }
+      const float hi = bf16_round(col[c][t]);
+      const float lo = bf16_round(col[c][t] - hi);
+      reinterpret_cast<float2*>(tile)[t * C + ch] = make_float2(hi, lo);
     }
   }
 }
 
-// Weights of input channels ci .. ci+3 of tap j for the thread's output
-// channels: fp32, or (hi, lo) pairs for "high".
-template <int C, bool kSplit, int kCols>
+// The (hi, lo) weight pairs of input channels ci .. ci+3 of tap j for the
+// thread's output channels.
+template <int C, int kCols>
 __device__ __forceinline__ void load_weights(const float* __restrict__ w, int j, int ci, int co,
-                                             float (&wv)[kCols][kSplit ? 8 : 4]) {
+                                             float (&wv)[kCols][8]) {
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const size_t idx = (size_t)(j * C + ci + q) * C + co + c * (C / kCols);
-      if constexpr (kSplit) {
-        const float2 v = __ldg(reinterpret_cast<const float2*>(w) + idx);
-        wv[c][2 * q] = v.x;
-        wv[c][2 * q + 1] = v.y;
-      } else {
-        wv[c][q] = __ldg(w + idx);
-      }
+      const float2 v = __ldg(reinterpret_cast<const float2*>(w) + idx);
+      wv[c][2 * q] = v.x;
+      wv[c][2 * q + 1] = v.y;
     }
   }
 }
 
-// acc[c][t] = sum_j sum_ci in[t + (j - 2) * dilation][ci] * w[j][ci][co + c * C/kCols],
-// with rows outside [0, T) reading zero.
-template <int T, int C, bool kSplit, int kCols>
+// acc[c][t] = sum_j sum_ci in[t + (j - 2) * dilation][ci] * w[j][ci][co + c * C/kCols]
+// in bf16x3 ((hi, lo) pairs of input and weights), with rows outside [0, T)
+// reading zero.
+template <int T, int C, int kCols>
 __device__ __forceinline__ void conv_columns(const float* tile, const float* __restrict__ w,
                                              int co, int dilation, float (&acc)[kCols][T]) {
-  constexpr int kW = kSplit ? 8 : 4;
-  constexpr int kRow4 = kSplit ? C / 2 : C / 4;  // float4s per tile row
+  constexpr int kW = 8;
+  constexpr int kRow4 = C / 2;  // float4s per tile row
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
 #pragma unroll
@@ -116,41 +109,29 @@ __device__ __forceinline__ void conv_columns(const float* tile, const float* __r
     const int hi = o > 0 ? T - o : T;
     const uint32_t valid = (uint32_t)(((1ull << (hi - lo)) - 1ull) << lo);
     float wv[kCols][kW], wn[kCols][kW];
-    load_weights<C, kSplit, kCols>(w, j, 0, co, wv);
+    load_weights<C, kCols>(w, j, 0, co, wv);
     for (int ci = 0; ci < C; ci += 4) {
       // the next step's weights (this step's again on the last one)
-      load_weights<C, kSplit, kCols>(w, j, ci + 4 < C ? ci + 4 : ci, co, wn);
-      const int base = o * kRow4 + (kSplit ? ci / 2 : ci / 4);
+      load_weights<C, kCols>(w, j, ci + 4 < C ? ci + 4 : ci, co, wn);
+      const int base = o * kRow4 + ci / 2;
 #pragma unroll
       for (int t = 0; t < T; ++t) {
         if (valid & (1u << t)) {
-          if constexpr (kSplit) {
-            // (hi, lo) of input channels ci, ci+1 and ci+2, ci+3
-            const float4 a01 = tile4[base + t * kRow4];
-            const float4 a23 = tile4[base + t * kRow4 + 1];
-            const float ahi[4] = {a01.x, a01.z, a23.x, a23.z};
-            const float alo[4] = {a01.y, a01.w, a23.y, a23.w};
+          // (hi, lo) of input channels ci, ci+1 and ci+2, ci+3
+          const float4 a01 = tile4[base + t * kRow4];
+          const float4 a23 = tile4[base + t * kRow4 + 1];
+          const float ahi[4] = {a01.x, a01.z, a23.x, a23.z};
+          const float alo[4] = {a01.y, a01.w, a23.y, a23.w};
 #pragma unroll
-            for (int c = 0; c < kCols; ++c) {
-              float s = acc[c][t];
+          for (int c = 0; c < kCols; ++c) {
+            float s = acc[c][t];
 #pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                s = fmaf(ahi[q], wv[c][2 * q], s);
-                s = fmaf(ahi[q], wv[c][2 * q + 1], s);
-                s = fmaf(alo[q], wv[c][2 * q], s);
-              }
-              acc[c][t] = s;
+            for (int q = 0; q < 4; ++q) {
+              s = fmaf(ahi[q], wv[c][2 * q], s);
+              s = fmaf(ahi[q], wv[c][2 * q + 1], s);
+              s = fmaf(alo[q], wv[c][2 * q], s);
             }
-          } else {
-            const float4 a4 = tile4[base + t * kRow4];
-            const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-            for (int c = 0; c < kCols; ++c) {
-              float s = acc[c][t];
-#pragma unroll
-              for (int q = 0; q < 4; ++q) s = fmaf(a[q], wv[c][q], s);
-              acc[c][t] = s;
-            }
+            acc[c][t] = s;
           }
         }
       }
@@ -623,7 +604,8 @@ __device__ __forceinline__ float window_sum(float v, float* red) {
 // ---------------------------------------------------------------------------
 // FMA body: acc[r, co] = sum_j sum_ci in[r + (j - 2) d, ci] * w[j, ci, co] for
 // the kRows = 128 rows of the block's W = 128 / T windows, fp32 products and
-// fp32 sums on the CUDA cores (K3 and K4's backward at "highest").
+// fp32 sums on the CUDA cores (K3, K4's forward and K4's backward at
+// "highest").
 //
 // Bound: the fp32 FMA rate. An SM sub-partition issues one warp instruction a
 // cycle, and an FFMA takes a full issue slot, so every shared-memory load
@@ -855,6 +837,90 @@ __device__ __forceinline__ void fma_epilogue(F f) {
 #pragma unroll
     for (int m = 0; m < C / kGroup; ++m) f(w * T + t, j + kGroup * m, m);
   }
+}
+
+// The fused stage forward at "highest" on the FMA body, W = 128 / T windows
+// a block (K3 with mask == nullptr, K4's forward with its scaled keep mask):
+//   d1  = GELU(conv(x, w1)) * mask        (GELU(conv(x, w1)) without a mask)
+//   out = GroupNorm1(GELU(conv(d1, w2) + x)) * gn_scale + gn_bias
+// w1, w2: [5, C, C] fp32. conv1's accumulators are staged in the tile and d1
+// is written there in place, the mask applied before conv2 as K4's plain
+// version and train_bwd_fma_kernel apply it; conv2's are staged again, the
+// residual x is re-read from device memory, and GELU, the window's mean and
+// variance (window_sum, a fixed order) and the affine run on the tile, a
+// window's 2T threads on whole columns of it. Writes only out, no atomics:
+// two calls give the same bits.
+template <int T, int C>
+__global__ void __launch_bounds__(FmaConv<T, C>::kThreads, 1) fma_block_kernel(
+    const float* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ w2,
+    const float* __restrict__ gn_scale, const float* __restrict__ gn_bias,
+    const float* __restrict__ mask, float* __restrict__ out, int batch, int dilation) {
+  using L = FmaConv<T, C>;
+  constexpr float inv_n = 1.0f / (float)(T * C);
+  extern __shared__ float4 smem_f[];
+  float* in = reinterpret_cast<float*>(smem_f);
+  float* ring = in + L::kTileFloats;
+  float* red = ring + L::kStages * L::kStageFloats;
+  const int win0 = blockIdx.x * L::kWindows;
+  const int valid_rows = min(L::kWindows, batch - win0) * T;
+  const size_t base = (size_t)win0 * T * C;
+  // the thread's window in the epilogues is inside the batch
+  const bool valid = win0 + (int)threadIdx.x / (2 * T) < batch;
+
+  fma_load_input<T, C>(in, x + base, valid_rows);
+  __syncthreads();
+  float acc[L::kRM][L::kCols];
+  fma_conv<T, C>(acc, in, ring, w1, dilation, valid_rows);
+  // d1 = GELU(conv1) * mask, in place in the tile
+  fma_store_input<T, C>(in, acc);
+  __syncthreads();
+  fma_epilogue<T, C>([&](int r, int c, int) {
+    const float h = gelu(in[r * L::kLd + c]);
+    in[r * L::kLd + c] = mask != nullptr && valid ? h * __ldg(mask + base + (size_t)r * C + c) : h;
+  });
+  __syncthreads();
+  fma_conv<T, C>(acc, in, ring, w2, dilation, valid_rows);
+
+  // y = GELU(conv2 + x), GroupNorm over each window, on the staged tile
+  fma_store_input<T, C>(in, acc);
+  __syncthreads();
+  float sum = 0.0f;
+  fma_epilogue<T, C>([&](int r, int c, int) {
+    const float xv = valid ? __ldg(x + base + (size_t)r * C + c) : 0.0f;
+    const float v = gelu(in[r * L::kLd + c] + xv);
+    in[r * L::kLd + c] = v;
+    sum += v;
+  });
+  const float mean = window_sum<T>(sum, red) * inv_n;
+  float sq = 0.0f;
+  fma_epilogue<T, C>([&](int r, int c, int) {
+    const float dv = in[r * L::kLd + c] - mean;
+    sq += dv * dv;
+  });
+  const float rstd = rsqrtf(window_sum<T>(sq, red) * inv_n + 1e-5f);
+  if (!valid) return;
+  fma_epilogue<T, C>([&](int r, int c, int) {
+    out[base + (size_t)r * C + c] =
+        (in[r * L::kLd + c] - mean) * rstd * __ldg(gn_scale + c) + __ldg(gn_bias + c);
+  });
+}
+
+// One launch of fma_block_kernel over batch windows. windows_per_block and
+// smem_bytes: the caller's plan (ops/conv_kernel.py::fma_plan), which must be
+// this instantiation's (else cudaErrorInvalidValue).
+template <int T, int C>
+cudaError_t launch_fma_block(const float* x, const float* w1, const float* w2, const float* gs,
+                             const float* gb, const float* mask, float* out, int batch, int dilation,
+                             int windows_per_block, int smem_bytes, cudaStream_t stream) {
+  using L = FmaConv<T, C>;
+  if (windows_per_block != L::kWindows || smem_bytes != (int)L::kSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(fma_block_kernel<T, C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (batch + L::kWindows - 1) / L::kWindows;
+  fma_block_kernel<T, C><<<blocks, L::kThreads, L::kSmem, stream>>>(x, w1, w2, gs, gb, mask, out,
+                                                                    batch, dilation);
+  return cudaGetLastError();
 }
 
 // f(integral_constant T, integral_constant C) for the built shapes

@@ -40,7 +40,8 @@
 // block). Shared memory 221 KB at C = 256 (two planes of 129 rows of C + 8
 // bf16, a 5-stage ring of 16 input channels), so one block an SM.
 //
-// "highest" (temporal_block_fma_kernel): the FMA body of conv_tile.cuh
+// "highest" (fma_block_kernel in conv_tile.cuh, which K4's forward at
+// "highest" runs with its dropout mask): the FMA body of conv_tile.cuh
 // (fma_conv), fp32 products and sums on the CUDA cores, bound by their FMA
 // rate: 2 convs * 5 taps * T * C * C FMAs a window (21 M at T = 32, C = 256;
 // 10.3 G at 512 windows counting only the rows a shifted tap reaches, 0.31 ms
@@ -57,7 +58,7 @@
 // rows of C + 1 floats 130 KB, a 4-stage ring of 16 input channels 64 KB),
 // so one block an SM: 128 blocks on 132 SMs.
 //
-// K9 (temporal_block_kernel, kSplit and kStacked): CUDA-core FMAs on bf16x3
+// K9 (temporal_block_kernel): CUDA-core FMAs on bf16x3
 // (hi, lo) weight pairs, bound by the fp32 FMA issue rate. One block per
 // window owns its whole [T, C] tile, so GroupNorm is a block reduction over
 // registers, with no second pass over device memory. Each thread computes
@@ -91,30 +92,27 @@
 
 namespace {
 
-// kSplit: bf16x3 (hi, lo) pairs; kStacked: K9's chain axis on blockIdx.y. K9
-// is built with both; the flags name what the body does with them.
-template <int T, int C, bool kSplit, bool kStacked>
-__global__ void __launch_bounds__(C / Cols<C, kSplit>::value) temporal_block_kernel(
+// K9: bf16x3 (hi, lo) weight pairs, the chain axis on blockIdx.y.
+template <int T, int C>
+__global__ void __launch_bounds__(C / Cols<C>::value) temporal_block_kernel(
     const float* __restrict__ x, const float* __restrict__ w1,
     const float* __restrict__ w2, const float* __restrict__ gn_scale,
     const float* __restrict__ gn_bias, float* __restrict__ out, int dilation) {
-  constexpr int kCols = Cols<C, kSplit>::value;
+  constexpr int kCols = Cols<C>::value;
   constexpr int kThreads = C / kCols;
   extern __shared__ float4 smem[];
   __shared__ float red[kThreads / 32];
   float* tile = reinterpret_cast<float*>(smem);
   const int co = threadIdx.x;
-  if constexpr (kStacked) {
-    // chain blockIdx.y of the grid (windows, chains): its activations,
-    // weights and norm parameters
-    const size_t chain = blockIdx.y;
-    x += chain * gridDim.x * T * C;
-    out += chain * gridDim.x * T * C;
-    w1 += chain * kTaps * C * C * (kSplit ? 2 : 1);
-    w2 += chain * kTaps * C * C * (kSplit ? 2 : 1);
-    gn_scale += chain * C;
-    gn_bias += chain * C;
-  }
+  // chain blockIdx.y of the grid (windows, chains): its activations, weights
+  // and norm parameters
+  const size_t chain = blockIdx.y;
+  x += chain * gridDim.x * T * C;
+  out += chain * gridDim.x * T * C;
+  w1 += chain * kTaps * C * C * 2;
+  w2 += chain * kTaps * C * C * 2;
+  gn_scale += chain * C;
+  gn_bias += chain * C;
   const size_t win = (size_t)blockIdx.x * T * C;
 
   float col[kCols][T];
@@ -123,20 +121,20 @@ __global__ void __launch_bounds__(C / Cols<C, kSplit>::value) temporal_block_ker
 #pragma unroll
     for (int t = 0; t < T; ++t) col[c][t] = x[win + t * C + co + c * kThreads];
   }
-  store_columns<T, C, kSplit, kCols>(tile, col, co);
+  store_columns<T, C, kCols>(tile, col, co);
   __syncthreads();
 
-  conv_columns<T, C, kSplit, kCols>(tile, w1, co, dilation, col);
+  conv_columns<T, C, kCols>(tile, w1, co, dilation, col);
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
 #pragma unroll
     for (int t = 0; t < T; ++t) col[c][t] = gelu(col[c][t]);
   }
   __syncthreads();  // every thread has finished reading x's tile
-  store_columns<T, C, kSplit, kCols>(tile, col, co);
+  store_columns<T, C, kCols>(tile, col, co);
   __syncthreads();
 
-  conv_columns<T, C, kSplit, kCols>(tile, w2, co, dilation, col);
+  conv_columns<T, C, kCols>(tile, w2, co, dilation, col);
   float sum = 0.0f;
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
@@ -169,16 +167,16 @@ __global__ void __launch_bounds__(C / Cols<C, kSplit>::value) temporal_block_ker
   }
 }
 
-template <int T, int C, bool kSplit, bool kStacked>
+template <int T, int C>
 cudaError_t launch_kernel(const float* x, const float* w1, const float* w2, const float* gs,
                           const float* gb, float* out, int chains, int batch, int dilation,
                           cudaStream_t stream) {
-  constexpr size_t smem = (size_t)T * C * (kSplit ? 8 : 4);
-  cudaError_t err = cudaFuncSetAttribute(temporal_block_kernel<T, C, kSplit, kStacked>,
+  constexpr size_t smem = (size_t)T * C * 8;
+  cudaError_t err = cudaFuncSetAttribute(temporal_block_kernel<T, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  temporal_block_kernel<T, C, kSplit, kStacked>
-      <<<dim3(batch, chains), C / Cols<C, kSplit>::value, smem, stream>>>(
+  temporal_block_kernel<T, C>
+      <<<dim3(batch, chains), C / Cols<C>::value, smem, stream>>>(
           x, w1, w2, gs, gb, out, dilation);
   return cudaGetLastError();
 }
@@ -274,76 +272,6 @@ cudaError_t launch_high(const float* x, const __nv_bfloat16* w, const float* gs,
   return cudaGetLastError();
 }
 
-// K3 at "highest": W = 128 / T windows a block on the FMA body (see the
-// header). w1, w2: [5, C, C] fp32.
-template <int T, int C>
-__global__ void __launch_bounds__(FmaConv<T, C>::kThreads, 1) temporal_block_fma_kernel(
-    const float* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ w2,
-    const float* __restrict__ gn_scale, const float* __restrict__ gn_bias, float* __restrict__ out,
-    int batch, int dilation) {
-  using L = FmaConv<T, C>;
-  constexpr float inv_n = 1.0f / (float)(T * C);
-  extern __shared__ float4 smem_f[];
-  float* in = reinterpret_cast<float*>(smem_f);
-  float* ring = in + L::kTileFloats;
-  float* red = ring + L::kStages * L::kStageFloats;
-  const int win0 = blockIdx.x * L::kWindows;
-  const int valid_rows = min(L::kWindows, batch - win0) * T;
-  const size_t base = (size_t)win0 * T * C;
-  // the thread's window in the epilogues is inside the batch
-  const bool valid = win0 + (int)threadIdx.x / (2 * T) < batch;
-
-  fma_load_input<T, C>(in, x + base, valid_rows);
-  __syncthreads();
-  float acc[L::kRM][L::kCols];
-  fma_conv<T, C>(acc, in, ring, w1, dilation, valid_rows);
-  // h = GELU(conv1), in place in the tile
-  fma_store_input<T, C>(in, acc);
-  __syncthreads();
-  fma_epilogue<T, C>([&](int r, int c, int) { in[r * L::kLd + c] = gelu(in[r * L::kLd + c]); });
-  __syncthreads();
-  fma_conv<T, C>(acc, in, ring, w2, dilation, valid_rows);
-
-  // y = GELU(conv2 + x), GroupNorm over each window, on the staged tile
-  fma_store_input<T, C>(in, acc);
-  __syncthreads();
-  float sum = 0.0f;
-  fma_epilogue<T, C>([&](int r, int c, int) {
-    const float xv = valid ? __ldg(x + base + (size_t)r * C + c) : 0.0f;
-    const float v = gelu(in[r * L::kLd + c] + xv);
-    in[r * L::kLd + c] = v;
-    sum += v;
-  });
-  const float mean = window_sum<T>(sum, red) * inv_n;
-  float sq = 0.0f;
-  fma_epilogue<T, C>([&](int r, int c, int) {
-    const float dv = in[r * L::kLd + c] - mean;
-    sq += dv * dv;
-  });
-  const float rstd = rsqrtf(window_sum<T>(sq, red) * inv_n + 1e-5f);
-  if (!valid) return;
-  fma_epilogue<T, C>([&](int r, int c, int) {
-    out[base + (size_t)r * C + c] =
-        (in[r * L::kLd + c] - mean) * rstd * __ldg(gn_scale + c) + __ldg(gn_bias + c);
-  });
-}
-
-template <int T, int C>
-cudaError_t launch_highest(const float* x, const float* w1, const float* w2, const float* gs,
-                           const float* gb, float* out, int batch, int dilation, int windows_per_block,
-                           int smem_bytes, cudaStream_t stream) {
-  using L = FmaConv<T, C>;
-  // the caller's plan (ops/conv_kernel.py::fma_plan) must be this instantiation's
-  if (windows_per_block != L::kWindows || smem_bytes != (int)L::kSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(temporal_block_fma_kernel<T, C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (batch + L::kWindows - 1) / L::kWindows;
-  temporal_block_fma_kernel<T, C><<<blocks, L::kThreads, L::kSmem, stream>>>(x, w1, w2, gs, gb, out,
-                                                                           batch, dilation);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // K3 at "highest" on the FMA body: w1, w2 [5, C, C] fp32. Supported: t_len in
@@ -360,8 +288,8 @@ extern "C" int vge_temporal_block(int device, const float* x, const float* w1,
   if (err != cudaSuccess) return (int)err;
   if (batch == 0) return (int)cudaSuccess;
   return (int)with_shape(t_len, channels, [&](auto t, auto c) {
-    return launch_highest<decltype(t)::value, decltype(c)::value>(
-        x, w1, w2, gs, gb, out, batch, dilation, windows_per_block, smem_bytes, stream);
+    return launch_fma_block<decltype(t)::value, decltype(c)::value>(
+        x, w1, w2, gs, gb, nullptr, out, batch, dilation, windows_per_block, smem_bytes, stream);
   });
 }
 
@@ -395,7 +323,7 @@ extern "C" int vge_temporal_block_stacked(int device, const float* x, const floa
   if (batch == 0 || chains == 0) return (int)cudaSuccess;
   if (chains > 65535) return (int)cudaErrorInvalidValue;
   return (int)with_shape(t_len, channels, [&](auto t, auto c) {
-    return launch_kernel<decltype(t)::value, decltype(c)::value, true, true>(
+    return launch_kernel<decltype(t)::value, decltype(c)::value>(
         x, w1, w2, gs, gb, out, chains, batch, dilation, stream);
   });
 }

@@ -33,13 +33,24 @@
 //
 // "highest", forward and backward: CUDA-core FMAs, bound by the fp32 FMA
 // rate. Forward: 2 convs * 5 taps * T * C * C = 21 M FMAs per window (20.1 G
-// at 960 windows). Backward: six conv-sized products (two recomputed, dd1,
-// dx, dw1, dw2), 60.4 G at 960 windows.
+// at 960 windows, 17.3 G counting only the rows a shifted tap reaches: 0.52
+// ms at the H100 data sheet's 67 TFLOP/s, the mean over d = 1/2/4/8).
+// Backward: six conv-sized products (two recomputed, dd1, dx, dw1, dw2),
+// 60.4 G at 960 windows.
 //
-// The forward at "highest" (train_fwd_kernel) is K9's CUDA-core body
-// (conv_columns): one block per window, each thread keeps 4 output channels
-// for all T rows in registers, the conv input sits in a shared tile. Its move
-// onto the FMA body below is a later change.
+// Forward at "highest": fma_block_kernel of conv_tile.cuh, the stage forward
+// K3 runs at "highest", here with the dropout mask. W = 128 / T windows a
+// block (4 at T = 32) on the FMA body (fma_conv: x row-major in a shared tile
+// of 129 rows of C + 1 floats, fp32 weights through a 4-stage cp.async ring,
+// an 8 x 16 register tile a thread at C = 256): conv1 staged in the tile and
+// d1 = GELU(h1) * mask written there in place (the mask applied before conv2,
+// as train_bwd_fma_kernel's first epilogue does); conv2 staged, the residual
+// x re-read from device memory, GELU, the window's mean and variance
+// (window_sum, a fixed order) and the affine on the tile. Each block reads
+// the two convs' 2.6 MB of fp32 weights once from L2: 0.63 GB a 960-window
+// launch (2.5 GB at one window a block, the CUDA-core body it replaces). It
+// writes only out, no atomics: two calls give the same bits. Shared memory
+// 194 KB at C = 256, one block an SM: 240 blocks are 1.8 waves on 132 SMs.
 //
 // Backward at "highest": three launches, because Hopper's blocks run in no
 // order and nothing carries a sum from one block to the next, as the TPU's
@@ -126,87 +137,7 @@ __device__ __forceinline__ float gelu_grad(float u) {
   return 0.5f * (1.0f + erff(u * kInvSqrt2)) + u * expf(-0.5f * u * u) * kInvSqrt2Pi;
 }
 
-// Mean and reciprocal standard deviation of the block's T * C values.
-template <int T, int C, int kCols>
-__device__ __forceinline__ void window_stats(const float (&col)[kCols][T], float* red,
-                                             float& mean, float& rstd) {
-  constexpr int kWarps = C / kCols / 32;
-  constexpr float inv_n = 1.0f / (float)(T * C);
-  float sum = 0.0f;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) sum += col[c][t];
-  }
-  mean = block_sum<kWarps>(sum, red) * inv_n;
-  float sq = 0.0f;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const float dv = col[c][t] - mean;
-      sq += dv * dv;
-    }
-  }
-  rstd = rsqrtf(block_sum<kWarps>(sq, red) * inv_n + 1e-5f);
-}
-
 // ---------------------------------------------------------------- forward
-
-// The forward at "highest" (fp32 FMAs).
-template <int T, int C>
-__global__ void __launch_bounds__(C / Cols<C, false>::value) train_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ w2,
-    const float* __restrict__ gn_scale, const float* __restrict__ gn_bias,
-    const float* __restrict__ mask, float* __restrict__ out, int dilation) {
-  constexpr int kCols = Cols<C, false>::value;
-  constexpr int kThreads = C / kCols;
-  extern __shared__ float4 smem[];
-  __shared__ float red[kThreads / 32];
-  float* tile = reinterpret_cast<float*>(smem);
-  const int co = threadIdx.x;
-  const size_t win = (size_t)blockIdx.x * T * C;
-
-  float col[kCols][T];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) col[c][t] = x[win + t * C + co + c * kThreads];
-  }
-  store_columns<T, C, false, kCols>(tile, col, co);
-  __syncthreads();
-
-  conv_columns<T, C, false, kCols>(tile, w1, co, dilation, col);
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      float v = gelu(col[c][t]);
-      if (mask != nullptr) v *= mask[win + t * C + co + c * kThreads];
-      col[c][t] = v;
-    }
-  }
-  __syncthreads();  // every thread has finished reading x's tile
-  store_columns<T, C, false, kCols>(tile, col, co);
-  __syncthreads();
-
-  conv_columns<T, C, false, kCols>(tile, w2, co, dilation, col);
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) col[c][t] = gelu(col[c][t] + x[win + t * C + co + c * kThreads]);
-  }
-  float mean, rstd;
-  window_stats<T, C, kCols>(col, red, mean, rstd);
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int ch = co + c * kThreads;
-    const float g = gn_scale[ch];
-    const float bias = gn_bias[ch];
-#pragma unroll
-    for (int t = 0; t < T; ++t) out[win + t * C + ch] = (col[c][t] - mean) * rstd * g + bias;
-  }
-}
 
 // The forward at "default" on the tensor cores: W = 128 / T windows a block
 // (see the header). w: [2, 5, C, C] bf16, the rounded w1 and w2. Each conv's
@@ -946,30 +877,12 @@ __global__ void __launch_bounds__(GradTc<C>::kThreads, 2) tap_grad_tc_kernel(
 
 // ---------------------------------------------------------------- launches
 
-struct FwdArgs {
-  const float *x, *w1, *w2, *gs, *gb, *mask;
-  float* out;
-  int batch, dilation;
-  cudaStream_t stream;
-};
-
 struct BwdArgs {
   const float *x, *w1, *w2, *w1t, *w2t, *gs, *dy, *mask;
   float *dx, *d1, *dr, *dh1, *pgamma, *pbeta, *partial, *dw1, *dw2, *dgamma, *dbeta;
   int batch, dilation, windows_per_block, smem_bytes, splits, grad_smem_bytes;
   cudaStream_t stream;
 };
-
-template <int T, int C>
-cudaError_t launch_fwd(const FwdArgs& a) {
-  constexpr size_t smem = (size_t)T * C * 4;
-  cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<T, C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  train_fwd_kernel<T, C><<<a.batch, C / Cols<C, false>::value, smem, a.stream>>>(
-      a.x, a.w1, a.w2, a.gs, a.gb, a.mask, a.out, a.dilation);
-  return cudaGetLastError();
-}
 
 template <int T, int C>
 cudaError_t launch_fwd_tc(const float* x, const __nv_bfloat16* w, const float* gs, const float* gb,
@@ -1079,18 +992,21 @@ cudaError_t launch_bwd_tc(const BwdTcArgs& a) {
 
 }  // namespace
 
-// The forward at "highest": w1, w2 [5, C, C] fp32. Supported: t_len in {8,
-// 16, 32}, channels in {64, 128, 256}. mask may be null.
+// The forward at "highest" on the FMA body (fma_block_kernel): w1, w2 [5, C,
+// C] fp32. Supported: t_len in {8, 16, 32}, channels in {64, 128, 256}. mask
+// may be null. windows_per_block and smem_bytes: the wrapper's plan, which
+// must match the instantiation's (else cudaErrorInvalidValue).
 extern "C" int vge_temporal_block_train_fwd(int device, const float* x, const float* w1,
                                             const float* w2, const float* gs, const float* gb,
                                             const float* mask, float* out, int batch, int t_len,
-                                            int channels, int dilation, cudaStream_t stream) {
+                                            int channels, int dilation, int windows_per_block,
+                                            int smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (batch == 0) return (int)cudaSuccess;
-  const FwdArgs a{x, w1, w2, gs, gb, mask, out, batch, dilation, stream};
+  if (batch == 0) return (int)cudaErrorInvalidValue;
   return (int)with_shape(t_len, channels, [&](auto t, auto c) {
-    return launch_fwd<decltype(t)::value, decltype(c)::value>(a);
+    return launch_fma_block<decltype(t)::value, decltype(c)::value>(
+        x, w1, w2, gs, gb, mask, out, batch, dilation, windows_per_block, smem_bytes, stream);
   });
 }
 

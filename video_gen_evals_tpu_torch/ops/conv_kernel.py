@@ -190,13 +190,15 @@ _FMA_RING = (16, 4)     # input channels a weight stage, stages
 _FMA_GRAD_ROWS = 32     # rows a stage of the weight-gradient kernel
 _FMA_GRAD_STAGES = 3
 _FMA_GRAD_ROWS_PER_SPLIT = 2304   # 13 row ranges at [960, 32, C]: 520 blocks, 2 waves of 2 an SM
-_FMA_KINDS = ("block", "train_bwd")
+_FMA_KINDS = ("block", "train_fwd", "train_bwd")
 
 
 def fma_plan(t_len: int, channels: int, batch: int, kind: str) -> TcPlan:
-    """The plan of K3 at ``"highest"`` (``kind="block"``) or K4's backward at
-    ``"highest"`` (``"train_bwd"``: the window kernel, then the ten fp32
-    weight-gradient products over ``splits`` row ranges), on the FMA body:
+    """The plan of K3 at ``"highest"`` (``kind="block"``), K4's forward at
+    ``"highest"`` (``"train_fwd"``, the same kernel with the dropout mask) or
+    K4's backward at ``"highest"`` (``"train_bwd"``: the window kernel, then
+    the ten fp32 weight-gradient products over ``splits`` row ranges), on the
+    FMA body:
     W = 128 / T windows a block, the conv input in shared memory (129 rows
     of C + 1 floats) beside a ring of 4 stages of 16 input channels and a
     float for each of 8 warps. Depends on ``t_len``, ``channels``, ``batch``
@@ -210,7 +212,7 @@ def fma_plan(t_len: int, channels: int, batch: int, kind: str) -> TcPlan:
     tile = -(-(_FMA_ROWS + 1) * (channels + 1) // 4) * 4   # rows of C + 1 floats, to 16 bytes
     smem = 4 * (tile + stages * k_chunk * channels + 8)   # + a float a warp
     blocks = -(-batch // W)
-    if kind == "block":
+    if kind != "train_bwd":
         return TcPlan(W, blocks, smem)
     grad_tile = 128 if channels >= 128 else 64
     return TcPlan(

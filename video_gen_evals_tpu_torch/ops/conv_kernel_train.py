@@ -32,12 +32,12 @@ Precision:
 
 At ``"highest"`` the forward and the backward run on the CUDA cores, bound by
 the fp32 FMA rate: 20.1 G FMA forward and 60.4 G backward at ``[960, 32,
-256]``. The forward owns one window a block; the backward's window kernel
-owns W = 128 / T windows a block on the FMA body
-(:func:`~.conv_kernel.fma_plan`), which streams the four convs' fp32 weights
-through a shared-memory ring, and writes d1, dr and dh1 in fp32 for the ten
-fp32 weight-gradient products, which visit only the rows whose shifted row
-stays inside its window. At ``"default"`` both run on the tensor cores
+256]``. The forward kernel (K3's at ``"highest"``, with the dropout mask) and
+the backward's window kernel own W = 128 / T windows a block on the FMA body
+(:func:`~.conv_kernel.fma_plan`), which streams the convs' fp32 weights
+through a shared-memory ring; the backward's writes d1, dr and dh1 in fp32
+for the ten fp32 weight-gradient products, which visit only the rows whose
+shifted row stays inside its window. At ``"default"`` both run on the tensor cores
 (mma.sync, bf16 operands, fp32 sums), bound by their bf16 rate: 20.1 G and
 60.4 G multiply-adds, 0.04 and 0.12 ms at the H100's data-sheet 989 TFLOP/s.
 The forward kernel and the backward's window kernel own W = 128 / T windows
@@ -213,21 +213,24 @@ def _forward_cuda(x, w1, w2, gs, gb, mask, dilation, precision) -> torch.Tensor:
     out = torch.empty_like(x)
     B, t_len, C = x.shape
     lib = load_library().lib
+    x, gs, gb = aligned(x), aligned(gs), aligned(gb)
+    mask = None if mask is None else aligned(mask)
+    mask_ptr = None if mask is None else mask.data_ptr()
     if precision == "default":
         plan = tc_plan(t_len, C, B, "train_fwd")
         wk = train_weight_planes(w1, w2, convs=2)
-        x, gs, gb = aligned(x), aligned(gs), aligned(gb)
-        mask = None if mask is None else aligned(mask)
         code = lib.vge_temporal_block_train_fwd_tc(
-            x.device.index, x.data_ptr(), wk.data_ptr(), gs.data_ptr(), gb.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(), B, t_len, C,
-            int(dilation), plan.windows_per_block, plan.smem_bytes, stream_handle(x.device),
+            x.device.index, x.data_ptr(), wk.data_ptr(), gs.data_ptr(), gb.data_ptr(), mask_ptr,
+            out.data_ptr(), B, t_len, C, int(dilation), plan.windows_per_block, plan.smem_bytes,
+            stream_handle(x.device),
         )
     else:
+        plan = fma_plan(t_len, C, B, "train_fwd")
+        w1, w2 = aligned(w1), aligned(w2)   # held until the launch has read them
         code = lib.vge_temporal_block_train_fwd(
             x.device.index, x.data_ptr(), w1.data_ptr(), w2.data_ptr(), gs.data_ptr(),
-            gb.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(), B, t_len, C,
-            int(dilation), stream_handle(x.device),
+            gb.data_ptr(), mask_ptr, out.data_ptr(), B, t_len, C, int(dilation),
+            plan.windows_per_block, plan.smem_bytes, stream_handle(x.device),
         )
     check(code, "fused_temporal_block_train forward launch")
     fused_temporal_block_train.launches += 1

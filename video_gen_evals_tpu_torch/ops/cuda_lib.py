@@ -68,8 +68,8 @@ _SIGNATURES = {
     "vge_temporal_chain": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            ctypes.POINTER(ctypes.c_int), _I, _I, _P],
     # device, x, w1, w2, gn_scale, gn_bias, mask (or null), out, batch, t_len,
-    # channels, dilation, stream ("highest")
-    "vge_temporal_block_train_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # channels, dilation, windows_per_block, smem_bytes, stream ("highest")
+    "vge_temporal_block_train_fwd": [_I] + [_P] * 7 + [_I] * 6 + [_P],
     # device, x, w (bf16 planes), gn_scale, gn_bias, mask (or null), out,
     # batch, t_len, channels, dilation, windows_per_block, smem_bytes, stream
     # ("default")
