@@ -121,6 +121,35 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    ms per 32-frame chunk split into letterbox, detector and postprocess (NMS
    apart), peak memory; the small YOLOX on the card against the CPU (raw
    outputs within 1e-4 of scale, equal detections).
+10. The keypoint branch and what needs it, on the same video, every net drawn
+   on the card from a seed: DWPose-L (RTMPose-l at its published geometry:
+   384 x 288 crops, 133 keypoints, deepen and widen 1.0, GAU 256 / s 128, 576 x
+   768 SimCC bins) with YOLOX-L, ViT-H at depth 32 and the SMPL head.
+   process_video_keypoints (kp120 [72, 120] float32, valid [72] bool, each
+   keypoint -1 or inside its pose crop's window); process_video_full with
+   keypoints and keep_all_frames in the yolox mode (YOLOX once a 32-frame chunk
+   for both branches, counted by a forward hook, K6 32 a chunk) and in the
+   rcnn mode (the exact R-CNN 9 times, K5 9 times, YOLOX 3 times, K6 96
+   times, kp120 bitwise the yolox mode's), then without keep_all_frames
+   ((None, None) or the frames of the single-person mask); the CPU tests'
+   small pose net on the card against the CPU on 4 frames (logits within
+   POSE_LOGIT_TOL of scale, keypoints equal where the top-two gap allows);
+   DWPose-L's bf16 mode against fp32 on one chunk's crops (POSE_BF16_TOL in L2
+   norm, the share of keypoints within one bin and the largest move);
+   process_videos_streamed over 72 + 72 frames of 360 x 640 and 48 of 288 x
+   512 against process_video_full a video; run_tree on a .npy tree of 2
+   actions x 3 videos with one corrupt (counts, the error ledger, a resumed
+   run, every npz and keypoints.npy read back by the scoring loader as the
+   five modalities, RUN_CONFIG.json), and the extract CLI's main at its
+   defaults on the same tree (only the corrupt video an error);
+   score_videos_end_to_end over 4 videos with a seeded flagship scorer (AC and
+   TC finite, K1 and K3 launched once and 40 times a batch, extract_s, bank_s
+   and score_s). Times: the keypoint branch's frames/s and a 32-frame chunk
+   split into detect, pose crop, pose backbone, pose head + decode, and
+   backmap + postprocess; process_video_full frames/s with keypoints in the
+   yolox and rcnn modes at fp32 and in the bf16 mode, peak memory. The
+   phase's K5, K6, K1 and K3 launch counts are printed before the kernels
+   line.
 
 Then the smoke's wall time, a JSON line listing the kernels, the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -173,6 +202,16 @@ MESH_FRAMES, MESH_HW = 72, (360, 640)
 # unit-scale features (the seeded detector's FPN levels are of order 10)
 K5_TOL = 2e-5
 RCNN_BATCH = 8   # ExtractorConfig.rcnn_frame_batch
+# the pose net's SimCC logits on the card against the CPU: fp32 sums in another
+# order, relative to max(1, max |logit|) (the CPU tests' tolerance against JAX)
+POSE_LOGIT_TOL = 1e-4
+# DWPose-L's SimCC logits in the bf16 mode against fp32, ||d|| / ||logits||
+# over a chunk: bf16 keeps 8 bits through each of the backbone's ~90
+# convolutions and the error accumulates (0.053-0.077 measured on the CPU for
+# the seeded DWPose-L on this video's crops, two seeds; the max-norm ratio that
+# BF16_STAGE_TOL bounds for ViT-H's residual stream read 0.11-0.32 there, set
+# by single outlying logits)
+POSE_BF16_TOL = 0.15
 # K9 and K10 against their plain versions at "high", both on the card, and a
 # fused forward's AC and TC against the module forward's: bf16x3 on both
 # sides, the sums in another order (measured 2e-5 to 6e-5 on an H100)
@@ -1869,6 +1908,354 @@ def phase_detector_modes(torch, card, exact):
     return results, launches
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the keypoint branch, process_video_full, the streamed path,
+# run_tree, the extract CLI and score_videos_end_to_end
+
+def _pose_config(bf16=False, mesh_detector="yolox", keep_all_frames=True):
+    """The extractor at full width: YOLOX-L, ViT-H at depth 32, the SMPL head,
+    DWPose-L and, in rcnn mode, the exact X101-32x8d-FPN."""
+    from video_gen_evals_tpu_torch.models.detector import DetectorConfig
+    from video_gen_evals_tpu_torch.models.pose2d import PoseNetConfig
+    from video_gen_evals_tpu_torch.models.vit import ViTConfig
+    from video_gen_evals_tpu_torch.pipelines.extract import ExtractorConfig
+
+    return ExtractorConfig(det=DetectorConfig.yolox_l(), vit=ViTConfig(depth=32, attention_impl="core"),
+                           pose=PoseNetConfig.dwpose_l(), frame_batch=32, mesh_detector=mesh_detector,
+                           keep_all_frames=keep_all_frames, matmul_precision="default" if bf16 else "highest",
+                           param_dtype="bfloat16" if bf16 else "float32")
+
+
+def _kp_clear(torch, ex, frames_dev):
+    """``[T, 120]`` bool: the kp120 entries whose keypoint is no near tie on
+    this extractor (both SimCC axes' top-two gaps and the score's distance
+    from 0.3 above POSE_LOGIT_TOL of the logits' scale)."""
+    from video_gen_evals_tpu_torch.models.pose2d import wholebody_to_openpose
+    from video_gen_evals_tpu_torch.ops.upstream_crops import dwpose_topdown_crop
+
+    cfg = ex.cfg
+
+    def chunk(frames, boxes):
+        with torch.inference_mode():
+            crops, _, _ = dwpose_topdown_crop(frames.float(), boxes, cfg.pose.input_hw, cfg.pose_padding)
+            lx, ly = ex.pose_net.logits(crops)
+            tol = POSE_LOGIT_TOL * max(1.0, lx.abs().max().item(), ly.abs().max().item())
+            top = [torch.topk(a, 2, dim=-1).values for a in (lx, ly)]
+            score = torch.minimum(top[0][..., 0], top[1][..., 0])
+            clear = ((top[0][..., 0] - top[0][..., 1] > tol) & (top[1][..., 0] - top[1][..., 1] > tol)
+                     & ((score - 0.3).abs() > tol) & (score.abs() > tol))
+            _, c134 = wholebody_to_openpose(torch.zeros(*clear.shape, 2, device=clear.device), clear.float())
+            rows = torch.cat([c134[:, :18], c134[:, 92:134]], dim=1) > 0.5
+        return {"clear": rows.repeat_interleave(2, dim=1)}
+
+    det = ex.detect_stage(frames_dev, with_keypoints=True)
+    return ex._batched(chunk, frames_dev, det["box_pose"])["clear"]
+
+
+def _check_kp120(torch, np, ex, frames, kp, tag):
+    """kp120 ``[T, 120]`` float32 and valid ``[T]`` bool; each keypoint either
+    (-1, -1) or its frame position (x * W, y * H) inside its pose crop's
+    window (DWPose's backmap lands there)."""
+    from video_gen_evals_tpu_torch.ops.upstream_crops import dwpose_center_scale
+
+    n, H, W = frames.shape[:3]
+    _check(kp["kp120"].shape == (n, 120) and kp["kp120"].dtype == np.float32, f"{tag}: kp120 {kp['kp120'].shape}")
+    _check(kp["valid"].shape == (n,) and kp["valid"].dtype == bool, f"{tag}: valid {kp['valid'].shape}")
+    pairs = kp["kp120"].reshape(n, 60, 2)
+    _check(bool(np.isfinite(pairs).all()), f"{tag}: non-finite kp120")
+    hidden = (pairs == -1).all(-1)
+    det = ex.detect_stage(torch.from_numpy(frames).cuda(), with_keypoints=True)
+    center, scale = (a.cpu().numpy()[:, None] for a in dwpose_center_scale(det["box_pose"], ex.cfg.pose.input_hw,
+                                                                           ex.cfg.pose_padding))
+    px = pairs * np.array([W, H], np.float32)
+    inside = (np.abs(px - center) <= scale / 2 + 1e-3 * np.maximum(1.0, np.abs(center))).all(-1)
+    _check(bool((hidden | inside).all()), f"{tag}: a keypoint neither -1 nor inside its crop window")
+    return int(hidden.sum())
+
+
+def phase_keypoints(torch, card):
+    """Phase 10: DWPose-L on the keypoint branch and everything that needs it:
+    process_video_keypoints, process_video_full in both detector modes and
+    both precision modes, the pose net on the card against the CPU, the
+    streamed path, run_tree and the CLI on a .npy tree, and
+    score_videos_end_to_end."""
+    import numpy as np
+
+    from video_gen_evals_tpu_torch.data.features import ModalityPaths, load_video_arrays
+    from video_gen_evals_tpu_torch.data.manifest import VideoItem, VideoManifest
+    from video_gen_evals_tpu_torch.data.windows import enumerate_windows
+    from video_gen_evals_tpu_torch.models import EncoderConfig, HumanActionScorer
+    from video_gen_evals_tpu_torch.models.pose2d import (
+        PoseNetConfig, RTMPoseNet, init_pose_weights_, simcc_decode, wholebody_to_openpose)
+    from video_gen_evals_tpu_torch.ops.attention_core import mha_core
+    from video_gen_evals_tpu_torch.ops.conv_kernel import fused_temporal_block
+    from video_gen_evals_tpu_torch.ops.roi_align import roi_align_pyramid_dma
+    from video_gen_evals_tpu_torch.ops.upstream_crops import dwpose_backmap, dwpose_topdown_crop
+    from video_gen_evals_tpu_torch.ops.window_kernel import gather_windows
+    from video_gen_evals_tpu_torch.pipelines.extract import Extractor
+    from video_gen_evals_tpu_torch.pipelines.extract import main as extract_main
+    from video_gen_evals_tpu_torch.pipelines.full import score_videos_end_to_end
+    from video_gen_evals_tpu_torch.pipelines.score import ScoreConfig
+    from video_gen_evals_tpu_torch.utils.names import ACTION_CLASSES
+
+    frames, _boxes, _large = mesh_video()
+    n, (H, W) = len(frames), MESH_HW
+    chunks = -(-n // 32)
+    frames_dev = torch.from_numpy(frames).cuda()
+    launches = {}
+
+    def counting(module):
+        calls = [0]
+        module.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+        return calls
+
+    # DWPose-L in the yolox mode, keep_all_frames
+    t0 = time.perf_counter()
+    ex = Extractor(_pose_config(), seed=SEED)
+    torch.cuda.synchronize()
+    pcfg = ex.cfg.pose
+    n_pose = sum(p.numel() for p in ex.pose_net.parameters())
+    _check(pcfg.input_hw == (384, 288) and pcfg.num_keypoints == 133 and pcfg.simcc_bins == (576, 768)
+           and (pcfg.deepen_factor, pcfg.widen_factor, pcfg.gau_dim, pcfg.gau_s) == (1.0, 1.0, 256, 128),
+           f"keypoints: the pose net is not DWPose-L's geometry: {pcfg}")
+    print(f"keypoints: DWPose-L (RTMPose-l, 384 x 288 crops, 133 keypoints, 576 x 768 SimCC bins; "
+          f"{n_pose / 1e6:.2f} M parameters) + YOLOX-L + ViT-H depth 32 + SMPL head drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    kp = ex.process_video_keypoints(frames)
+    torch.cuda.synchronize()
+    hidden = _check_kp120(torch, np, ex, frames, kp, "process_video_keypoints")
+    print(f"keypoints: process_video_keypoints({n} frames): kp120 {kp['kp120'].shape} float32, valid "
+          f"{int(kp['valid'].sum())} of {n}; finite, {hidden} of {n * 60} keypoints -1, the rest inside their crops")
+
+    yolox_calls = counting(ex.detector)
+    yolox_calls[0] = mha_core.launches = 0
+    mesh, kp_full = ex.process_video_full(frames, with_keypoints=True)
+    torch.cuda.synchronize()
+    worst = _check_contract(torch, np, mesh, n, "process_video_full yolox")
+    _check(yolox_calls[0] == chunks and mha_core.launches == 32 * chunks,
+           f"process_video_full yolox: YOLOX ran {yolox_calls[0]} times, K6 {mha_core.launches}")
+    _check(np.array_equal(kp_full["kp120"], kp["kp120"]), "process_video_full yolox: kp120 differs from "
+           "process_video_keypoints'")
+    launches["K6 yolox"] = mha_core.launches
+    print(f"keypoints: process_video_full({n} frames, with_keypoints) yolox mode: YOLOX ran {yolox_calls[0]} "
+          f"times for both branches ({chunks} chunks), K6 {mha_core.launches}; contract shapes, rotations within "
+          f"{worst:.1e}; kp120 equal to process_video_keypoints'")
+
+    # rcnn mode: the same YOLOX and pose weights (seeds + 1 and + 3)
+    rc = Extractor(_pose_config(mesh_detector="rcnn"), seed=SEED)
+    _person_class_(torch, rc.rcnn)
+    rcnn_calls, rc_yolox_calls = counting(rc.rcnn), counting(rc.detector)
+    _reset_k5_counts()
+    mha_core.launches = 0
+    mesh_rc, kp_rc = rc.process_video_full(frames, with_keypoints=True)
+    torch.cuda.synchronize()
+    k5 = roi_align_pyramid_dma.launches
+    _check_contract(torch, np, mesh_rc, n, "process_video_full rcnn")
+    want = (-(-n // RCNN_BATCH), -(-n // RCNN_BATCH), chunks, 32 * chunks)
+    got = (rcnn_calls[0], k5, rc_yolox_calls[0], mha_core.launches)
+    _check(got == want, f"process_video_full rcnn: (R-CNN, K5, YOLOX, K6) {got} != {want}")
+    _check(np.array_equal(kp_rc["kp120"], kp_full["kp120"]) and np.array_equal(kp_rc["valid"], kp_full["valid"]),
+           "process_video_full rcnn: kp120 is not bitwise the yolox mode's")
+    launches["K5 rcnn"], launches["K6 rcnn"] = k5, mha_core.launches
+    print(f"keypoints: process_video_full rcnn mode: R-CNN ran {got[0]} times, K5 {got[1]}, YOLOX {got[2]}, K6 "
+          f"{got[3]}; kp120 bitwise the yolox mode's")
+
+    # the reference's rule
+    ex.cfg.keep_all_frames = False
+    single = ex.detect_stage(frames_dev)["single"].cpu().numpy()
+    ruled, ruled_kp = ex.process_video_full(frames, with_keypoints=True)
+    ex.cfg.keep_all_frames = True
+    if single.sum() > 0 and single.mean() >= ex.cfg.min_single_ratio:
+        _check(ruled is not None and np.array_equal(ruled["frame_idx"], np.flatnonzero(single))
+               and ruled_kp["kp120"].shape == (n, 120), "keep_all_frames=False: kept frames differ from the mask")
+    else:
+        _check(ruled is None and ruled_kp is None, "keep_all_frames=False: a video below min_single_ratio was kept")
+    print(f"keypoints: keep_all_frames=False: single-person mask {int(single.sum())} of {n} frames -> "
+          f"{'(None, None)' if ruled is None else str(len(ruled['frame_idx'])) + ' mesh frames'}, as the rule says")
+
+    # the pose net on the card against the CPU: the CPU tests' small config
+    small = PoseNetConfig(input_hw=(64, 48), num_keypoints=133, widen_factor=0.125, deepen_factor=0.34,
+                          gau_dim=32, gau_s=16)
+    on_card = RTMPoseNet(small).cuda().eval()
+    init_pose_weights_(on_card, torch.Generator(device="cuda").manual_seed(SEED))
+    on_cpu = RTMPoseNet(small).eval()
+    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    with torch.inference_mode():
+        idx = torch.arange(4, device="cuda") * 17
+        det = ex.detect_yolox(frames_dev[idx])
+        crops, _, _ = dwpose_topdown_crop(frames_dev[idx].float(), det["box_pose"], small.input_hw)
+        a, b = on_card.logits(crops), on_cpu.logits(crops.cpu())
+    scale = max(1.0, *(x.abs().max().item() for x in b))
+    d = max((x.cpu() - y).abs().max().item() for x, y in zip(a, b)) / scale
+    kp_a, kp_b = simcc_decode(*(x.cpu() for x in a), small.simcc_ratio)[0], simcc_decode(*b, small.simcc_ratio)[0]
+    gaps = [torch.topk(x, 2, dim=-1).values for x in b]
+    clear = (gaps[0][..., 0] - gaps[0][..., 1] > POSE_LOGIT_TOL * scale) & (gaps[1][..., 0] - gaps[1][..., 1]
+                                                                          > POSE_LOGIT_TOL * scale)
+    same = bool((kp_a[clear] == kp_b[clear]).all())
+    print(f"keypoints: small pose net, 4 frames, card vs CPU: SimCC logits within {d:.2e} of max(1, max|x|) (tol "
+          f"{POSE_LOGIT_TOL}); keypoints {'equal' if same else 'DIFFER'} on {int(clear.sum())} of {clear.numel()} "
+          f"({int((~clear).sum())} excused as near ties)")
+    _check(d <= POSE_LOGIT_TOL and same, "keypoints: small pose net card vs CPU differ")
+
+    # the bf16 mode's pose net against fp32 on the same crops (the same weights rounded)
+    bf16 = RTMPoseNet(pcfg).cuda().eval()
+    bf16.load_state_dict(ex.pose_net.state_dict())
+    bf16.to(torch.bfloat16).fp32_head_()
+    with torch.inference_mode():
+        det = ex.detect_yolox(frames_dev[:32])
+        crops, _, _ = dwpose_topdown_crop(frames_dev[:32].float(), det["box_pose"], pcfg.input_hw)
+        la, lb = ex.pose_net.logits(crops), bf16.logits(crops)
+        ka, kb = simcc_decode(*la, pcfg.simcc_ratio)[0], simcc_decode(*lb, pcfg.simcc_ratio)[0]
+    rel = max(((x - y).norm() / x.norm()).item() for x, y in zip(la, lb))
+    rel_max = max(((x - y).abs().max() / x.abs().max()).item() for x, y in zip(la, lb))
+    move = (ka - kb).abs().amax(-1)
+    print(f"keypoints: DWPose-L bf16 mode vs fp32 on one chunk's crops: SimCC logits ||d|| / ||x|| {rel:.4f} "
+          f"(tol {POSE_BF16_TOL}), max |d| / max |x| {rel_max:.4f}; "
+          f"{float((move <= 1.0 / pcfg.simcc_ratio).float().mean()):.3f} of keypoints within one bin, largest move "
+          f"{move.max().item():.1f} crop pixels")
+    _check(rel <= POSE_BF16_TOL, f"keypoints: bf16 pose logits off by {rel:.4f} > {POSE_BF16_TOL}")
+    del bf16, on_card, la, lb, crops
+    torch.cuda.empty_cache()
+
+    # the streamed path against the per-video one
+    other, _, _ = mesh_video(48, (288, 512), seed=SEED + 2)
+    items = [("a", frames), ("b", mesh_video(seed=SEED + 1)[0]), ("c", other)]
+    mesh_by, kp_by = ex.process_videos_streamed(items, with_keypoints=True)
+    worst_mesh, excused = 0.0, 0
+    for name, fr in items:
+        m, k = ex.process_video_full(fr, with_keypoints=True)
+        _check(np.array_equal(mesh_by[name]["frame_idx"], m["frame_idx"])
+               and np.array_equal(kp_by[name]["valid"], k["valid"]), f"streamed {name}: masks differ")
+        for key in ("vit", "pose", "betas", "global_orient"):
+            d = float(np.abs(mesh_by[name][key] - m[key]).max()) / max(1.0, float(np.abs(m[key]).max()))
+            worst_mesh = max(worst_mesh, d)
+        clear = _kp_clear(torch, ex, torch.from_numpy(fr).cuda())
+        excused += int((~clear).sum())
+        _check(bool((kp_by[name]["kp120"][clear] == k["kp120"][clear]).all()), f"streamed {name}: keypoints differ")
+    _check(worst_mesh <= 1e-4, f"streamed: mesh arrays off by {worst_mesh:.2e} of scale")
+    print(f"keypoints: process_videos_streamed over 72 + 72 frames of 360 x 640 and 48 of 288 x 512 against "
+          f"process_video_full a video: mesh within {worst_mesh:.1e} of scale (tol 1e-4), masks equal, keypoints "
+          f"equal ({excused} entries excused as near ties)")
+
+    # run_tree on a .npy tree, then the CLI at its defaults
+    with tempfile.TemporaryDirectory() as root:
+        tree = os.path.join(root, "videos")
+        for a, action in enumerate(ACTION_CLASSES[:2]):
+            os.makedirs(os.path.join(tree, action))
+            for v in range(3):
+                path = os.path.join(tree, action, f"v{v}.npy")
+                if (a, v) == (1, 2):
+                    with open(path, "wb") as f:
+                        f.write(b"corrupt: not a frame stack")
+                else:
+                    np.save(path, mesh_video(32, seed=SEED + 10 + 3 * a + v)[0])
+        out = {k: os.path.join(root, k) for k in ("meshes", "kps", "logs")}
+        t0 = time.perf_counter()
+        counts = ex.run_tree(tree, out["meshes"], out["logs"], kp_out_root=out["kps"])
+        wall = time.perf_counter() - t0
+        _check(counts == {"single": 5, "not_single": 0, "errors": 1, "skipped": 0}, f"run_tree: counts {counts}")
+        with open(os.path.join(out["logs"], "errors", f"{ACTION_CLASSES[1]}.json")) as f:
+            errors = json.load(f)
+        _check(list(errors) == ["v2.npy"], f"run_tree: errors recorded for {list(errors)}")
+        again = ex.run_tree(tree, out["meshes"], out["logs"], kp_out_root=out["kps"])
+        _check(again == {"single": 0, "not_single": 0, "errors": 1, "skipped": 5}, f"run_tree resumed: {again}")
+        read = set()
+        for action in ACTION_CLASSES[:2]:
+            for v in range(3 if action == ACTION_CLASSES[0] else 2):
+                item = VideoItem(action, f"v{v}.npz", os.path.join(out["meshes"], action, f"v{v}.npz"), 32, 1024)
+                arrays = load_video_arrays(item, ModalityPaths(keypoint_dir=out["kps"], layout="real"))
+                read.add(tuple(sorted((k, x.shape) for k, x in arrays.items())))
+        want = {(("beta", (32, 10)), ("global", (32, 9)), ("kp2d", (32, 120)), ("pose", (32, 207)),
+                 ("vit", (32, 1024)))}
+        _check(read == want, f"run_tree: the scoring loader read {read}")
+        _check(os.path.exists(os.path.join(out["logs"], "RUN_CONFIG.json")), "run_tree: no RUN_CONFIG.json")
+        print(f"keypoints: run_tree over 2 actions x 3 .npy videos (one corrupt), keep_all_frames, --out-kps: "
+              f"{counts} in {wall:.2f} s; resumed: {again} (an error is retried, as the ledger keeps it apart); "
+              f"every npz + keypoints.npy read back as the five modalities; RUN_CONFIG.json written")
+        t0 = time.perf_counter()
+        cli = extract_main(["--videos", tree, "--out-meshes", os.path.join(root, "cli_meshes"),
+                            "--out-kps", os.path.join(root, "cli_kps"), "--log-dir", os.path.join(root, "cli_logs")])
+        torch.cuda.synchronize()
+        _check(cli["errors"] == 1 and cli["single"] + cli["not_single"] == 5 and cli["skipped"] == 0,
+               f"extract CLI: counts {cli}")
+        print(f"keypoints: python -m video_gen_evals_tpu_torch.pipelines.extract at its defaults (seeded nets, the "
+              f"reference's rule) on the same tree: {cli} in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # frames to scores in one call
+    names = [f"GenSynth_{cls}_{i:02d}" for i, cls in enumerate(ACTION_CLASSES[:4])]
+    videos = {name: mesh_video(seed=SEED + 20 + i)[0] for i, name in enumerate(names)}
+    model = HumanActionScorer(EncoderConfig.create(DIMS_RAW, DIMS_DIFF), generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    centroids = rng.normal(size=(len(ACTION_CLASSES), model.config.d_model)).astype(np.float32)
+    centroids /= np.linalg.norm(centroids, axis=-1, keepdims=True)
+    label_dict = {c: i for i, c in enumerate(ACTION_CLASSES)}
+    windows = enumerate_windows(VideoManifest([VideoItem(c, nm, "", n, 1024) for c, nm in zip(ACTION_CLASSES, names)]),
+                                CLIP, STRIDE)
+    batches = -(-len(windows) // BATCH)
+    times = {}
+    gather_windows.launches = fused_temporal_block.launches = 0
+    result = score_videos_end_to_end(ex, model, videos, centroids, label_dict, phase_times=times,
+                                     cfg=ScoreConfig(clip_len=CLIP, stride=STRIDE, batch_size=BATCH))
+    torch.cuda.synchronize()
+    k1, k3 = gather_windows.launches, fused_temporal_block.launches
+    _check(sorted(result.scores) == sorted(names) and not result.rejected, f"full: scored {sorted(result.scores)}")
+    _check(all(math.isfinite(s[m]) for s in result.scores.values() for m in ("ac", "tc")), "full: AC or TC not finite")
+    _check((k1, k3) == (batches, 40 * batches), f"full: launches K1 {k1}, K3 {k3} != ({batches}, {40 * batches})")
+    _check(result.stats.modalities == ["vit", "global", "pose", "beta", "kp2d"], f"full: {result.stats.modalities}")
+    launches["K1 full"], launches["K3 full"] = k1, k3
+    print(f"keypoints: score_videos_end_to_end over {len(names)} videos of {n} frames (five modalities, "
+          f"{len(windows)} windows): AC/TC finite; K1 {k1}, K3 {k3} ({batches} batch); extract_s "
+          f"{times['extract_s']:.2f}, bank_s {times['bank_s']:.2f}, score_s {times['score_s']:.2f} on {card}")
+
+    # times: the keypoint branch, then process_video_full in each mode
+    with torch.inference_mode():
+        chunk = frames_dev[:32]
+        det = ex.detect_yolox(chunk)
+        crops, center, scale = dwpose_topdown_crop(chunk.float(), det["box_pose"], pcfg.input_hw, ex.cfg.pose_padding)
+        x = crops.permute(0, 3, 1, 2).contiguous()
+        feats = ex.pose_net.backbone(x)
+        kps, sc = simcc_decode(*ex.pose_net.head(feats), pcfg.simcc_ratio)
+        parts = {
+            "detect": _time_ms(lambda: ex.detect_yolox(chunk), 3),
+            "pose crop": _time_ms(lambda: dwpose_topdown_crop(chunk.float(), det["box_pose"], pcfg.input_hw,
+                                                              ex.cfg.pose_padding), 3),
+            "pose backbone": _time_ms(lambda: ex.pose_net.backbone(x), 3),
+            "pose head + decode": _time_ms(lambda: simcc_decode(*ex.pose_net.head(feats), pcfg.simcc_ratio), 3),
+            "backmap + postprocess": _time_ms(lambda: ex.kp_post(*wholebody_to_openpose(
+                dwpose_backmap(kps, center, scale, pcfg.input_hw), sc), (float(W), float(H))), 3),
+        }
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex.process_video_keypoints(frames)
+    dt = time.perf_counter() - t0
+    print(f"keypoints timing: process_video_keypoints {n / dt:.1f} frames/s ({n} frames, upload and fetch "
+          f"included); one 32-frame chunk: " + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items()) + f" on {card}")
+    fps = {}
+    for tag, bf16_mode, detector, net in (("yolox fp32", False, "yolox", ex), ("rcnn fp32", False, "rcnn", rc),
+                                          ("yolox bf16", True, "yolox", None), ("rcnn bf16", True, "rcnn", None)):
+        if net is None:   # the fp32 extractors ran this video already
+            net = Extractor(_pose_config(bf16=bf16_mode, mesh_detector=detector), seed=SEED)
+            if net.rcnn is not None:
+                _person_class_(torch, net.rcnn)
+            net.process_video_full(frames, with_keypoints=True)   # warm
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.process_video_full(frames, with_keypoints=True)
+        dt = time.perf_counter() - t0
+        fps[tag] = n / dt
+        print(f"keypoints timing: process_video_full with keypoints, {tag}: {n / dt:.1f} frames/s ({n} frames); "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+        if net is not ex:
+            del net
+        torch.cuda.empty_cache()
+    del ex, rc
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1903,6 +2290,7 @@ def main() -> int:
     kern.update(det_kern)
     mode_kern, mode_launches = phase_detector_modes(torch, card, exact_det)
     kern.update(mode_kern)
+    kp_launches = phase_keypoints(torch, card)
 
     src = "video_gen_evals_tpu_torch/csrc/"
     rows = [
@@ -1945,6 +2333,7 @@ def main() -> int:
                  mode_launches["roi_align_pyramid_dma[bfloat16]"]))
     for name, _f, _rep, n in rows:
         _check(n > 0, f"{name} was never launched on its main path")
+    print("keypoint path launches: " + ", ".join(f"{k} {v}" for k, v in kp_launches.items()))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + f, "replaces": rep, "launches": n,

@@ -15,13 +15,13 @@ from video_gen_evals_tpu.pipelines import extract as jax_extract
 from video_gen_evals_tpu_torch.data.features import ModalityPaths, load_video_arrays
 from video_gen_evals_tpu_torch.data.manifest import VideoItem
 from video_gen_evals_tpu_torch.models.detector import DetectorConfig
+from video_gen_evals_tpu_torch.models.pose2d import PoseNetConfig, RTMPoseNet, init_pose_weights_
 from video_gen_evals_tpu_torch.models.smpl_head import SMPLHeadConfig
 from video_gen_evals_tpu_torch.models.torch_compat import (
     head_state_dict_from_jax_tree,
     vit_state_dict_from_jax_tree,
 )
 from video_gen_evals_tpu_torch.models.vit import ViTConfig
-from video_gen_evals_tpu_torch.pipelines import extract as port_extract
 from video_gen_evals_tpu_torch.pipelines.extract import Extractor, ExtractorConfig
 from video_gen_evals_tpu_torch.utils.io import save_video_npz
 
@@ -168,8 +168,16 @@ def test_seeded_weights_and_checkpoint_file(tmp_path, weights, port):
     torch.save({"unrelated.weight": torch.zeros(2)}, path)
     with pytest.raises(ValueError, match="no keys under prefix"):
         Extractor.from_checkpoints(bare, tokenhmr=path, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Extractor.from_checkpoints(bare, dwpose="dw-ll_ucoco_384.pth", device="cpu")
+    # an mmpose-layout DWPose file of a pose geometry the caller set loads into
+    # the pose net (a default one would become dwpose_l())
+    small_pose = PoseNetConfig(input_hw=(64, 48), widen_factor=0.125, deepen_factor=0.34, gau_dim=32, gau_s=16)
+    pose_net = RTMPoseNet(small_pose)
+    init_pose_weights_(pose_net, torch.Generator().manual_seed(1))
+    pose_sd = pose_net.state_dict()
+    torch.save({"state_dict": pose_sd, "meta": {"epoch": 270}}, path)
+    with_pose = Extractor.from_checkpoints(dataclasses.replace(cfg, pose=small_pose), dwpose=path, device="cpu")
+    assert with_pose.cfg.pose == small_pose
+    assert torch.equal(with_pose.pose_net.state_dict()["head.cls_x.weight"], pose_sd["head.cls_x.weight"])
     # a Megvii YOLOX file of the lite geometry loads into the detector (a det
     # the caller set, here with 8 detections a frame, is kept; a default one
     # would become yolox_l())
@@ -182,11 +190,12 @@ def test_seeded_weights_and_checkpoint_file(tmp_path, weights, port):
 
 
 def test_calls_that_need_a_detector_raise(port):
-    """The keypoint branch's entries (they need the pose net on the
-    detector's pose boxes) and the legacy preprocessing still raise. Without
-    boxes, process_video runs the default YOLOX detect stage (its seeded lite
-    net here) under JAX's default rule (keep_all_frames False): the result is
-    None or the frames of the detector's single-person mask."""
+    """What is not ported raises and names its ROADMAP item: the legacy
+    preprocessing and a run_tree across hosts. Without boxes, process_video
+    runs the default YOLOX detect stage (its seeded lite net here) under
+    JAX's default rule (keep_all_frames False): the result is None or the
+    frames of the detector's single-person mask, and the keypoint entry gives
+    one row a frame."""
     frames, boxes = _video(5, 2)
     assert ExtractorConfig().keep_all_frames is False and port.cfg.mesh_detector == "yolox"
     single = port.detect_stage(torch.from_numpy(frames))["single"].numpy()
@@ -195,9 +204,10 @@ def test_calls_that_need_a_detector_raise(port):
         assert out is None
     else:
         np.testing.assert_array_equal(out["frame_idx"], np.flatnonzero(single))
-    for call in (port.process_video_keypoints, port.run_tree, port_extract.main):
-        with pytest.raises(NotImplementedError, match="detector"):
-            call()
+    kp = port.process_video_keypoints(frames)
+    assert kp["kp120"].shape == (len(frames), 120) and kp["valid"].shape == (len(frames),)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 5"):
+        port.run_tree("videos", "meshes", "logs", num_hosts=2, host_id=1)
     with pytest.raises(NotImplementedError, match="legacy"):
         ExtractorConfig(preproc="legacy")
     with pytest.raises(ValueError, match="square"):

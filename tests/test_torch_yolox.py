@@ -15,6 +15,7 @@ import torch
 from video_gen_evals_tpu.models import detector as jax_det
 from video_gen_evals_tpu.ops import upstream_crops as jax_crops
 from video_gen_evals_tpu_torch.models import detector as port_det
+from video_gen_evals_tpu_torch.models.pose2d import PoseNetConfig
 from video_gen_evals_tpu_torch.models.torch_compat import yolox_state_dict_from_jax_tree
 from video_gen_evals_tpu_torch.ops import upstream_crops as port_crops
 from video_gen_evals_tpu_torch.pipelines.extract import ExtractorConfig
@@ -244,7 +245,9 @@ def test_letterbox_matches_jax(hw):
 def test_published_config_and_checkpoint_branch(tmp_path, pair):
     """A YOLOX checkpoint switches a default ``det`` to ``yolox_l()`` and
     keeps one the caller set; ``extraction_params_from_checkpoints`` reads
-    Megvii's ``{"model": state_dict}`` file into ``det``; DWPose still raises."""
+    Megvii's ``{"model": state_dict}`` file into ``det``; a DWPose
+    checkpoint switches a default ``pose`` to ``dwpose_l()`` and keeps one the
+    caller set."""
     base = ExtractorConfig()
     assert base.det == port_det.DetectorConfig() and base.keep_all_frames is False
     assert published_config(base, yolox="yolox_l.pth").det == port_det.DetectorConfig.yolox_l()
@@ -260,5 +263,6 @@ def test_published_config_and_checkpoint_branch(tmp_path, pair):
     with torch.no_grad():
         a, b = model(x), pair["port"](x)
     assert all(torch.equal(a[k], b[k]) for k in a)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 2"):
-        published_config(base, dwpose="dw-ll_ucoco_384.pth")
+    assert published_config(base, dwpose="dw-ll_ucoco_384.pth").pose == PoseNetConfig.dwpose_l()
+    tiny_pose = PoseNetConfig(input_hw=(64, 48))
+    assert published_config(dataclasses.replace(base, pose=tiny_pose), dwpose="dw.pth").pose == tiny_pose

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .pose2d import ConvBN, SPPBottleneck, TrackedBatchNorm
+from .pose2d import ConvBN, SPPBottleneck, TrackedBatchNorm, calibrate_norms_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,12 +239,6 @@ def init_yolox_weights_(model: YOLOXDetector, generator: torch.Generator) -> Non
     boxes near 0.5 are common and the person rule has work to do."""
     head = model.head
     norms = [m for m in model.modules() if isinstance(m, TrackedBatchNorm)]
-
-    def calibrate(norm, args):
-        x = args[0].float()
-        norm.running_mean.copy_(x.mean(dim=(0, 2, 3)))
-        norm.running_var.copy_(x.var(dim=(0, 2, 3)))
-
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Conv2d):
@@ -261,12 +255,7 @@ def init_yolox_weights_(model: YOLOXDetector, generator: torch.Generator) -> Non
         dev, hw = head.obj_preds[0].weight.device, model.config.input_hw
         coarse = torch.rand(2, 3, hw[0] // 32, hw[1] // 32, generator=generator, device=dev)
         smooth = F.interpolate(coarse * 255.0, size=hw, mode="bilinear")
-        hooks = [norm.register_forward_pre_hook(calibrate) for norm in norms]
-        try:
-            model(smooth.permute(0, 2, 3, 1))
-        finally:
-            for h in hooks:
-                h.remove()
+    calibrate_norms_(model, norms, smooth.permute(0, 2, 3, 1))
 
 
 # ---------------------------------------------------------------------------

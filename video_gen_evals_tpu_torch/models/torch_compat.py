@@ -26,7 +26,8 @@ JAX run's AdamW moments in a torch optimizer.
 
 The detectors cross by :func:`rcnn_state_dict_from_jax_tree` and
 :func:`yolox_state_dict_from_jax_tree`, the inverses of the JAX package's
-``detectron2_to_flax`` and ``yolox_to_flax``.
+``detectron2_to_flax`` and ``yolox_to_flax``, and the 2D pose net by
+:func:`pose_state_dict_from_jax_tree`, the inverse of ``mmpose_to_flax``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 
 from .detector import DetectorConfig
 from .fusion_encoder import _PE_MAX_LEN, EncoderConfig, HumanActionScorer, sinusoidal_positional_embedding
+from .pose2d import PoseNetConfig
 from .rcnn import RCNNConfig
 from .smpl_head import SMPLHeadConfig
 from .vit import ViTConfig
@@ -364,6 +366,12 @@ def rcnn_state_dict_from_jax_tree(params: FlaxParams, config: RCNNConfig) -> T.D
     return _as_tensors(sd)
 
 
+def _with_counters(sd: T.Dict[str, T.Any]) -> T.Dict[str, torch.Tensor]:
+    """float32 tensors, the norms' ``num_batches_tracked`` counters int64."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.int64 if k.endswith("num_batches_tracked") else np.float32))
+            for k, v in sd.items()}
+
+
 def yolox_state_dict_from_jax_tree(params: FlaxParams, config: DetectorConfig) -> T.Dict[str, torch.Tensor]:
     """The JAX package's ``YOLOXDetector`` params (numpy leaves) -> the port's
     ``YOLOXDetector`` state_dict in Megvii's names: the inverse of the JAX
@@ -416,5 +424,65 @@ def yolox_state_dict_from_jax_tree(params: FlaxParams, config: DetectorConfig) -
             convbn(f"head.reg_convs.{i}.{j}", params[f"reg_conv{i}_{j}"])
         for name in ("cls", "reg", "obj"):
             pred(f"head.{name}_preds.{i}", params[f"{name}_pred{i}"])
-    return {k: torch.from_numpy(np.array(v, dtype=np.int64 if k.endswith("num_batches_tracked") else np.float32))
-            for k, v in sd.items()}
+    return _with_counters(sd)
+
+
+def pose_state_dict_from_jax_tree(params: FlaxParams, config: PoseNetConfig) -> T.Dict[str, torch.Tensor]:
+    """The JAX package's ``RTMPoseNet`` params (numpy leaves) -> the port's
+    ``RTMPoseNet`` state_dict in mmpose's names: the inverse of the JAX
+    package's ``mmpose_to_flax``. Convs (depthwise ones too) ``[kh, kw, in,
+    out]`` -> ``[out, in, kh, kw]``; the channel attention's ``fc`` (a dense
+    kernel ``[in, out]`` in JAX) -> a 1x1 conv ``[out, in, 1, 1]``; dense
+    kernels ``[in, out]`` -> ``[out, in]``; norms as in
+    :func:`yolox_state_dict_from_jax_tree`."""
+    sd: T.Dict[str, T.Any] = {}
+
+    def conv(prefix, p):
+        sd[f"{prefix}.weight"] = np.ascontiguousarray(np.transpose(_np(p["kernel"]), (3, 2, 0, 1)))
+        if "bias" in p:
+            sd[f"{prefix}.bias"] = _np(p["bias"])
+
+    def convbn(prefix, p):
+        conv(f"{prefix}.conv", p["conv"])
+        n = p["bn"]
+        for ours, theirs in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                             ("running_var", "var")):
+            sd[f"{prefix}.bn.{ours}"] = _np(n[theirs])
+        sd[f"{prefix}.bn.num_batches_tracked"] = np.zeros((), np.int64)
+
+    def csp(prefix, p):
+        for name in ("main_conv", "short_conv", "final_conv"):
+            convbn(f"{prefix}.{name}", p[name])
+        fc = p["attention"]["fc"]
+        sd[f"{prefix}.attention.fc.weight"] = np.ascontiguousarray(_dense_swap(fc["kernel"])[:, :, None, None])
+        sd[f"{prefix}.attention.fc.bias"] = _np(fc["bias"])
+        i = 0
+        while f"block{i}" in p:
+            blk = p[f"block{i}"]
+            convbn(f"{prefix}.blocks.{i}.conv1", blk["conv1"])
+            convbn(f"{prefix}.blocks.{i}.conv2.depthwise_conv", blk["conv2_dw"])
+            convbn(f"{prefix}.blocks.{i}.conv2.pointwise_conv", blk["conv2_pw"])
+            i += 1
+
+    bb = params["backbone"]
+    for i in range(3):
+        convbn(f"backbone.stem.{i}", bb[f"stem{i}"])
+    for s, (_, _, _, _, use_spp) in enumerate(config._ARCH, start=1):
+        convbn(f"backbone.stage{s}.0", bb[f"stage{s}_conv"])
+        if use_spp:
+            convbn(f"backbone.stage{s}.1.conv1", bb[f"stage{s}_spp"]["conv1"])
+            convbn(f"backbone.stage{s}.1.conv2", bb[f"stage{s}_spp"]["conv2"])
+        csp(f"backbone.stage{s}.{2 if use_spp else 1}", bb[f"stage{s}_csp"])
+    conv("head.final_layer", params["final_layer"])
+    sd["head.mlp.0.g"] = _np(params["mlp_ln"]["g"]).reshape(1)
+    sd["head.mlp.1.weight"] = _dense_swap(params["mlp_fc"]["kernel"])
+    gau = params["gau"]
+    sd["head.gau.ln.g"] = _np(gau["ln"]["g"]).reshape(1)
+    sd["head.gau.uv.weight"] = _dense_swap(gau["uv"]["kernel"])
+    sd["head.gau.o.weight"] = _dense_swap(gau["o"]["kernel"])
+    sd["head.gau.gamma"] = _np(gau["gamma"])
+    sd["head.gau.beta"] = _np(gau["beta"])
+    sd["head.gau.res_scale.scale"] = _np(gau["res_scale"])
+    for axis in ("x", "y"):
+        sd[f"head.cls_{axis}.weight"] = _dense_swap(params[f"cls_{axis}"]["kernel"])
+    return _with_counters(sd)

@@ -24,8 +24,18 @@ true fp32 (callers keep TF32 off).
 aspect-preserving ``cv2.resize(INTER_LINEAR)`` by ``r = min(S/h, S/w)``
 (half-pixel centres, taps clamped at the edges, rounded half to even and
 clipped as the uint8 path does), pasted at the top-left of a 114-filled
-``S x S`` canvas, raw BGR 0..255 with no mean or std. The DWPose crop half of
-the JAX module comes with the pose net.
+``S x S`` canvas, raw BGR 0..255 with no mean or std.
+
+:func:`dwpose_topdown_crop` is the mmpose top-down warp baked into DWPose's
+pose graph (ref ``modifications/dwpose_init.py:32-35``):
+``bbox_xyxy2cs(padding=1.25)``, ``_fix_aspect_ratio`` to the model's aspect,
+``get_warp_matrix``'s affine to ``(w, h)`` as a ``cv2.warpAffine`` of the
+uint8 frame (rounded half to even and clipped), then the per-channel mean
+(123.675, 116.28, 103.53) and std (58.395, 57.12, 57.375), which the
+published code applies to the BGR crop although they are RGB-order values: a
+quirk baked into the exported weights, reproduced as it is.
+:func:`dwpose_backmap` maps crop keypoints back to the frame
+(``kp / input_size * scale + center - scale / 2``).
 """
 
 from __future__ import annotations
@@ -38,6 +48,9 @@ import torch
 # hmr2/TokenHMR DEFAULT_MEAN/STD (0..255 scale, RGB)
 VITDET_MEAN_RGB = np.array([0.485, 0.456, 0.406], np.float32) * 255.0
 VITDET_STD_RGB = np.array([0.229, 0.224, 0.225], np.float32) * 255.0
+# mmpose/DWPose onnxpose preprocess constants, applied to the BGR image
+DWPOSE_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
+DWPOSE_STD = np.array([58.395, 57.12, 57.375], np.float32)
 LETTERBOX_FILL = 114.0
 
 
@@ -248,3 +261,75 @@ def yolox_letterbox(frames_rgb: torch.Tensor, size: int = 640) -> T.Tuple[torch.
         resized = torch.round(torch.einsum("bywc,xw->byxc", t, wx)).clamp(0.0, 255.0)
     canvas = torch.nn.functional.pad(resized, (0, 0, 0, size - rw, 0, size - rh), value=LETTERBOX_FILL)
     return canvas, r
+
+
+def dwpose_center_scale(
+    boxes_xyxy: torch.Tensor,                  # [..., 4]
+    input_hw: T.Tuple[int, int] = (384, 288),
+    padding: float = 1.25,
+) -> T.Tuple[torch.Tensor, torch.Tensor]:
+    """``bbox_xyxy2cs(padding)`` and ``_fix_aspect_ratio`` to the model's
+    aspect: ``(center [..., 2], scale [..., 2])`` in frame pixels."""
+    h, w = input_hw
+    ar = w / h
+    cx = (boxes_xyxy[..., 0] + boxes_xyxy[..., 2]) * 0.5
+    cy = (boxes_xyxy[..., 1] + boxes_xyxy[..., 3]) * 0.5
+    sw = (boxes_xyxy[..., 2] - boxes_xyxy[..., 0]) * padding
+    sh = (boxes_xyxy[..., 3] - boxes_xyxy[..., 1]) * padding
+    wide = sw > sh * ar
+    fw = torch.where(wide, sw, sh * ar)
+    fh = torch.where(wide, sw / ar, sh)
+    return torch.stack([cx, cy], -1), torch.stack([fw, fh], -1)
+
+
+def _dwpose_warp(
+    img_bgr: torch.Tensor,     # [B, H, W, C] f32 (values 0..255)
+    center: torch.Tensor,      # [B, 2]
+    scale: torch.Tensor,       # [B, 2]
+    out_hw: T.Tuple[int, int],
+) -> torch.Tensor:
+    """``get_warp_matrix`` (one factor ``scale_w / w`` on both axes, centre to
+    centre) as ``cv2.warpAffine`` of the uint8 frame: bilinear taps, a zero
+    border, the result rounded half to even and clipped to 0..255."""
+    B, H, W, C = img_bgr.shape
+    oh, ow = out_hw
+    s_inv = scale[:, 0] / ow
+    tx = center[:, 0] - s_inv * (ow * 0.5)
+    ty = center[:, 1] - s_inv * (oh * 0.5)
+    dev = img_bgr.device
+    wx = _border0_weights(cv2_affine_coords(s_inv, tx, torch.arange(ow, dtype=torch.int32, device=dev)),
+                          W, img_bgr.dtype)                                          # [B, ow, W]
+    wy = _border0_weights(cv2_affine_coords(s_inv, ty, torch.arange(oh, dtype=torch.int32, device=dev)),
+                          H, img_bgr.dtype)                                          # [B, oh, H]
+    t = torch.matmul(wy, img_bgr.reshape(B, H, W * C)).reshape(B, oh, W, C)
+    out = torch.einsum("bywc,bxw->byxc", t, wx)
+    return torch.round(out).clamp(0.0, 255.0)
+
+
+def dwpose_topdown_crop(
+    frames_rgb: torch.Tensor,   # [B, H, W, 3] f32 RGB 0..255
+    boxes_xyxy: torch.Tensor,   # [B, 4]
+    input_hw: T.Tuple[int, int] = (384, 288),
+    padding: float = 1.25,
+) -> T.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """DWPose onnxpose-exact crops: ``(crops [B, h, w, 3]`` normalised BGR,
+    ``center [B, 2], scale [B, 2])``; the RGB-order mean and std applied to
+    the BGR crop, as the published preprocessing does."""
+    center, scale = dwpose_center_scale(boxes_xyxy, input_hw, padding)
+    crops = _dwpose_warp(frames_rgb.flip(-1), center, scale, input_hw)
+    mean = torch.as_tensor(DWPOSE_MEAN, dtype=crops.dtype, device=crops.device)
+    std = torch.as_tensor(DWPOSE_STD, dtype=crops.dtype, device=crops.device)
+    return (crops - mean) / std, center, scale
+
+
+def dwpose_backmap(
+    kp_xy: torch.Tensor,        # [..., K, 2] crop-pixel coordinates
+    center: torch.Tensor,       # [..., 2]
+    scale: torch.Tensor,        # [..., 2]
+    input_hw: T.Tuple[int, int] = (384, 288),
+) -> torch.Tensor:
+    """onnxpose's postprocess map: ``kp / model_input_size * scale + center
+    - scale / 2``."""
+    h, w = input_hw
+    wh = torch.tensor([w, h], dtype=kp_xy.dtype, device=kp_xy.device)
+    return kp_xy / wh * scale[..., None, :] + center[..., None, :] - scale[..., None, :] * 0.5

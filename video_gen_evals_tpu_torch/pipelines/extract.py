@@ -1,33 +1,52 @@
-"""Mesh-recovery stage of the feature extraction: video frames and one person
-box a frame -> SMPL mesh parameters and ``token_out`` (the "vit" modality).
+"""Feature extraction: video frames -> SMPL mesh parameters, ``token_out``
+(the "vit" modality) and DWPose's 120-d whole-body keypoints (``kp2d``),
+batched on the device.
 
-Port of the mesh half of ``video_gen_evals_tpu/pipelines/extract.py``
-(``Extractor._mesh_forward`` driven through ``_batched`` and
-``process_video_full``; ref ``extract_mesh.py`` +
-``modifications/mesh_generator.py``): upstream-exact ViTDet crops on the
-device, the ViT-H backbone, and the SMPL token decoder head, in fixed chunks
-of ``frame_batch`` frames. The output is the extraction contract the scoring
-path reads: ``pose [T,23,3,3]``, ``betas [T,10]``, ``global_orient
-[T,1,3,3]``, ``vit [T,1024]`` and ``frame_idx [T]``.
+Port of ``video_gen_evals_tpu/pipelines/extract.py`` (ref ``extract_mesh.py``,
+``modifications/{mesh_generator,process_video,dwpose_init}.py``). Per video,
+in fixed chunks of ``frame_batch`` frames on the device:
 
-The boxes come from the caller, or from the detect stage: with the default
-``mesh_detector="yolox"`` the YOLOX person detector on Megvii's letterbox
-canvas with DWPose's postprocessing (``models/detector.py``), which also gives
-the keypoint branch's pose boxes; with ``"rcnn"`` the Faster R-CNN
-X101-32x8d-FPN (``models/rcnn.py``, the reference's mesh-path detector, ref
-``mesh_generator.py:69-74``), in its exact configuration or JAX's ``fast()``.
-A frame is kept iff exactly one person box scores above ``det_score_thresh``,
-and a video is rejected when fewer than ``min_single_ratio`` of its frames
-are kept (ref ``:103-117``); ``keep_all_frames`` turns the rule off. The 2D
-pose net (the keypoint branch) is not ported yet (ROADMAP.md, Queue 1, item
-2): the keypoint entry, ``run_tree`` and the CLI raise
-``NotImplementedError``.
+  detect (YOLOX, or the Faster R-CNN for the mesh boxes) -> ViTDet crops ->
+  ViT-H -> SMPL token head                              (the mesh branch)
+  YOLOX's pose boxes -> mmpose top-down crops -> RTMPose -> SimCC decode ->
+  back to the frame -> openpose order -> DWPose's postprocess -> 120-d
+                                                        (the keypoint branch)
+
+The mesh output is the extraction contract the scoring path reads: ``pose
+[T,23,3,3]``, ``betas [T,10]``, ``global_orient [T,1,3,3]``, ``vit [T,1024]``
+and ``frame_idx [T]``; the keypoint output ``kp120 [T,120]`` and ``valid [T]``.
+
+The detect stage: with the default ``mesh_detector="yolox"`` one pass of the
+YOLOX person detector on Megvii's letterbox canvas with DWPose's
+postprocessing (``models/detector.py``) gives both branches their boxes;
+with ``"rcnn"`` the Faster R-CNN X101-32x8d-FPN (``models/rcnn.py``, the
+reference's mesh-path detector, ref ``mesh_generator.py:69-74``), in its
+exact configuration or JAX's ``fast()``, gives the mesh boxes and the
+single-person rule, and YOLOX still gives the keypoint branch its pose boxes
+(DWPose's own detector). A mesh frame is kept iff exactly one person box
+scores above ``det_score_thresh``, and a video is rejected when fewer than
+``min_single_ratio`` of its frames are kept (ref ``:103-117``);
+``keep_all_frames`` turns the rule off. The keypoint branch poses the full
+frame where YOLOX finds no person (onnxpose's fallback), so no keypoint frame
+is dropped for lack of a detection.
+
+:meth:`Extractor.run_tree` extracts an ``<action>/<video>`` tree resumably
+(per-action JSON ledgers, ref ``extract_mesh.py:121-194``), decoding and
+uploading on host threads ahead of the device, and ``python -m
+video_gen_evals_tpu_torch.pipelines.extract`` is its CLI. Not ported:
+``preproc="legacy"`` (ROADMAP.md, Queue 1, item 3) and the multi-host and
+distributed runs (``--mesh-data``, ``--num-hosts``, ``--coordinator``, ...;
+Queue 1, item 5).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import json
 import math
+import os
+import sys
 import typing as T
 
 import numpy as np
@@ -41,6 +60,14 @@ from ..models.detector import (
     init_yolox_weights_,
     single_person_mask,
 )
+from ..models.pose2d import (
+    PoseNetConfig,
+    RTMPoseNet,
+    dwpose_postprocess,
+    flatten_first_person,
+    init_pose_weights_,
+    wholebody_to_openpose,
+)
 from ..models.rcnn import (
     FasterRCNN,
     RCNNConfig,
@@ -51,43 +78,50 @@ from ..models.rcnn import (
 )
 from ..models.smpl_head import SMPLHeadConfig, SMPLTokenDecoderHead
 from ..models.vit import ViTBackbone, ViTConfig
-from ..ops.upstream_crops import vitdet_mesh_crop, yolox_letterbox
+from ..ops.upstream_crops import dwpose_backmap, dwpose_topdown_crop, vitdet_mesh_crop, yolox_letterbox
 from ..utils.device import disable_tf32, resolve_device
+from ..utils.io import ResumableLedger, load_all_frames, save_video_npz
 
-_NEEDS_POSE = ("{what} needs the 2D pose net of the keypoint branch, which runs on the YOLOX "
-               "detector's pose boxes and is not ported yet (ROADMAP.md, Queue 1, item 2)")
-# (matmul_precision, param_dtype) -> the dtype the two networks work in
+# (matmul_precision, param_dtype) -> the dtype the networks work in
 _WORKING_DTYPE = {
     ("highest", "float32"): torch.float32,
     ("high", "float32"): torch.float32,
     ("default", "bfloat16"): torch.bfloat16,
 }
+_PARALLEL = "ROADMAP.md, Queue 1, item 5"
+_MESH_KEYS = (("pose", "body_pose"), ("betas", "betas"), ("global_orient", "global_orient"), ("vit", "token_out"))
 
 
 @dataclasses.dataclass
 class ExtractorConfig:
-    """The fields of the JAX package's ``ExtractorConfig`` that the detect
-    and mesh stages read.
+    """The JAX package's ``ExtractorConfig`` without its legacy crop options.
 
     Numerics, named by what is computed: ``matmul_precision="highest"`` runs
     every product in true fp32 (TF32 off) and the attention kernels at
     ``"highest"``. ``"high"`` (the JAX default, bf16x3 on the TPU) runs the
     same fp32 path here, which is at least as exact. ``"default"`` with
     ``param_dtype="bfloat16"`` is the fast mode: bf16 parameters and
-    activations in every network (both detectors too), fp32 sums, the
-    attention kernels at ``"default"``, the rotation matrices orthonormalised
-    in fp32, and boxes decoded, ranked and suppressed in fp32. Other pairs
-    are refused. (JAX's bf16 mode casts the parameters only: flax promotes
-    the detectors' fp32 activations, so there they run in fp32 on
-    bf16-rounded weights.)"""
+    activations in every network (both detectors and the pose backbone too),
+    fp32 sums, the attention kernels at ``"default"``, the rotation matrices
+    orthonormalised in fp32, boxes decoded, ranked and suppressed in fp32, and
+    the pose net's channel-attention gates, its whole RTMCC head (ScaleNorm,
+    GAU, SimCC classifiers) and the SimCC decode in fp32 on the bf16-rounded
+    weights: an argmax over bf16 logits ties often, and a tie moves a
+    keypoint by whole bins. Other pairs are refused. (JAX's bf16 mode casts
+    the parameters only: flax promotes the detectors' and the pose net's fp32
+    activations, so there they run in fp32 on bf16-rounded weights.)"""
 
     det: DetectorConfig = dataclasses.field(default_factory=DetectorConfig)
     vit: ViTConfig = dataclasses.field(default_factory=ViTConfig)
     head: SMPLHeadConfig = dataclasses.field(default_factory=SMPLHeadConfig)
+    pose: PoseNetConfig = dataclasses.field(default_factory=PoseNetConfig)
     frame_batch: int = 32
     preproc: str = "upstream"
     vitdet_rescale: float = 2.5    # ViTDetDataset rescale_factor
     vitdet_antialias: bool = True  # hmr2 gaussian pre-blur (df > 1.1)
+    pose_padding: float = 1.25     # mmpose bbox_xyxy2cs padding
+    # the reference's keypoint frame dropping: only valid rows are saved
+    kp_bug_compat: bool = True
     matmul_precision: str = "high"
     param_dtype: str = "float32"   # "float32" | "bfloat16"
     # mesh-path box provenance when process_video gets no boxes: "yolox" is the
@@ -134,6 +168,38 @@ class ExtractorConfig:
     @property
     def working_dtype(self) -> torch.dtype:
         return _WORKING_DTYPE[(self.matmul_precision, self.param_dtype)]
+
+    @classmethod
+    def parity(cls, **kw) -> "ExtractorConfig":
+        """The reference-reproduction preset (``--parity`` on the CLI): the
+        Faster R-CNN X101-FPN mesh boxes with the exact RCNNConfig (ref
+        ``mesh_generator.py:69-74``), upstream preprocessing, matmul
+        ``"high"``, fp32 parameters, the reference's keypoint frame dropping,
+        the anti-aliased ViTDet crops and the full-frame pose fallback."""
+        kw.setdefault("mesh_detector", "rcnn")
+        kw.setdefault("preproc", "upstream")
+        kw.setdefault("matmul_precision", "high")
+        kw.setdefault("param_dtype", "float32")
+        kw.setdefault("kp_bug_compat", True)
+        kw.setdefault("vitdet_antialias", True)
+        kw.setdefault("pose_fullframe_fallback", True)
+        return cls(**kw)   # rcnn=None resolves to the exact x101_32x8d()
+
+    def is_parity(self) -> bool:
+        """True iff every knob that changes the features' provenance is
+        :meth:`parity`'s (``matmul_precision`` may also be ``"highest"``).
+        Recorded in each run's ``RUN_CONFIG.json``."""
+        return (self.mesh_detector == "rcnn" and self.preproc == "upstream"
+                and self.matmul_precision in ("high", "highest") and self.param_dtype == "float32"
+                and self.kp_bug_compat and self.vitdet_antialias and self.pose_fullframe_fallback
+                and self.rcnn == RCNNConfig.x101_32x8d())
+
+
+def _is_device_fault(err: BaseException) -> bool:
+    """A kernel build or launch failure, or a CUDA error: never one video's
+    fault, so :meth:`Extractor.run_tree` raises it instead of recording it."""
+    msg = str(err)
+    return isinstance(err, RuntimeError) and ("CUDA error" in msg or "nvcc" in msg)
 
 
 def seeded_init_(module: nn.Module, generator: torch.Generator) -> None:
@@ -201,18 +267,20 @@ def _build_detector(factory, config, state_dict, init_, generator, device, dtype
 
 
 class Extractor:
-    """Detect stage, crops, ViT backbone and SMPL head of the mesh stage, in
-    fixed chunks.
+    """The detect stage, the mesh branch (crops, ViT backbone, SMPL head) and
+    the keypoint branch (pose crops, RTMPose, DWPose's postprocess), in fixed
+    chunks on the device.
 
     The YOLOX net is built in both modes, as in JAX (in rcnn mode the
     keypoint branch takes its pose boxes). ``state_dicts`` may hold ``"vit"``
     and ``"head"`` (state_dicts in the modules' own names), ``"det"``
-    (Megvii's names) and, in rcnn mode, ``"rcnn"`` (detectron2's names). A
-    net without one is drawn on the device: the ViT and then the head from a
-    generator seeded with ``seed``, YOLOX from one seeded with ``seed + 1``
-    and the R-CNN from one seeded with ``seed + 2``, so that no net's weights
-    depend on another's size or on the mode. ``device=None`` means the card
-    and raises without one."""
+    (Megvii's names), ``"pose"`` (mmpose's names) and, in rcnn mode,
+    ``"rcnn"`` (detectron2's names). A net without one is drawn on the
+    device: the ViT and then the head from a generator seeded with ``seed``,
+    YOLOX from one seeded with ``seed + 1``, the R-CNN from one seeded with
+    ``seed + 2`` and the pose net from one seeded with ``seed + 3``, so that
+    no net's weights depend on another's size or on the mode. ``device=None``
+    means the card and raises without one."""
 
     def __init__(self, config: T.Optional[ExtractorConfig] = None,
                  state_dicts: T.Optional[T.Mapping[str, T.Mapping[str, torch.Tensor]]] = None,
@@ -221,24 +289,28 @@ class Extractor:
         self.device = resolve_device("cuda" if device is None else device)
         disable_tf32()
         state_dicts = dict(state_dicts or {})
-        nets = {"vit", "head", "det"} | ({"rcnn"} if cfg.mesh_detector == "rcnn" else set())
+        nets = {"vit", "head", "det", "pose"} | ({"rcnn"} if cfg.mesh_detector == "rcnn" else set())
         unknown = set(state_dicts) - nets
         if unknown:
             raise ValueError(f"state_dicts holds nets this configuration does not have: {sorted(unknown)}")
         if cfg.head.context_dim != cfg.vit.embed_dim:
             raise ValueError(f"head.context_dim {cfg.head.context_dim} != vit.embed_dim {cfg.vit.embed_dim}")
-        generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        def generator(offset):
+            return torch.Generator(device=self.device).manual_seed(seed + offset)
+
         dtype = cfg.working_dtype
-        self.backbone = _build_net(ViTBackbone, cfg.vit, state_dicts.get("vit"), generator, self.device, dtype)
-        self.head = _build_net(SMPLTokenDecoderHead, cfg.head, state_dicts.get("head"), generator,
-                               self.device, dtype)
+        mesh_gen = generator(0)
+        self.backbone = _build_net(ViTBackbone, cfg.vit, state_dicts.get("vit"), mesh_gen, self.device, dtype)
+        self.head = _build_net(SMPLTokenDecoderHead, cfg.head, state_dicts.get("head"), mesh_gen, self.device, dtype)
         self.detector = _build_detector(YOLOXDetector, cfg.det, state_dicts.get("det"), init_yolox_weights_,
-                                        torch.Generator(device=self.device).manual_seed(seed + 1), self.device, dtype)
+                                        generator(1), self.device, dtype)
         rcnn_sd = state_dicts.get("rcnn")
         self.rcnn = (_build_detector(FasterRCNN, cfg.rcnn, None if rcnn_sd is None else canonical_rcnn_state_dict(rcnn_sd),
-                                     init_rcnn_weights_, torch.Generator(device=self.device).manual_seed(seed + 2),
-                                     self.device, dtype)
+                                     init_rcnn_weights_, generator(2), self.device, dtype)
                      if cfg.mesh_detector == "rcnn" else None)
+        self.pose_net = _build_detector(RTMPoseNet, cfg.pose, state_dicts.get("pose"), init_pose_weights_,
+                                        generator(3), self.device, dtype).fp32_head_()
 
     @classmethod
     def from_checkpoints(cls, config: T.Optional[ExtractorConfig] = None, *,
@@ -248,10 +320,11 @@ class Extractor:
         """An Extractor with the published weights: TokenHMR (a ``.ckpt``,
         ``.pt`` or ``.npz`` whose ``backbone.*`` and ``smpl_head.*`` keys are
         the two networks'; the head's classifier geometry is read from the
-        file), Megvii's YOLOX (``yolox_l.pth``; a default ``det`` becomes
-        ``yolox_l()``) and the detectron2 Faster R-CNN (``.pkl`` or ``.pt``),
-        which selects ``mesh_detector="rcnn"``. The DWPose checkpoint belongs
-        to the pose net, not ported yet."""
+        file), DWPose's RTMPose (an mmpose ``dwpose_l`` checkpoint; a default
+        ``pose`` becomes ``dwpose_l()``), Megvii's YOLOX (``yolox_l.pth``; a
+        default ``det`` becomes ``yolox_l()``) and the detectron2 Faster
+        R-CNN (``.pkl`` or ``.pt``), which selects ``mesh_detector="rcnn"``.
+        Nets without a file are drawn from ``seed``."""
         from .weights import extraction_params_from_checkpoints, load_torch_state_dict, published_config
 
         tokenhmr = load_torch_state_dict(tokenhmr) if tokenhmr else None
@@ -270,6 +343,8 @@ class Extractor:
             blk.attn.attention_impl = impl
 
     # ------------------------------------------------------------------
+    # the stages, on one chunk on the device
+
     def crops(self, frames: torch.Tensor, boxes_xyxy: torch.Tensor) -> torch.Tensor:
         """Normalised ViTDet crops ``[B, h, w, 3]`` (fp32) of ``frames``
         (``[B, H, W, 3]``, uint8 or float, RGB 0..255)."""
@@ -286,6 +361,29 @@ class Extractor:
         crops = self.crops(frames, boxes_xyxy).to(self.cfg.working_dtype)
         tokens, _fmap = self.backbone(crops)
         return {k: v.float() for k, v in self.head(tokens).items()}
+
+    @torch.inference_mode()
+    def pose_forward(self, frames: torch.Tensor, boxes_xyxy: torch.Tensor) -> T.Dict[str, torch.Tensor]:
+        """One chunk of the keypoint branch (JAX's upstream ``pose_forward``):
+        DWPose's top-down crops of the pose boxes, RTMPose and its SimCC
+        decode, the keypoints mapped back to the frame and put in openpose's
+        order. Returns ``kps [B, 134, 2]`` (frame pixels) and ``scores
+        [B, 134]``, fp32."""
+        cfg = self.cfg
+        crops, center, scale = dwpose_topdown_crop(frames.to(torch.float32), boxes_xyxy.to(torch.float32),
+                                                   input_hw=cfg.pose.input_hw, padding=cfg.pose_padding)
+        kps_crop, scores = self.pose_net(crops)
+        kps, scores = wholebody_to_openpose(dwpose_backmap(kps_crop, center, scale, cfg.pose.input_hw), scores)
+        return {"kps": kps, "scores": scores}
+
+    @staticmethod
+    def kp_post(kps134: torch.Tensor, sc134: torch.Tensor,
+                frame_wh: T.Tuple[float, float]) -> T.Tuple[torch.Tensor, torch.Tensor]:
+        """DWPose's postprocess and the 120-d flatten over all frames at once,
+        each frame holding its one posed person (P = 1): ``(kp120 [T, 120],
+        valid [T])``. Replaces the reference's per-frame host loop (ref
+        ``process_video.py:63-86``)."""
+        return flatten_first_person(dwpose_postprocess(kps134[:, None], sc134[:, None], frame_wh))
 
     @torch.inference_mode()
     def detect_yolox(self, frames: torch.Tensor) -> T.Dict[str, torch.Tensor]:
@@ -338,14 +436,25 @@ class Extractor:
         return {"box_mesh": torch.take_along_dim(boxes, best[:, None, None], dim=1)[:, 0],
                 "single": single_person_mask(person), "present": person.any(dim=-1)}
 
-    def detect_stage(self, frames: torch.Tensor) -> T.Dict[str, torch.Tensor]:
+    # ------------------------------------------------------------------
+    # whole videos
+
+    def detect_stage(self, frames: torch.Tensor, with_keypoints: bool = False) -> T.Dict[str, torch.Tensor]:
         """The mode's detect stage over a video on the device, the results
-        kept there: :meth:`detect_yolox` in chunks of ``frame_batch``, or
-        :meth:`detect_rcnn` in chunks of ``min(rcnn_frame_batch, frame_batch)``."""
+        kept there. yolox mode: :meth:`detect_yolox` in chunks of
+        ``frame_batch``, one pass for both branches. rcnn mode:
+        :meth:`detect_rcnn` in chunks of ``min(rcnn_frame_batch,
+        frame_batch)`` gives ``box_mesh`` and ``single``; with keypoints,
+        ``box_pose`` and ``present`` come from a YOLOX pass (DWPose's own
+        boxes)."""
         if self.rcnn is None:
             return self._batched(self.detect_yolox, frames, fetch=False)
-        return self._batched(self.detect_rcnn, frames,
-                             batch=min(self.cfg.rcnn_frame_batch, self.cfg.frame_batch), fetch=False)
+        det = self._batched(self.detect_rcnn, frames, batch=min(self.cfg.rcnn_frame_batch, self.cfg.frame_batch),
+                            fetch=False)
+        if with_keypoints:
+            pose = self._batched(self.detect_yolox, frames, fetch=False)
+            det["box_pose"], det["present"] = pose["box_pose"], pose["present"]
+        return det
 
     def _batched(self, fn, frames: torch.Tensor, *extra: torch.Tensor, batch: T.Optional[int] = None,
                  fetch: bool = True) -> T.Dict[str, T.Any]:
@@ -366,6 +475,81 @@ class Extractor:
         joined = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
         return {k: v.cpu().numpy() for k, v in joined.items()} if fetch else joined
 
+    def _upload(self, frames: T.Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
+        """``[T, H, W, 3]`` frames (uint8 RGB) on the device, uploaded once in
+        their own type and cast chunk by chunk there; a tensor already on the
+        device (a prefetch thread's upload) passes through."""
+        t = frames if isinstance(frames, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(frames))
+        t = t.to(self.device)
+        if t.ndim != 4 or t.shape[-1] != 3:
+            raise ValueError(f"frames must be [T, H, W, 3], got {tuple(t.shape)}")
+        if t.shape[0] == 0:
+            raise ValueError("a video needs at least one frame")
+        return t
+
+    def _kept(self, single: np.ndarray) -> T.Optional[np.ndarray]:
+        """The mesh frames kept by the reference's rule (every frame with
+        ``keep_all_frames``), or None for a rejected video."""
+        if self.cfg.keep_all_frames:
+            return np.arange(len(single))
+        if single.sum() == 0 or single.mean() < self.cfg.min_single_ratio:
+            return None
+        return np.flatnonzero(single)
+
+    def _kp_frame_mask(self, valid: np.ndarray, present: np.ndarray) -> np.ndarray:
+        """The keypoint frames kept: with onnxpose's full-frame fallback no
+        frame is dropped for lack of a detection, without it a frame with no
+        pose person is; ``keep_all_frames`` keeps every frame."""
+        if self.cfg.keep_all_frames:
+            return np.ones_like(valid, dtype=bool)
+        return valid if self.cfg.pose_fullframe_fallback else valid & present
+
+    @staticmethod
+    def _mesh_dict(out: T.Mapping[str, T.Any], keep: np.ndarray) -> T.Dict[str, T.Any]:
+        """The extraction contract of the kept frames of ``out`` (numpy
+        arrays, or tensors left on the device)."""
+        rows = out["token_out"]
+        if isinstance(rows, torch.Tensor):
+            keep_rows = torch.from_numpy(keep).to(rows.device)
+            mesh = {key: out[src][keep_rows] for key, src in _MESH_KEYS}
+        else:
+            mesh = {key: out[src][keep] for key, src in _MESH_KEYS}
+        mesh["frame_idx"] = keep.astype(np.int32)
+        return mesh
+
+    def _keypoints(self, frames_dev: torch.Tensor, det: T.Mapping[str, torch.Tensor],
+                   fetch: bool = True) -> T.Dict[str, T.Any]:
+        """The keypoint branch over a video on its detect stage's pose boxes:
+        ``kp120 [T, 120]`` (fp32; left on the device unless ``fetch``) and the
+        frame mask ``valid [T]``."""
+        kp = self._batched(self.pose_forward, frames_dev, det["box_pose"], fetch=False)
+        H, W = frames_dev.shape[1:3]
+        kp120, valid = self.kp_post(kp["kps"], kp["scores"], (float(W), float(H)))
+        valid = self._kp_frame_mask(valid.cpu().numpy(), det["present"].cpu().numpy())
+        return {"kp120": kp120.cpu().numpy() if fetch else kp120, "valid": valid}
+
+    def process_video_full(self, frames: T.Union[None, np.ndarray, torch.Tensor], with_keypoints: bool = False,
+                           frames_dev: T.Optional[torch.Tensor] = None
+                           ) -> T.Tuple[T.Optional[T.Dict[str, np.ndarray]], T.Optional[T.Dict[str, np.ndarray]]]:
+        """Mesh (and keypoint) extraction of one video on one upload and one
+        detect pass shared by both branches. ``frames``: ``[T, H, W, 3]``
+        uint8 RGB, or None with ``frames_dev`` (the frames already on the
+        device, e.g. from a prefetch thread).
+
+        Returns ``(mesh, kp)``: ``mesh`` as :meth:`process_video` gives it,
+        ``kp`` None without keypoints, else ``{"kp120": [T, 120], "valid":
+        [T]}`` over every frame of the video. A video that fails the
+        single-person ratio test (ref ``mesh_generator.py:113-117``) gives
+        ``(None, None)``; its mask is read before the mesh and pose work, so a
+        rejected video costs neither."""
+        frames_dev = self._upload(frames if frames_dev is None else frames_dev)
+        det = self.detect_stage(frames_dev, with_keypoints)
+        keep = self._kept(det["single"].cpu().numpy())
+        if keep is None:
+            return None, None
+        mesh = self._mesh_dict(self._batched(self.mesh_forward, frames_dev, det["box_mesh"]), keep)
+        return mesh, (self._keypoints(frames_dev, det) if with_keypoints else None)
+
     def process_video(self, frames: T.Union[np.ndarray, torch.Tensor],
                       boxes_xyxy: T.Union[None, np.ndarray, torch.Tensor] = None
                       ) -> T.Optional[T.Dict[str, np.ndarray]]:
@@ -374,47 +558,339 @@ class Extractor:
 
         With ``boxes_xyxy`` (``[T, 4]``, one person box a frame in frame
         pixels) every frame is kept. Without, the mode's detect stage gives
-        the boxes and the single-person mask: unless ``keep_all_frames``,
-        the video is rejected (``None``)
-        when no frame, or fewer than ``min_single_ratio`` of them, hold
-        exactly one person, and otherwise only those frames are returned
-        (``frame_idx``), as JAX's ``process_video_full`` does. The mask is
-        read before the mesh forward, so a rejected video costs no mesh
-        work."""
-        frames_dev = torch.as_tensor(frames).to(self.device)
-        if frames_dev.ndim != 4 or frames_dev.shape[-1] != 3:
-            raise ValueError(f"frames must be [T, H, W, 3], got {tuple(frames_dev.shape)}")
+        the boxes and the single-person mask (:meth:`process_video_full`):
+        unless ``keep_all_frames``, the video is rejected (``None``) when no
+        frame, or fewer than ``min_single_ratio`` of them, hold exactly one
+        person, and otherwise only those frames are returned
+        (``frame_idx``)."""
+        if boxes_xyxy is None:
+            return self.process_video_full(frames)[0]
+        frames_dev = self._upload(frames)
         n = frames_dev.shape[0]
-        if n == 0:
-            raise ValueError("process_video needs at least one frame")
-        keep = np.ones(n, dtype=bool)
-        if boxes_xyxy is not None:
-            boxes_dev = torch.as_tensor(boxes_xyxy, dtype=torch.float32).to(self.device)
-            if tuple(boxes_dev.shape) != (n, 4):
-                raise ValueError(f"boxes must be [{n}, 4], got {tuple(boxes_dev.shape)}")
-        else:
-            det = self.detect_stage(frames_dev)
-            boxes_dev = det["box_mesh"]
-            if not self.cfg.keep_all_frames:
-                keep = det["single"].cpu().numpy()
-                if keep.sum() == 0 or keep.mean() < self.cfg.min_single_ratio:
-                    return None
-        out = self._batched(self.mesh_forward, frames_dev, boxes_dev)
-        idx = np.flatnonzero(keep)
-        return {
-            "pose": out["body_pose"][idx],
-            "betas": out["betas"][idx],
-            "global_orient": out["global_orient"][idx],
-            "vit": out["token_out"][idx],
-            "frame_idx": idx.astype(np.int32),
+        boxes_dev = torch.as_tensor(boxes_xyxy, dtype=torch.float32).to(self.device)
+        if tuple(boxes_dev.shape) != (n, 4):
+            raise ValueError(f"boxes must be [{n}, 4], got {tuple(boxes_dev.shape)}")
+        return self._mesh_dict(self._batched(self.mesh_forward, frames_dev, boxes_dev), np.arange(n))
+
+    def process_video_keypoints(self, frames: T.Union[np.ndarray, torch.Tensor]) -> T.Dict[str, np.ndarray]:
+        """Whole-body keypoints of one video (ref ``process_video.py``) on
+        YOLOX's pose boxes, in either mode: ``{"kp120": [T, 120], "valid":
+        [T]}``. With ``kp_bug_compat`` a caller keeps only the valid rows, as
+        the reference drops frames."""
+        frames_dev = self._upload(frames)
+        return self._keypoints(frames_dev, self._batched(self.detect_yolox, frames_dev, fetch=False))
+
+    def process_videos_streamed(self, items: T.Sequence[T.Tuple[str, T.Union[np.ndarray, torch.Tensor]]],
+                                with_keypoints: bool = False, upload_threads: int = 2,
+                                max_stream_frames: int = 2048, fetch_arrays: bool = True):
+        """Cross-video streamed extraction: the frames of a same-resolution
+        group of videos run through detect -> mesh [-> pose] as one chunked
+        stream, then the results are split per video. Per-video results are
+        :meth:`process_video_full`'s (the single-person rule and the keypoint
+        mask apply per video); what changes is the execution shape: full
+        ``frame_batch`` chunks whatever the videos' lengths, and a fetch per
+        stage per super-batch of at most ``max_stream_frames`` frames. The
+        uploads run on ``upload_threads`` host threads.
+
+        ``fetch_arrays=False`` leaves the ``[T, D]`` outputs on the device
+        (only the masks are fetched, for the keep indices).
+
+        Returns ``(mesh_by_name, kp_by_name)``; a rejected video maps to None
+        in both, and without keypoints every ``kp`` is None."""
+        mesh_by_name: T.Dict[str, T.Any] = {}
+        kp_by_name: T.Dict[str, T.Any] = {}
+        groups: T.Dict[T.Tuple[int, int], T.List] = {}
+        for name, frames in items:
+            groups.setdefault(tuple(frames.shape[1:3]), []).append((name, frames))
+        with concurrent.futures.ThreadPoolExecutor(max_workers=upload_threads) as pool:
+            for group in groups.values():
+                batches: T.List[T.List] = [[]]
+                nf = 0
+                for name, frames in group:
+                    if nf + frames.shape[0] > max_stream_frames and batches[-1]:
+                        batches.append([])
+                        nf = 0
+                    batches[-1].append((name, frames))
+                    nf += frames.shape[0]
+                for batch in batches:
+                    self._stream_one_batch(batch, with_keypoints, pool, mesh_by_name, kp_by_name, fetch_arrays)
+        return mesh_by_name, kp_by_name
+
+    def _stream_one_batch(self, batch, with_keypoints, pool, mesh_by_name, kp_by_name, fetch_arrays) -> None:
+        devs = list(pool.map(lambda item: self._upload(item[1]), batch))
+        stream = torch.cat(devs) if len(devs) > 1 else devs[0]
+        del devs
+        det = self.detect_stage(stream, with_keypoints)
+        out = self._batched(self.mesh_forward, stream, det["box_mesh"], fetch=fetch_arrays)
+        kp = self._keypoints(stream, det, fetch=fetch_arrays) if with_keypoints else None
+        single = det["single"].cpu().numpy()
+        lo = 0
+        for name, frames in batch:
+            hi = lo + frames.shape[0]
+            keep = self._kept(single[lo:hi])
+            if keep is None:
+                mesh_by_name[name] = kp_by_name[name] = None
+            else:
+                mesh_by_name[name] = self._mesh_dict({k: v[lo:hi] for k, v in out.items()}, keep)
+                kp_by_name[name] = (None if kp is None else
+                                    {"kp120": kp["kp120"][lo:hi], "valid": kp["valid"][lo:hi]})
+            lo = hi
+
+    # ------------------------------------------------------------------
+    # extraction runs over a tree
+
+    def _write_run_config(self, log_dir: str) -> str:
+        """Publish the run's provenance knobs to ``<log_dir>/RUN_CONFIG.json``
+        (atomic): detector family and crop preprocessing are part of the
+        feature definition, so a scorer or a later resume can tell parity
+        features from fast-mode ones. The port's ``rcnn`` entry lacks the four
+        fields of JAX's ``RCNNConfig`` that only lay the work out on the TPU
+        (``grouped_conv_impl``, ``grouped_conv_width``, ``roi_chunk``,
+        ``roi_rois_per_step``)."""
+        cfg = self.cfg
+        os.makedirs(log_dir, exist_ok=True)
+        path = os.path.join(log_dir, "RUN_CONFIG.json")
+        payload = {
+            "parity": cfg.is_parity(),
+            "mesh_detector": cfg.mesh_detector,
+            "preproc": cfg.preproc,
+            "matmul_precision": cfg.matmul_precision,
+            "param_dtype": cfg.param_dtype,
+            "kp_bug_compat": cfg.kp_bug_compat,
+            "vitdet_antialias": cfg.vitdet_antialias,
+            "pose_fullframe_fallback": cfg.pose_fullframe_fallback,
+            "rcnn": dataclasses.asdict(cfg.rcnn),
+            "keep_all_frames": cfg.keep_all_frames,
         }
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(payload, f, indent=2, sort_keys=True)
+        os.replace(tmp, path)
+        return path
 
-    def process_video_keypoints(self, *args, **kwargs):
-        raise NotImplementedError(_NEEDS_POSE.format(what="process_video_keypoints"))
+    def run_tree(self, video_tree: str, out_root: str, log_dir: str, kp_out_root: T.Optional[str] = None,
+                 actions: T.Optional[T.List[str]] = None,
+                 frame_loader: T.Optional[T.Callable[[str], np.ndarray]] = None,
+                 prefetch: int = 2, stream_group: int = 8, num_hosts: int = 1, host_id: int = 0
+                 ) -> T.Dict[str, int]:
+        """Resumable extraction over ``<video_tree>/<action>/*.{mp4,avi,mkv,npy}``
+        (ref ``extract_mesh.py:150-241``): one npz a kept video under
+        ``out_root/<action>/``, its keypoints (the valid rows with
+        ``kp_bug_compat``) as ``kp_out_root/<action>/<stem>/keypoints.npy``,
+        and a record in ``log_dir``'s per-action ledgers; a video the ledgers
+        hold as single or not single is skipped. Returns the counts of
+        ``single``, ``not_single``, ``errors`` and ``skipped`` videos.
 
-    def run_tree(self, *args, **kwargs):
-        raise NotImplementedError(_NEEDS_POSE.format(what="run_tree"))
+        Decoding (``frame_loader``, default :func:`load_all_frames`) and the
+        upload run ``prefetch`` videos ahead on host threads. With
+        ``stream_group > 1`` and prefetch on, groups of that many videos run
+        through :meth:`process_videos_streamed`, the next group decoding
+        ahead; ``stream_group=1`` or ``prefetch=0`` runs one video at a time.
+        A video that fails to decode, or to extract, is recorded as an error
+        and the run goes on (a failed streamed group is retried video by
+        video), except for a kernel or CUDA failure, which is raised: that is
+        the device's fault, not the video's. ``num_hosts`` other than 1 (a
+        multi-host sweep) is not ported (ROADMAP.md, Queue 1, item 5)."""
+        if num_hosts != 1 or host_id != 0:
+            raise NotImplementedError(f"run_tree across hosts (num_hosts={num_hosts}, host_id={host_id}) "
+                                      f"is not ported: {_PARALLEL}")
+        self._write_run_config(log_dir)
+        loader = frame_loader or load_all_frames
+        all_actions = sorted(d for d in os.listdir(video_tree) if os.path.isdir(os.path.join(video_tree, d)))
+        if actions:
+            missing = [a for a in actions if a not in all_actions]
+            if missing:
+                raise ValueError(f"Actions not found under {video_tree}: {missing}")
+            all_actions = list(actions)
+
+        counts = {"single": 0, "not_single": 0, "errors": 0, "skipped": 0}
+        exts = (".mp4", ".avi", ".mkv", ".npy")
+        pool = concurrent.futures.ThreadPoolExecutor(max_workers=prefetch) if prefetch > 0 else None
+        try:
+            for action in all_actions:
+                action_dir = os.path.join(video_tree, action)
+                ledger = ResumableLedger(log_dir, action)
+                processed = ledger.processed()
+                videos = sorted(f for f in os.listdir(action_dir) if f.lower().endswith(exts))
+                pending = [v for v in videos if v not in processed]
+                counts["skipped"] += len(videos) - len(pending)
+
+                def load_and_upload(video):
+                    return self._upload(loader(os.path.join(action_dir, video)))
+
+                def record_error(video, err):
+                    if _is_device_fault(err):
+                        raise err
+                    ledger.record(video, "errors", str(err))
+                    counts["errors"] += 1
+
+                def save_and_record(video, mesh, kp):
+                    if mesh is None:
+                        ledger.record(video, "not_single")
+                        counts["not_single"] += 1
+                        return
+                    stem = os.path.splitext(video)[0]
+                    save_video_npz(out_root, os.path.join(action, stem), mesh["pose"], mesh["betas"],
+                                   mesh["global_orient"], mesh["vit"], mesh["frame_idx"],
+                                   meta={"action": action, "video": video})
+                    if kp is not None:
+                        rows = kp["kp120"][kp["valid"]] if self.cfg.kp_bug_compat else kp["kp120"]
+                        kp_dir = os.path.join(kp_out_root, action, stem)
+                        os.makedirs(kp_dir, exist_ok=True)
+                        kp_path = os.path.join(kp_dir, "keypoints.npy")
+                        tmp = f"{kp_path}.{os.getpid()}.tmp.npy"
+                        np.save(tmp, rows.astype(np.float32))
+                        os.replace(tmp, kp_path)   # atomic publish
+                    ledger.record(video, "single")
+                    counts["single"] += 1
+
+                def extract_one(video, frames_dev):
+                    try:
+                        if frames_dev is None:
+                            frames_dev = load_and_upload(video)
+                        save_and_record(video, *self.process_video_full(
+                            None, with_keypoints=kp_out_root is not None, frames_dev=frames_dev))
+                    except Exception as err:   # per-video fault isolation (ref :232-236)
+                        record_error(video, err)
+
+                if pool is not None and stream_group > 1:
+                    groups = [pending[lo:lo + stream_group] for lo in range(0, len(pending), stream_group)]
+                    futures = {}
+
+                    def submit(group):
+                        for v in group:
+                            futures[v] = pool.submit(load_and_upload, v)
+
+                    if groups:
+                        submit(groups[0])
+                    for gi, group in enumerate(groups):
+                        if gi + 1 < len(groups):
+                            submit(groups[gi + 1])
+                        items = []
+                        for v in group:
+                            try:
+                                items.append((v, futures.pop(v).result()))
+                            except Exception as err:   # a decode fault, per video
+                                record_error(v, err)
+                        if not items:
+                            continue
+                        try:
+                            mesh_by, kp_by = self.process_videos_streamed(
+                                items, with_keypoints=kp_out_root is not None)
+                        except Exception as err:
+                            if _is_device_fault(err):
+                                raise
+                            for v, frames_dev in items:   # retry video by video
+                                extract_one(v, frames_dev)
+                            continue
+                        for v, _ in items:
+                            try:
+                                save_and_record(v, mesh_by[v], kp_by[v])
+                            except Exception as err:
+                                record_error(v, err)
+                else:
+                    futures = {}
+                    for i, video in enumerate(pending):
+                        if pool is not None:
+                            for nxt in pending[i:i + 1 + prefetch]:
+                                if nxt not in futures:
+                                    futures[nxt] = pool.submit(load_and_upload, nxt)
+                            try:
+                                frames_dev = futures.pop(video).result()
+                            except Exception as err:
+                                record_error(video, err)
+                                continue
+                            extract_one(video, frames_dev)
+                        else:
+                            extract_one(video, None)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
+        return counts
 
 
-def main(argv: T.Optional[T.Sequence[str]] = None) -> int:
-    raise NotImplementedError(_NEEDS_POSE.format(what="the extract CLI"))
+def main(argv: T.Optional[T.Sequence[str]] = None) -> T.Dict[str, int]:
+    import argparse
+
+    p = argparse.ArgumentParser(description="Batched mesh and keypoint extraction, PyTorch + CUDA")
+    p.add_argument("--videos", required=True, help="root of the <action>/<video> tree")
+    p.add_argument("--out-meshes", default="real_meshes")
+    p.add_argument("--out-kps", default=None)
+    p.add_argument("--log-dir", default="EXTRACTION_LOGS")
+    p.add_argument("--action", default=None)
+    p.add_argument("--bug-compat", dest="bug_compat", action="store_true", default=True,
+                   help="reproduce the reference's keypoint frame dropping (the mesh/kp misalignment quirk)")
+    p.add_argument("--no-bug-compat", dest="bug_compat", action="store_false")
+    p.add_argument("--stream-group", type=int, default=8,
+                   help="videos per cross-video streamed device batch (1 = one video at a time)")
+    p.add_argument("--prefetch", type=int, default=2, help="decode + upload threads running ahead (0 = off)")
+    p.add_argument("--parity", action="store_true",
+                   help="the reference-reproduction preset (ExtractorConfig.parity()): R-CNN X101-FPN mesh "
+                        "boxes with the exact RCNNConfig, upstream preprocessing, matmul 'high', fp32 "
+                        "parameters, bug-compat on; overrides --mesh-detector")
+    p.add_argument("--mesh-detector", choices=["yolox", "rcnn"], default="yolox",
+                   help="mesh-path box provenance: 'rcnn' = Faster R-CNN X101-FPN (the reference's detector "
+                        "family, ref mesh_generator.py:69-74); 'yolox' = the shared DWPose detector")
+    p.add_argument("--preproc", choices=["upstream", "legacy"], default="upstream",
+                   help="input preprocessing: 'upstream' = the published pipelines the weights expect; "
+                        f"'legacy' is not ported (ROADMAP.md, Queue 1, item 3)")
+    p.add_argument("--tokenhmr-ckpt", default=None,
+                   help="TokenHMR checkpoint (tokenhmr_model_latest.ckpt / .pt / .npz): ViT-H + SMPL token head")
+    p.add_argument("--dwpose-ckpt", default=None,
+                   help="DWPose wholebody pose net, mmpose dwpose_l layout (.pth / .npz)")
+    p.add_argument("--yolox-ckpt", default=None,
+                   help="DWPose person detector, Megvii yolox_l layout (.pth / .npz)")
+    p.add_argument("--rcnn-ckpt", default=None,
+                   help="Faster R-CNN X101-FPN detectron2 checkpoint (.pkl / .pt); implies --mesh-detector rcnn")
+    p.add_argument("--rcnn-fast", action="store_true",
+                   help="the R-CNN throughput preset (RCNNConfig.fast(): a bf16 ROIAlign pyramid and window "
+                        "32); not parity-exact")
+    p.add_argument("--mesh-data", type=int, default=0,
+                   help=f"data-parallel extraction over N devices; not ported ({_PARALLEL}): 0 only")
+    p.add_argument("--num-hosts", type=int, default=1,
+                   help=f"multi-host sweep; not ported ({_PARALLEL}): 1 only")
+    p.add_argument("--host-id", type=int, default=-1, help=f"this host's shard; not ported ({_PARALLEL})")
+    p.add_argument("--coordinator", default=None, help=f"multi-process bring-up; not ported ({_PARALLEL})")
+    p.add_argument("--num-processes", type=int, default=None, help=f"not ported ({_PARALLEL})")
+    p.add_argument("--process-id", type=int, default=None, help=f"not ported ({_PARALLEL})")
+    p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
+    args = p.parse_args(argv)
+
+    if args.mesh_data != 0:
+        p.error(f"--mesh-data {args.mesh_data}: data-parallel extraction is not ported ({_PARALLEL})")
+    if args.num_hosts != 1 or args.host_id not in (-1, 0):
+        p.error(f"--num-hosts / --host-id: the multi-host sweep is not ported ({_PARALLEL})")
+    if (args.coordinator, args.num_processes, args.process_id) != (None, None, None):
+        p.error(f"--coordinator / --num-processes / --process-id: distributed runs are not ported ({_PARALLEL})")
+    if args.preproc == "legacy":
+        p.error("--preproc legacy is not ported (ROADMAP.md, Queue 1, item 3)")
+    if args.parity and args.rcnn_fast:
+        p.error("--parity pins the exact RCNNConfig; drop --rcnn-fast")
+    if args.rcnn_fast and args.mesh_detector != "rcnn" and not args.rcnn_ckpt:
+        p.error("--rcnn-fast requires the R-CNN mesh detector (--mesh-detector rcnn or --rcnn-ckpt)")
+    try:
+        resolve_device(args.device)
+    except RuntimeError as e:
+        p.error(f"--device: {e}")
+
+    if args.parity:
+        ex_cfg = ExtractorConfig.parity(kp_bug_compat=args.bug_compat)
+    else:
+        ex_cfg = ExtractorConfig(kp_bug_compat=args.bug_compat, mesh_detector=args.mesh_detector,
+                                 rcnn=RCNNConfig.fast() if args.rcnn_fast else None)
+    ex = Extractor.from_checkpoints(ex_cfg, tokenhmr=args.tokenhmr_ckpt, dwpose=args.dwpose_ckpt,
+                                    yolox=args.yolox_ckpt, rcnn=args.rcnn_ckpt, device=args.device)
+    if not ex.cfg.is_parity():
+        # fast-mode features are not the reference's feature definition
+        print(f"[extract] throughput mode (mesh boxes: {ex.cfg.mesh_detector}, preproc: {ex.cfg.preproc}): not "
+              "the reference-reproduction configuration; pass --parity to reproduce the reference's scores "
+              f"(provenance recorded in {args.log_dir}/RUN_CONFIG.json)", file=sys.stderr)
+    counts = ex.run_tree(args.videos, args.out_meshes, args.log_dir, kp_out_root=args.out_kps,
+                         actions=[args.action] if args.action else None, prefetch=args.prefetch,
+                         stream_group=args.stream_group)
+    print(counts)
+    return counts
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,6 @@
-"""Published-checkpoint loading for the mesh-recovery stage and its detectors.
+"""Published-checkpoint loading for the extraction networks.
 
-Port of the TokenHMR, YOLOX and Faster R-CNN branches of
-``video_gen_evals_tpu/pipelines/weights.py``.
+Port of ``video_gen_evals_tpu/pipelines/weights.py``.
 The reference loads ``tokenhmr_model_latest.ckpt`` (ref
 ``mesh_generator.py:35-78``); its ``backbone.*`` keys are the ViT-H's and its
 ``smpl_head.*`` keys the head's. The port's modules carry those names, so the
@@ -13,13 +12,15 @@ The reference's mesh detector is detectron2's X101-32x8d-FPN (a model-zoo
 ``.pkl``); the port's ``FasterRCNN`` carries detectron2's names, so its
 state_dict loads as it is (``models/rcnn.py::canonical_rcnn_state_dict``).
 DWPose's person detector is Megvii's YOLOX-L (``yolox_l.pth``, its state_dict
-under ``model``); the port's ``YOLOXDetector`` carries Megvii's names.
+under ``model``); the port's ``YOLOXDetector`` carries Megvii's names. DWPose's
+wholebody pose net is mmpose's RTMPose ``dwpose_l`` (its state_dict under
+``state_dict``, keys ``backbone.*`` and ``head.*``); the port's ``RTMPoseNet``
+carries mmpose's names (ref ``modifications/dwpose_init.py``).
 
 Accepted containers: torch ``.pt/.pth/.ckpt`` (bare state_dicts or
 ``state_dict`` / ``model_state_dict`` / ``model`` wrappers), ``.npz`` of
 torch-named arrays and detectron2 ``.pkl``. ``module.`` and ``model.``
-wrapper prefixes are stripped. The DWPose branch comes with the pose net
-(ROADMAP.md, Queue 1, item 2).
+wrapper prefixes are stripped.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ..models.detector import DetectorConfig
+from ..models.pose2d import PoseNetConfig
 from ..models.rcnn import canonical_rcnn_state_dict, load_detectron2_pkl
 from ..models.smpl_head import canonical_head_state_dict, classifier_config_from_state_dict
 
@@ -42,8 +44,6 @@ __all__ = [
 ]
 
 StateDict = T.Dict[str, torch.Tensor]
-_NOT_PORTED = ("the {net} checkpoint branch is not ported yet: it comes with the 2D pose net "
-               "(ROADMAP.md, Queue 1, item 2)")
 
 
 def load_torch_state_dict(path: str) -> StateDict:
@@ -89,24 +89,20 @@ def sub_state_dict(sd: T.Mapping[str, T.Any], prefix: str) -> T.Dict[str, T.Any]
     return out
 
 
-def _refuse_unported(**nets) -> None:
-    for net, given in nets.items():
-        if given is not None:
-            raise NotImplementedError(_NOT_PORTED.format(net=net))
-
-
 def extraction_params_from_checkpoints(cfg, *, tokenhmr=None, dwpose=None, yolox=None,
                                        rcnn=None) -> T.Dict[str, StateDict]:
     """The state_dicts of the nets whose checkpoint was given (each a path
-    or a loaded state_dict): ``vit`` and ``head`` from ``tokenhmr``, ``det``
-    from a Megvii YOLOX checkpoint, ``rcnn`` from a detectron2 one. ``cfg``
-    must hold the matching geometry already (:func:`published_config`)."""
-    _refuse_unported(dwpose=dwpose)
+    or a loaded state_dict): ``vit`` and ``head`` from ``tokenhmr``, ``pose``
+    from an mmpose DWPose checkpoint, ``det`` from a Megvii YOLOX one,
+    ``rcnn`` from a detectron2 one. ``cfg`` must hold the matching geometry
+    already (:func:`published_config`)."""
     out: T.Dict[str, StateDict] = {}
     if tokenhmr is not None:
         sd = _as_state_dict(tokenhmr)
         out["vit"] = sub_state_dict(sd, "backbone.")
         out["head"] = canonical_head_state_dict(sub_state_dict(sd, "smpl_head."))
+    if dwpose is not None:
+        out["pose"] = _as_state_dict(dwpose)
     if yolox is not None:
         out["det"] = _as_state_dict(yolox)
     if rcnn is not None:
@@ -117,12 +113,14 @@ def extraction_params_from_checkpoints(cfg, *, tokenhmr=None, dwpose=None, yolox
 def published_config(cfg, *, tokenhmr=None, dwpose=None, yolox=None, rcnn=None):
     """``cfg`` with the head's TokenClassfier geometry read from the
     checkpoint's shapes, ``det`` switched to ``DetectorConfig.yolox_l()``
-    when a YOLOX file is given and the caller left ``det`` at its (lite)
-    default, and ``mesh_detector="rcnn"`` when an R-CNN file is given. The
-    ViT-H and X101-FPN defaults are the published geometry."""
-    _refuse_unported(dwpose=dwpose)
+    when a YOLOX file is given and ``pose`` to ``PoseNetConfig.dwpose_l()``
+    when a DWPose file is given, each only where the caller left it at its
+    (lite) default, and ``mesh_detector="rcnn"`` when an R-CNN file is given.
+    The ViT-H and X101-FPN defaults are the published geometry."""
     if yolox is not None and cfg.det == DetectorConfig():
         cfg = dataclasses.replace(cfg, det=DetectorConfig.yolox_l())
+    if dwpose is not None and cfg.pose == PoseNetConfig():
+        cfg = dataclasses.replace(cfg, pose=PoseNetConfig.dwpose_l())
     if tokenhmr is not None:
         head_sd = sub_state_dict(_as_state_dict(tokenhmr), "smpl_head.")
         cfg = dataclasses.replace(cfg, head=classifier_config_from_state_dict(head_sd, cfg.head))
