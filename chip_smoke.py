@@ -149,7 +149,27 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    backmap + postprocess; process_video_full frames/s with keypoints in the
    yolox and rcnn modes at fp32 and in the bf16 mode, peak memory. The
    phase's K5, K6, K1 and K3 launch counts are printed before the kernels
-   line.
+   line. Phases 5 and 10 leave their trees and outputs for phase 11.
+11. Parallelism and reporting (parallel/, utils/cli.py, merge_scores,
+   leaderboard, human/mos.py): (a) an NCCL group of one on the card,
+   all_gather_rows forward and backward, all_reduce_sum, broadcast_ and a
+   barrier leaving every value as it was; (b) the train CLI with --dp 2
+   --device cuda on phase 5's tree at TrainConfig defaults, two ranks
+   sharing the card through gloo (printed by each rank): every epoch's
+   train, eval and centroid loss within rtol 2e-3 of phase 5's one-rank run,
+   each rank's K4 forward, K4 backward, K1 and K3 launches as its rows and
+   its share of the eval batches give them, clips/s; (c) the score CLI on
+   phase 5's trained checkpoint with --mesh-data 2, and with --num-hosts 2
+   --host-id 0 and 1 merged by merge_scores, every AC and TC within
+   SCORE_ATOL / SCORE_RTOL of phase 5's one-rank scores, K1 and K3 per rank;
+   (d) the extract CLI at its defaults over phase 10's tree, one video at a
+   time, as --num-hosts 2 (two runs in turn) and --mesh-data 2 against a
+   one-rank run (ledger entries equal, and equal to phase 10's; files within
+   phase 10's tolerances, bitwise or not said), then run_tree with
+   keep_all_frames (a file for every video) the same three ways, K6 per
+   rank; (e) the leaderboard CLI on (c)'s merged scores and the MOS CLI on
+   seeded ratings of the same videos, correlated by merge_scores. The
+   phase's seconds.
 
 Then the smoke's wall time, a JSON line listing the kernels, the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -918,7 +938,9 @@ def _only_run(save_dir):
     return os.path.join(save_dir, run)
 
 
-def phase_training(torch, card):
+def phase_training(torch, card, root):
+    """Phase 5, on a tree written under ``root``, which phase 11 reuses:
+    returns the launches and what phase 11 compares against."""
     import copy
 
     from video_gen_evals_tpu_torch.core.config import PathsConfig, TrainConfig
@@ -944,124 +966,127 @@ def phase_training(torch, card):
                 gather_windows.launches, fused_temporal_block.launches)
 
     launches = {}
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        mesh_root, kp_root, gen_dir, gen_kp = _write_tree(
-            root, videos_per_class=5, frames=(248, 256, 240, 252, 244))
-        gen = scan_generated_flat(gen_dir)
-        human = {f"{os.path.splitext(it.name)[0]}.mp4": {"ac": float(i % 5), "tc": float(-(i % 7))}
-                 for i, it in enumerate(gen.items)}
-        human_path = os.path.join(root, "human.json")
-        with open(human_path, "w") as f:
-            json.dump(human, f)
-        base = TrainConfig(
-            paths=PathsConfig(real_meshes_dir=mesh_root, real_kp_dir=kp_root,
-                              generated_meshes_dir=gen_dir, gen_kp_dir=gen_kp,
-                              human_scores=human_path),
-            epochs=2, save_dir=os.path.join(root, "SAVE_two"))
-        cfg_path = os.path.join(root, "train.json")
-        base.to_json(cfg_path)
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    mesh_root, kp_root, gen_dir, gen_kp = _write_tree(
+        root, videos_per_class=5, frames=(248, 256, 240, 252, 244))
+    gen = scan_generated_flat(gen_dir)
+    human = {f"{os.path.splitext(it.name)[0]}.mp4": {"ac": float(i % 5), "tc": float(-(i % 7))}
+             for i, it in enumerate(gen.items)}
+    human_path = os.path.join(root, "human.json")
+    with open(human_path, "w") as f:
+        json.dump(human, f)
+    base = TrainConfig(
+        paths=PathsConfig(real_meshes_dir=mesh_root, real_kp_dir=kp_root,
+                          generated_meshes_dir=gen_dir, gen_kp_dir=gen_kp,
+                          human_scores=human_path),
+        epochs=2, save_dir=os.path.join(root, "SAVE_two"))
+    cfg_path = os.path.join(root, "train.json")
+    base.to_json(cfg_path)
 
-        real = scan_class_tree(mesh_root, filter_classes=list(ACTION_CLASSES))
-        train, test = train_test_split(real, 0.8, seed=base.seed)
-        n_train, n_test, n_gen = (len(enumerate_windows(m, CLIP, STRIDE)) for m in (train, test, gen))
-        steps = max(1, n_train // base.batch_size)
-        eval_batches = -(-n_train // BATCH) + -(-n_test // BATCH) + -(-n_gen // BATCH)   # centroids, distance, monitor
-        loss_chunks = -(-n_test // BATCH)
-        print(f"train: tree written in {time.perf_counter() - t0:.1f} s; {n_train} train, {n_test} test, "
-              f"{n_gen} generated windows; {steps} steps of {4 * base.batch_size} stacked windows per epoch")
-        _check(steps >= 4, f"train: only {steps} steps per epoch")
+    real = scan_class_tree(mesh_root, filter_classes=list(ACTION_CLASSES))
+    train, test = train_test_split(real, 0.8, seed=base.seed)
+    n_train, n_test, n_gen = (len(enumerate_windows(m, CLIP, STRIDE)) for m in (train, test, gen))
+    steps = max(1, n_train // base.batch_size)
+    eval_batches = -(-n_train // BATCH) + -(-n_test // BATCH) + -(-n_gen // BATCH)   # centroids, distance, monitor
+    loss_chunks = -(-n_test // BATCH)
+    print(f"train: tree written in {time.perf_counter() - t0:.1f} s; {n_train} train, {n_test} test, "
+          f"{n_gen} generated windows; {steps} steps of {4 * base.batch_size} stacked windows per epoch")
+    _check(steps >= 4, f"train: only {steps} steps per epoch")
 
-        # the 2-epoch run through the CLI, at TrainConfig defaults
-        reset()
-        t0 = time.perf_counter()
-        train_main(["--config", cfg_path, "--device", "cuda"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = counts()
-        want = (40 * steps * 2, 40 * steps * 2 * LAUNCHES_PER_BACKWARD,
-                2 * (steps + eval_batches + loss_chunks), 2 * 40 * (eval_batches + loss_chunks))
-        print(f"train: 2 epochs in {wall:.1f} s (host stats + banks included); launches K4 forward={got[0]} "
-              f"backward={got[1]} ({LAUNCHES_PER_BACKWARD} per stage backward) gather={got[2]} K3={got[3]}")
-        _check(got == want, f"train: launches {got} != {want}")
-        launches["default"] = got[:2]
+    # the 2-epoch run through the CLI, at TrainConfig defaults
+    reset()
+    t0 = time.perf_counter()
+    train_main(["--config", cfg_path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    want = (40 * steps * 2, 40 * steps * 2 * LAUNCHES_PER_BACKWARD,
+            2 * (steps + eval_batches + loss_chunks), 2 * 40 * (eval_batches + loss_chunks))
+    print(f"train: 2 epochs in {wall:.1f} s (host stats + banks included); launches K4 forward={got[0]} "
+          f"backward={got[1]} ({LAUNCHES_PER_BACKWARD} per stage backward) gather={got[2]} K3={got[3]}")
+    _check(got == want, f"train: launches {got} != {want}")
+    launches["default"] = got[:2]
 
-        run_two = _only_run(base.save_dir)
-        events = _events(run_two)
-        kinds = {e["event"] for e in events}
-        need = {"train_epoch", "eval_loss", "centroid_distance", "human_corr", "checkpoint"}
-        _check(need <= kinds, f"train: metrics.jsonl lacks {sorted(need - kinds)} (has {sorted(kinds)})")
-        for e in events:
-            for k in ("loss", "avg") + COMPONENTS:
-                _check(k not in e or math.isfinite(e[k]), f"train: non-finite {k} in {e}")
-        epochs = [e for e in events if e["event"] == "train_epoch"]
-        _check(len(epochs) == 2 and all(e["batches"] == steps and e["skipped"] == 0 for e in epochs),
-               f"train: epochs {epochs}")
-        second = epochs[1]
-        print(f"train: epoch losses {epochs[0]['loss']:.4f} -> {second['loss']:.4f}; second epoch "
-              f"{second['batches'] / second['seconds']:.3f} steps/s, {second['clips_per_sec']:.1f} clips/s on {card}")
+    run_two = _only_run(base.save_dir)
+    events = _events(run_two)
+    kinds = {e["event"] for e in events}
+    need = {"train_epoch", "eval_loss", "centroid_distance", "human_corr", "checkpoint"}
+    _check(need <= kinds, f"train: metrics.jsonl lacks {sorted(need - kinds)} (has {sorted(kinds)})")
+    for e in events:
+        for k in ("loss", "avg") + COMPONENTS:
+            _check(k not in e or math.isfinite(e[k]), f"train: non-finite {k} in {e}")
+    epochs = [e for e in events if e["event"] == "train_epoch"]
+    _check(len(epochs) == 2 and all(e["batches"] == steps and e["skipped"] == 0 for e in epochs),
+           f"train: epochs {epochs}")
+    second = epochs[1]
+    print(f"train: epoch losses {epochs[0]['loss']:.4f} -> {second['loss']:.4f}; second epoch "
+          f"{second['batches'] / second['seconds']:.3f} steps/s, {second['clips_per_sec']:.1f} clips/s on {card}")
 
-        # the weights moved away from their seeded start
-        final = torch.load(os.path.join(run_two, "resume_epoch001.pt"), map_location="cpu", weights_only=True)
-        fresh = HumanActionScorer(EncoderConfig.create(DIMS_RAW, DIMS_DIFF),
-                                  generator=torch.Generator().manual_seed(base.seed)).state_dict()
-        moved = [k for k, v in final["model"].items() if k != "pos_enc.pe" and not torch.equal(v, fresh[k])]
-        _check(len(moved) == len(fresh) - 1, f"train: only {len(moved)} of {len(fresh) - 1} parameters changed")
+    # the weights moved away from their seeded start
+    final = torch.load(os.path.join(run_two, "resume_epoch001.pt"), map_location="cpu", weights_only=True)
+    fresh = HumanActionScorer(EncoderConfig.create(DIMS_RAW, DIMS_DIFF),
+                              generator=torch.Generator().manual_seed(base.seed)).state_dict()
+    moved = [k for k, v in final["model"].items() if k != "pos_enc.pe" and not torch.equal(v, fresh[k])]
+    _check(len(moved) == len(fresh) - 1, f"train: only {len(moved)} of {len(fresh) - 1} parameters changed")
 
-        # the best checkpoint goes through the score CLI
-        best = sorted(f for f in os.listdir(run_two) if f.startswith("best_eval"))[-1]
-        out = os.path.join(root, "scores_trained.json")
-        score_main(["--generated-meshes", gen_dir, "--real-meshes", mesh_root,
-                    "--checkpoint", os.path.join(run_two, best), "--real-kp-dir", kp_root,
-                    "--gen-kp-dir", gen_kp, "--output", out, "--no-bug-compat", "--device", "cuda"])
-        with open(out) as f:
-            scored = json.load(f)
-        _check(len(scored) == len(gen.items) and all(
-            math.isfinite(v.get("ac", math.nan)) and math.isfinite(v.get("tc", math.nan))
-            for v in scored.values()), "train: the trained checkpoint did not score every generated video finite")
-        print(f"train: {best} scored {len(scored)} generated videos, all finite")
+    # the best checkpoint goes through the score CLI
+    best = sorted(f for f in os.listdir(run_two) if f.startswith("best_eval"))[-1]
+    out = os.path.join(root, "scores_trained.json")
+    score_main(["--generated-meshes", gen_dir, "--real-meshes", mesh_root,
+                "--checkpoint", os.path.join(run_two, best), "--real-kp-dir", kp_root,
+                "--gen-kp-dir", gen_kp, "--output", out, "--no-bug-compat", "--device", "cuda"])
+    with open(out) as f:
+        scored = json.load(f)
+    _check(len(scored) == len(gen.items) and all(
+        math.isfinite(v.get("ac", math.nan)) and math.isfinite(v.get("tc", math.nan))
+        for v in scored.values()), "train: the trained checkpoint did not score every generated video finite")
+    print(f"train: {best} scored {len(scored)} generated videos, all finite")
 
-        # epoch 0's checkpoint + --resume for epoch 1 == the 2-epoch run, bit for bit
-        resumed_cfg = copy.deepcopy(base)
-        resumed_cfg.save_dir = os.path.join(root, "SAVE_resumed")
-        resumed_cfg.to_json(cfg_path)
-        train_main(["--config", cfg_path, "--device", "cuda",
-                    "--resume", os.path.join(run_two, "resume_epoch000.pt")])
-        resumed = torch.load(os.path.join(_only_run(resumed_cfg.save_dir), "resume_epoch001.pt"),
-                             map_location="cpu", weights_only=True)
-        same = all(torch.equal(v, resumed["model"][k]) for k, v in final["model"].items())
-        opt_a, opt_b = final["train_step"]["optimizer"]["state"], resumed["train_step"]["optimizer"]["state"]
-        same = same and all(torch.equal(opt_a[i][k], opt_b[i][k]) for i in opt_a for k in opt_a[i])
-        same = same and final["train_step"]["step"] == resumed["train_step"]["step"] == 2 * steps
-        same = same and final["best_eval_loss"] == resumed["best_eval_loss"]
-        _check(same, "train: the resumed run is not bitwise equal to the 2-epoch run")
-        print("train: resume from epoch 0's checkpoint ends bitwise equal to the 2-epoch run "
-              "(weights, Adam moments, step, best eval loss)")
+    # epoch 0's checkpoint + --resume for epoch 1 == the 2-epoch run, bit for bit
+    resumed_cfg = copy.deepcopy(base)
+    resumed_cfg.save_dir = os.path.join(root, "SAVE_resumed")
+    resumed_cfg.to_json(cfg_path)
+    train_main(["--config", cfg_path, "--device", "cuda",
+                "--resume", os.path.join(run_two, "resume_epoch000.pt")])
+    resumed = torch.load(os.path.join(_only_run(resumed_cfg.save_dir), "resume_epoch001.pt"),
+                         map_location="cpu", weights_only=True)
+    same = all(torch.equal(v, resumed["model"][k]) for k, v in final["model"].items())
+    opt_a, opt_b = final["train_step"]["optimizer"]["state"], resumed["train_step"]["optimizer"]["state"]
+    same = same and all(torch.equal(opt_a[i][k], opt_b[i][k]) for i in opt_a for k in opt_a[i])
+    same = same and final["train_step"]["step"] == resumed["train_step"]["step"] == 2 * steps
+    same = same and final["best_eval_loss"] == resumed["best_eval_loss"]
+    _check(same, "train: the resumed run is not bitwise equal to the 2-epoch run")
+    print("train: resume from epoch 0's checkpoint ends bitwise equal to the 2-epoch run "
+          "(weights, Adam moments, step, best eval loss)")
 
-        # one step at "highest", dropout 0, K = 4: the card against the plain versions on the CPU
-        small = copy.deepcopy(base)
-        small.K, small.dropout, small.save_dir = 4, 0.0, os.path.join(root, "SAVE_small")
-        exp = Experiment(small, device="cuda", precision="highest")
-        idx = next(iter(exp._sampler_for_epoch(0)))
-        stacked = exp.train_step.stack(
-            exp._gather_batch(exp.train_bank, exp._train_bank_dev, exp.train_windows, idx))
-        labels = exp._labels(exp.window_labels, idx)
-        cpu_step = TrainStep(copy.deepcopy(exp.model).cpu(), small.lr, 8, precision="highest",
-                             eval_precision="highest", seed=small.seed)
-        reset()
-        on_card = exp.train_step.update(stacked, labels)
-        torch.cuda.synchronize()
-        got = counts()
-        _check(got[:2] == (40, 40 * LAUNCHES_PER_BACKWARD), f"train highest: K4 launches {got[:2]}")
-        launches["highest"] = got[:2]
-        t0 = time.perf_counter()
-        on_cpu = cpu_step.update(stacked.cpu(), labels.cpu())
-        worst = max(abs(on_card[k] - on_cpu[k]) for k in COMPONENTS + ("total",))
-        print(f"train: first step at highest, dropout 0, {stacked.shape[0]} stacked windows: card "
-              f"{ {k: round(on_card[k], 5) for k in COMPONENTS} } vs CPU plain versions, max |d| {worst:.3e} "
-              f"(tol 1e-3; CPU step {time.perf_counter() - t0:.1f} s)")
-        _check(worst <= 1e-3, f"train: card vs CPU loss components differ by {worst:.3e} > 1e-3")
-    return launches
+    # one step at "highest", dropout 0, K = 4: the card against the plain versions on the CPU
+    small = copy.deepcopy(base)
+    small.K, small.dropout, small.save_dir = 4, 0.0, os.path.join(root, "SAVE_small")
+    exp = Experiment(small, device="cuda", precision="highest")
+    idx = next(iter(exp._sampler_for_epoch(0)))
+    stacked = exp.train_step.stack(
+        exp._gather_batch(exp.train_bank, exp._train_bank_dev, exp.train_windows, idx))
+    labels = exp._labels(exp.window_labels, idx)
+    cpu_step = TrainStep(copy.deepcopy(exp.model).cpu(), small.lr, 8, precision="highest",
+                         eval_precision="highest", seed=small.seed)
+    reset()
+    on_card = exp.train_step.update(stacked, labels)
+    torch.cuda.synchronize()
+    got = counts()
+    _check(got[:2] == (40, 40 * LAUNCHES_PER_BACKWARD), f"train highest: K4 launches {got[:2]}")
+    launches["highest"] = got[:2]
+    t0 = time.perf_counter()
+    on_cpu = cpu_step.update(stacked.cpu(), labels.cpu())
+    worst = max(abs(on_card[k] - on_cpu[k]) for k in COMPONENTS + ("total",))
+    print(f"train: first step at highest, dropout 0, {stacked.shape[0]} stacked windows: card "
+          f"{ {k: round(on_card[k], 5) for k in COMPONENTS} } vs CPU plain versions, max |d| {worst:.3e} "
+          f"(tol 1e-3; CPU step {time.perf_counter() - t0:.1f} s)")
+    _check(worst <= 1e-3, f"train: card vs CPU loss components differ by {worst:.3e} > 1e-3")
+    ctx = dict(base=base, run_two=run_two, mesh_root=mesh_root, kp_root=kp_root, gen_dir=gen_dir, gen_kp=gen_kp,
+               human=human_path, best=os.path.join(run_two, best), scores=out, steps=steps, n_train=n_train,
+               n_test=n_test, n_gen=n_gen, clips_per_sec=second["clips_per_sec"])
+    return launches, ctx
 
 
 def _attn_bound(batch, n, heads, hd, elem_bytes, flops_per_product, peak):
@@ -1974,12 +1999,13 @@ def _check_kp120(torch, np, ex, frames, kp, tag):
     return int(hidden.sum())
 
 
-def phase_keypoints(torch, card):
+def phase_keypoints(torch, card, keep):
     """Phase 10: DWPose-L on the keypoint branch and everything that needs it:
     process_video_keypoints, process_video_full in both detector modes and
     both precision modes, the pose net on the card against the CPU, the
     streamed path, run_tree and the CLI on a .npy tree, and
-    score_videos_end_to_end."""
+    score_videos_end_to_end. The .npy tree and the CLI's outputs stay under
+    ``keep`` for phase 11."""
     import numpy as np
 
     from video_gen_evals_tpu_torch.data.features import ModalityPaths, load_video_arrays
@@ -2139,48 +2165,48 @@ def phase_keypoints(torch, card):
           f"equal ({excused} entries excused as near ties)")
 
     # run_tree on a .npy tree, then the CLI at its defaults
-    with tempfile.TemporaryDirectory() as root:
-        tree = os.path.join(root, "videos")
-        for a, action in enumerate(ACTION_CLASSES[:2]):
-            os.makedirs(os.path.join(tree, action))
-            for v in range(3):
-                path = os.path.join(tree, action, f"v{v}.npy")
-                if (a, v) == (1, 2):
-                    with open(path, "wb") as f:
-                        f.write(b"corrupt: not a frame stack")
-                else:
-                    np.save(path, mesh_video(32, seed=SEED + 10 + 3 * a + v)[0])
-        out = {k: os.path.join(root, k) for k in ("meshes", "kps", "logs")}
-        t0 = time.perf_counter()
-        counts = ex.run_tree(tree, out["meshes"], out["logs"], kp_out_root=out["kps"])
-        wall = time.perf_counter() - t0
-        _check(counts == {"single": 5, "not_single": 0, "errors": 1, "skipped": 0}, f"run_tree: counts {counts}")
-        with open(os.path.join(out["logs"], "errors", f"{ACTION_CLASSES[1]}.json")) as f:
-            errors = json.load(f)
-        _check(list(errors) == ["v2.npy"], f"run_tree: errors recorded for {list(errors)}")
-        again = ex.run_tree(tree, out["meshes"], out["logs"], kp_out_root=out["kps"])
-        _check(again == {"single": 0, "not_single": 0, "errors": 1, "skipped": 5}, f"run_tree resumed: {again}")
-        read = set()
-        for action in ACTION_CLASSES[:2]:
-            for v in range(3 if action == ACTION_CLASSES[0] else 2):
-                item = VideoItem(action, f"v{v}.npz", os.path.join(out["meshes"], action, f"v{v}.npz"), 32, 1024)
-                arrays = load_video_arrays(item, ModalityPaths(keypoint_dir=out["kps"], layout="real"))
-                read.add(tuple(sorted((k, x.shape) for k, x in arrays.items())))
-        want = {(("beta", (32, 10)), ("global", (32, 9)), ("kp2d", (32, 120)), ("pose", (32, 207)),
-                 ("vit", (32, 1024)))}
-        _check(read == want, f"run_tree: the scoring loader read {read}")
-        _check(os.path.exists(os.path.join(out["logs"], "RUN_CONFIG.json")), "run_tree: no RUN_CONFIG.json")
-        print(f"keypoints: run_tree over 2 actions x 3 .npy videos (one corrupt), keep_all_frames, --out-kps: "
-              f"{counts} in {wall:.2f} s; resumed: {again} (an error is retried, as the ledger keeps it apart); "
-              f"every npz + keypoints.npy read back as the five modalities; RUN_CONFIG.json written")
-        t0 = time.perf_counter()
-        cli = extract_main(["--videos", tree, "--out-meshes", os.path.join(root, "cli_meshes"),
-                            "--out-kps", os.path.join(root, "cli_kps"), "--log-dir", os.path.join(root, "cli_logs")])
-        torch.cuda.synchronize()
-        _check(cli["errors"] == 1 and cli["single"] + cli["not_single"] == 5 and cli["skipped"] == 0,
-               f"extract CLI: counts {cli}")
-        print(f"keypoints: python -m video_gen_evals_tpu_torch.pipelines.extract at its defaults (seeded nets, the "
-              f"reference's rule) on the same tree: {cli} in {time.perf_counter() - t0:.1f} s")
+    root = keep
+    tree = os.path.join(root, "videos")
+    for a, action in enumerate(ACTION_CLASSES[:2]):
+        os.makedirs(os.path.join(tree, action))
+        for v in range(3):
+            path = os.path.join(tree, action, f"v{v}.npy")
+            if (a, v) == (1, 2):
+                with open(path, "wb") as f:
+                    f.write(b"corrupt: not a frame stack")
+            else:
+                np.save(path, mesh_video(32, seed=SEED + 10 + 3 * a + v)[0])
+    out = {k: os.path.join(root, k) for k in ("meshes", "kps", "logs")}
+    t0 = time.perf_counter()
+    counts = ex.run_tree(tree, out["meshes"], out["logs"], kp_out_root=out["kps"])
+    wall = time.perf_counter() - t0
+    _check(counts == {"single": 5, "not_single": 0, "errors": 1, "skipped": 0}, f"run_tree: counts {counts}")
+    with open(os.path.join(out["logs"], "errors", f"{ACTION_CLASSES[1]}.json")) as f:
+        errors = json.load(f)
+    _check(list(errors) == ["v2.npy"], f"run_tree: errors recorded for {list(errors)}")
+    again = ex.run_tree(tree, out["meshes"], out["logs"], kp_out_root=out["kps"])
+    _check(again == {"single": 0, "not_single": 0, "errors": 1, "skipped": 5}, f"run_tree resumed: {again}")
+    read = set()
+    for action in ACTION_CLASSES[:2]:
+        for v in range(3 if action == ACTION_CLASSES[0] else 2):
+            item = VideoItem(action, f"v{v}.npz", os.path.join(out["meshes"], action, f"v{v}.npz"), 32, 1024)
+            arrays = load_video_arrays(item, ModalityPaths(keypoint_dir=out["kps"], layout="real"))
+            read.add(tuple(sorted((k, x.shape) for k, x in arrays.items())))
+    want = {(("beta", (32, 10)), ("global", (32, 9)), ("kp2d", (32, 120)), ("pose", (32, 207)),
+             ("vit", (32, 1024)))}
+    _check(read == want, f"run_tree: the scoring loader read {read}")
+    _check(os.path.exists(os.path.join(out["logs"], "RUN_CONFIG.json")), "run_tree: no RUN_CONFIG.json")
+    print(f"keypoints: run_tree over 2 actions x 3 .npy videos (one corrupt), keep_all_frames, --out-kps: "
+          f"{counts} in {wall:.2f} s; resumed: {again} (an error is retried, as the ledger keeps it apart); "
+          f"every npz + keypoints.npy read back as the five modalities; RUN_CONFIG.json written")
+    t0 = time.perf_counter()
+    cli = extract_main(["--videos", tree, "--out-meshes", os.path.join(root, "cli_meshes"),
+                        "--out-kps", os.path.join(root, "cli_kps"), "--log-dir", os.path.join(root, "cli_logs")])
+    torch.cuda.synchronize()
+    _check(cli["errors"] == 1 and cli["single"] + cli["not_single"] == 5 and cli["skipped"] == 0,
+           f"extract CLI: counts {cli}")
+    print(f"keypoints: python -m video_gen_evals_tpu_torch.pipelines.extract at its defaults (seeded nets, the "
+          f"reference's rule) on the same tree: {cli} in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # frames to scores in one call
@@ -2253,7 +2279,302 @@ def phase_keypoints(torch, card):
         torch.cuda.empty_cache()
     del ex, rc
     torch.cuda.empty_cache()
-    return launches
+    return launches, dict(tree=tree, cli={k: os.path.join(root, f"cli_{k}") for k in ("meshes", "kps", "logs")},
+                          cli_counts=cli)
+
+
+def _rank_share(batches: int, rank: int, world: int) -> int:
+    """The batches of a sweep that ``rank`` encodes: every world-th, from its own index."""
+    return len(range(rank, batches, world))
+
+
+def _tree_files(np, root):
+    """Every file under ``root`` by relative path: an npz's arrays, a .npy's
+    array, a JSON ledger's entries as a sorted list."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(d, name)
+            rel = os.path.relpath(path, root)
+            if name.endswith(".npz"):
+                with np.load(path) as z:
+                    out[rel] = {k: z[k] for k in z.files}
+            elif name.endswith(".npy"):
+                out[rel] = {"": np.load(path)}
+    return out
+
+
+def _ledger_entries(log_dir):
+    """{(kind, action): videos} of a log dir's ledgers, per-host ones merged."""
+    out = {}
+    for kind in ("single", "not_single", "errors"):
+        d = os.path.join(log_dir, kind)
+        for name in sorted(os.listdir(d)) if os.path.isdir(d) else ():
+            with open(os.path.join(d, name)) as f:
+                out.setdefault((kind, name.split(".")[0]), set()).update(json.load(f))
+    return out
+
+
+def _same_files(np, got_root, want_root, tag):
+    """The files under ``got_root`` against ``want_root``'s: the same paths,
+    frame indices and keypoints equal, the mesh arrays within phase 10's 1e-4
+    of scale. Returns (files, bitwise)."""
+    got, want = _tree_files(np, got_root), _tree_files(np, want_root)
+    _check(sorted(got) == sorted(want), f"{tag}: files {sorted(got)} != {sorted(want)}")
+    bitwise, worst = True, 0.0
+    for path, arrays in want.items():
+        _check(sorted(got[path]) == sorted(arrays), f"{tag}: {path} holds {sorted(got[path])}")
+        for k, v in arrays.items():
+            same = np.array_equal(got[path][k], v)
+            bitwise = bitwise and same
+            if k in ("vit", "pose", "betas", "global_orient"):
+                worst = max(worst, float(np.abs(got[path][k] - v).max()) / max(1.0, float(np.abs(v).max())))
+            else:
+                _check(same, f"{tag}: {path} {k or 'keypoints'} differs")
+    _check(worst <= 1e-4, f"{tag}: mesh arrays off by {worst:.2e} of scale (tol 1e-4)")
+    return len(want), bitwise
+
+
+def _parallel_extract_rank(rank, tree, out_root, log_dir, kp_root):
+    """Phase 11: one rank of a 2-rank ``run_tree`` over phase 10's tree with
+    phase 10's full-width extractor (keep_all_frames), one video at a time,
+    on the shard the extract CLI's ``--mesh-data`` gives it."""
+    import torch
+
+    from video_gen_evals_tpu_torch.ops import launch_counts
+    from video_gen_evals_tpu_torch.pipelines.extract import Extractor, rank_shard
+
+    shard, shards = rank_shard(0, 1, rank.rank, rank.world)
+    ex = Extractor(_pose_config(), seed=SEED, device=rank.device)
+    counts = ex.run_tree(tree, out_root, log_dir, kp_out_root=kp_root, stream_group=1, num_hosts=shards,
+                         host_id=shard)
+    torch.cuda.synchronize()
+    return {"counts": counts, "launches": launch_counts()}
+
+
+def phase_parallel(torch, card, train_ctx, kp_ctx, root):
+    """Phase 11: the collectives on the card, then the CLIs on two ranks
+    sharing the card (gloo) and as two hosts, against phases 5 and 10's
+    one-rank runs; then the reporting CLIs."""
+    import copy
+
+    import numpy as np
+
+    from video_gen_evals_tpu_torch.human.mos import AC_KEY, TC_KEY
+    from video_gen_evals_tpu_torch.human.mos import main as mos_main
+    from video_gen_evals_tpu_torch.ops.conv_kernel_train import LAUNCHES_PER_BACKWARD
+    from video_gen_evals_tpu_torch.parallel import (
+        all_gather_rows, all_reduce_sum, barrier, broadcast_, initialize_distributed, launch_local, shutdown)
+    from video_gen_evals_tpu_torch.parallel.mesh import free_port
+    from video_gen_evals_tpu_torch.pipelines.extract import Extractor
+    from video_gen_evals_tpu_torch.pipelines.extract import main as extract_main
+    from video_gen_evals_tpu_torch.pipelines.leaderboard import main as leaderboard_main
+    from video_gen_evals_tpu_torch.pipelines.merge_scores import SCORE_ATOL, SCORE_RTOL
+    from video_gen_evals_tpu_torch.pipelines.merge_scores import main as merge_main
+    from video_gen_evals_tpu_torch.pipelines.score import main as score_main
+    from video_gen_evals_tpu_torch.pipelines.train_cli import main as train_main
+
+    t_phase = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+
+    # (a) NCCL at world 1 on the card: all_gather_rows forward and backward, a sum, a broadcast
+    rank = initialize_distributed(f"localhost:{free_port()}", 1, 0, "cuda", join_alone=True)
+    try:
+        _check(rank.backend == "nccl", f"parallel: a rank alone on its card chose {rank.backend}")
+        x = torch.randn(6, 5, device="cuda", requires_grad=True)
+        w = torch.randn(6, 5, device="cuda")
+        y = all_gather_rows(x, rank)
+        (y * w).sum().backward()
+        t = torch.randn(7, device="cuda")
+        want = t.clone()
+        all_reduce_sum([t], rank)
+        broadcast_([t], rank)
+        barrier(rank)
+        torch.cuda.synchronize()
+        ok = torch.equal(y, x) and torch.equal(x.grad, w) and torch.equal(t, want)
+    finally:
+        shutdown(rank)
+    _check(ok, "parallel: the NCCL round trip at world 1 changed a value")
+    print("parallel (a): NCCL group of 1 on the card: all_gather_rows (forward and its backward's own rows), "
+          "all_reduce_sum, broadcast_ and a barrier leave every value as it was")
+
+    # (b) the train CLI on 2 ranks sharing the card (gloo) against phase 5's one-rank run
+    ctx = train_ctx
+    cfg = copy.deepcopy(ctx["base"])
+    cfg.save_dir = os.path.join(root, "SAVE_dp2")
+    cfg_path = os.path.join(root, "train_dp2.json")
+    cfg.to_json(cfg_path)
+    t0 = time.perf_counter()
+    ranks = train_main(["--config", cfg_path, "--device", "cuda", "--dp", "2"])
+    wall = time.perf_counter() - t0
+    _check([r["rank"] for r in ranks] == [0, 1] and ranks[0]["save_dir"] == ranks[1]["save_dir"],
+           f"parallel (b): ranks {ranks}")
+    one, two = _events(ctx["run_two"]), _events(ranks[0]["save_dir"])
+    rel = {}
+    for kind, key in (("train_epoch", "loss"), ("eval_loss", "loss"), ("centroid_distance", "avg")):
+        a = [e[key] for e in one if e["event"] == kind]
+        b = [e[key] for e in two if e["event"] == kind]
+        _check(len(a) == len(b) == 2, f"parallel (b): {kind} events {len(a)} vs {len(b)}")
+        rel[kind] = [abs(x2 - x1) / abs(x1) for x1, x2 in zip(a, b)]
+    worst = max(max(v) for v in rel.values())
+    _check(worst <= 2e-3, f"parallel (b): dp 2 losses off by {rel} relative (tol 2e-3)")
+    steps = ctx["steps"]
+    loss_chunks = -(-ctx["n_test"] // BATCH)
+    sweeps = [-(-ctx[k] // BATCH) for k in ("n_train", "n_test", "n_gen")]
+    for r in ranks:
+        own = sum(_rank_share(nb, r["rank"], 2) for nb in sweeps)
+        n = r["launches"]
+        got = (n["fused_temporal_block_train"], n["fused_temporal_block_train_bwd"], n["gather_windows"],
+               n["fused_temporal_block"])
+        want = (40 * steps * 2, 40 * steps * 2 * LAUNCHES_PER_BACKWARD, 2 * (steps + loss_chunks + own),
+                2 * 40 * (loss_chunks + own))
+        print(f"parallel (b): train CLI --dp 2 rank {r['rank']}: launches K4 forward={got[0]} backward={got[1]} "
+              f"K1={got[2]} K3={got[3]}")
+        _check(got == want and min(got) > 0, f"parallel (b): rank {r['rank']} launches {got} != {want}")
+    second = [e for e in two if e["event"] == "train_epoch"][1]
+    print(f"parallel (b): train CLI --dp 2 --device cuda, 2 ranks sharing the card through gloo, 2 epochs of "
+          f"{steps} steps in {wall:.1f} s (rank start, host stats + banks included): relative to phase 5's "
+          f"one-rank run, epoch by epoch, " + ", ".join(f"{k} {v[0]:.2e} / {v[1]:.2e}" for k, v in rel.items())
+          + f" (tol 2e-3); second epoch {second['clips_per_sec']:.1f} clips/s against the one-rank "
+          f"{ctx['clips_per_sec']:.1f} on {card} (two ranks share one card: not expected to beat one rank)")
+
+    # (c) the score CLI on 2 ranks, and as 2 hosts merged, against phase 5's one-rank scores
+    with open(ctx["scores"]) as f:
+        want_scores = json.load(f)
+
+    def score_argv(out):
+        return ["--generated-meshes", ctx["gen_dir"], "--real-meshes", ctx["mesh_root"], "--checkpoint",
+                ctx["best"], "--real-kp-dir", ctx["kp_root"], "--gen-kp-dir", ctx["gen_kp"], "--output", out,
+                "--no-bug-compat", "--device", "cuda"]
+
+    def score_diff(path, tag):
+        with open(path) as f:
+            got = json.load(f)
+        _check(sorted(got) == sorted(want_scores), f"parallel (c) {tag}: videos differ")
+        d = 0.0
+        for vid, entry in want_scores.items():
+            _check(sorted(got[vid]) == sorted(entry), f"parallel (c) {tag}: {vid} keys differ")
+            for m, v in entry.items():
+                _check(math.isclose(got[vid][m], v, rel_tol=SCORE_RTOL, abs_tol=SCORE_ATOL),
+                       f"parallel (c) {tag}: {vid} {m} {got[vid][m]} vs {v}")
+                d = max(d, abs(got[vid][m] - v))
+        return d
+
+    t0 = time.perf_counter()
+    out_md = os.path.join(root, "scores_md2.json")
+    ranks = score_main(score_argv(out_md) + ["--mesh-data", "2"])
+    wall_md = time.perf_counter() - t0
+    batches = -(-ctx["n_train"] // BATCH) + -(-ctx["n_gen"] // BATCH)
+    for r in ranks:
+        n = r["launches"]
+        print(f"parallel (c): score CLI --mesh-data 2 rank {r['rank']}: launches K1={n['gather_windows']} "
+              f"K3={n['fused_temporal_block']}")
+        _check(n["gather_windows"] > 0 and n["fused_temporal_block"] == 40 * n["gather_windows"],
+               f"parallel (c): rank {r['rank']} launches {n}")
+    total = sum(r["launches"]["gather_windows"] for r in ranks)
+    _check(total == batches, f"parallel (c): the ranks launched K1 {total} times for {batches} batches")
+    d_md = score_diff(out_md, "--mesh-data 2")
+    t0 = time.perf_counter()
+    shards = [score_main(score_argv(os.path.join(root, "scores_hosts.json"))
+                         + ["--num-hosts", "2", "--host-id", str(h)])[0]["output_json"] for h in range(2)]
+    merged = os.path.join(root, "scores_merged.json")
+    merge_main(shards + ["--output", merged, "--human-scores", ctx["human"]])
+    wall_hosts = time.perf_counter() - t0
+    d_hosts = score_diff(merged, "2 hosts merged")
+    print(f"parallel (c): score CLI --mesh-data 2 ({wall_md:.1f} s, rank start included) and --num-hosts 2 + "
+          f"merge_scores ({wall_hosts:.1f} s, two host runs in turn): every AC and TC of {len(want_scores)} videos "
+          f"within SCORE_ATOL / SCORE_RTOL ({SCORE_ATOL:g} / {SCORE_RTOL:g}) of phase 5's one-rank scores; max "
+          f"|d| {d_md:.2e} and {d_hosts:.2e}")
+
+    # (d) the extract CLI as 2 hosts and on 2 ranks over phase 10's tree, one video at a time, against a
+    # one-rank run; then run_tree with keep_all_frames (files for every video) the same three ways
+    tree = kp_ctx["tree"]
+
+    def cli(tag, *extra):
+        out = {k: os.path.join(root, f"{tag}_{k}") for k in ("meshes", "kps", "logs")}
+        got = extract_main(["--videos", tree, "--out-meshes", out["meshes"], "--out-kps", out["kps"],
+                            "--log-dir", out["logs"], "--stream-group", "1", *extra])
+        return out, got
+
+    t0 = time.perf_counter()
+    ref, ref_counts = cli("ref")
+    _check(_ledger_entries(ref["logs"]) == _ledger_entries(kp_ctx["cli"]["logs"]),
+           "parallel (d): one video at a time, the CLI's ledgers differ from phase 10's")
+    hosts = [cli("hosts", "--num-hosts", "2", "--host-id", str(h))[1] for h in range(2)]
+    md, md_counts = cli("md2", "--mesh-data", "2")
+    wall_cli = time.perf_counter() - t0
+    keys = ("single", "not_single", "errors", "skipped")
+    _check({k: hosts[0][k] + hosts[1][k] for k in keys} == {k: ref_counts[k] for k in keys}
+           and {k: md_counts[k] for k in keys} == {k: ref_counts[k] for k in keys},
+           f"parallel (d): counts {hosts} / {md_counts} vs {ref_counts}")
+    cli_hosts = {k: os.path.join(root, f"hosts_{k}") for k in ("meshes", "kps", "logs")}
+    same = []
+    for tag, out in (("--num-hosts 2", cli_hosts), ("--mesh-data 2", md)):
+        _check(_ledger_entries(out["logs"]) == _ledger_entries(ref["logs"]), f"parallel (d) {tag}: ledgers differ")
+        same.append([_same_files(np, out[k], ref[k], f"parallel (d) {tag}") for k in ("meshes", "kps")])
+    for r in md_counts["ranks"]:
+        print(f"parallel (d): extract CLI --mesh-data 2 rank {r['rank']} (shard {r['shard']} of {r['shards']}): "
+              f"{r['counts']}; launches K6={r['launches']['mha_core']} (the rule rejects a video before its "
+              f"mesh stage)")
+    print(f"parallel (d): extract CLI at its defaults, --stream-group 1, as --num-hosts 2 and --mesh-data 2 "
+          f"({wall_cli:.1f} s with the one-rank run): counts {ref_counts}, the same ledger entries (and phase 10's), "
+          f"files {[(n, 'bitwise' if b else 'within tol') for n, b in sum(same, [])]}")
+
+    t0 = time.perf_counter()
+    ex = Extractor(_pose_config(), seed=SEED)
+    runs = {}
+    for tag, hosts_n in (("ref", 1), ("hosts", 2)):
+        out = {k: os.path.join(root, f"rt_{tag}_{k}") for k in ("meshes", "kps", "logs")}
+        runs[tag] = out
+        counts = [ex.run_tree(tree, out["meshes"], out["logs"], kp_out_root=out["kps"], stream_group=1,
+                              num_hosts=hosts_n, host_id=h) for h in range(hosts_n)]
+        runs[tag + "_counts"] = {k: sum(c[k] for c in counts) for k in keys}
+    del ex
+    torch.cuda.empty_cache()
+    out = {k: os.path.join(root, f"rt_ranks_{k}") for k in ("meshes", "kps", "logs")}
+    ranks = launch_local(2, _parallel_extract_rank, tree, out["meshes"], out["logs"], out["kps"], device="cuda")
+    wall_rt = time.perf_counter() - t0
+    rank_counts = {k: sum(r["counts"][k] for r in ranks) for k in keys}
+    _check(runs["hosts_counts"] == rank_counts == runs["ref_counts"] and runs["ref_counts"]["single"] == 5,
+           f"parallel (d) run_tree: counts {runs}, ranks {rank_counts}")
+    same = [_same_files(np, o[k], runs["ref"][k], f"parallel (d) run_tree {tag}")
+            for tag, o in (("2 hosts", runs["hosts"]), ("2 ranks", out)) for k in ("meshes", "kps")]
+    for i, r in enumerate(ranks):
+        print(f"parallel (d): run_tree rank {i}: {r['counts']}; launches K6={r['launches']['mha_core']}")
+        _check(r["launches"]["mha_core"] > 0, f"parallel (d): run_tree rank {i} never launched K6")
+    print(f"parallel (d): run_tree with keep_all_frames, one video at a time, as 2 hosts and on 2 ranks sharing "
+          f"the card ({wall_rt:.1f} s with the one-rank run): {runs['ref_counts']}, every npz and keypoints.npy "
+          f"{'bitwise' if all(b for _, b in same) else 'within tol'} the one-rank run's ({sum(n for n, _ in same)} "
+          f"file comparisons)")
+
+    # (e) the reporting CLIs on (c)'s merged scores
+    table = os.path.join(root, "comparison_table.json")
+    leaderboard_main(["--scores", merged, "--output", table])
+    with open(table) as f:
+        board = json.load(f)
+    values = [v for row in board["table_data"].values() for cell in row.values() for k, v in cell.items()
+              if k in ("ac", "tc", "avg") and v is not None]
+    _check(board["models"] == ["GenModel0", "GenModel1"] and len(board["actions"]) == 10
+           and values and all(0.0 <= v <= 100.0 for v in values), f"parallel (e): leaderboard {board['models']}")
+    rng = np.random.default_rng(SEED)
+    stems = sorted(want_scores)
+    quality = rng.uniform(1, 5, size=(len(stems), 2))
+    rows = [{"participant_id": f"p{p}", "video_id": stem, AC_KEY: float(quality[v, 0] + rng.normal(0, 0.3)),
+             TC_KEY: float(quality[v, 1] + rng.normal(0, 0.3))}
+            for p in range(8) for v, stem in enumerate(stems) for _ in range(2 if v < 3 else 1)]
+    raw, mos_out = os.path.join(root, "raw_ratings.json"), os.path.join(root, "human_mos.json")
+    with open(raw, "w") as f:
+        json.dump(rows, f)
+    mos_main(["--input", raw, "--output", mos_out])
+    with open(mos_out) as f:
+        mos = json.load(f)
+    _check(len(mos) == len(stems) and all(math.isfinite(v["ac"]) and math.isfinite(v["tc"]) for v in mos.values()),
+           f"parallel (e): MOS of {len(mos)} videos")
+    merge_main(shards + ["--output", os.path.join(root, "scores_merged_mos.json"), "--human-scores", mos_out])
+    print(f"parallel (e): leaderboard over {len(board['models'])} models x {len(board['actions'])} actions, every "
+          f"normalized score in [0, 100]; MOS of {len(mos)} videos from {len(rows)} seeded ratings, correlated "
+          f"with the merged scores above")
+    print(f"parallel: phase 11 took {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
 def main() -> int:
@@ -2284,13 +2605,16 @@ def main() -> int:
     launches = phase_end_to_end(torch)
     phase_throughput(torch, card)
     fused_launches = phase_fused_sweep(torch, card)
-    train_launches = phase_training(torch, card)
+    keep = tempfile.TemporaryDirectory()   # phases 5 and 10's trees, which phase 11 reuses
+    train_launches, train_ctx = phase_training(torch, card, os.path.join(keep.name, "train"))
     mesh_launches = phase_mesh_stage(torch, card)
     det_kern, det_launches, exact_det = phase_detector(torch, card)
     kern.update(det_kern)
     mode_kern, mode_launches = phase_detector_modes(torch, card, exact_det)
     kern.update(mode_kern)
-    kp_launches = phase_keypoints(torch, card)
+    kp_launches, kp_ctx = phase_keypoints(torch, card, os.path.join(keep.name, "keypoints"))
+    phase_parallel(torch, card, train_ctx, kp_ctx, os.path.join(keep.name, "parallel"))
+    keep.cleanup()
 
     src = "video_gen_evals_tpu_torch/csrc/"
     rows = [

@@ -389,22 +389,103 @@ def test_run_tree_matches_jax(pair, tmp_path, stream_group):
     assert ours == theirs and ours["parity"] is False
 
 
+def _files(root):
+    """Every file under ``root``, by relative path, with its arrays."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(d, name)
+            if name.endswith(".npz"):
+                with np.load(path) as z:
+                    out[os.path.relpath(path, root)] = {k: z[k] for k in z.files}
+            else:
+                out[os.path.relpath(path, root)] = {"": np.load(path)}
+    return out
+
+
+def _assert_same_files(got, want, tag):
+    assert sorted(got) == sorted(want), tag
+    for path, arrays in want.items():
+        assert sorted(got[path]) == sorted(arrays), (tag, path)
+        for k, v in arrays.items():
+            np.testing.assert_array_equal(got[path][k], v, err_msg=f"{tag} {path} {k}")
+
+
+def test_run_tree_across_hosts_and_ranks(pair, weights, tmp_path):
+    """``run_tree`` as 2 hosts (host 0, then host 1, sharing the output roots
+    and the log dir) and as the extract CLI's 2 local ranks (``--mesh-data
+    2``: ranks spawned by ``launch_local``, each on the shard ``rank_shard``
+    gives) write, together, the one-host run's per-video files bitwise (one
+    video at a time). Each host extracts the strided shard of every action's
+    sorted videos, records it in ``<action>.host<I>of2.json`` ledgers and
+    writes ``RUN_CONFIG.host<I>of2.json``, as JAX's ``run_tree`` on 2 hosts
+    does (the same ledger files and entries); a host's second run skips its
+    shard."""
+    from video_gen_evals_tpu_torch.parallel import launch_local
+
+    from test_torch_parallel import _extract_rank
+
+    port, jex = pair
+    videos = _tree(tmp_path / "videos")
+    tree = str(tmp_path / "videos")
+    out = lambda tag: {k: str(tmp_path / f"{tag}_{k}") for k in ("m", "k", "l")}   # noqa: E731
+    one, hosts, jax_hosts, ranked = out("one"), out("hosts"), out("jax"), out("ranks")
+    everything = {"single": 4, "not_single": 1, "errors": 1, "skipped": 0}
+    assert port.run_tree(tree, one["m"], one["l"], kp_out_root=one["k"], stream_group=1) == everything
+    counts = []
+    for h in range(2):
+        counts.append(port.run_tree(tree, hosts["m"], hosts["l"], kp_out_root=hosts["k"], stream_group=1,
+                                    num_hosts=2, host_id=h))
+        jex.run_tree(tree, jax_hosts["m"], jax_hosts["l"], kp_out_root=jax_hosts["k"], stream_group=1,
+                     num_hosts=2, host_id=h)
+    assert {k: counts[0][k] + counts[1][k] for k in everything} == everything
+    for k in ("m", "k"):
+        _assert_same_files(_files(hosts[k]), _files(one[k]), f"2 hosts {k}")
+    listing = lambda root: {os.path.relpath(os.path.join(d, n), root)   # noqa: E731
+                            for d, _, names in os.walk(root) for n in names}
+    ledgers = listing(hosts["l"])
+    assert ledgers == listing(jax_hosts["l"])
+    assert {"RUN_CONFIG.host0of2.json", "RUN_CONFIG.host1of2.json"} <= ledgers
+    recorded = {}
+    for name in ledgers - {"RUN_CONFIG.host0of2.json", "RUN_CONFIG.host1of2.json"}:
+        with open(os.path.join(hosts["l"], name)) as f, open(os.path.join(jax_hosts["l"], name)) as g:
+            mine = sorted(json.load(f))
+            assert mine == sorted(json.load(g)), name
+        action, host = os.path.basename(name).split(".")[:2]
+        recorded.setdefault((action, host), set()).update(mine)
+    for action, vids in videos.items():
+        for h in range(2):
+            assert recorded[(action, f"host{h}of2")] == set(sorted(f"{v}.npy" for v in vids)[h::2])
+    assert port.run_tree(tree, hosts["m"], hosts["l"], kp_out_root=hosts["k"], stream_group=1,
+                         num_hosts=2, host_id=1)["skipped"] == 2
+
+    ranks = launch_local(2, _extract_rank, weights["cfg"], weights["sds"], tree, ranked["m"], ranked["l"],
+                         ranked["k"], device="cpu", timeout=120)
+    assert all(r["jax"] == [] for r in ranks)
+    assert {k: sum(r["counts"][k] for r in ranks) for k in everything} == everything
+    for k in ("m", "k"):
+        _assert_same_files(_files(ranked[k]), _files(one[k]), f"2 ranks {k}")
+
+
 def test_cli_refusals_and_main(pair, tmp_path, monkeypatch, capsys):
-    """The CLI refuses what is not ported and names its ROADMAP item
-    (data-parallel, multi-host and distributed runs: item 5; legacy crops:
-    item 3), and so does ``run_tree`` across hosts; ``main`` drives a tiny
+    """The CLI refuses what is not ported and names its ROADMAP item (legacy
+    crops: item 3) and refuses the distributed flags' bad combinations as
+    JAX's CLIs do (an unpaired --coordinator or --process-id, --num-processes
+    without its partners, --host-id -1 outside a distributed run of
+    --num-hosts processes); ``main`` drives a tiny
     ``Extractor.from_checkpoints`` through ``run_tree`` at its defaults."""
     port, _ = pair
-    for argv in (["--mesh-data", "2"], ["--num-hosts", "2", "--host-id", "1"], ["--coordinator", "h:1"],
-                 ["--num-processes", "2"], ["--process-id", "0"]):
-        with pytest.raises(SystemExit):
-            port_extract.main(["--videos", "v", *argv])
-        assert "ROADMAP.md, Queue 1, item 5" in capsys.readouterr().err
+    for argv, said in ((["--coordinator", "h:1"], "--num-processes"), (["--process-id", "0"], "--num-processes"),
+                       (["--num-processes", "2"], "--process-id"),
+                       (["--num-processes", "2", "--process-id", "0"], "--coordinator")):
+        with pytest.raises(SystemExit, match=said):
+            port_extract.main(["--videos", "v", "--device", "cpu", *argv])
+    with pytest.raises(SystemExit):
+        port_extract.main(["--videos", "v", "--device", "cpu", "--num-hosts", "2"])
+    assert "--host-id -1" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         port_extract.main(["--videos", "v", "--preproc", "legacy"])
     assert "ROADMAP.md, Queue 1, item 3" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 5"):
-        port.run_tree("v", "m", "l", num_hosts=2, host_id=1)
 
     _tree(tmp_path / "videos")
     built = {}

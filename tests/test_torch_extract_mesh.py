@@ -189,9 +189,10 @@ def test_seeded_weights_and_checkpoint_file(tmp_path, weights, port):
     assert torch.equal(with_det.detector.state_dict()["head.obj_preds.0.bias"], det_sd["head.obj_preds.0.bias"])
 
 
-def test_calls_that_need_a_detector_raise(port):
-    """What is not ported raises and names its ROADMAP item: the legacy
-    preprocessing and a run_tree across hosts. Without boxes, process_video
+def test_calls_that_need_a_detector_raise(port, tmp_path):
+    """What is not ported raises and names its ROADMAP item (the legacy
+    preprocessing), and a run_tree across hosts refuses a host index outside
+    [0, num_hosts) before it writes anything. Without boxes, process_video
     runs the default YOLOX detect stage (its seeded lite net here) under
     JAX's default rule (keep_all_frames False): the result is None or the
     frames of the detector's single-person mask, and the keypoint entry gives
@@ -206,8 +207,10 @@ def test_calls_that_need_a_detector_raise(port):
         np.testing.assert_array_equal(out["frame_idx"], np.flatnonzero(single))
     kp = port.process_video_keypoints(frames)
     assert kp["kp120"].shape == (len(frames), 120) and kp["valid"].shape == (len(frames),)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 5"):
-        port.run_tree("videos", "meshes", "logs", num_hosts=2, host_id=1)
+    with pytest.raises(ValueError, match=r"host_id must be in \[0, 2\)"):
+        port.run_tree(str(tmp_path / "videos"), str(tmp_path / "meshes"), str(tmp_path / "logs"),
+                      num_hosts=2, host_id=2)
+    assert not (tmp_path / "logs").exists()
     with pytest.raises(NotImplementedError, match="legacy"):
         ExtractorConfig(preproc="legacy")
     with pytest.raises(ValueError, match="square"):

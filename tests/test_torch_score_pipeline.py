@@ -203,6 +203,43 @@ def test_score_generated_matches_jax(env, jax_run, tmp_path):
     np.testing.assert_allclose(got["ac_corr"]["spearman"], want["ac_corr"]["spearman"], atol=1e-9)
 
 
+def test_score_generated_data_parallel_and_host_shards_match_jax(env, jax_run, tmp_path):
+    """``score_generated`` over a 2-rank gloo group (ranks spawned by
+    ``launch_local``, one torch thread each) and over 2 host shards joined by
+    ``merge_scores``, against the JAX run at test_score_generated_matches_jax's
+    1e-4: the sweeps' batches split over the ranks, the segment sums summed
+    over them; rank 0 alone writes the output; each host writes its
+    ``.host<I>of2`` shard with no correlations."""
+    from video_gen_evals_tpu_torch.parallel import launch_local
+    from video_gen_evals_tpu_torch.pipelines import merge_scores
+
+    from test_torch_parallel import _score_rank
+
+    _root, mesh_root, kp_root, gen_dir, gen_kp, human_path, _names = env
+    *_, want = jax_run
+    port, _jm, _params = _models(seed=0)
+    cfg = score.ScoreConfig(clip_len=16, stride=8, batch_size=16, precision="highest")
+    gen_paths = data.ModalityPaths(keypoint_dir=gen_kp, layout="generated")
+    enc_kw = dict(dims_map_raw=DIMS_RAW, dims_map_diff=DIMS_DIFF, d_model=32, time_layers=1, time_heads=4)
+    ranked = str(tmp_path / "ranked.json")
+    ranks = launch_local(2, _score_rank, port.state_dict(), enc_kw, gen_dir, mesh_root, _real_paths(kp_root),
+                         gen_paths, cfg, ranked, device="cpu", timeout=120)
+    assert ranks[0]["scores"] == ranks[1]["scores"] and all(r["jax"] == [] for r in ranks)
+    assert compare_scores.main([ranked, want["output_json"], "--tol", "1e-4"]) == 0
+    scanned = [os.path.splitext(it.name)[0] for it in data.scan_generated_flat(gen_dir).items]
+    shards = []
+    for h in range(2):
+        got = score.score_generated(port, gen_dir, mesh_root, _real_paths(kp_root), gen_paths, cfg=cfg,
+                                    human_scores_path=human_path, output_json=str(tmp_path / "hosts.json"),
+                                    device="cpu", num_hosts=2, host_id=h)
+        assert got["output_json"] == str(tmp_path / f"hosts.host{h}of2.json") and "ac_corr" not in got
+        assert sorted(got["scores"]) == sorted(scanned[h::2])
+        shards.append(got["output_json"])
+    merged = str(tmp_path / "merged.json")
+    merge_scores.main(shards + ["--output", merged])
+    assert compare_scores.main([merged, want["output_json"], "--tol", "1e-4"]) == 0
+
+
 def test_window_encoder_masks_the_padded_tail(env):
     """Segment sums do not depend on the batch size (pad + mask), and counts
     are the window counts."""
@@ -312,9 +349,10 @@ def test_score_cli_refuses_cuda_without_a_card(env, tmp_path):
 
 def test_port_imports_no_jax():
     """In a fresh interpreter: the scoring and training CLI modules, and every
-    module of the port they do not reach (the mesh-recovery stage's and the
-    fused forwards' among them), load neither jax, flax, optax, orbax nor anything of the JAX
-    package."""
+    module of the port they do not reach (the mesh-recovery stage's, the
+    fused forwards', the parallel and reporting modules' among them), load
+    neither jax, flax, optax, orbax nor anything of the JAX package (a
+    spawned rank's modules: tests/test_torch_parallel.py)."""
     code = (
         "import sys, pkgutil, importlib, video_gen_evals_tpu_torch as pkg\n"
         "import video_gen_evals_tpu_torch.pipelines.score\n"
@@ -326,7 +364,9 @@ def test_port_imports_no_jax():
         "for m in ('ops.attention', 'ops.attention_core', 'ops.upstream_crops', 'models.vit',\n"
         "          'models.smpl_head', 'pipelines.extract', 'pipelines.weights', 'utils.io',\n"
         "          'ops.chain_kernel', 'models.fused_apply', 'ops.roi_align', 'ops.image',\n"
-        "          'models.rcnn', 'models.pose2d', 'pipelines.full', 'utils.native_video'):\n"
+        "          'models.rcnn', 'models.pose2d', 'pipelines.full', 'utils.native_video',\n"
+        "          'parallel.mesh', 'utils.cli', 'pipelines.merge_scores', 'pipelines.leaderboard',\n"
+        "          'human.mos'):\n"
         "    assert 'video_gen_evals_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'video_gen_evals_tpu')]\n"

@@ -19,8 +19,12 @@ models    : ``HumanActionScorer`` as ``nn.Module``s with the reference's
             state_dict names, and weight conversion to and from the JAX tree.
 metrics   : per-window TC, AC/TC finalize, rank correlations.
 train     : losses, the training step, checkpoints, the experiment harness.
-pipelines : the scoring CLI (``python -m video_gen_evals_tpu_torch.pipelines.score``)
-            and the training CLI (``... .pipelines.train_cli``).
+parallel  : data-parallel ranks on ``torch.distributed`` and the multi-host
+            split of a work list.
+human     : the human-MOS pipeline.
+pipelines : the scoring CLI (``python -m video_gen_evals_tpu_torch.pipelines.score``),
+            the training CLI (``... .pipelines.train_cli``), extraction,
+            ``merge_scores`` and the leaderboard.
 csrc      : CUDA C++ sources, built with ``nvcc`` at first use.
 
 The package imports ``torch`` and never ``jax`` or the JAX package.

@@ -54,15 +54,15 @@ class PathsConfig:
 
 
 # JAX-package TrainConfig fields whose paths the port does not have yet
-# (conv implementation selector, data-parallel device count, bank cache)
-_UNPORTED_TRAIN_FIELDS = ("conv_impl", "num_dp_devices", "bank_cache_dir")
+# (conv implementation selector, bank cache)
+_UNPORTED_TRAIN_FIELDS = ("conv_impl", "bank_cache_dir")
 
 
 @dataclasses.dataclass
 class TrainConfig:
     """Hyperparameters of ``Exp_TCL_Hard_V2Plus`` (ref ``train.py:471-480``).
-    ``from_json`` ignores ``conv_impl``, ``num_dp_devices`` and
-    ``bank_cache_dir`` of a config written by the JAX package."""
+    ``from_json`` ignores ``conv_impl`` and ``bank_cache_dir`` of a config
+    written by the JAX package."""
 
     paths: PathsConfig = dataclasses.field(default_factory=PathsConfig)
     seed: int = 1337
@@ -88,8 +88,12 @@ class TrainConfig:
     debug_nans: bool = False
     # write the per-epoch checkpoints on a worker thread, so the copy to the
     # host and the file write overlap the next epoch's steps (Experiment.run's
-    # own saves only; direct save_resume_checkpoint calls stay blocking)
+    # own saves only, at one rank; direct save_resume_checkpoint calls stay
+    # blocking)
     async_checkpoint: bool = True
+    # data-parallel ranks of the train CLI (None or 1: one device); the
+    # CLI's --dp wins
+    num_dp_devices: T.Optional[int] = None
 
     @property
     def batch_size(self) -> int:

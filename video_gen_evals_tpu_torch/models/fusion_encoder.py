@@ -36,6 +36,10 @@ inside each conv stage (in the kernel, as a scaled keep mask), on the fusion
 attention weights, and on the transformer's attention weights, attention
 output, FFN hidden and FFN output. Every mask is drawn from the explicit
 ``torch.Generator`` handed to ``forward``, which lives on the input's device.
+Every masked tensor has the window axis first. A data-parallel rank that
+forwards rows ``[lo, lo + B)`` of an ``N``-window batch passes ``rows=(lo,
+N)``: each mask is then drawn at the whole batch's shape, in the same order,
+and the rank keeps its own rows, so N ranks drop what one rank drops.
 """
 
 from __future__ import annotations
@@ -132,16 +136,25 @@ def sinusoidal_positional_embedding(length: int, d_model: int) -> torch.Tensor:
 
 
 class Dropout:
-    """What one training forward needs to drop activations: the rate and the
-    generator its masks come from. ``None`` in its place means no dropout."""
+    """What one training forward needs to drop activations: the rate, the
+    generator its masks come from and, for a data-parallel rank, its rows
+    ``(lo, total)`` of the whole batch. ``None`` in its place means no
+    dropout."""
 
-    def __init__(self, rate: float, generator: torch.Generator):
+    def __init__(self, rate: float, generator: torch.Generator,
+                 rows: T.Optional[T.Tuple[int, int]] = None):
         self.keep = 1.0 - rate
         self.generator = generator
+        self.rows = rows
 
     def mask(self, like: torch.Tensor) -> torch.Tensor:
-        """Scaled keep mask of ``like``'s shape: 0 or 1/keep."""
-        u = torch.rand(like.shape, generator=self.generator, device=like.device)
+        """Scaled keep mask of ``like``'s shape: 0 or 1/keep. With ``rows``
+        drawn at the whole batch's shape (``like``'s window axis, the first,
+        at ``total``) and cut to ``like``'s rows."""
+        shape = like.shape if self.rows is None else (self.rows[1], *like.shape[1:])
+        u = torch.rand(shape, generator=self.generator, device=like.device)
+        if self.rows is not None:
+            u = u[self.rows[0] : self.rows[0] + like.shape[0]]
         return (u < self.keep).to(like.dtype) / self.keep
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -329,8 +342,9 @@ class HumanActionScorer(nn.Module):
     "high" (bf16x3) or "highest" (fp32), in training mode "default" (bf16
     operands, fp32 sums) or "highest"; every other matmul runs in fp32.
     In training mode with ``config.dropout > 0`` the masks come from
-    ``generator``, which must live on ``x``'s device. A new model is in eval
-    mode.
+    ``generator``, which must live on ``x``'s device; ``rows`` (a
+    data-parallel rank's ``(lo, total)``) draws them at the whole batch's
+    shape (:class:`Dropout`). A new model is in eval mode.
     """
 
     def __init__(self, config: EncoderConfig, generator: T.Optional[torch.Generator] = None):
@@ -369,13 +383,14 @@ class HumanActionScorer(nn.Module):
                 p.zero_()
 
     def forward(self, x: torch.Tensor, precision: str = "highest",
-                generator: T.Optional[torch.Generator] = None):
+                generator: T.Optional[torch.Generator] = None,
+                rows: T.Optional[T.Tuple[int, int]] = None):
         cfg = self.config
         dropout = None
         if self.training and cfg.dropout > 0.0:
             if generator is None:
                 raise ValueError("training mode with dropout needs a torch.Generator")
-            dropout = Dropout(cfg.dropout, generator)
+            dropout = Dropout(cfg.dropout, generator, rows)
         chains = self.chain_inputs(x)
         m_tokens = self.modality_tokens(
             (enc(xin, precision, dropout) for enc, xin, _slot in chains),   # one chain at a time

@@ -1,1 +1,1 @@
-"""Pipelines: CLI entry points (scoring)."""
+"""Pipelines: CLI entry points (scoring, training, extraction, merge, leaderboard)."""

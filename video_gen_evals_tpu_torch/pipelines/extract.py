@@ -33,10 +33,16 @@ is dropped for lack of a detection.
 :meth:`Extractor.run_tree` extracts an ``<action>/<video>`` tree resumably
 (per-action JSON ledgers, ref ``extract_mesh.py:121-194``), decoding and
 uploading on host threads ahead of the device, and ``python -m
-video_gen_evals_tpu_torch.pipelines.extract`` is its CLI. Not ported:
-``preproc="legacy"`` (ROADMAP.md, Queue 1, item 3) and the multi-host and
-distributed runs (``--mesh-data``, ``--num-hosts``, ``--coordinator``, ...;
-Queue 1, item 5).
+video_gen_evals_tpu_torch.pipelines.extract`` is its CLI. A multi-host sweep
+(``--num-hosts N --host-id I``) extracts the strided shard I of each
+action's sorted videos, with per-host ledgers ``<action>.host<I>of<N>.json``
+and ``RUN_CONFIG.host<I>of<N>.json``; outputs are per-video files, so hosts
+may share one output root. ``--mesh-data N`` runs N local ranks, each on its
+own device (``parallel.launch_local``), and each rank is one shard of the
+sweep as a host is (rank r of host h: shard ``h * N + r`` of ``H * N``).
+JAX shards the frames of each chunk over its mesh instead; both write the
+same per-video files. Not ported: ``preproc="legacy"`` (ROADMAP.md, Queue
+1, item 3).
 """
 
 from __future__ import annotations
@@ -79,6 +85,7 @@ from ..models.rcnn import (
 from ..models.smpl_head import SMPLHeadConfig, SMPLTokenDecoderHead
 from ..models.vit import ViTBackbone, ViTConfig
 from ..ops.upstream_crops import dwpose_backmap, dwpose_topdown_crop, vitdet_mesh_crop, yolox_letterbox
+from ..parallel import Rank, shard_items
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.io import ResumableLedger, load_all_frames, save_video_npz
 
@@ -88,7 +95,6 @@ _WORKING_DTYPE = {
     ("high", "float32"): torch.float32,
     ("default", "bfloat16"): torch.bfloat16,
 }
-_PARALLEL = "ROADMAP.md, Queue 1, item 5"
 _MESH_KEYS = (("pose", "body_pose"), ("betas", "betas"), ("global_orient", "global_orient"), ("vit", "token_out"))
 
 
@@ -639,17 +645,19 @@ class Extractor:
     # ------------------------------------------------------------------
     # extraction runs over a tree
 
-    def _write_run_config(self, log_dir: str) -> str:
-        """Publish the run's provenance knobs to ``<log_dir>/RUN_CONFIG.json``
-        (atomic): detector family and crop preprocessing are part of the
-        feature definition, so a scorer or a later resume can tell parity
-        features from fast-mode ones. The port's ``rcnn`` entry lacks the four
-        fields of JAX's ``RCNNConfig`` that only lay the work out on the TPU
+    def _write_run_config(self, log_dir: str, num_hosts: int = 1, host_id: int = 0) -> str:
+        """Publish the run's provenance knobs to
+        ``<log_dir>/RUN_CONFIG[.host<I>of<N>].json`` (atomic, one a host):
+        detector family and crop preprocessing are part of the feature
+        definition, so a scorer or a later resume can tell parity features
+        from fast-mode ones. The port's ``rcnn`` entry lacks the four fields
+        of JAX's ``RCNNConfig`` that only lay the work out on the TPU
         (``grouped_conv_impl``, ``grouped_conv_width``, ``roi_chunk``,
         ``roi_rois_per_step``)."""
         cfg = self.cfg
         os.makedirs(log_dir, exist_ok=True)
-        path = os.path.join(log_dir, "RUN_CONFIG.json")
+        name = f"RUN_CONFIG.host{host_id}of{num_hosts}.json" if num_hosts > 1 else "RUN_CONFIG.json"
+        path = os.path.join(log_dir, name)
         payload = {
             "parity": cfg.is_parity(),
             "mesh_detector": cfg.mesh_detector,
@@ -689,12 +697,15 @@ class Extractor:
         A video that fails to decode, or to extract, is recorded as an error
         and the run goes on (a failed streamed group is retried video by
         video), except for a kernel or CUDA failure, which is raised: that is
-        the device's fault, not the video's. ``num_hosts`` other than 1 (a
-        multi-host sweep) is not ported (ROADMAP.md, Queue 1, item 5)."""
-        if num_hosts != 1 or host_id != 0:
-            raise NotImplementedError(f"run_tree across hosts (num_hosts={num_hosts}, host_id={host_id}) "
-                                      f"is not ported: {_PARALLEL}")
-        self._write_run_config(log_dir)
+        the device's fault, not the video's.
+
+        ``num_hosts`` / ``host_id``: a multi-host sweep, as in JAX
+        (``extract.py:885-999``). This process extracts only its strided
+        shard of each action's sorted video list (``parallel.shard_items``;
+        the assignment does not depend on progress, so resume is stable) and
+        records to per-host ledgers ``<action>.host<I>of<N>.json``."""
+        shard_items([], host_id, num_hosts)   # a bad host index is refused before anything is written
+        self._write_run_config(log_dir, num_hosts, host_id)
         loader = frame_loader or load_all_frames
         all_actions = sorted(d for d in os.listdir(video_tree) if os.path.isdir(os.path.join(video_tree, d)))
         if actions:
@@ -709,9 +720,12 @@ class Extractor:
         try:
             for action in all_actions:
                 action_dir = os.path.join(video_tree, action)
-                ledger = ResumableLedger(log_dir, action)
+                ledger = ResumableLedger(
+                    log_dir, f"{action}.host{host_id}of{num_hosts}" if num_hosts > 1 else action)
                 processed = ledger.processed()
                 videos = sorted(f for f in os.listdir(action_dir) if f.lower().endswith(exts))
+                if num_hosts > 1:
+                    videos = shard_items(videos, host_id, num_hosts)
                 pending = [v for v in videos if v not in processed]
                 counts["skipped"] += len(videos) - len(pending)
 
@@ -809,8 +823,46 @@ class Extractor:
         return counts
 
 
-def main(argv: T.Optional[T.Sequence[str]] = None) -> T.Dict[str, int]:
+def rank_shard(host_id: int, num_hosts: int, rank: int, ranks: int) -> T.Tuple[int, int]:
+    """``(shard, shards)`` of rank ``rank`` of ``ranks`` local ranks on host
+    ``host_id`` of ``num_hosts``: each rank is one shard of the sweep, as a
+    host is, and host h's ranks together cover host h's videos."""
+    return host_id * ranks + rank, num_hosts * ranks
+
+
+def _run_cli(args, ex_cfg: ExtractorConfig, device, num_hosts: int, host_id: int,
+             warn: bool = True) -> T.Dict[str, int]:
+    ex = Extractor.from_checkpoints(ex_cfg, tokenhmr=args.tokenhmr_ckpt, dwpose=args.dwpose_ckpt,
+                                    yolox=args.yolox_ckpt, rcnn=args.rcnn_ckpt, device=device)
+    if warn and not ex.cfg.is_parity():
+        # fast-mode features are not the reference's feature definition
+        print(f"[extract] throughput mode (mesh boxes: {ex.cfg.mesh_detector}, preproc: {ex.cfg.preproc}): not "
+              "the reference-reproduction configuration; pass --parity to reproduce the reference's scores "
+              f"(provenance recorded in {args.log_dir}/RUN_CONFIG*.json)", file=sys.stderr)
+    return ex.run_tree(args.videos, args.out_meshes, args.log_dir, kp_out_root=args.out_kps,
+                       actions=[args.action] if args.action else None, prefetch=args.prefetch,
+                       stream_group=args.stream_group, num_hosts=num_hosts, host_id=host_id)
+
+
+def _cli_rank(rank: Rank, args, ex_cfg: ExtractorConfig, host_id: int, num_hosts: int) -> T.Dict[str, T.Any]:
+    """One rank of ``--mesh-data``: its shard of the sweep on its own device."""
+    from ..ops import launch_counts
+
+    shard, shards = rank_shard(host_id, num_hosts, rank.rank, rank.world)
+    counts = _run_cli(args, ex_cfg, rank.device, shards, shard, warn=rank.is_primary)
+    launches = launch_counts()
+    print(f"[extract] rank {rank.rank} of {rank.world} on {rank.device}: shard {shard} of {shards}: {counts}; "
+          f"kernel launches {launches}", flush=True)
+    return {"rank": rank.rank, "shard": shard, "shards": shards, "counts": counts, "launches": launches}
+
+
+def main(argv: T.Optional[T.Sequence[str]] = None) -> T.Dict[str, T.Any]:
+    """The extract CLI. Returns the run's counts (summed over the ranks of
+    ``--mesh-data``, whose own results are under ``"ranks"``)."""
     import argparse
+
+    from ..parallel import launch_local, shutdown
+    from ..utils.cli import add_distributed_args, maybe_initialize_distributed, resolve_host_id
 
     p = argparse.ArgumentParser(description="Batched mesh and keypoint extraction, PyTorch + CUDA")
     p.add_argument("--videos", required=True, help="root of the <action>/<video> tree")
@@ -846,28 +898,27 @@ def main(argv: T.Optional[T.Sequence[str]] = None) -> T.Dict[str, int]:
                    help="the R-CNN throughput preset (RCNNConfig.fast(): a bf16 ROIAlign pyramid and window "
                         "32); not parity-exact")
     p.add_argument("--mesh-data", type=int, default=0,
-                   help=f"data-parallel extraction over N devices; not ported ({_PARALLEL}): 0 only")
+                   help="data-parallel extraction over N ranks: N local processes, rank r on "
+                        "cuda:{r %% device count}, each extracting its shard of every action's videos "
+                        "(per-rank ledgers, as per-host ones); under --num-processes, the processes' "
+                        "group (N must equal it). 0 = one device")
     p.add_argument("--num-hosts", type=int, default=1,
-                   help=f"multi-host sweep; not ported ({_PARALLEL}): 1 only")
-    p.add_argument("--host-id", type=int, default=-1, help=f"this host's shard; not ported ({_PARALLEL})")
-    p.add_argument("--coordinator", default=None, help=f"multi-process bring-up; not ported ({_PARALLEL})")
-    p.add_argument("--num-processes", type=int, default=None, help=f"not ported ({_PARALLEL})")
-    p.add_argument("--process-id", type=int, default=None, help=f"not ported ({_PARALLEL})")
+                   help="multi-host sweep: total hosts sharding each action's video list; outputs are "
+                        "per-video, so hosts may share one output root (no merge step)")
+    p.add_argument("--host-id", type=int, default=-1,
+                   help="this host's shard index; -1 = the rank under --num-processes")
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
+    add_distributed_args(p)
     args = p.parse_args(argv)
 
-    if args.mesh_data != 0:
-        p.error(f"--mesh-data {args.mesh_data}: data-parallel extraction is not ported ({_PARALLEL})")
-    if args.num_hosts != 1 or args.host_id not in (-1, 0):
-        p.error(f"--num-hosts / --host-id: the multi-host sweep is not ported ({_PARALLEL})")
-    if (args.coordinator, args.num_processes, args.process_id) != (None, None, None):
-        p.error(f"--coordinator / --num-processes / --process-id: distributed runs are not ported ({_PARALLEL})")
     if args.preproc == "legacy":
         p.error("--preproc legacy is not ported (ROADMAP.md, Queue 1, item 3)")
     if args.parity and args.rcnn_fast:
         p.error("--parity pins the exact RCNNConfig; drop --rcnn-fast")
     if args.rcnn_fast and args.mesh_detector != "rcnn" and not args.rcnn_ckpt:
         p.error("--rcnn-fast requires the R-CNN mesh detector (--mesh-detector rcnn or --rcnn-ckpt)")
+    if args.mesh_data < 0 or args.num_hosts < 1:
+        p.error("--mesh-data must be >= 0 and --num-hosts >= 1")
     try:
         resolve_device(args.device)
     except RuntimeError as e:
@@ -878,17 +929,31 @@ def main(argv: T.Optional[T.Sequence[str]] = None) -> T.Dict[str, int]:
     else:
         ex_cfg = ExtractorConfig(kp_bug_compat=args.bug_compat, mesh_detector=args.mesh_detector,
                                  rcnn=RCNNConfig.fast() if args.rcnn_fast else None)
-    ex = Extractor.from_checkpoints(ex_cfg, tokenhmr=args.tokenhmr_ckpt, dwpose=args.dwpose_ckpt,
-                                    yolox=args.yolox_ckpt, rcnn=args.rcnn_ckpt, device=args.device)
-    if not ex.cfg.is_parity():
-        # fast-mode features are not the reference's feature definition
-        print(f"[extract] throughput mode (mesh boxes: {ex.cfg.mesh_detector}, preproc: {ex.cfg.preproc}): not "
-              "the reference-reproduction configuration; pass --parity to reproduce the reference's scores "
-              f"(provenance recorded in {args.log_dir}/RUN_CONFIG.json)", file=sys.stderr)
-    counts = ex.run_tree(args.videos, args.out_meshes, args.log_dir, kp_out_root=args.out_kps,
-                         actions=[args.action] if args.action else None, prefetch=args.prefetch,
-                         stream_group=args.stream_group)
-    print(counts)
+    rank = maybe_initialize_distributed(args, args.device)
+    try:
+        world = rank.world if rank is not None else 1
+        if args.mesh_data > 0 and world > 1:
+            if args.num_hosts > 1:
+                # per-host video shards and the group's shards would overlap
+                p.error("--num-hosts video sharding cannot combine with a cross-process --mesh-data "
+                        "group: run one single-process CLI per host")
+            if args.mesh_data != world:
+                p.error(f"--mesh-data {args.mesh_data} under --num-processes {world}: one rank a "
+                        f"process, so --mesh-data must be {world}")
+        host_id = resolve_host_id(p, args.host_id, args.num_hosts, rank)
+        if world > 1 and args.mesh_data > 0:
+            counts = _cli_rank(rank, args, ex_cfg, 0, 1)["counts"]
+        elif args.mesh_data > 1:
+            ranks = launch_local(args.mesh_data, _cli_rank, args, ex_cfg, host_id, args.num_hosts,
+                                 device=args.device)
+            counts = {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
+            counts["ranks"] = ranks
+        else:
+            counts = _run_cli(args, ex_cfg, args.device, args.num_hosts, host_id)
+    finally:
+        if rank is not None:
+            shutdown(rank)
+    print({k: v for k, v in counts.items() if k != "ranks"})
     return counts
 
 

@@ -1,13 +1,20 @@
 """Training CLI — ref ``python train.py`` equivalent.
 
-Port of ``video_gen_evals_tpu/pipelines/train_cli.py`` for one device:
+Port of ``video_gen_evals_tpu/pipelines/train_cli.py``:
 
     python -m video_gen_evals_tpu_torch.pipelines.train_cli \\
         --real-meshes REAL --real-kp-dir KP --generated-meshes GEN \\
-        --gen-kp-dir GKP --human-scores MOS.json [--device cuda] [--resume CKPT]
+        --gen-kp-dir GKP --human-scores MOS.json [--device cuda] [--resume CKPT] \\
+        [--dp N]
 
-The best checkpoint it writes (``best_eval_epochNNN.pt``) is what the scoring
-CLI's ``--checkpoint`` takes.
+``--dp N`` (or ``TrainConfig.num_dp_devices``; ``--dp`` wins) trains on N
+data-parallel ranks: on one host N local processes (rank r on
+``cuda:{r % device count}``, or the CPU with ``--device cpu``); under
+``--coordinator`` / ``--num-processes P`` / ``--process-id`` each process is
+one rank and ``--dp`` is absent or P. ``--tp`` other than 1 (tensor
+parallelism) is not ported. The best checkpoint it writes
+(``best_eval_epochNNN.pt``) is what the scoring CLI's ``--checkpoint``
+takes.
 """
 
 from __future__ import annotations
@@ -15,11 +22,42 @@ from __future__ import annotations
 import typing as T
 
 
-def main(argv: T.Optional[T.List[str]] = None) -> None:
+def _run(rank, cfg, args) -> T.Dict[str, T.Any]:
+    """One process's run: alone on ``--device`` (``rank`` None) or as
+    ``rank`` (a local rank of ``--dp``, or a process of a distributed run).
+    Returns where it wrote and this process's kernel launches."""
+    from ..ops import launch_counts
+    from ..train.experiment import Experiment
+
+    exp = Experiment(cfg, device=args.device, rank=rank)
+    talk = exp.writes
+    if talk:
+        print(
+            f"Training on {len(exp.train_ds)} videos ({len(exp.train_windows)} windows), "
+            f"evaluating on {len(exp.test_ds)} videos; classes: {exp.full_ds.classes}"
+            + ("" if rank is None else f"; {rank.world} data-parallel ranks")
+        )
+    start_epoch = 0
+    if args.resume:
+        start_epoch = exp.restore_resume_checkpoint(args.resume)
+        if talk:
+            print(f"Resumed from {args.resume}; continuing at epoch {start_epoch}")
+    exp.run(start_epoch=start_epoch)
+    if talk:
+        print(f"Training complete. Best checkpoint: {exp.best_ckpt}")
+    return {"rank": 0 if rank is None else rank.rank, "save_dir": exp.save_dir,
+            "best_ckpt": exp.best_ckpt, "launches": launch_counts()}
+
+
+def main(argv: T.Optional[T.List[str]] = None) -> T.List[T.Dict[str, T.Any]]:
+    """The train CLI. Returns what each rank did (one entry on one device),
+    in rank order."""
     import argparse
 
     from ..core.config import PathsConfig, TrainConfig
-    from ..train.experiment import Experiment
+    from ..parallel import launch_local, shutdown
+    from ..parallel.mesh import TENSOR_PARALLEL
+    from ..utils.cli import add_distributed_args, maybe_initialize_distributed
     from ..utils.device import resolve_device
 
     p = argparse.ArgumentParser(description="Train the HumanActionScorer fusion encoder")
@@ -41,16 +79,24 @@ def main(argv: T.Optional[T.List[str]] = None) -> None:
     p.add_argument("--stride", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--save-dir", default=None)
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel ranks: split each PK batch's stacked windows over N "
+                        "ranks (default: one device; also TrainConfig.num_dp_devices)")
+    p.add_argument("--tp", type=int, default=1,
+                   help=f"tensor-parallel devices per data shard: 1 only ({TENSOR_PARALLEL})")
     p.add_argument("--resume", default=None,
                    help="resume-checkpoint file of a previous run (restores "
                         "model, optimizer, schedule, step and epoch exactly and "
                         "continues at the next epoch)")
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
+    add_distributed_args(p)
     args = p.parse_args(argv)
     try:
-        device = resolve_device(args.device)
+        resolve_device(args.device)
     except RuntimeError as e:
         p.error(f"--device: {e}")
+    if args.tp != 1:
+        p.error(f"--tp {args.tp}: tensor parallelism is not ported ({TENSOR_PARALLEL}); --tp 1 only")
 
     cfg = TrainConfig.from_json(args.config) if args.config else TrainConfig()
     paths: PathsConfig = cfg.paths
@@ -68,18 +114,25 @@ def main(argv: T.Optional[T.List[str]] = None) -> None:
         v = getattr(args, field)
         if v is not None:
             setattr(cfg, field, v)
+    n_dp = args.dp if args.dp is not None else cfg.num_dp_devices
+    if n_dp is not None and n_dp < 1:
+        p.error(f"--dp must be >= 1, got {n_dp}")
 
-    exp = Experiment(cfg, device=device)
-    print(
-        f"Training on {len(exp.train_ds)} videos ({len(exp.train_windows)} windows), "
-        f"evaluating on {len(exp.test_ds)} videos; classes: {exp.full_ds.classes}"
-    )
-    start_epoch = 0
-    if args.resume:
-        start_epoch = exp.restore_resume_checkpoint(args.resume)
-        print(f"Resumed from {args.resume}; continuing at epoch {start_epoch}")
-    exp.run(start_epoch=start_epoch)
-    print(f"Training complete. Best checkpoint: {exp.best_ckpt}")
+    if n_dp is not None and cfg.batch_size % n_dp:
+        p.error(f"PK batch size {cfg.batch_size} must divide evenly over --dp {n_dp}")
+
+    rank = maybe_initialize_distributed(args, args.device)
+    if rank is not None:
+        try:
+            if n_dp not in (None, rank.world):
+                p.error(f"--dp {n_dp} under --num-processes {rank.world}: one rank a process, so "
+                        f"--dp must be absent or {rank.world}")
+            return [_run(rank, cfg, args)]
+        finally:
+            shutdown(rank)
+    if n_dp is not None and n_dp > 1:
+        return launch_local(n_dp, _run, cfg, args, device=args.device)
+    return [_run(None, cfg, args)]
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Experiment harness: the ref ``BaseExperiment``/``Exp_TCL_Hard_V2Plus``
-training loop, on one device.
+training loop, on one device or as one rank of a data-parallel group.
 
 Port of ``video_gen_evals_tpu/train/experiment.py``. Per epoch (ref
 ``train.py:433-467``):
@@ -17,6 +17,16 @@ kernel (``ops.window_kernel.gather_windows``). The eval passes run through
 the scoring path's ``WindowEncoder`` on the live weights. One model is shared
 by the trainer (training mode) and the encoder (eval mode, under
 ``inference_mode``); each sets the mode it needs before it runs.
+
+Data parallelism (``rank``, a ``parallel.Rank``; JAX ``experiment.py:51-66``,
+``:165-215``): every rank draws the same PK stream and the same stacked
+batch, the step splits its rows over the ranks (``train/step.py``), the
+initial weights are broadcast from rank 0, and the eval passes split their
+window batches over the ranks (``WindowEncoder``). Only rank 0 writes
+``metrics.jsonl``, the mapping, the config and the checkpoints, and a
+barrier follows each epoch's writes; every rank restores a resume file. The
+background saver runs only at one rank, as in JAX. The parameters stay
+bitwise equal on every rank.
 
 Exact resume: a step's randomness is a function of ``(seed, step)`` and an
 epoch's batch stream of ``(seed, epoch)``, so a run of N epochs and a run
@@ -51,6 +61,7 @@ from ..metrics.correlation import correlate_with_class_fallback
 from ..metrics.scores import finalize_centroids, finalize_video_scores
 from ..models import EncoderConfig, HumanActionScorer
 from ..ops.window_kernel import gather_windows
+from ..parallel import Rank, barrier, broadcast_, broadcast_object
 from ..pipelines.score import WindowEncoder
 from ..utils.device import resolve_device
 from ..utils.names import infer_class_from_name
@@ -71,18 +82,32 @@ class Experiment:
         eval_batch: int = 512,
         device: T.Union[str, torch.device] = "cuda",
         precision: str = "default",
+        rank: T.Optional[Rank] = None,
     ):
         """``precision``: the trainable conv-stage kernel's arithmetic,
         "default" (bf16 operands, fp32 sums) or "highest" (fp32). The eval
-        passes run the scoring kernel at "high", or "highest" with it."""
+        passes run the scoring kernel at "high", or "highest" with it.
+        ``rank``: this process's rank of a data-parallel group (its device
+        replaces ``device``)."""
         self.cfg = cfg
         self.eval_batch = eval_batch
-        self.device = resolve_device(device)
+        self.rank = rank
+        self.world = 1 if rank is None else rank.world
+        if self.world > 1 and cfg.batch_size % self.world:
+            raise ValueError(
+                f"PK batch size {cfg.batch_size} must divide evenly over the "
+                f"{self.world} data-parallel ranks"
+            )
+        self.device = resolve_device(rank.device if rank is not None else device)
+        self.writes = rank is None or rank.is_primary   # only rank 0 writes files
         self._ckpt_saver: T.Optional[AsyncSaver] = None
 
         ts = time.strftime("%Y%m%d_%H%M%S")
-        self.save_dir = os.path.join(cfg.save_dir, f"{cfg.name}_{ts}")
-        os.makedirs(self.save_dir, exist_ok=True)
+        save_dir = os.path.join(cfg.save_dir, f"{cfg.name}_{ts}")
+        # the ranks' clocks may straddle a second: rank 0's name holds
+        self.save_dir = save_dir if rank is None else broadcast_object(save_dir, rank)
+        if self.writes:
+            os.makedirs(self.save_dir, exist_ok=True)
         self.metrics_path = os.path.join(self.save_dir, "metrics.jsonl")
 
         # ---------------- data ----------------
@@ -98,9 +123,10 @@ class Experiment:
         )
         self.stats = compute_stats(self.train_ds.items, self.real_paths)
         self.label_dict = self.full_ds.label_dict()
-        with open(os.path.join(self.save_dir, "label_mapping.json"), "w") as f:
-            json.dump(self.label_dict, f, indent=2)
-        cfg.to_json(os.path.join(self.save_dir, "config.json"))
+        if self.writes:
+            with open(os.path.join(self.save_dir, "label_mapping.json"), "w") as f:
+                json.dump(self.label_dict, f, indent=2)
+            cfg.to_json(os.path.join(self.save_dir, "config.json"))
 
         mods = [m for m in cfg.detect_modalities() if m in self.stats.modalities]
         min_rows = cfg.clip_len + 8
@@ -127,14 +153,16 @@ class Experiment:
         self.model = HumanActionScorer(
             self.enc_cfg, generator=torch.Generator().manual_seed(cfg.seed)
         ).to(self.device)
+        if rank is not None:
+            broadcast_([p.data for p in self.model.parameters()], rank)
         eval_precision = "highest" if precision == "highest" else "high"
         self.train_step = TrainStep(
             self.model, cfg.lr, steps_per_epoch * cfg.epochs, eta_min=cfg.eta_min,
             hard_weight=cfg.hard_negative_weight, precision=precision,
-            eval_precision=eval_precision, seed=cfg.seed,
+            eval_precision=eval_precision, seed=cfg.seed, rank=rank,
         )
         self.encoder = WindowEncoder(
-            self.model, eval_batch, cfg.clip_len, eval_precision, self.device)
+            self.model, eval_batch, cfg.clip_len, eval_precision, self.device, rank=rank)
         self._train_bank_dev = self.encoder.upload(self.train_bank)
         self._test_bank_dev = self.encoder.upload(self.test_bank)
         self.best_eval_loss = float("inf")
@@ -170,6 +198,8 @@ class Experiment:
             torch.cuda.synchronize(self.device)
 
     def _log(self, record: T.Dict[str, T.Any]) -> None:
+        if not self.writes:
+            return
         record = {k: (float(v) if isinstance(v, np.floating) else v) for k, v in record.items()}
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
@@ -343,8 +373,10 @@ class Experiment:
         ``block=False`` (used by :meth:`run` when async checkpointing is on)
         copies the state on the device and hands the fetch and the write to
         a worker thread; call :meth:`wait_for_checkpoints` before relying on
-        the file."""
+        the file. Only rank 0 writes; every rank returns the path."""
         path = path or os.path.join(self.save_dir, f"resume_epoch{epoch:03d}.pt")
+        if not self.writes:
+            return path
         state = {
             "model": self.model.state_dict(),
             "train_step": self.train_step.state_dict(),
@@ -369,10 +401,10 @@ class Experiment:
 
     def run(self, start_epoch: int = 0) -> None:
         # inside the loop, checkpoint writes go to the background saver
-        # (cfg.async_checkpoint). The finally drains the queue, so every file
-        # run() promised exists when it returns, even on an exception (the
-        # last good checkpoint must land for resume).
-        background = self.cfg.async_checkpoint
+        # (cfg.async_checkpoint, at one rank). The finally drains the queue,
+        # so every file run() promised exists when it returns, even on an
+        # exception (the last good checkpoint must land for resume).
+        background = self.cfg.async_checkpoint and self.world == 1
         try:
             for epoch in range(start_epoch, self.cfg.epochs):
                 self.train_one_epoch(epoch)
@@ -381,12 +413,12 @@ class Experiment:
                 if eval_loss < self.best_eval_loss:
                     self.best_eval_loss = eval_loss
                     ckpt = os.path.join(self.save_dir, f"best_eval_epoch{epoch + 1:03d}.pt")
-                    if background:
+                    if self.writes and background:
                         snap = snapshot(self.model.state_dict())
                         # bind per-iteration values: ckpt and snap are rebound
                         # on later epochs before the worker may run
                         self._saver().submit(lambda p=ckpt, s=snap: save_params(p, s))
-                    else:
+                    elif self.writes:
                         save_params(ckpt, self.model.state_dict())
                     self.best_ckpt = ckpt
                     self._log({"event": "checkpoint", "epoch": epoch, "loss": eval_loss})
@@ -404,6 +436,8 @@ class Experiment:
                         "error": f"{type(e).__name__}: {e}",
                     })
                 self.save_resume_checkpoint(epoch, block=not background)
+                if self.rank is not None:
+                    barrier(self.rank)   # rank 0's files are on disk for every rank
         finally:
             # a drain-time save failure must not mask an exception in flight
             # from the loop body

@@ -20,6 +20,17 @@ labels) -> metrics``; a step is their composition.
   from a CPU generator, the dropout masks from a generator on the model's
   device, both seeded anew every step. Nothing random needs saving for an
   exact resume.
+- Data parallelism (``rank``, a ``parallel.Rank``): every rank builds the
+  same stacked ``[4B, T, D]`` batch and forwards its own contiguous block of
+  ``4B / world`` rows, with the dropout masks of the one-rank forward cut to
+  its rows (``models.fusion_encoder.Dropout``). ``all_gather_rows``
+  rebuilds the ``[4B]`` embeddings in order and every rank computes the
+  global loss: TCL and the SupCon terms couple the whole batch, so a
+  per-rank loss averaged as DDP does would be another loss. The gradients
+  are summed over the ranks in one ``all_reduce``; every rank then holds the
+  same sum, skips the same non-finite steps and applies the same update, so
+  the parameters stay bitwise equal on every rank. At world 1 the path gives
+  the single-device run's bits.
 
 Precision: ``precision`` ("default" or "highest") selects the arithmetic of
 the trainable conv-stage kernel only. Every other matmul of the step runs in
@@ -36,6 +47,7 @@ import torch
 
 from ..models import HumanActionScorer
 from ..ops.corruption import partial_shuffle_within_window, reverse_sequence, static_window
+from ..parallel import Rank, all_gather_rows, all_reduce_sum
 from ..utils.device import disable_tf32
 from .losses import supcon_hard_negatives, tcl_loss
 
@@ -125,8 +137,10 @@ class TrainStep:
         precision: str = "default",
         eval_precision: str = "high",
         seed: int = 0,
+        rank: T.Optional[Rank] = None,
     ):
         disable_tf32()
+        self.rank = rank
         self.model = model
         self.total_steps = max(1, total_steps)
         self.optimizer, self.scheduler = make_optimizer(
@@ -145,13 +159,40 @@ class TrainStep:
         """This step's stacked batch: the shuffle is drawn from ``(seed, step)``."""
         return stack_corruptions(feats, seeded_generator(self.seed, self.step, _SHUFFLE))
 
+    def _my_rows(self, n: int, required: bool) -> T.Optional[T.Tuple[int, int]]:
+        """This rank's block ``(lo, hi)`` of an ``n``-row stacked batch, or
+        None for the whole batch: without a rank, or (``required`` False)
+        where the rows do not divide over the ranks."""
+        if self.rank is None:
+            return None
+        if n % self.rank.world:
+            if required:
+                raise ValueError(f"{n} stacked windows must divide evenly over "
+                                 f"{self.rank.world} data-parallel ranks")
+            return None
+        per = n // self.rank.world
+        return self.rank.rank * per, (self.rank.rank + 1) * per
+
+    def embed(self, stacked: torch.Tensor, precision: str,
+              generator: T.Optional[torch.Generator] = None, required: bool = True) -> torch.Tensor:
+        """The embeddings ``[4B, D]`` of the stacked batch: on one device the
+        model's forward; on a data-parallel rank the forward of its rows,
+        gathered from every rank in order."""
+        rows = self._my_rows(stacked.shape[0], required)
+        if rows is None:
+            return self.model(stacked, precision, generator=generator)[0]
+        lo, hi = rows
+        emb, _, _ = self.model(stacked[lo:hi], precision, generator=generator,
+                               rows=(lo, stacked.shape[0]))
+        return all_gather_rows(emb, self.rank)
+
     def update(self, stacked: torch.Tensor, labels: torch.Tensor) -> T.Dict[str, float]:
         """Forward in training mode, backward, and one optimizer and schedule
         step unless the total is not finite. Returns the loss components,
         ``total`` and ``skipped`` as floats."""
         self.model.train()
         dropout_gen = seeded_generator(self.seed, self.step, _DROPOUT, self.device)
-        emb, _, _ = self.model(stacked, self.precision, generator=dropout_gen)
+        emb = self.embed(stacked, self.precision, dropout_gen)
         components = loss_components(emb, labels, self.hard_weight)
         total = sum(components.values())
         metrics = _to_floats(components, total)
@@ -159,6 +200,8 @@ class TrainStep:
         if finite:
             self.optimizer.zero_grad(set_to_none=True)
             total.backward()
+            if self.rank is not None:
+                self._sum_gradients()
             self.optimizer.step()
             if self.scheduler.last_epoch < self.total_steps:
                 self.scheduler.step()
@@ -166,18 +209,29 @@ class TrainStep:
         metrics["skipped"] = 0.0 if finite else 1.0
         return metrics
 
+    def _sum_gradients(self) -> None:
+        """Every parameter's gradient summed over the ranks, in one collective."""
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        all_reduce_sum([p.grad for p in params], self.rank)
+
     def __call__(self, feats: torch.Tensor, labels: torch.Tensor) -> T.Dict[str, float]:
         return self.update(self.stack(feats), labels)
 
     def eval_loss(self, feats: torch.Tensor, labels: torch.Tensor,
                   chunk: int = 0) -> T.Dict[str, float]:
         """The same loss in eval mode, no dropout and no gradient (ref
-        ``train.py:286-333``); the shuffle is drawn from ``(seed + 999, chunk)``."""
+        ``train.py:286-333``); the shuffle is drawn from ``(seed + 999, chunk)``.
+        On a data-parallel rank the chunk's rows are split over the ranks
+        where they divide evenly, as the training step's; a chunk that does
+        not divide runs whole on every rank."""
         self.model.eval()
         with torch.no_grad():
             stacked = stack_corruptions(
                 feats, seeded_generator(self.seed + 999, chunk, _SHUFFLE))
-            emb, _, _ = self.model(stacked, self.eval_precision)
+            emb = self.embed(stacked, self.eval_precision, required=False)
             components = loss_components(emb, labels, self.hard_weight)
             return _to_floats(components, sum(components.values()))
 
