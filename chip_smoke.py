@@ -170,6 +170,26 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    rank; (e) the leaderboard CLI on (c)'s merged scores and the MOS CLI on
    seeded ratings of the same videos, correlated by merge_scores. The
    phase's seconds.
+12. The bank layer and the CLIs' last flags, on phase 5's tree and
+   checkpoint: (a) the score CLI with --bank-cache cold, then warm (3 cache
+   hits printed), scores bitwise phase 5's uncached run; (b) --gather-impl
+   take, sliced and burst on the warm cache, bitwise the same; (c)
+   --dump-features: the JAX keys, seq_embeds and window_tc bitwise a sweep
+   of the cached generated bank; (i) the checkpoint as the JAX package's
+   path-keyed .npz, bitwise the .pt's scores; (d) K3 at "default" (K4's
+   tensor-core forward body, no mask) against its plain versions at
+   [512, 32, 256], d = 1/2/4/8 (K3_TOL against fp32, K4_TOL's "default"
+   forward bound against plain "default"), ms, plain ms and bound, the score
+   CLI at --precision default (K1 and K3 launched once and 40 times a
+   batch) against --precision highest (BF16_SWEEP_TOL), and the sweep's
+   windows/s at "default" and "high"; (h) profiling.trace around one sweep,
+   whose Chrome trace names K1's and K3's kernels; (g) native_npz.reader()
+   "native", every npz of the tree bitwise numpy's, the host bank build's
+   seconds with each reader; (f) the train CLI with --bank-cache cold and
+   warm (3 hits, losses bitwise) at --conv-impl kernel, then module (losses
+   within BF16_SWEEP_TOL); (e) score_videos_end_to_end with
+   bank_impl="device" (the bank a CUDA tensor) against "host" on config 4,
+   within 1e-3, bank_s of both. The phase's seconds.
 
 Then the smoke's wall time, a JSON line listing the kernels, the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -369,8 +389,64 @@ def _conv_stage_bound(windows, t_len, channels, n_convs, act_tensors, w_tensors,
     return sum(b[0] for b in bounds) / 4, bounds[0][1]
 
 
-def phase_kernels(torch, dev, gen):
+# K3 against its plain fp32 version, by precision: fp32 sums in another order
+# ("highest"), bf16x3 products ("high"), bf16 operands ("default": each conv's
+# input and weights rounded, 2^-9 relative each, through two convs and GELU;
+# against the plain "default" version K4_TOL's "default" forward bound holds)
+K3_TOL = {"highest": 1e-4, "high": 5e-4, "default": 0.05}
+
+
+def _k3_rows(torch, dev, gen, precisions):
+    """K3 at [512, 32, 256], dilations 1/2/4/8, against its plain versions:
+    the max error against plain fp32 (K3_TOL) and against the plain version
+    of the same precision (at "default", K4_TOL's forward bound), ms of
+    kernel and plain (plain, kernel, kernel, plain), the bound. Returns the
+    kernels line's entries."""
     from video_gen_evals_tpu_torch.ops.conv_kernel import fused_temporal_block, fused_temporal_block_plain
+
+    C = 256
+    x = torch.randn(BATCH, CLIP, C, generator=gen).to(dev)
+    w1, w2 = ((torch.randn(5, C, C, generator=gen) / math.sqrt(5 * C)).to(dev) for _ in range(2))
+    gs = (1.0 + 0.1 * torch.randn(C, generator=gen)).to(dev)
+    gb = (0.1 * torch.randn(C, generator=gen)).to(dev)
+    results = {}
+    for precision in precisions:
+        errs, errs_same, kms, pms = [], [], [], []
+        for d in (1, 2, 4, 8):
+            got = fused_temporal_block(x, w1, w2, gs, gb, d, precision)
+            ref32 = fused_temporal_block_plain(x, w1, w2, gs, gb, d, "highest")
+            same = fused_temporal_block_plain(x, w1, w2, gs, gb, d, precision)
+            torch.cuda.synchronize()
+            _check(bool(torch.isfinite(got).all()), f"K3 {precision} d={d}: non-finite output")
+            errs.append((got - ref32).abs().max().item())
+            errs_same.append((got - same).abs().max().item())
+            _check(errs[-1] <= K3_TOL[precision],
+                   f"K3 {precision} d={d}: max |kernel - plain fp32| {errs[-1]:.3e} > {K3_TOL[precision]}")
+            if precision == "default":
+                _check(errs_same[-1] <= K4_TOL["default"][0],
+                       f"K3 default d={d}: max |kernel - plain default| {errs_same[-1]:.3e} > "
+                       f"{K4_TOL['default'][0]}")
+            k, p = _interleaved_ms(lambda: fused_temporal_block(x, w1, w2, gs, gb, d, precision),
+                                   lambda: fused_temporal_block_plain(x, w1, w2, gs, gb, d, precision), 20)
+            kms.append(k)
+            pms.append(p)
+        print(f"K3 fused_temporal_block[{precision}] [{BATCH}, {CLIP}, {C}] d=1/2/4/8: "
+              f"max |kernel - plain fp32| {', '.join(f'{e:.2e}' for e in errs)} (tol {K3_TOL[precision]}); "
+              f"vs plain {precision} {', '.join(f'{e:.2e}' for e in errs_same)}; "
+              f"kernel ms {', '.join(f'{m:.3f}' for m in kms)}; plain ms {', '.join(f'{m:.3f}' for m in pms)}")
+        # x in, out, w1, w2; "high" is three bf16 products per term, "default" one
+        bound_ms, bound_by = (_conv_stage_bound(BATCH, CLIP, C, 2, 2, 2, 2, PEAK_FP32)
+                              if precision == "highest"
+                              else _conv_stage_bound(BATCH, CLIP, C, 2, 2, 2, 6 if precision == "high" else 2,
+                                                     PEAK_BF16))
+        print(f"   bound {bound_ms:.4f} ms ({bound_by}); no single PyTorch call computes the fused stage")
+        results[f"fused_temporal_block[{precision}]"] = dict(
+            max_abs_err=max(errs_same if precision == "default" else errs), ms=sum(kms) / 4,
+            plain_ms=sum(pms) / 4, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return results
+
+
+def phase_kernels(torch, dev, gen):
     from video_gen_evals_tpu_torch.ops.window_kernel import gather_windows, gather_windows_plain
 
     results = {}
@@ -406,40 +482,7 @@ def phase_kernels(torch, dev, gen):
                                      bound_by=bound_by, library_ms=None)
 
     # K3: [512, 32, 256], d in 1/2/4/8, both precisions, against plain fp32
-    C = 256
-    x = torch.randn(BATCH, CLIP, C, generator=gen).to(dev)
-    w1, w2 = ((torch.randn(5, C, C, generator=gen) / math.sqrt(5 * C)).to(dev) for _ in range(2))
-    gs = (1.0 + 0.1 * torch.randn(C, generator=gen)).to(dev)
-    gb = (0.1 * torch.randn(C, generator=gen)).to(dev)
-    tol = {"highest": 1e-4, "high": 5e-4}
-    for precision in ("highest", "high"):
-        errs, errs_same, kms, pms = [], [], [], []
-        for d in (1, 2, 4, 8):
-            got = fused_temporal_block(x, w1, w2, gs, gb, d, precision)
-            ref32 = fused_temporal_block_plain(x, w1, w2, gs, gb, d, "highest")
-            same = fused_temporal_block_plain(x, w1, w2, gs, gb, d, precision)
-            torch.cuda.synchronize()
-            _check(bool(torch.isfinite(got).all()), f"K3 {precision} d={d}: non-finite output")
-            errs.append((got - ref32).abs().max().item())
-            errs_same.append((got - same).abs().max().item())
-            _check(errs[-1] <= tol[precision],
-                   f"K3 {precision} d={d}: max |kernel - plain fp32| {errs[-1]:.3e} > {tol[precision]}")
-            k, p = _interleaved_ms(lambda: fused_temporal_block(x, w1, w2, gs, gb, d, precision),
-                                   lambda: fused_temporal_block_plain(x, w1, w2, gs, gb, d, precision), 20)
-            kms.append(k)
-            pms.append(p)
-        print(f"K3 fused_temporal_block[{precision}] [{BATCH}, {CLIP}, {C}] d=1/2/4/8: "
-              f"max |kernel - plain fp32| {', '.join(f'{e:.2e}' for e in errs)} (tol {tol[precision]}); "
-              f"vs plain {precision} {', '.join(f'{e:.2e}' for e in errs_same)}; "
-              f"kernel ms {', '.join(f'{m:.3f}' for m in kms)}; plain ms {', '.join(f'{m:.3f}' for m in pms)}")
-        # x in, out, w1, w2; "high" is three bf16 products per term
-        bound_ms, bound_by = (_conv_stage_bound(BATCH, CLIP, C, 2, 2, 2, 2, PEAK_FP32)
-                              if precision == "highest"
-                              else _conv_stage_bound(BATCH, CLIP, C, 2, 2, 2, 6, PEAK_BF16))
-        print(f"   bound {bound_ms:.4f} ms ({bound_by}); no single PyTorch call computes the fused stage")
-        results[f"fused_temporal_block[{precision}]"] = dict(
-            max_abs_err=max(errs), ms=sum(kms) / 4, plain_ms=sum(pms) / 4, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None)
+    results.update(_k3_rows(torch, dev, gen, ("highest", "high")))
     results.update(phase_train_kernels(torch, dev, gen))
     return results
 
@@ -1952,6 +1995,23 @@ def _pose_config(bf16=False, mesh_detector="yolox", keep_all_frames=True):
                            param_dtype="bfloat16" if bf16 else "float32")
 
 
+def _config4_inputs(torch):
+    """Config 4's frames-to-scores inputs: 4 seeded 72-frame videos named by
+    class, a seeded flagship scorer, unit centroids drawn from the seed."""
+    import numpy as np
+
+    from video_gen_evals_tpu_torch.models import EncoderConfig, HumanActionScorer
+    from video_gen_evals_tpu_torch.utils.names import ACTION_CLASSES
+
+    names = [f"GenSynth_{cls}_{i:02d}" for i, cls in enumerate(ACTION_CLASSES[:4])]
+    videos = {name: mesh_video(seed=SEED + 20 + i)[0] for i, name in enumerate(names)}
+    model = HumanActionScorer(EncoderConfig.create(DIMS_RAW, DIMS_DIFF), generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    centroids = rng.normal(size=(len(ACTION_CLASSES), model.config.d_model)).astype(np.float32)
+    centroids /= np.linalg.norm(centroids, axis=-1, keepdims=True)
+    return names, videos, model, centroids, {c: i for i, c in enumerate(ACTION_CLASSES)}
+
+
 def _kp_clear(torch, ex, frames_dev):
     """``[T, 120]`` bool: the kp120 entries whose keypoint is no near tie on
     this extractor (both SimCC axes' top-two gaps and the score's distance
@@ -2011,7 +2071,6 @@ def phase_keypoints(torch, card, keep):
     from video_gen_evals_tpu_torch.data.features import ModalityPaths, load_video_arrays
     from video_gen_evals_tpu_torch.data.manifest import VideoItem, VideoManifest
     from video_gen_evals_tpu_torch.data.windows import enumerate_windows
-    from video_gen_evals_tpu_torch.models import EncoderConfig, HumanActionScorer
     from video_gen_evals_tpu_torch.models.pose2d import (
         PoseNetConfig, RTMPoseNet, init_pose_weights_, simcc_decode, wholebody_to_openpose)
     from video_gen_evals_tpu_torch.ops.attention_core import mha_core
@@ -2210,13 +2269,7 @@ def phase_keypoints(torch, card, keep):
     torch.cuda.empty_cache()
 
     # frames to scores in one call
-    names = [f"GenSynth_{cls}_{i:02d}" for i, cls in enumerate(ACTION_CLASSES[:4])]
-    videos = {name: mesh_video(seed=SEED + 20 + i)[0] for i, name in enumerate(names)}
-    model = HumanActionScorer(EncoderConfig.create(DIMS_RAW, DIMS_DIFF), generator=torch.Generator().manual_seed(SEED))
-    rng = np.random.default_rng(SEED)
-    centroids = rng.normal(size=(len(ACTION_CLASSES), model.config.d_model)).astype(np.float32)
-    centroids /= np.linalg.norm(centroids, axis=-1, keepdims=True)
-    label_dict = {c: i for i, c in enumerate(ACTION_CLASSES)}
+    names, videos, model, centroids, label_dict = _config4_inputs(torch)
     windows = enumerate_windows(VideoManifest([VideoItem(c, nm, "", n, 1024) for c, nm in zip(ACTION_CLASSES, names)]),
                                 CLIP, STRIDE)
     batches = -(-len(windows) // BATCH)
@@ -2577,6 +2630,220 @@ def phase_parallel(torch, card, train_ctx, kp_ctx, root):
     print(f"parallel: phase 11 took {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the bank layer and the CLIs' last flags
+
+def _scores(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def _worst_score_diff(a, b):
+    _check(sorted(a) == sorted(b), "bank layer: the runs scored different videos")
+    return max(abs(a[v][m] - b[v][m]) for v in a for m in ("ac", "tc"))
+
+
+def _train_losses(save_dir):
+    events = _events(_only_run(save_dir))
+    return [e["loss"] for e in events if e["event"] in ("train_epoch", "eval_loss")]
+
+
+def phase_bank_layer(torch, card, train_ctx, root):
+    """Phase 12, on phase 5's tree and checkpoint and phase 10's videos:
+    returns the K3 "default" row's entries and its launches."""
+    import copy
+
+    import numpy as np
+
+    from video_gen_evals_tpu_torch.data import build_feature_bank, scan_class_tree, scan_generated_flat
+    from video_gen_evals_tpu_torch.data import features as feats
+    from video_gen_evals_tpu_torch.data.features import ModalityPaths, load_feature_bank
+    from video_gen_evals_tpu_torch.data.stats import ModalityStats
+    from video_gen_evals_tpu_torch.models import EncoderConfig, HumanActionScorer
+    from video_gen_evals_tpu_torch.ops.conv_kernel import fused_temporal_block
+    from video_gen_evals_tpu_torch.ops.window_kernel import gather_windows
+    from video_gen_evals_tpu_torch.pipelines import full as full_mod
+    from video_gen_evals_tpu_torch.pipelines.extract import Extractor
+    from video_gen_evals_tpu_torch.pipelines.score import ScoreConfig, WindowEncoder
+    from video_gen_evals_tpu_torch.pipelines.score import main as score_main
+    from video_gen_evals_tpu_torch.pipelines.train_cli import main as train_main
+    from video_gen_evals_tpu_torch.train.checkpoint import save_jax_npz_params
+    from video_gen_evals_tpu_torch.utils import native_npz, profiling
+    from video_gen_evals_tpu_torch.utils.names import ACTION_CLASSES
+
+    t_phase = time.perf_counter()
+    ctx = train_ctx
+    os.makedirs(root, exist_ok=True)
+    cache = os.path.join(root, "cache")
+    base = ["--generated-meshes", ctx["gen_dir"], "--real-meshes", ctx["mesh_root"], "--real-kp-dir",
+            ctx["kp_root"], "--gen-kp-dir", ctx["gen_kp"], "--no-bug-compat", "--device", "cuda"]
+    want = _scores(ctx["scores"])   # phase 5's score CLI run: "high", no cache, K1
+
+    def cli(tag, *flags, ckpt=ctx["best"]):
+        out = os.path.join(root, f"scores_{tag}.json")
+        hits = feats.CACHE_COUNTS["hit"]
+        t0 = time.perf_counter()
+        score_main(base + ["--checkpoint", ckpt, "--output", out, *flags])
+        torch.cuda.synchronize()
+        return _scores(out), feats.CACHE_COUNTS["hit"] - hits, time.perf_counter() - t0
+
+    # (a) --bank-cache cold, then warm; (c) --dump-features on the cold run
+    dump = os.path.join(root, "features.npz")
+    cold, cold_hits, cold_s = cli("cold", "--bank-cache", cache, "--dump-features", dump)
+    warm, warm_hits, warm_s = cli("warm", "--bank-cache", cache)
+    _check(cold_hits == 0 and warm_hits == 3, f"bank layer (a): cache hits cold {cold_hits}, warm {warm_hits}")
+    _check(cold == want and warm == want, "bank layer (a): the cached runs' scores are not bitwise the uncached "
+           f"run's (max |d| cold {_worst_score_diff(cold, want):.3e}, warm {_worst_score_diff(warm, want):.3e})")
+    print(f"bank layer (a): score CLI --bank-cache cold {cold_s:.2f} s (0 hits), warm {warm_s:.2f} s "
+          f"({warm_hits} hits: stats.npz, real_train_bank.npz, generated_bank.npz); scores bitwise phase 5's "
+          f"uncached run on {card}")
+    # (b) every --gather-impl on the warm cache
+    for impl in ("take", "sliced", "burst"):
+        got, _, dt = cli(f"gather_{impl}", "--bank-cache", cache, "--gather-impl", impl)
+        _check(got == want, f"bank layer (b): --gather-impl {impl} scores differ from K1's")
+        print(f"bank layer (b): --gather-impl {impl}: scores bitwise K1's ({dt:.2f} s)")
+    # (c) the dump's keys, and its embeddings against the sweep
+    with np.load(dump) as z:
+        keys = sorted(z.files)
+        dumped = {k: z[k] for k in z.files}
+    _check(keys == sorted(["seq_embeds", "window_tc", "window_video", "window_start", "video_names",
+                           "video_classes"]), f"bank layer (c): dump keys {keys}")
+    gen_bank = load_feature_bank(os.path.join(cache, "generated_bank.npz"))
+    model = HumanActionScorer(EncoderConfig.create(DIMS_RAW, DIMS_DIFF))
+    model.load_state_dict(torch.load(ctx["best"], map_location="cpu", weights_only=True)["model_state_dict"])
+    windows = list(zip(dumped["window_video"].tolist(), dumped["window_start"].tolist()))
+    seqs, tcs, _vid = WindowEncoder(model, BATCH, CLIP, "high", "cuda").encode_bank(gen_bank, windows)
+    _check(np.array_equal(seqs, dumped["seq_embeds"]) and np.array_equal(tcs, dumped["window_tc"]),
+           "bank layer (c): the dump's embeddings are not the sweep's")
+    print(f"bank layer (c): --dump-features {keys}, {len(windows)} windows of {len(gen_bank.names)} videos; "
+          f"seq_embeds and window_tc bitwise a sweep of the cached generated bank")
+    # (i) the checkpoint as the JAX package's path-keyed .npz
+    npz = save_jax_npz_params(os.path.join(root, "best_params"), model.state_dict(), model.config)
+    got, _, _ = cli("npz", "--bank-cache", cache, ckpt=npz)
+    _check(got == want, "bank layer (i): the .npz checkpoint's scores differ from the .pt's")
+    print("bank layer (i): the best checkpoint as a path-keyed .npz scores bitwise the .pt")
+
+    # (d) --precision default: K3 on the tensor-core body
+    kern = _k3_rows(torch, torch.device("cuda"), torch.Generator().manual_seed(SEED), ("default",))
+    highest, _, _ = cli("highest", "--bank-cache", cache, "--precision", "highest")
+    gather_windows.launches = fused_temporal_block.launches = 0
+    default, _, dt = cli("default", "--bank-cache", cache, "--precision", "default")
+    k3_default = fused_temporal_block.launches
+    batches = _expected_batches(ctx["mesh_root"], ctx["gen_dir"])
+    _check((gather_windows.launches, k3_default) == (batches, 40 * batches),
+           f"bank layer (d): launches K1 {gather_windows.launches}, K3 {k3_default} != ({batches}, {40 * batches})")
+    d_def = _worst_score_diff(default, highest)
+    _check(d_def <= BF16_SWEEP_TOL, f"bank layer (d): default vs highest AC/TC {d_def:.3e} > {BF16_SWEEP_TOL}")
+    bank, sweep, seg, smodel = sweep_inputs(torch)
+    rates = {}
+    for precision in ("high", "default"):
+        enc = WindowEncoder(smodel, BATCH, CLIP, precision, "cuda")
+        dev_bank = enc.upload(bank)
+        enc.encode_bank_segsum(bank, sweep, seg, bank.num_videos, bank_dev=dev_bank)   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            enc.encode_bank_segsum(bank, sweep, seg, bank.num_videos, bank_dev=dev_bank)
+        rates[precision] = 5 * len(sweep) / (time.perf_counter() - t0)
+    print(f"bank layer (d): score CLI --precision default: K1 {batches}, K3 {k3_default} launches ({dt:.2f} s); "
+          f"max |dAC|,|dTC| vs highest {d_def:.3e} (tol {BF16_SWEEP_TOL}, bf16 class); sweep at batch {BATCH}: "
+          f"default {rates['default']:.0f} windows/s, high {rates['high']:.0f} windows/s on {card}")
+
+    # (h) a trace of one sweep names K1 and K3
+    trace_dir = os.path.join(root, "trace")
+    enc = WindowEncoder(smodel, BATCH, CLIP, "high", "cuda")
+    with profiling.trace(trace_dir):
+        with profiling.annotate("vge_sweep"):
+            enc.encode_bank_segsum(bank, sweep, seg, bank.num_videos)
+        torch.cuda.synchronize()
+    (trace_file,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, trace_file)) as f:
+        text = f.read()
+    named = {k: k in text for k in ("gather_windows_kernel", "temporal_block_high_kernel", "vge_sweep")}
+    _check(all(named.values()), f"bank layer (h): the trace names {named}")
+    print(f"bank layer (h): profiling.trace around one sweep: {trace_file} ({len(text) / 2**20:.1f} MiB) names "
+          f"{sorted(named)}")
+
+    # (g) the native reader against numpy, and the host bank build with each
+    _check(native_npz.reader() == "native", "bank layer (g): the native npz reader did not build")
+    real = scan_class_tree(ctx["mesh_root"], filter_classes=list(ACTION_CLASSES))
+    files = [it.path for it in real.items] + [it.path for it in scan_generated_flat(ctx["gen_dir"]).items]
+    for path in files:
+        got = native_npz.load_npz(path)
+        with np.load(path) as z:
+            same = all(np.array_equal(got[k], z[k]) and got[k].dtype == z[k].dtype for k in z.files
+                       if z[k].dtype.kind not in "OSU")
+        _check(same and set(got) == {k for k in z.files if k != "meta"}, f"bank layer (g): {path} reads differ")
+    paths = ModalityPaths(keypoint_dir=ctx["kp_root"], layout="real")
+    st = ModalityStats.load(os.path.join(cache, "stats.npz"))
+    secs = {}
+    for route in ("native", "numpy", "native"):
+        saved = native_npz._LIB
+        if route == "numpy":
+            native_npz._LIB = None
+        try:
+            t0 = time.perf_counter()
+            built = build_feature_bank(real.items, paths, st, min_rows=CLIP + 8)
+            secs.setdefault(route, []).append(time.perf_counter() - t0)
+        finally:
+            native_npz._LIB = saved
+    print(f"bank layer (g): native_npz.reader() = native; {len(files)} npz files bitwise numpy's; host bank build "
+          f"over {len(real.items)} videos ({built.bank.shape[0]} rows): native {min(secs['native']):.3f} s, numpy "
+          f"{secs['numpy'][0]:.3f} s (warm file cache, the host's cores shared with the card's process)")
+
+    # (f) the train CLI with --bank-cache, and --conv-impl kernel / module
+    cfg = copy.deepcopy(ctx["base"])
+    cfg.epochs = 1
+    losses = {}
+    for tag, flags in (("kernel_cold", ["--conv-impl", "kernel"]), ("kernel_warm", ["--conv-impl", "kernel"]),
+                       ("module", ["--conv-impl", "module"])):
+        cfg.save_dir = os.path.join(root, f"SAVE_{tag}")
+        path = os.path.join(root, f"train_{tag}.json")
+        cfg.to_json(path)
+        hits = feats.CACHE_COUNTS["hit"]
+        t0 = time.perf_counter()
+        train_main(["--config", path, "--device", "cuda", "--bank-cache", os.path.join(root, "train_cache"), *flags])
+        torch.cuda.synchronize()
+        losses[tag] = _train_losses(cfg.save_dir)
+        print(f"bank layer (f): train CLI --bank-cache {' '.join(flags)}: 1 epoch in {time.perf_counter() - t0:.1f} s, "
+              f"{feats.CACHE_COUNTS['hit'] - hits} cache hits; train, eval loss {losses[tag]}")
+        _check(all(math.isfinite(v) for v in losses[tag]), f"bank layer (f): {tag} losses {losses[tag]}")
+    _check(losses["kernel_warm"] == losses["kernel_cold"],
+           "bank layer (f): the warm run's losses are not bitwise the cold run's")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["module"], losses["kernel_cold"]))
+    _check(rel <= BF16_SWEEP_TOL, f"bank layer (f): module vs kernel losses differ by {rel:.3e} relative")
+    print(f"bank layer (f): warm run bitwise the cold one; --conv-impl module vs kernel: max relative loss "
+          f"difference {rel:.3e} (tol {BF16_SWEEP_TOL}, both at 'default')")
+
+    # (e) frames to scores with the bank built on the card
+    names, videos, model, centroids, label_dict = _config4_inputs(torch)
+    ex = Extractor(_pose_config(), seed=SEED)
+    cfg4 = ScoreConfig(clip_len=CLIP, stride=STRIDE, batch_size=BATCH)
+    banks, build = [], full_mod.build_bank_device
+    full_mod.build_bank_device = lambda *a, **k: banks.append(build(*a, **k)) or banks[-1]
+    runs, times = {}, {}
+    try:
+        for impl in ("device", "host", "device"):   # the second device run is timed
+            times[impl] = {}
+            runs[impl] = full_mod.score_videos_end_to_end(ex, model, videos, centroids, label_dict, cfg=cfg4,
+                                                          phase_times=times[impl], bank_impl=impl)
+    finally:
+        full_mod.build_bank_device = build
+    _check(len(banks) == 2 and all(b.bank.is_cuda for b in banks), "bank layer (e): the device bank is not on cuda")
+    _check(runs["device"].rejected == runs["host"].rejected, "bank layer (e): the runs reject different videos")
+    d_bank = _worst_score_diff(runs["device"].scores, runs["host"].scores)
+    _check(d_bank <= 1e-3, f"bank layer (e): device vs host bank AC/TC {d_bank:.3e} > 1e-3")
+    print(f"bank layer (e): score_videos_end_to_end bank_impl device (bank {tuple(banks[0].bank.shape)} on "
+          f"{banks[0].bank.device}, float32 stream stats) vs host: max |dAC|,|dTC| {d_bank:.3e} (budget 1e-3); "
+          f"bank_s device {times['device']['bank_s']:.3f} s (its second run), host {times['host']['bank_s']:.3f} s; "
+          f"extract_s {times['device']['extract_s']:.2f} / {times['host']['extract_s']:.2f} s on {card}")
+    del ex
+    torch.cuda.empty_cache()
+    print(f"bank layer: phase 12 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return kern, k3_default
+
+
+
 def main() -> int:
     import torch
 
@@ -2614,6 +2881,8 @@ def main() -> int:
     kern.update(mode_kern)
     kp_launches, kp_ctx = phase_keypoints(torch, card, os.path.join(keep.name, "keypoints"))
     phase_parallel(torch, card, train_ctx, kp_ctx, os.path.join(keep.name, "parallel"))
+    bank_kern, k3_default = phase_bank_layer(torch, card, train_ctx, os.path.join(keep.name, "bank"))
+    kern.update(bank_kern)
     keep.cleanup()
 
     src = "video_gen_evals_tpu_torch/csrc/"
@@ -2624,6 +2893,10 @@ def main() -> int:
          "video_gen_evals_tpu/ops/conv_kernel.py:347", launches["high"][1]),
         ("fused_temporal_block[highest]", "temporal_block.cu",
          "video_gen_evals_tpu/ops/conv_kernel.py:358", launches["highest"][1]),
+        # JAX scores "default" through its module's XLA conv; the port's K3
+        # runs it on K4's forward body, whose source is temporal_block_train.cu
+        ("fused_temporal_block[default]", "temporal_block_train.cu",
+         "video_gen_evals_tpu/ops/conv_kernel.py:347", k3_default),
     ]
     rows += [
         ("gather_windows_subblock", "window_gather.cu",

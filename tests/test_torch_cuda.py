@@ -119,12 +119,34 @@ def test_block_kernel_matches_plain(cuda, batch, t_len, channels, dilation, prec
     assert (got - want).abs().max().item() <= atol
 
 
+@pytest.mark.parametrize("batch,t_len,channels", _STAGE_SHAPES)
+@pytest.mark.parametrize("dilation", [1, 2, 4, 8])
+def test_block_kernel_default_matches_plain(cuda, batch, t_len, channels, dilation):
+    """K3 at "default" (bf16 operands, fp32 sums) runs K4's forward body with
+    no mask: within K4_TOL's "default" forward bound (1e-2; an intermediate
+    on a bf16 rounding boundary can round the other way) of its plain
+    version on the card, bitwise K4's forward at "default" without a mask,
+    one launch counted."""
+    gen = torch.Generator().manual_seed(dilation)
+    x = torch.randn(batch, t_len, channels, generator=gen)
+    args = [a.to(cuda) for a in (x,) + _stage_weights(gen, (), channels)]
+    want = fused_temporal_block_plain(*args, dilation, "default")
+    before = fused_temporal_block.launches
+    got = fused_temporal_block(*args, dilation, "default")
+    torch.cuda.synchronize()
+    assert fused_temporal_block.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-2
+    with torch.no_grad():
+        assert torch.equal(got, fused_temporal_block_train(*args, None, dilation, "default"))
+
+
 @pytest.mark.parametrize("batch,t_len,channels", [(512, 32, 256), (5, 32, 256), (37, 8, 64),
                                                    (513, 16, 128)])
-@pytest.mark.parametrize("precision", ["high", "highest"])
+@pytest.mark.parametrize("precision", ["default", "high", "highest"])
 def test_block_kernel_high_is_bitwise_repeatable(cuda, batch, t_len, channels, precision):
-    """K3 at "high" and at "highest" sums in a fixed order: two calls give the
-    same bits."""
+    """K3 at every precision sums in a fixed order: two calls give the same
+    bits."""
     gen = torch.Generator().manual_seed(batch)
     x = torch.randn(batch, t_len, channels, generator=gen)
     args = [a.to(cuda) for a in (x,) + _stage_weights(gen, (), channels)]

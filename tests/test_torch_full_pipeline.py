@@ -85,12 +85,24 @@ def test_scores_match_jax(runs):
 
 
 def test_refusals_and_empty_input(runs):
-    """The device bank names its ROADMAP item; a call whose every video is
-    rejected returns no scores; without keypoints the kp2d modality is not
-    used."""
-    _, _, _, (port_ex, model, centroids) = runs
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 8"):
-        full.score_videos_end_to_end(port_ex, model, {}, centroids, LABELS, bank_impl="device")
+    """bank_impl="device" (the bank built where the extraction ran, from
+    outputs left there) with the host run's stats scores every video within
+    1e-4 of JAX's host run and rejects the same video (its float32 stream
+    stats, the default without stats, are held against JAX's in
+    tests/test_torch_bank_layer.py); an unknown bank_impl is refused; a call
+    whose every video is rejected returns no scores; without keypoints the
+    kp2d modality is not used."""
+    got, want, _, (port_ex, model, centroids) = runs
+    dev = full.score_videos_end_to_end(port_ex, model, _videos(), centroids, LABELS, stats=got.stats,
+                                       bank_impl="device",
+                                       cfg=ScoreConfig(clip_len=8, stride=8, batch_size=8, precision="highest"))
+    assert dev.rejected == want.rejected and set(dev.scores) == set(want.scores)
+    for name, s in dev.scores.items():
+        assert set(s) == set(want.scores[name])
+        for k, v in s.items():
+            np.testing.assert_allclose(v, want.scores[name][k], rtol=0, atol=1e-4, err_msg=f"{name} {k}")
+    with pytest.raises(ValueError, match="bank_impl"):
+        full.score_videos_end_to_end(port_ex, model, {}, centroids, LABELS, bank_impl="tpu")
     empty = full.score_videos_end_to_end(port_ex, model, {"GenX_PushUps_09": _pool()[REJECTED_VIDEO]},
                                          centroids, LABELS)
     assert empty.scores == {} and empty.rejected == ["GenX_PushUps_09"]

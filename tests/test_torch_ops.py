@@ -174,7 +174,7 @@ def test_split_bf16_matches_jax(rng):
 def test_block_rejects_unknown_precision_and_shapes(rng):
     x, w1, w2, gs, gb = (torch.from_numpy(a) for a in _block_inputs(rng))
     with pytest.raises(ValueError, match="precision"):
-        fused_temporal_block(x, w1, w2, gs, gb, 1, "default")
+        fused_temporal_block(x, w1, w2, gs, gb, 1, "tf32")
     with pytest.raises(ValueError, match="w1"):
         fused_temporal_block(x, w1[:3], w2, gs, gb, 1, "high")
     # the wrapper's CPU route is the plain version itself

@@ -4,8 +4,8 @@ reference's accidental behaviors, and the training configuration tree.
 The port's own copies of ``video_gen_evals_tpu/core/config.py``'s ``BugCompat``
 (the fields the scoring path reads), ``PathsConfig`` and ``TrainConfig``, kept
 here so the port loads nothing of the JAX package. A ``TrainConfig`` JSON
-written by either package loads in the other's training CLI, apart from the
-fields of paths that are not ported yet (see :class:`TrainConfig`).
+written by either package loads in the other's training CLI: the two have
+the same fields.
 """
 
 from __future__ import annotations
@@ -53,16 +53,13 @@ class PathsConfig:
     gen_dino_dir: T.Optional[str] = None
 
 
-# JAX-package TrainConfig fields whose paths the port does not have yet
-# (conv implementation selector, bank cache)
-_UNPORTED_TRAIN_FIELDS = ("conv_impl", "bank_cache_dir")
+CONV_IMPLS = ("auto", "module", "kernel")
 
 
 @dataclasses.dataclass
 class TrainConfig:
-    """Hyperparameters of ``Exp_TCL_Hard_V2Plus`` (ref ``train.py:471-480``).
-    ``from_json`` ignores ``conv_impl`` and ``bank_cache_dir`` of a config
-    written by the JAX package."""
+    """Hyperparameters of ``Exp_TCL_Hard_V2Plus`` (ref ``train.py:471-480``),
+    and the JAX package's run settings."""
 
     paths: PathsConfig = dataclasses.field(default_factory=PathsConfig)
     seed: int = 1337
@@ -94,6 +91,13 @@ class TrainConfig:
     # data-parallel ranks of the train CLI (None or 1: one device); the
     # CLI's --dp wins
     num_dp_devices: T.Optional[int] = None
+    # directory of the cached stats and train/test feature banks (skips the
+    # stats and normalize/delta passes when the video set is unchanged)
+    bank_cache_dir: T.Optional[str] = None
+    # the training conv stages (CONV_IMPLS): "auto" and "kernel" run K4 (its
+    # plain version on the CPU), "module" K4's plain version under autograd
+    # on any device
+    conv_impl: str = "auto"
 
     @property
     def batch_size(self) -> int:
@@ -119,7 +123,5 @@ class TrainConfig:
     def from_json(cls, path: str) -> "TrainConfig":
         with open(path) as f:
             d = json.load(f)
-        for key in _UNPORTED_TRAIN_FIELDS:
-            d.pop(key, None)
         d["paths"] = PathsConfig(**d.get("paths", {}))
         return cls(**d)

@@ -1,7 +1,8 @@
-"""Per-video feature banks, built on the host and uploaded once.
+"""Per-video feature banks, their window gathers and their on-disk cache.
 
-Port of ``video_gen_evals_tpu/data/features.py`` (host assembly, the
-``bank_impl="auto"`` route of the JAX scoring path, ``score.py:429-440``).
+Port of ``video_gen_evals_tpu/data/features.py``. The bank is assembled on
+the host (``impl="host"``, the JAX ``bank_impl="auto"`` route) or on the
+device (``impl="device"``, ``data/device_bank.py``):
 
 1. Per video, raw and temporal-diff features for every modality, normalized
    with train stats (diffs in torch on the CPU, float32).
@@ -14,13 +15,26 @@ Port of ``video_gen_evals_tpu/data/features.py`` (host assembly, the
 
 This reproduces the reference's per-window slice-or-pad -> deltas -> z-score
 -> concat (ref ``utils.py:366-514``); see the JAX module for the argument.
+
+Windows come out of a bank by K1 (``ops/window_kernel.py``), or by the two
+torch gathers JAX computes outside Pallas: :func:`gather_windows_sliced`
+(one contiguous slice a window: K1's plain version) and :func:`gather_windows`
+(``take``: a clamped row index a window row, exact for any start).
+
+:func:`build_feature_bank_cached` keeps a built bank in one npz under a
+fingerprint of everything it depends on (:func:`bank_fingerprint`), with
+the JAX package's member names and fingerprint strings, so a cache either
+package wrote is a hit for the other. Mesh npz files are read by the native
+reader (``utils/native_npz.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import typing as T
+import zipfile
 
 import numpy as np
 import torch
@@ -28,9 +42,9 @@ import torch
 from ..ops.deltas import betas_delta, vit_delta
 from ..ops.procrustes import procrustes_kp_delta
 from ..ops.so3 import rotmat_delta
-# The plain sliced gather is K1's plain version; it lives beside the kernel.
+# The sliced gather is K1's plain version; it lives beside the kernel.
 from ..ops.window_kernel import gather_windows_plain as gather_windows_sliced
-from ..utils.npz import load_npz
+from ..utils.native_npz import load_npz, load_npz_many
 
 if T.TYPE_CHECKING:
     from .stats import ModalityStats
@@ -43,13 +57,23 @@ __all__ = [
     "FeatureBank",
     "build_feature_bank",
     "finalize_feature_bank",
+    "gather_windows",
     "gather_windows_sliced",
+    "bank_fingerprint",
+    "source_fingerprint",
+    "save_feature_bank",
+    "load_feature_bank",
+    "load_bank_fingerprint",
+    "build_feature_bank_cached",
+    "CACHE_COUNTS",
 ]
 
 _NORM_EPS = 1e-6  # eps added to std at normalization time (ref utils.py:473)
 _ROW_ALIGN = 8    # per-video bank rows round up to a multiple of 8, as in JAX
 
-# (modality, ModalityPaths attr, per-video file name)
+# (modality, ModalityPaths attr, per-video file name): the one source of the
+# side files' names for both the loader and the cache fingerprints, so a
+# fingerprint stats the files a bank read
 _SIDE_FILES = (
     ("kp2d", "keypoint_dir", "keypoints.npy"),
     ("clip", "clip_dir", "clip_embeddings.npz"),
@@ -264,21 +288,39 @@ def build_feature_bank(
     stats: "ModalityStats",
     modalities: T.Optional[T.Sequence[str]] = None,
     min_rows: int = 40,
+    impl: str = "host",
+    device: T.Union[str, torch.device, None] = None,
 ) -> FeatureBank:
-    """The normalized window bank for ``items``, assembled on the host.
+    """The normalized window bank for ``items``.
 
     ``modalities`` defaults to the stats' modalities; each must be loadable
     for every video. ``min_rows`` must be >= the largest clip_len gathered.
+    ``impl``: ``"host"`` (numpy assembly) or ``"device"`` (the whole
+    delta / normalize / pad / concat pass on ``device``,
+    ``data/device_bank.py``; the bank stays there as a tensor).
     """
+    if impl not in ("host", "device"):
+        raise ValueError(f"unknown bank impl {impl!r}")
     mods = list(modalities) if modalities is not None else stats.modalities
-    banks, names, classes = [], [], []
-    for it in items:
-        arrays = load_video_arrays(it, paths, strict_kp=True)
-        bank, _height = assemble_video_bank(arrays, mods, stats, min_rows, it.name)
-        banks.append(bank)
-        names.append(it.name)
-        classes.append(it.cls)
-    return finalize_feature_bank(banks, names, classes, stats, mods)
+    items = list(items)
+    npzs = load_npz_many([it.path for it in items], n_threads=8)
+    for it, z in zip(items, npzs):
+        if z is None:
+            raise IOError(f"could not open mesh npz '{it.path}'")
+    if impl == "device":
+        from .device_bank import build_bank_device
+        from .stats import ModalityStats
+
+        sub = ModalityStats(*({m: d[m] for m in mods}
+                              for d in (stats.mean_raw, stats.std_raw, stats.mean_diff, stats.std_diff)))
+        arrays_list = [load_video_arrays(it, paths, strict_kp=True, npz=z) for it, z in zip(items, npzs)]
+        return build_bank_device(arrays_list, [it.name for it in items], [it.cls for it in items], sub,
+                                 min_rows=min_rows, device=device)
+    banks = []
+    for it, z in zip(items, npzs):
+        arrays = load_video_arrays(it, paths, strict_kp=True, npz=z)
+        banks.append(assemble_video_bank(arrays, mods, stats, min_rows, it.name)[0])
+    return finalize_feature_bank(banks, [it.name for it in items], [it.cls for it in items], stats, mods)
 
 
 def finalize_feature_bank(
@@ -314,3 +356,208 @@ def finalize_feature_bank(
         classes=list(classes),
         names=list(names),
     )
+
+
+def gather_windows(
+    bank: torch.Tensor,       # [N, D]
+    offsets: torch.Tensor,    # [V] int32
+    row_limit: torch.Tensor,  # [V] int32, last row of each video's bank
+    z0_diff: torch.Tensor,    # [D_diff]
+    one_pass_raw: int,
+    video_idx: torch.Tensor,  # [B] int32
+    starts: torch.Tensor,     # [B] int32
+    clip_len: int,
+) -> torch.Tensor:
+    """``[B, clip_len, D]`` windows by one row gather (JAX ``take``): row i
+    of a window reads ``offsets[v] + clip(start + i, 0, row_limit[v])``, and
+    a negative start reads the video's row 0 for the whole window, so every
+    start follows the reference's slice-or-pad rule exactly
+    (``windows.py``)."""
+    v = video_idx.long()
+    st = starts.long()[:, None]
+    i = torch.arange(clip_len, device=bank.device)[None, :]
+    row = torch.minimum((st + i).clamp_min(0), row_limit[v].long()[:, None])
+    row = torch.where(st < 0, torch.zeros_like(row), row)
+    out = bank[offsets[v].long()[:, None] + row]
+    out[:, 0, one_pass_raw:] = z0_diff.to(out.dtype)
+    return out
+
+
+# cache hits and misses of this process's bank and stats caches
+CACHE_COUNTS = {"hit": 0, "miss": 0}
+
+
+def _file_identity(add, p: str) -> None:
+    try:
+        st = os.stat(p)
+        add(f"{p}|{st.st_size}|{st.st_mtime_ns}")
+    except OSError:
+        add(f"{p}|missing")
+
+
+def _hasher():
+    h = hashlib.sha256()
+
+    def add(s: str) -> None:
+        h.update(s.encode())
+        h.update(b"\x00")
+
+    return h, add
+
+
+def bank_fingerprint(
+    items: T.Sequence,
+    paths: ModalityPaths,
+    stats: "ModalityStats",
+    modalities: T.Optional[T.Sequence[str]] = None,
+    min_rows: int = 40,
+) -> str:
+    """Hash of everything a cached bank's contents depend on: the
+    normalization stats, the modality subset and order, ``min_rows``, the
+    side-file configuration, and each source file's path, size and mtime
+    (the mesh npz and each configured keypoint / clip / dino file). The
+    same string as the JAX package's ``bank_fingerprint``."""
+    mods = list(modalities) if modalities is not None else stats.modalities
+    h, add = _hasher()
+    add("v2")  # v2: per-item class labels joined the hash
+    add(",".join(mods))
+    add(str(int(min_rows)))
+    add(f"{paths.keypoint_dir}|{paths.clip_dir}|{paths.dino_dir}|{paths.layout}")
+    for m in mods:
+        for arr in (stats.mean_raw[m], stats.std_raw[m], stats.mean_diff[m], stats.std_diff[m]):
+            h.update(np.ascontiguousarray(arr, dtype=np.float64).tobytes())
+    _add_source_files(add, items, paths)
+    return h.hexdigest()
+
+
+def _add_source_files(add, items, paths: ModalityPaths) -> None:
+    """Every source file a bank or stats pass reads, into a fingerprint: each
+    item's name and class (a relabel invalidates: AC centroids follow
+    ``bank.classes``), its mesh npz and its configured side files."""
+    for it in items:
+        add(f"{it.name}|{it.cls}")
+        _file_identity(add, it.path)
+        vid_stem = os.path.splitext(os.path.basename(it.path))[0]
+        for _m, attr, fname in _SIDE_FILES:
+            base = getattr(paths, attr)
+            if base is not None:
+                _file_identity(add, paths.resolve(base, it.cls, vid_stem, fname))
+
+
+def source_fingerprint(items, paths: ModalityPaths, tag: str) -> str:
+    """Hash of the source files and the path configuration alone (no stats):
+    the key of caches of what is derived from the files, e.g. the stats pass
+    (``data/stats.py::compute_stats_cached``)."""
+    h, add = _hasher()
+    add(tag)
+    add(f"{paths.keypoint_dir}|{paths.clip_dir}|{paths.dino_dir}|{paths.layout}")
+    _add_source_files(add, items, paths)
+    return h.hexdigest()
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def save_feature_bank(bank: FeatureBank, path: str, fingerprint: T.Optional[str] = None) -> None:
+    """One compressed npz of the bank (a device bank is fetched once), with
+    the JAX package's member names. Written to a temporary name and renamed:
+    a crash, or several writers racing on one cache directory, never leaves
+    a torn file at ``path``."""
+    extra = {} if fingerprint is None else {"fingerprint": np.array(fingerprint)}
+    tmp = f"{path}.{os.getpid()}.tmp.npz"
+    np.savez_compressed(
+        tmp,
+        bank=_host(bank.bank),
+        offsets=_host(bank.offsets),
+        row_limit=_host(bank.row_limit),
+        z0_diff=_host(bank.z0_diff),
+        one_pass_raw=np.int64(bank.one_pass_raw),
+        classes=np.array(bank.classes),
+        names=np.array(bank.names),
+        **extra,
+    )
+    os.replace(tmp, path)
+
+
+def load_feature_bank(path: str) -> FeatureBank:
+    z = load_npz(path)
+    if "classes" not in z or "names" not in z:   # the native reader skips strings
+        with np.load(path, allow_pickle=False) as f:
+            z["classes"], z["names"] = f["classes"], f["names"]
+    return FeatureBank(
+        bank=z["bank"],
+        offsets=z["offsets"],
+        row_limit=z["row_limit"],
+        z0_diff=z["z0_diff"],
+        one_pass_raw=int(z["one_pass_raw"]),
+        classes=[str(c) for c in z["classes"]],
+        names=[str(n) for n in z["names"]],
+    )
+
+
+def load_bank_fingerprint(path: str) -> T.Optional[str]:
+    """The ``fingerprint`` member of a cached npz (a few dozen bytes), or
+    None for a file without one or that does not read."""
+    try:
+        with np.load(path, allow_pickle=False) as f:
+            if "fingerprint" in f.files:
+                return str(f["fingerprint"])
+    except (OSError, EOFError, ValueError, zipfile.BadZipFile):
+        pass
+    return None
+
+
+def read_if_unchanged(path: str, fingerprint: str, load: T.Callable[[str], T.Any]) -> T.Optional[T.Any]:
+    """``load(path)`` when the file's fingerprint is ``fingerprint`` and the
+    file was not replaced while it was read, else None. The fingerprint and
+    the payload come from separate opens, so a concurrent writer of another
+    configuration could rename its file in between: the reads are bracketed
+    by ``stat`` and need an unchanged inode, mtime and size (a rename
+    changes the inode)."""
+    if not os.path.exists(path):
+        return None
+    try:
+        before = os.stat(path)
+        if load_bank_fingerprint(path) != fingerprint:
+            return None
+        out = load(path)
+        after = os.stat(path)
+    except (OSError, EOFError, ValueError, KeyError, zipfile.BadZipFile):
+        return None   # unreadable or torn: rebuilt by the caller
+    same = (before.st_ino, before.st_mtime_ns, before.st_size) == (after.st_ino, after.st_mtime_ns, after.st_size)
+    return out if same else None
+
+
+def build_feature_bank_cached(
+    items: T.Sequence,
+    paths: ModalityPaths,
+    stats: "ModalityStats",
+    modalities: T.Optional[T.Sequence[str]] = None,
+    min_rows: int = 40,
+    cache_path: T.Optional[str] = None,
+    impl: str = "host",
+    device: T.Union[str, torch.device, None] = None,
+    write: bool = True,
+) -> FeatureBank:
+    """:func:`build_feature_bank` with an on-disk cache at ``cache_path``.
+
+    A cache whose fingerprint (:func:`bank_fingerprint`) matches and whose
+    video names and classes are ``items``' (same order) loads through the
+    native reader instead of the normalize / delta pass; a stale, mismatched
+    or fingerprint-less one is rebuilt and overwritten (unless ``write`` is
+    False: a data-parallel rank other than 0 reads, and never writes). A hit
+    is a host bank, whatever ``impl``."""
+    names = [it.name for it in items]
+    fp = bank_fingerprint(items, paths, stats, modalities, min_rows=min_rows)
+    if cache_path:
+        bank = read_if_unchanged(cache_path, fp, load_feature_bank)
+        if bank is not None and bank.names == names and bank.classes == [it.cls for it in items]:
+            CACHE_COUNTS["hit"] += 1
+            return bank
+        CACHE_COUNTS["miss"] += 1
+    bank = build_feature_bank(items, paths, stats, modalities, min_rows=min_rows, impl=impl, device=device)
+    if cache_path and write:
+        os.makedirs(os.path.dirname(os.path.abspath(cache_path)), exist_ok=True)
+        save_feature_bank(bank, cache_path, fingerprint=fp)
+    return bank

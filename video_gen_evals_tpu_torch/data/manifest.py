@@ -28,7 +28,7 @@ import random
 import typing as T
 
 from ..utils.names import infer_class_from_generated_stem
-from ..utils.npz import npz_shapes
+from ..utils.native_npz import npz_shapes
 
 
 @dataclasses.dataclass

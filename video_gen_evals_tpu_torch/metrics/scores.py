@@ -9,8 +9,8 @@ Port of ``video_gen_evals_tpu/metrics/scores.py`` (SURVEY C20-C21/C24):
   distance of a video's normalized mean embedding to its class centroid, TC
   the mean of its window TCs.
 
-The per-segment sums these finalize are taken on the device with
-``index_add_`` (``pipelines/score.py::WindowEncoder``).
+The per-segment sums these finalize are taken on the device by a one-hot
+GEMM a batch (``pipelines/score.py::WindowEncoder``).
 """
 
 from __future__ import annotations

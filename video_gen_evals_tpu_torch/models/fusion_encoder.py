@@ -8,6 +8,9 @@ for CPU tensors. In eval mode (``model.eval()``) that is the scoring stage
 ``ops.conv_kernel.fused_temporal_block``; in training mode
 (``model.train()``) the trainable stage
 ``ops.conv_kernel_train.fused_temporal_block_train``, which has a backward.
+:meth:`HumanActionScorer.set_conv_impl` ``("module")`` runs the training
+stages as that kernel's plain version under autograd instead, on any device
+(the train CLI's ``--conv-impl module``).
 
 - :class:`TemporalConvBlock`       <- ref ``model.py:21-40``
 - :class:`MovementConvEncoder`     <- ref ``model.py:43-58``
@@ -55,7 +58,7 @@ from torch import nn
 
 from ..ops.attention import flash_attention, flash_attention_plain
 from ..ops.conv_kernel import fused_temporal_block
-from ..ops.conv_kernel_train import fused_temporal_block_train
+from ..ops.conv_kernel_train import fused_temporal_block_train, fused_temporal_block_train_plain
 from ..ops.deltas import l2_normalize
 
 DimsMap = T.Mapping[str, int]
@@ -185,13 +188,15 @@ class _Affine(nn.Module):
 
 class TemporalConvBlock(nn.Module):
     """Residual dilated conv pair, GELU, GroupNorm(1) (ref ``model.py:21-40``),
-    as one fused call: the scoring kernel in eval mode (``precision`` "high"
-    or "highest"), the trainable kernel with its dropout mask in training
-    mode (``precision`` "default" or "highest")."""
+    as one fused call: the scoring kernel in eval mode (``precision``
+    "default", "high" or "highest"), the trainable kernel with its dropout
+    mask in training mode (``precision`` "default" or "highest"), or with
+    ``train_impl = "module"`` that kernel's plain version under autograd."""
 
     def __init__(self, channels: int, dilation: int = 1, kernel_size: int = _KERNEL):
         super().__init__()
         self.dilation = dilation
+        self.train_impl = "kernel"
         self.conv1 = _ConvWeight(channels, channels, kernel_size)
         self.conv2 = _ConvWeight(channels, channels, kernel_size)
         self.norm = _Affine(channels)
@@ -202,8 +207,8 @@ class TemporalConvBlock(nn.Module):
         w2 = self.conv2.weight.permute(2, 1, 0)
         if self.training:
             mask = None if dropout is None else dropout.mask(x)
-            return fused_temporal_block_train(
-                x, w1, w2, self.norm.weight, self.norm.bias, mask, self.dilation, precision)
+            train = fused_temporal_block_train_plain if self.train_impl == "module" else fused_temporal_block_train
+            return train(x, w1, w2, self.norm.weight, self.norm.bias, mask, self.dilation, precision)
         return fused_temporal_block(
             x, w1, w2, self.norm.weight, self.norm.bias, self.dilation, precision)
 
@@ -339,8 +344,9 @@ class HumanActionScorer(nn.Module):
     the dims map. Returns ``(seq_embed [B, d_model], frame_embeds
     [B, T+1, d_model], tokens [B, T+1, d_model])``, both embeds L2-normalized.
     ``precision`` selects the conv-stage kernel's arithmetic: in eval mode
-    "high" (bf16x3) or "highest" (fp32), in training mode "default" (bf16
-    operands, fp32 sums) or "highest"; every other matmul runs in fp32.
+    "default" (bf16 operands, fp32 sums), "high" (bf16x3) or "highest"
+    (fp32), in training mode "default" or "highest"; every other matmul runs
+    in fp32.
     In training mode with ``config.dropout > 0`` the masks come from
     ``generator``, which must live on ``x``'s device; ``rows`` (a
     data-parallel rank's ``(lo, total)``) draws them at the whole batch's
@@ -381,6 +387,16 @@ class HumanActionScorer(nn.Module):
                 p.fill_(1.0)
             else:
                 p.zero_()
+
+    def set_conv_impl(self, impl: str) -> None:
+        """The training conv stages: ``"kernel"`` (K4 through its autograd
+        Function; its plain version for CPU tensors) or ``"module"`` (K4's
+        plain version under autograd on any device)."""
+        if impl not in ("kernel", "module"):
+            raise ValueError(f"conv impl must be 'kernel' or 'module', got {impl!r}")
+        for m in self.modules():
+            if isinstance(m, TemporalConvBlock):
+                m.train_impl = impl
 
     def forward(self, x: torch.Tensor, precision: str = "highest",
                 generator: T.Optional[torch.Generator] = None,

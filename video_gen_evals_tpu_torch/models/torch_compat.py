@@ -24,6 +24,11 @@ any tree shaped like the params (gradients, Adam moments) to the port's
 parameter names and layouts, and :func:`load_optax_adam_state` continues a
 JAX run's AdamW moments in a torch optimizer.
 
+The JAX package's multi-process checkpoints are flat ``.npz`` files keyed by
+the tree paths (``jax.tree_util.keystr``: ``['fusion']['Wq']['kernel']``);
+:func:`tree_from_path_keys` and :func:`path_keys_from_tree` turn such a flat
+dict into the nested tree and back.
+
 The detectors cross by :func:`rcnn_state_dict_from_jax_tree` and
 :func:`yolox_state_dict_from_jax_tree`, the inverses of the JAX package's
 ``detectron2_to_flax`` and ``yolox_to_flax``, and the 2D pose net by
@@ -32,6 +37,7 @@ The detectors cross by :func:`rcnn_state_dict_from_jax_tree` and
 
 from __future__ import annotations
 
+import re
 import typing as T
 
 import numpy as np
@@ -114,6 +120,36 @@ def state_dict_from_jax_params(params: FlaxParams, config: EncoderConfig) -> T.D
 
     sd["pos_enc.pe"] = sinusoidal_positional_embedding(_PE_MAX_LEN, config.d_model).numpy()[None]
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+_DICT_KEY_RE = re.compile(r"\['([^']*)'\]")
+
+
+def tree_from_path_keys(flat: T.Mapping[str, np.ndarray]) -> FlaxParams:
+    """A flat ``{keystr path: array}`` dict (a nested-dict tree's leaves, as
+    the JAX package's ``_flatten_with_paths`` writes them) -> the nested tree."""
+    root: FlaxParams = {}
+    for key, val in flat.items():
+        parts = _DICT_KEY_RE.findall(key)
+        if not parts or "".join(f"['{p}']" for p in parts) != key:
+            raise ValueError(f"npz key {key!r} is not a path of dict keys")
+        d = root
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = val
+    return root
+
+
+def path_keys_from_tree(tree: FlaxParams, prefix: str = "") -> T.Dict[str, np.ndarray]:
+    """The inverse of :func:`tree_from_path_keys`: ``{keystr path: leaf}``."""
+    out: T.Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        key = f"{prefix}['{k}']"
+        if isinstance(v, dict):
+            out.update(path_keys_from_tree(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
 
 
 def named_tensors_from_jax_tree(tree: FlaxParams, config: EncoderConfig) -> T.Dict[str, torch.Tensor]:

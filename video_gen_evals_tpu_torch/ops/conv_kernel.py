@@ -17,9 +17,16 @@ Precision:
   ``_block_kernel_high_mm``. Weights are split into round-to-nearest-even
   bf16 (hi, lo) once per call, here in the wrapper; each conv's input is
   split the same way; each tap adds ``hi*whi + hi*wlo + lo*whi`` in fp32.
+- ``"default"``: each conv's input and weights rounded to bf16 (nearest
+  even), one product a term, fp32 sums: the class of the JAX module forward
+  at ``default`` (single-pass bf16 on the TPU). It runs K4's forward body at
+  ``"default"`` (``train_fwd_tc_kernel``, ``vge_temporal_block_train_fwd_tc``
+  in ``csrc/temporal_block_train.cu``) with no dropout mask, as K3 at
+  ``"highest"`` shares ``fma_block_kernel`` with K4's forward; the plain
+  version is K4's at ``"default"`` without a mask.
 
 ``"high"`` runs on the tensor cores (mma.sync, bf16 operands, fp32 sums),
-bound by their bf16 rate: 3 products of 2 convs * 5 taps * T * C * C a window,
+bound by their bf16 rate (``"default"``: the same with one product): 3 products of 2 convs * 5 taps * T * C * C a window,
 64.4 GFLOP at [512, 32, 256] (0.065 ms at the H100's data-sheet 989
 TFLOP/s). A block owns W = 128 / T windows (:func:`tc_plan`), so the 2.6 MB of
 hi and lo weight planes (:func:`high_weight_planes`, laid out once a call)
@@ -58,7 +65,7 @@ import torch.nn.functional as F
 from .cuda_lib import check, load_library, stream_handle
 
 _K = 5  # kernel taps (ref model.py:24: kernel_size=5)
-_PRECISIONS = ("high", "highest")
+_PRECISIONS = ("default", "high", "highest")
 _KERNEL_T = (8, 16, 32)      # window lengths the kernel is instantiated for
 _KERNEL_C = (64, 128, 256)   # channel counts the kernel is instantiated for
 
@@ -105,8 +112,10 @@ def fused_temporal_block_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same arguments and result)."""
     split = precision == "high"
-    h = F.gelu(_conv_taps(x, w1, dilation, split))
-    y = F.gelu(_conv_taps(h, w2, dilation, split) + x)
+    rnd = (lambda t: t.to(torch.bfloat16).float()) if precision == "default" else (lambda t: t)   # noqa: E731
+    w1, w2 = rnd(w1), rnd(w2)
+    h = F.gelu(_conv_taps(rnd(x), w1, dilation, split))
+    y = F.gelu(_conv_taps(rnd(h), w2, dilation, split) + x)
     mu = y.mean(dim=(1, 2), keepdim=True)
     var = ((y - mu) ** 2).mean(dim=(1, 2), keepdim=True)
     return (y - mu) * torch.rsqrt(var + 1e-5) * gn_scale + gn_bias
@@ -279,7 +288,7 @@ def fused_temporal_block(
     """One fused residual dilated-conv stage over a window batch."""
     if precision not in _PRECISIONS:
         raise ValueError(
-            f"precision must be 'high' or 'highest', got {precision!r} "
+            f"precision must be one of {_PRECISIONS}, got {precision!r} "
             "(a silent fallback would change numerics)"
         )
     validate_stage_args("fused_temporal_block", x, w1, w2, gn_scale, gn_bias)
@@ -298,6 +307,16 @@ def fused_temporal_block(
             x.device.index, x.data_ptr(), wk.data_ptr(), gs.data_ptr(), gb.data_ptr(),
             out.data_ptr(), B, t_len, C, int(dilation), plan.windows_per_block,
             plan.smem_bytes, stream_handle(x.device),
+        )
+    elif precision == "default":
+        # K4's forward body at "default" with no mask: bf16 weight planes of
+        # the two convs, [2, K, Cin, Cout]
+        plan = tc_plan(t_len, C, B, "train_fwd")
+        wk = torch.stack([w1, w2]).to(torch.bfloat16)
+        code = lib.vge_temporal_block_train_fwd_tc(
+            x.device.index, x.data_ptr(), wk.data_ptr(), gs.data_ptr(), gb.data_ptr(), None,
+            out.data_ptr(), B, t_len, C, int(dilation), plan.windows_per_block, plan.smem_bytes,
+            stream_handle(x.device),
         )
     else:
         plan = fma_plan(t_len, C, B, "block")

@@ -7,13 +7,14 @@ scripts with a filesystem contract between them (``extract_mesh.py`` ->
 feature bank directly, with no npz round trip:
 
   Extractor.process_videos_streamed (detect, crops, ViT-H with K6, SMPL head,
-  RTMPose) -> per-modality arrays -> stats and the host bank
-  (``data/features.py``) -> WindowEncoder.encode_bank_segsum (K1 gather, K3
-  conv stages, per-video sums on the device) -> AC / TC.
+  RTMPose) -> per-modality arrays -> stats and the bank
+  -> WindowEncoder.encode_bank_segsum (K1 gather, K3 conv stages, per-video
+  sums on the device) -> AC / TC.
 
-The bank is assembled on the host, which is the route JAX's
-``bank_impl="auto"`` takes; JAX's device-resident bank
-(``data/device_bank.py``) is not ported (ROADMAP.md, Queue 1, item 8).
+``bank_impl`` ("auto" and "host", as in JAX, or "device") says where the bank
+is assembled: on the host (``data/features.py``), or on the extractor's
+device from outputs that never leave it (``data/device_bank.py``), with the
+stats of these videos accumulated there when none are given.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import typing as T
 import numpy as np
 import torch
 
+from ..data.device_bank import build_bank_device, stream_stats
 from ..data.features import FeatureBank, assemble_video_bank, compute_modality_diffs, finalize_feature_bank
 from ..data.manifest import VideoItem, VideoManifest
 from ..data.stats import MODALITIES, ModalityStats, _Acc
@@ -35,7 +37,7 @@ from ..utils.names import infer_class_from_name
 from .extract import Extractor
 from .score import ScoreConfig, WindowEncoder
 
-BANK_IMPLS = ("auto", "host")
+BANK_IMPLS = ("auto", "host", "device")
 
 
 def arrays_from_extraction(mesh: T.Dict[str, np.ndarray], kp: T.Optional[T.Dict[str, np.ndarray]] = None,
@@ -43,18 +45,23 @@ def arrays_from_extraction(mesh: T.Dict[str, np.ndarray], kp: T.Optional[T.Dict[
     """Extractor outputs -> the per-modality raw arrays of the npz contract,
     without the disk: ``vit``, ``global``, ``pose``, ``beta`` and, where a
     keypoint row is kept (only the valid rows with ``kp_bug_compat``),
-    ``kp2d``."""
+    ``kp2d``. Numpy arrays in, numpy out; device tensors (the extraction's
+    ``fetch_arrays=False``) stay on the device."""
+    f32 = lambda a: a.float() if isinstance(a, torch.Tensor) else a.astype(np.float32)   # noqa: E731
     n = mesh["pose"].shape[0]
     out = {
-        "vit": mesh["vit"].astype(np.float32),
-        "global": mesh["global_orient"].astype(np.float32).reshape(n, -1),
-        "pose": mesh["pose"].astype(np.float32).reshape(n, -1),
-        "beta": mesh["betas"].astype(np.float32),
+        "vit": f32(mesh["vit"]),
+        "global": f32(mesh["global_orient"]).reshape(n, -1),
+        "pose": f32(mesh["pose"]).reshape(n, -1),
+        "beta": f32(mesh["betas"]),
     }
     if kp is not None:
-        rows = kp["kp120"][kp["valid"]] if kp_bug_compat else kp["kp120"]
+        rows = kp["kp120"]
+        if kp_bug_compat:
+            valid = kp["valid"]
+            rows = rows[torch.from_numpy(valid).to(rows.device) if isinstance(rows, torch.Tensor) else valid]
         if rows.shape[0] > 0:
-            out["kp2d"] = rows.astype(np.float32)
+            out["kp2d"] = f32(rows)
     return out
 
 
@@ -108,7 +115,7 @@ def score_videos_end_to_end(
     with_keypoints: bool = True,
     encoder: T.Optional[WindowEncoder] = None,
     phase_times: T.Optional[T.Dict[str, float]] = None,
-    bank_impl: str = "auto",
+    bank_impl: T.Optional[str] = None,
 ) -> FullPipelineResult:
     """Frames to scores in one call: streamed extraction (detect, crops, mesh
     net and pose net) -> per-video arrays -> stats (from these videos unless
@@ -121,19 +128,22 @@ def score_videos_end_to_end(
     ``utils.py:1154-1159``, ``eval.py:246-248``). ``encoder``: a prebuilt
     WindowEncoder on the same model and geometry, kept across calls.
     ``phase_times`` receives the wall seconds ``extract_s``, ``bank_s`` and
-    ``score_s``; each phase ends on host data (the extraction's fetches, the
-    host bank, the sweep's one fetch). ``bank_impl``: ``"auto"`` and
-    ``"host"`` build the bank on the host; JAX's ``"device"`` bank is not
-    ported (ROADMAP.md, Queue 1, item 8)."""
-    if bank_impl == "device":
-        raise NotImplementedError("bank_impl='device' (data/device_bank.py) is not ported: "
-                                  "ROADMAP.md, Queue 1, item 8")
+    ``score_s``; each phase ends on host data (the extraction's fetches or
+    masks, the bank's layout, the sweep's one fetch). ``bank_impl`` (default
+    ``cfg.bank_impl``): ``"auto"`` and ``"host"`` build the bank on the host;
+    ``"device"`` leaves the extraction's outputs on the extractor's device
+    and builds the bank there (``data/device_bank.py``), with float32 stats
+    of these videos (:func:`~..data.device_bank.stream_stats`) when ``stats``
+    is None."""
+    cfg = cfg or ScoreConfig()
+    bank_impl = cfg.bank_impl if bank_impl is None else bank_impl
     if bank_impl not in BANK_IMPLS:
         raise ValueError(f"unknown bank_impl {bank_impl!r}")
-    cfg = cfg or ScoreConfig()
+    on_device = bank_impl == "device"
     t0 = time.perf_counter()
     items = list(frames_by_video.items())
-    mesh_by_name, kp_by_name = extractor.process_videos_streamed(items, with_keypoints=with_keypoints)
+    mesh_by_name, kp_by_name = extractor.process_videos_streamed(items, with_keypoints=with_keypoints,
+                                                                 fetch_arrays=not on_device)
     arrays_list: T.List[T.Dict[str, np.ndarray]] = []
     names: T.List[str] = []
     rejected: T.List[str] = []
@@ -153,9 +163,15 @@ def score_videos_end_to_end(
     # only the modalities every video has (a video with no kept keypoint row has no kp2d)
     common = set.intersection(*(set(a) for a in arrays_list))
     arrays_list = [{m: a[m] for m in a if m in common} for a in arrays_list]
-    diffs_list = [compute_modality_diffs(a) for a in arrays_list]
-    if stats is None:
-        stats = stats_from_arrays(arrays_list, diffs_list=diffs_list)
+    diffs_list = streams = None
+    if on_device:
+        if stats is None:
+            # the streams it builds feed the bank below, so the deltas run once
+            stats, streams = stream_stats(arrays_list)
+    else:
+        diffs_list = [compute_modality_diffs(a) for a in arrays_list]
+        if stats is None:
+            stats = stats_from_arrays(arrays_list, diffs_list=diffs_list)
     used = [m for m in stats.modalities if m in common]
     stats = ModalityStats(*({m: d[m] for m in used}
                             for d in (stats.mean_raw, stats.std_raw, stats.mean_diff, stats.std_diff)))
@@ -163,7 +179,13 @@ def score_videos_end_to_end(
     classes = [infer_class_from_name(n, label_dict.keys()) for n in names]
     has_label = np.array([c is not None and label_dict[c] < len(centroids) for c in classes])
     bank_classes = [c or "" for c in classes]
-    bank = bank_from_arrays(arrays_list, names, bank_classes, stats, diffs_list=diffs_list)
+    if on_device:
+        bank = build_bank_device(arrays_list, names, bank_classes, stats, streams=streams,
+                                 device=extractor.device)
+        if bank.bank.is_cuda:   # the phase ends where the bank is complete
+            torch.cuda.synchronize(bank.bank.device)
+    else:
+        bank = bank_from_arrays(arrays_list, names, bank_classes, stats, diffs_list=diffs_list)
     manifest = VideoManifest([VideoItem(cls=c, name=n, path="", length=a["vit"].shape[0], vit_dim=a["vit"].shape[1])
                               for c, n, a in zip(bank_classes, names, arrays_list)])
     windows = enumerate_windows(manifest, cfg.clip_len, cfg.stride)
@@ -172,7 +194,7 @@ def score_videos_end_to_end(
         t0 = time.perf_counter()
     if encoder is None:
         encoder = WindowEncoder(model, cfg.batch_size, cfg.clip_len, cfg.precision, extractor.device,
-                                cfg.encoder_impl)
+                                cfg.encoder_impl, gather_impl=cfg.gather_impl)
     seq_sum, tc_sum, count = encoder.encode_bank_segsum(bank, windows, [v for v, _s in windows], len(names))
     # a label without a centroid row is masked by has_label; the gather stays in range
     video_label = np.array([label_dict[c] if h else 0 for c, h in zip(classes, has_label)], np.int64)

@@ -4,17 +4,30 @@ Port of ``video_gen_evals_tpu/pipelines/score.py``. Per batch of windows, on
 the device:
 
   gather windows (K1 kernel) -> HumanActionScorer forward (K3 kernel for the
-  40 residual conv stages) -> per-window TC -> per-segment sums (index_add_)
+  40 residual conv stages) -> per-window TC -> per-segment sums (a one-hot
+  GEMM: the same bits every sweep)
 
 ``--encoder-impl`` picks the forward as in JAX: ``auto`` and ``module`` the
 module forward above; ``block_kernel`` and ``chain_kernel`` the fused forward
 ``models/fused_apply.py::block_kernel_forward``, with one conv stage a launch
 (K3) or a chain's 4 stages a launch (K10), both at ``--precision high`` only.
+``--precision`` names the conv-stage arithmetic: ``default`` (bf16 operands,
+fp32 sums: K3 on the tensor-core body K4's forward uses), ``high`` (bf16x3)
+or ``highest`` (fp32); every other matmul runs in fp32.
+``--gather-impl``: ``auto`` and ``burst`` gather windows with K1; ``sliced``
+and ``take`` with the torch gathers of ``data/features.py``, which JAX
+computes outside Pallas (``take`` is exact for any start).
 
-The bank is built on the host and uploaded once per sweep; window indices
-are uploaded once per sweep too, and the segment sums come back in one fetch
-at its end, so the sweep never waits on the host between batches. The tail
-batch is padded with repeats and masked out of the sums, as in JAX.
+The bank is built on the host (or on the device, ``ScoreConfig.bank_impl``)
+and uploaded once per sweep; window indices are uploaded once per sweep too,
+and the segment sums come back in one fetch at its end, so the sweep never
+waits on the host between batches. The tail batch is padded with repeats and
+masked out of the sums, as in JAX. ``--bank-cache DIR`` keeps the stats and
+banks between runs (``stats.npz``, ``real_train_bank.npz``,
+``generated_bank[.host<I>of<N>].npz``, the JAX package's files and
+fingerprints); ``--dump-features F.npz`` writes every generated window's
+embedding and TC; ``--checkpoint`` takes a reference ``.pt`` or the JAX
+package's path-keyed ``.npz`` params.
 
 Data parallelism (``--mesh-data N``): N ranks (``parallel.launch_local`` on
 one host, or one a process under ``--num-processes``), each sweeping every
@@ -33,7 +46,8 @@ Writes ``video_scores.json`` with the reference schema ``{vid: {ac, tc}}``
     python -m video_gen_evals_tpu_torch.pipelines.score \\
         --generated-meshes GEN --real-meshes REAL --checkpoint model.pt \\
         --real-kp-dir KP --gen-kp-dir GKP [--device cuda] [--mesh-data N] \\
-        [--num-hosts N --host-id I]
+        [--num-hosts N --host-id I] [--precision default|high|highest] \\
+        [--gather-impl auto|burst|sliced|take] [--bank-cache DIR] [--dump-features F.npz]
 """
 
 from __future__ import annotations
@@ -52,24 +66,29 @@ from ..data import (
     ModalityPaths,
     ModalityStats,
     VideoManifest,
-    build_feature_bank,
-    compute_stats,
     enumerate_windows,
     scan_class_tree,
     scan_generated_flat,
     train_test_split,
 )
+from ..data.features import build_feature_bank_cached, gather_windows_sliced
+from ..data.features import gather_windows as gather_windows_take
+from ..data.stats import compute_stats_cached
 from ..metrics.correlation import match_and_correlate
 from ..metrics.scores import finalize_centroids, finalize_video_scores, tc_per_window
 from ..models import EncoderConfig, HumanActionScorer
 from ..models.fused_apply import block_kernel_forward
 from ..ops.window_kernel import gather_windows
-from ..parallel import Rank, all_reduce_sum, shard_items
+from ..parallel import Rank, all_reduce_sum, barrier, shard_items
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.names import ACTION_CLASSES, canonicalize_class
 
-PRECISIONS = ("high", "highest")
+PRECISIONS = ("default", "high", "highest")
 ENCODER_IMPLS = ("auto", "module", "block_kernel", "chain_kernel")
+# window gathers: K1 ("auto", "burst"), or the torch gathers JAX runs in XLA
+GATHERS = {"auto": gather_windows, "burst": gather_windows, "sliced": gather_windows_sliced,
+           "take": gather_windows_take}
+BANK_IMPLS = ("auto", "host", "device")
 # block_kernel_forward's arguments for each explicit kernel forward
 _FUSED = {
     "block_kernel": dict(stage_fusion="stage", conv_variant="mm_first"),
@@ -83,12 +102,19 @@ class ScoreConfig:
     stride: int = 8
     batch_size: int = 512
     seed: int = 1337
-    # arithmetic of the conv-stage kernel: "high" (bf16x3, the JAX scoring
-    # default) or "highest" (fp32); every other matmul runs in fp32
+    # arithmetic of the conv-stage kernel: "default" (bf16 operands, fp32
+    # sums), "high" (bf16x3, the JAX scoring default) or "highest" (fp32);
+    # every other matmul runs in fp32
     precision: str = "high"
     # the encoder forward (ENCODER_IMPLS): "auto" and "module" the module
     # forward, "block_kernel" / "chain_kernel" the fused kernel forwards
     encoder_impl: str = "auto"
+    # the window gather (GATHERS)
+    gather_impl: str = "auto"
+    # where score_generated's banks and pipelines/full.py's in-memory bank are
+    # assembled (BANK_IMPLS): "auto" and "host" on the host, "device" on the
+    # encoder's device (data/device_bank.py)
+    bank_impl: str = "auto"
 
 
 class WindowEncoder:
@@ -107,7 +133,10 @@ class WindowEncoder:
         device: T.Union[str, torch.device] = "cuda",
         encoder_impl: str = "auto",
         rank: T.Optional[Rank] = None,
+        gather_impl: str = "auto",
     ):
+        if gather_impl not in GATHERS:
+            raise ValueError(f"gather_impl must be one of {tuple(GATHERS)}, got {gather_impl!r}")
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
         if encoder_impl not in ENCODER_IMPLS:
@@ -126,11 +155,14 @@ class WindowEncoder:
         self.batch_size = batch_size
         self.clip_len = clip_len
         self.precision = precision
+        self.gather = GATHERS[gather_impl]
 
     def upload(self, bank: FeatureBank) -> T.Tuple[torch.Tensor, ...]:
-        """``(bank, offsets, row_limit, z0_diff)`` on the device."""
+        """``(bank, offsets, row_limit, z0_diff)`` on the device; a bank that
+        is a tensor on the device already (``data/device_bank.py``) is taken
+        as it is, with no host copy."""
         return tuple(
-            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            (a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))).to(self.device)
             for a in (bank.bank, bank.offsets, bank.row_limit, bank.z0_diff)
         )
 
@@ -160,8 +192,8 @@ class WindowEncoder:
         for lo in range(first * B, n_pad, step * B):
             b = slice(lo, lo + B)
             with torch.inference_mode():   # never held across a yield
-                w = gather_windows(bank_d, offsets_d, row_limit_d, z0_d, bank.one_pass_raw,
-                                   vi_d[b], st_d[b], self.clip_len)
+                w = self.gather(bank_d, offsets_d, row_limit_d, z0_d, bank.one_pass_raw,
+                                vi_d[b], st_d[b], self.clip_len)
                 seq, frames, _ = self.forward(w)
                 tc = tc_per_window(frames)
             yield b, seq, tc
@@ -228,12 +260,16 @@ class WindowEncoder:
         seg_d = torch.from_numpy(
             np.concatenate([seg_ids, np.repeat(seg_ids[-1:], n_pad - n)])).to(self.device)
         valid = (torch.arange(n_pad, device=self.device) < n).to(torch.float32)
+        ids = torch.arange(num_segments, device=self.device)[:, None]
         with torch.inference_mode():
             for b, seq, tc in self._encode_batches(bank, windows, bank_dev):
-                m = valid[b]
-                seq_sum.index_add_(0, seg_d[b], seq * m[:, None])
-                tc_sum.index_add_(0, seg_d[b], tc * m)
-                count.index_add_(0, seg_d[b], m)
+                # the batch's valid windows as a one-hot [S, B]: a GEMM sums
+                # them in a fixed order, where index_add_ on CUDA adds with
+                # atomics and two sweeps could differ in their last bits
+                onehot = (seg_d[b][None, :] == ids).to(torch.float32) * valid[b][None, :]
+                seq_sum += onehot @ seq
+                tc_sum += onehot @ tc
+                count += onehot.sum(dim=1)
         out = torch.cat([seq_sum, tc_sum[:, None], count[:, None]], dim=1)
         if self.rank is not None:
             all_reduce_sum([out], self.rank)
@@ -242,17 +278,42 @@ class WindowEncoder:
         return out[:, :d_model], out[:, d_model], out[:, d_model + 1]
 
 
+def _bank_impl(cfg: ScoreConfig) -> str:
+    """``cfg.bank_impl`` resolved: "auto" is "host", as in JAX."""
+    if cfg.bank_impl not in BANK_IMPLS:
+        raise ValueError(f"bank_impl must be one of {BANK_IMPLS}, got {cfg.bank_impl!r}")
+    return "host" if cfg.bank_impl == "auto" else cfg.bank_impl
+
+
+def on_ranks(rank: T.Optional[Rank], build: T.Callable[[bool], T.Any]) -> T.Any:
+    """``build(write)`` of a cached quantity: alone, or at rank 0 of a group
+    first (writing the cache) and at the other ranks after a barrier
+    (reading it, never writing)."""
+    if rank is None or rank.world == 1:
+        return build(True)
+    if rank.is_primary:
+        out = build(True)
+        barrier(rank)
+        return out
+    barrier(rank)
+    return build(False)
+
+
 def build_real_centroids(
     encoder: WindowEncoder,
     real_manifest: VideoManifest,
     paths: ModalityPaths,
     stats: ModalityStats,
     cfg: ScoreConfig,
+    bank_cache: T.Optional[str] = None,
 ) -> T.Tuple[np.ndarray, T.Dict[str, int]]:
-    """Class centroids from the real-video train split (ref ``eval.py:260-286``)."""
+    """Class centroids from the real-video train split (ref ``eval.py:260-286``);
+    the split's bank cached at ``bank_cache`` when given."""
     train_ds, _ = train_test_split(real_manifest, 0.8, seed=cfg.seed)
     label_dict = real_manifest.label_dict()
-    bank = build_feature_bank(train_ds.items, paths, stats, min_rows=cfg.clip_len + 8)
+    bank = on_ranks(encoder.rank, lambda write: build_feature_bank_cached(
+        train_ds.items, paths, stats, min_rows=cfg.clip_len + 8, cache_path=bank_cache,
+        impl=_bank_impl(cfg), device=encoder.device, write=write))
     windows = enumerate_windows(train_ds, cfg.clip_len, cfg.stride)
     win_label = [label_dict[bank.classes[v]] for v, _s in windows]
     seq_sum, _tc_sum, count = encoder.encode_bank_segsum(
@@ -314,9 +375,17 @@ def score_generated(
     num_hosts: int = 1,
     host_id: int = 0,
     rank: T.Optional[Rank] = None,
+    dump_features: T.Optional[str] = None,
+    bank_cache_dir: T.Optional[str] = None,
 ) -> T.Dict[str, T.Any]:
     """The ref ``eval.py`` flow: stats from the real train split, class
     centroids, every generated video scored, optional Spearman vs human MOS.
+
+    ``dump_features``: an ``.npz`` of every generated window's CLS embedding
+    and TC with its video and start (the JAX package's keys; the reference's
+    ``window_features.pt``, ref ``eval.py:202-205``). ``bank_cache_dir``:
+    the stats and banks cached there (``stats.npz``, ``real_train_bank.npz``,
+    ``generated_bank[.host<I>of<N>].npz``).
 
     ``rank``: a data-parallel rank (``parallel.Rank``); the sweeps are split
     over the group's ranks, every rank returns the same scores, and only
@@ -333,6 +402,7 @@ def score_generated(
     is empty writes ``{}``."""
     cfg = cfg or ScoreConfig()
     writes = rank is None or rank.is_primary
+    cache = lambda name: os.path.join(bank_cache_dir, name) if bank_cache_dir else None   # noqa: E731
     gen_manifest = scan_generated_flat(generated_dir)
     if num_hosts > 1:
         gen_manifest = VideoManifest(shard_items(gen_manifest.items, host_id, num_hosts))
@@ -351,13 +421,32 @@ def score_generated(
     real_manifest = scan_class_tree(real_meshes_dir, filter_classes=list(ACTION_CLASSES))
     if stats is None:
         train_ds, _ = train_test_split(real_manifest, 0.8, seed=cfg.seed)
-        stats = compute_stats(train_ds.items, real_paths)
+        stats = on_ranks(rank, lambda write: compute_stats_cached(
+            train_ds.items, real_paths, cache_path=cache("stats.npz"), write=write))
 
     encoder = WindowEncoder(model, cfg.batch_size, cfg.clip_len, cfg.precision, device,
-                            cfg.encoder_impl, rank=rank)
-    centroids, label_dict = build_real_centroids(encoder, real_manifest, real_paths, stats, cfg)
-    gen_bank = build_feature_bank(gen_manifest.items, gen_paths, stats, min_rows=cfg.clip_len + 8)
+                            cfg.encoder_impl, rank=rank, gather_impl=cfg.gather_impl)
+    centroids, label_dict = build_real_centroids(encoder, real_manifest, real_paths, stats, cfg,
+                                                 bank_cache=cache("real_train_bank.npz"))
+    gen_name = f"generated_bank.host{host_id}of{num_hosts}.npz" if num_hosts > 1 else "generated_bank.npz"
+    gen_bank = on_ranks(rank, lambda write: build_feature_bank_cached(
+        gen_manifest.items, gen_paths, stats, min_rows=cfg.clip_len + 8, cache_path=cache(gen_name),
+        impl=_bank_impl(cfg), device=encoder.device, write=write))
     combined = score_bank(encoder, gen_bank, gen_manifest, centroids, label_dict, cfg)
+
+    if dump_features:
+        windows = enumerate_windows(gen_manifest, cfg.clip_len, cfg.stride)
+        seqs, window_tc, win_video = encoder.encode_bank(gen_bank, windows)
+        if writes:
+            np.savez_compressed(
+                dump_features,
+                seq_embeds=seqs,
+                window_tc=window_tc,
+                window_video=win_video,
+                window_start=np.array([s for _v, s in windows], np.int32),
+                video_names=np.array(gen_bank.names),
+                video_classes=np.array(gen_bank.classes),
+            )
 
     result: T.Dict[str, T.Any] = {"scores": combined, "output_json": output_json}
     if output_json and writes:
@@ -373,18 +462,30 @@ def score_generated(
     return result
 
 
+def load_checkpoint(path: str, model: HumanActionScorer, strict: bool = False) -> None:
+    """``--checkpoint``: a reference-layout ``.pt``, or the JAX package's
+    path-keyed ``.npz`` params (``path`` or ``path + ".npz"``). An orbax
+    directory is refused by name."""
+    from ..models.torch_compat import load_torch_checkpoint
+    from ..train.checkpoint import load_jax_npz_params
+
+    if path.endswith(".pt"):
+        load_torch_checkpoint(path, model, strict=strict)
+    else:
+        load_jax_npz_params(path, model)
+
+
 def _run_cli(rank: T.Optional[Rank], args, host_id: int) -> T.Dict[str, T.Any]:
     """The CLI's run on this process, as ``rank`` of a data-parallel group
     (a local rank of ``--mesh-data``, or a process of a distributed run) or
     (None) alone on ``--device``. Returns what the run did: videos scored,
     the file written and this process's kernel launches."""
     from ..core.config import BugCompat
-    from ..models.torch_compat import load_torch_checkpoint
     from ..ops import launch_counts
 
     bc = BugCompat.enabled() if args.bug_compat else BugCompat.disabled()
     cfg = ScoreConfig(args.clip_len, args.stride, args.batch_size, precision=args.precision,
-                      encoder_impl=args.encoder_impl)
+                      encoder_impl=args.encoder_impl, gather_impl=args.gather_impl)
     real_paths = ModalityPaths(
         keypoint_dir=args.real_kp_dir, clip_dir=args.real_clip_dir,
         dino_dir=args.real_dino_dir, layout="auto" if bc.layout_auto else "real",
@@ -396,14 +497,17 @@ def _run_cli(rank: T.Optional[Rank], args, host_id: int) -> T.Dict[str, T.Any]:
 
     real_manifest = scan_class_tree(args.real_meshes, filter_classes=list(ACTION_CLASSES))
     train_ds, _ = train_test_split(real_manifest, 0.8, seed=cfg.seed)
-    stats = compute_stats(train_ds.items, real_paths)
+    stats_cache = os.path.join(args.bank_cache, "stats.npz") if args.bank_cache else None
+    stats = on_ranks(rank, lambda write: compute_stats_cached(train_ds.items, real_paths,
+                                                              cache_path=stats_cache, write=write))
     model = HumanActionScorer(EncoderConfig.create(stats.dims_map_raw(), stats.dims_map_diff()))
-    load_torch_checkpoint(args.checkpoint, model, strict=not bc.permissive_ckpt)
+    load_checkpoint(args.checkpoint, model, strict=not bc.permissive_ckpt)
 
     result = score_generated(
         model, args.generated_meshes, args.real_meshes, real_paths, gen_paths, cfg,
         human_scores_path=args.human_scores, output_json=args.output, stats=stats,
         device=args.device, num_hosts=args.num_hosts, host_id=host_id, rank=rank,
+        dump_features=args.dump_features, bank_cache_dir=args.bank_cache,
     )
     if rank is None or rank.is_primary:
         print(f"Saved AC/TC scores for {len(result['scores'])} videos to {result['output_json']}")
@@ -425,7 +529,8 @@ def main(argv: T.Optional[T.List[str]] = None) -> T.List[T.Dict[str, T.Any]]:
     p = argparse.ArgumentParser(description="TAG scoring (AC + TC) pipeline, PyTorch + CUDA")
     p.add_argument("--generated-meshes", required=True)
     p.add_argument("--real-meshes", required=True)
-    p.add_argument("--checkpoint", required=True, help="reference-layout .pt state_dict")
+    p.add_argument("--checkpoint", required=True,
+                   help="reference-layout .pt state_dict, or the JAX package's path-keyed .npz params")
     p.add_argument("--real-kp-dir", default=None)
     p.add_argument("--gen-kp-dir", default=None)
     p.add_argument("--real-clip-dir", default=None,
@@ -439,12 +544,21 @@ def main(argv: T.Optional[T.List[str]] = None) -> T.List[T.Dict[str, T.Any]]:
     p.add_argument("--stride", type=int, default=8)
     p.add_argument("--batch-size", type=int, default=512)
     p.add_argument("--output", default="video_scores.json")
+    p.add_argument("--dump-features", default=None,
+                   help="optional .npz of every generated window's embedding and TC "
+                        "(ref window_features.pt)")
+    p.add_argument("--bank-cache", default=None,
+                   help="directory for cached stats and feature banks (skips the stats and "
+                        "normalize/delta passes when the video set is unchanged)")
     p.add_argument("--bug-compat", dest="bug_compat", action="store_true", default=True,
                    help="reproduce the reference's accidental behaviors (layout "
                         "auto-detection, permissive checkpoint loading)")
     p.add_argument("--no-bug-compat", dest="bug_compat", action="store_false")
     p.add_argument("--precision", default="high", choices=list(PRECISIONS),
-                   help="conv-stage kernel arithmetic: 'high' (bf16x3) or 'highest' (fp32)")
+                   help="conv-stage kernel arithmetic: 'default' (bf16 operands, fp32 sums), "
+                        "'high' (bf16x3) or 'highest' (fp32)")
+    p.add_argument("--gather-impl", default="auto", choices=list(GATHERS),
+                   help="window gather: K1 (auto, burst), or the torch gathers sliced and take")
     p.add_argument("--encoder-impl", default="auto", choices=list(ENCODER_IMPLS),
                    help="encoder forward: the module forward (auto, module) or the fused "
                         "kernel forwards (block_kernel: K3 a stage; chain_kernel: K10 a chain; "

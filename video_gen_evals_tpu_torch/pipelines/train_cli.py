@@ -5,7 +5,13 @@ Port of ``video_gen_evals_tpu/pipelines/train_cli.py``:
     python -m video_gen_evals_tpu_torch.pipelines.train_cli \\
         --real-meshes REAL --real-kp-dir KP --generated-meshes GEN \\
         --gen-kp-dir GKP --human-scores MOS.json [--device cuda] [--resume CKPT] \\
-        [--dp N]
+        [--dp N] [--bank-cache DIR] [--conv-impl auto|module|kernel]
+
+``--bank-cache DIR`` (or ``TrainConfig.bank_cache_dir``) keeps the stats and
+the train and test banks between runs. ``--conv-impl`` (or
+``TrainConfig.conv_impl``): ``auto`` and ``kernel`` train the conv stages
+through K4 (its plain version on the CPU), ``module`` through K4's plain
+version under autograd on any device.
 
 ``--dp N`` (or ``TrainConfig.num_dp_devices``; ``--dp`` wins) trains on N
 data-parallel ranks: on one host N local processes (rank r on
@@ -32,10 +38,13 @@ def _run(rank, cfg, args) -> T.Dict[str, T.Any]:
     exp = Experiment(cfg, device=args.device, rank=rank)
     talk = exp.writes
     if talk:
+        convs = ("K4's plain version under autograd" if exp.conv_impl == "module"
+                 else "K4" if exp.device.type == "cuda" else "K4's plain version (CPU)")
         print(
             f"Training on {len(exp.train_ds)} videos ({len(exp.train_windows)} windows), "
             f"evaluating on {len(exp.test_ds)} videos; classes: {exp.full_ds.classes}"
             + ("" if rank is None else f"; {rank.world} data-parallel ranks")
+            + f"; conv stages: --conv-impl {cfg.conv_impl} ({convs})"
         )
     start_epoch = 0
     if args.resume:
@@ -54,7 +63,7 @@ def main(argv: T.Optional[T.List[str]] = None) -> T.List[T.Dict[str, T.Any]]:
     in rank order."""
     import argparse
 
-    from ..core.config import PathsConfig, TrainConfig
+    from ..core.config import CONV_IMPLS, PathsConfig, TrainConfig
     from ..parallel import launch_local, shutdown
     from ..parallel.mesh import TENSOR_PARALLEL
     from ..utils.cli import add_distributed_args, maybe_initialize_distributed
@@ -79,6 +88,12 @@ def main(argv: T.Optional[T.List[str]] = None) -> T.List[T.Dict[str, T.Any]]:
     p.add_argument("--stride", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--save-dir", default=None)
+    p.add_argument("--bank-cache", default=None,
+                   help="directory for the cached stats and train/test feature banks "
+                        "(skips the stats and normalize/delta passes on unchanged data)")
+    p.add_argument("--conv-impl", default=None, choices=list(CONV_IMPLS),
+                   help="conv stages in training: 'auto' and 'kernel' run K4 (its plain "
+                        "version on the CPU), 'module' K4's plain version under autograd")
     p.add_argument("--dp", type=int, default=None,
                    help="data-parallel ranks: split each PK batch's stacked windows over N "
                         "ranks (default: one device; also TrainConfig.num_dp_devices)")
@@ -114,6 +129,10 @@ def main(argv: T.Optional[T.List[str]] = None) -> T.List[T.Dict[str, T.Any]]:
         v = getattr(args, field)
         if v is not None:
             setattr(cfg, field, v)
+    if args.bank_cache:
+        cfg.bank_cache_dir = args.bank_cache
+    if args.conv_impl:
+        cfg.conv_impl = args.conv_impl
     n_dp = args.dp if args.dp is not None else cfg.num_dp_devices
     if n_dp is not None and n_dp < 1:
         p.error(f"--dp must be >= 1, got {n_dp}")

@@ -10,7 +10,12 @@ full train state is added for exact resume:
   CLI read;
 - :func:`save_train_state` / :func:`restore_train_state` hold model,
   optimizer, schedule, step, epoch and best eval loss;
-- :class:`AsyncSaver` writes on a worker thread.
+- :class:`AsyncSaver` writes on a worker thread;
+- :func:`load_jax_npz_params` reads the JAX package's multi-process params
+  file (a flat ``.npz`` keyed by tree paths, JAX ``train/checkpoint.py:75-104``)
+  into a model, and :func:`save_jax_npz_params` writes one. A JAX orbax
+  directory needs the ``orbax`` package, which the port does not use, and
+  is refused.
 
 Every file is published by writing a temporary file and renaming it, so a
 crash mid-write never leaves a torn file at the published path. Files are
@@ -24,6 +29,7 @@ import queue
 import threading
 import typing as T
 
+import numpy as np
 import torch
 
 
@@ -120,3 +126,43 @@ class AsyncSaver:
         """Block until every submitted save has finished; re-raise failures."""
         self._q.join()
         self._raise_pending()
+
+
+def _npz_path(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def load_jax_npz_params(path: str, model) -> None:
+    """Load the JAX package's path-keyed ``.npz`` params (``path`` or
+    ``path + ".npz"``) into ``model`` (a ``HumanActionScorer``), strictly:
+    the tree is mapped through ``models.torch_compat``'s converter."""
+    from ..models.torch_compat import state_dict_from_jax_params, tree_from_path_keys
+
+    path = os.path.abspath(path)
+    npz = _npz_path(path)
+    if not os.path.isfile(npz):
+        if os.path.isdir(path):
+            raise ValueError(
+                f"{path} is a directory (a JAX orbax checkpoint): reading one needs the orbax "
+                "package, which the port does not use; write the params as the JAX package's "
+                "path-keyed .npz instead")
+        raise FileNotFoundError(f"no checkpoint at {path} (a .pt, or a path-keyed .npz)")
+    with np.load(npz, allow_pickle=False) as z:
+        tree = tree_from_path_keys({k: z[k] for k in z.files})
+    if set(tree) == {"params"}:   # a tree saved with flax's collection wrapper
+        tree = tree["params"]
+    model.load_state_dict(state_dict_from_jax_params(tree, model.config), strict=True)
+
+
+def save_jax_npz_params(path: str, model_state: T.Mapping[str, torch.Tensor], config) -> str:
+    """The model's weights as the JAX package's path-keyed ``.npz`` params
+    (what its ``_save_multiprocess`` writes), published by rename; returns
+    the path written."""
+    from ..models.torch_compat import jax_params_from_state_dict, path_keys_from_tree
+
+    out = _npz_path(os.path.abspath(path))
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp.npz"
+    np.savez(tmp, **path_keys_from_tree(jax_params_from_state_dict(model_state, config, strict=True)))
+    os.replace(tmp, out)
+    return out

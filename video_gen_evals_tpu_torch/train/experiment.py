@@ -11,8 +11,10 @@ Port of ``video_gen_evals_tpu/train/experiment.py``. Per epoch (ref
      is logged, never fatal);
   6. the resume checkpoint.
 
-Data flow: the train and test feature banks are built on the host and live
-on the device; every step gathers its PK batch there with the window-gather
+Data flow: the train and test feature banks are built on the host (or read
+from ``cfg.bank_cache_dir``: ``stats.npz``, ``train_bank.npz``,
+``test_bank.npz``, as in JAX ``experiment.py:90-110``; rank 0 writes, the
+other ranks read after a barrier) and live on the device; every step gathers its PK batch there with the window-gather
 kernel (``ops.window_kernel.gather_windows``). The eval passes run through
 the scoring path's ``WindowEncoder`` on the live weights. One model is shared
 by the trainer (training mode) and the encoder (eval mode, under
@@ -31,6 +33,10 @@ bitwise equal on every rank.
 Exact resume: a step's randomness is a function of ``(seed, step)`` and an
 epoch's batch stream of ``(seed, epoch)``, so a run of N epochs and a run
 resumed from any epoch's checkpoint end with the same bits.
+``cfg.conv_impl``: ``"auto"`` and ``"kernel"`` run the conv stages' K4 (its
+plain version on the CPU), ``"module"`` K4's plain version under autograd on
+any device (the counterpart of JAX's XLA conv), which the run prints and the
+saved config records.
 Observability: structured JSONL metrics (``metrics.jsonl``), one event per
 line, with the JAX package's event names and keys.
 """
@@ -46,12 +52,11 @@ import typing as T
 import numpy as np
 import torch
 
-from ..core.config import TrainConfig
+from ..core.config import CONV_IMPLS, TrainConfig
 from ..data import (
     ModalityPaths,
     PKBatchSampler,
     build_feature_bank,
-    compute_stats,
     enumerate_windows,
     scan_class_tree,
     scan_generated_flat,
@@ -62,7 +67,9 @@ from ..metrics.scores import finalize_centroids, finalize_video_scores
 from ..models import EncoderConfig, HumanActionScorer
 from ..ops.window_kernel import gather_windows
 from ..parallel import Rank, barrier, broadcast_, broadcast_object
-from ..pipelines.score import WindowEncoder
+from ..data.features import build_feature_bank_cached
+from ..data.stats import compute_stats_cached
+from ..pipelines.score import WindowEncoder, on_ranks
 from ..utils.device import resolve_device
 from ..utils.names import infer_class_from_name
 from .checkpoint import (
@@ -89,6 +96,8 @@ class Experiment:
         passes run the scoring kernel at "high", or "highest" with it.
         ``rank``: this process's rank of a data-parallel group (its device
         replaces ``device``)."""
+        if cfg.conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {cfg.conv_impl!r}")
         self.cfg = cfg
         self.eval_batch = eval_batch
         self.rank = rank
@@ -121,7 +130,10 @@ class Experiment:
             dino_dir=cfg.paths.real_dino_dir,
             layout="real",
         )
-        self.stats = compute_stats(self.train_ds.items, self.real_paths)
+        cache = lambda name: (os.path.join(cfg.bank_cache_dir, name)   # noqa: E731
+                              if cfg.bank_cache_dir else None)
+        self.stats = on_ranks(rank, lambda write: compute_stats_cached(
+            self.train_ds.items, self.real_paths, cache_path=cache("stats.npz"), write=write))
         self.label_dict = self.full_ds.label_dict()
         if self.writes:
             with open(os.path.join(self.save_dir, "label_mapping.json"), "w") as f:
@@ -130,10 +142,11 @@ class Experiment:
 
         mods = [m for m in cfg.detect_modalities() if m in self.stats.modalities]
         min_rows = cfg.clip_len + 8
-        self.train_bank = build_feature_bank(
-            self.train_ds.items, self.real_paths, self.stats, mods, min_rows=min_rows)
-        self.test_bank = build_feature_bank(
-            self.test_ds.items, self.real_paths, self.stats, mods, min_rows=min_rows)
+        self.train_bank, self.test_bank = (
+            on_ranks(rank, lambda write, ds=ds, name=name: build_feature_bank_cached(
+                ds.items, self.real_paths, self.stats, mods, min_rows=min_rows,
+                cache_path=cache(name), write=write))
+            for ds, name in ((self.train_ds, "train_bank.npz"), (self.test_ds, "test_bank.npz")))
         self.train_windows = enumerate_windows(self.train_ds, cfg.clip_len, cfg.stride)
         self.test_windows = enumerate_windows(self.test_ds, cfg.clip_len, cfg.stride)
         self.window_labels = self._window_labels(self.train_bank, self.train_windows)
@@ -153,6 +166,8 @@ class Experiment:
         self.model = HumanActionScorer(
             self.enc_cfg, generator=torch.Generator().manual_seed(cfg.seed)
         ).to(self.device)
+        self.conv_impl = "module" if cfg.conv_impl == "module" else "kernel"
+        self.model.set_conv_impl(self.conv_impl)
         if rank is not None:
             broadcast_([p.data for p in self.model.parameters()], rank)
         eval_precision = "highest" if precision == "highest" else "high"
