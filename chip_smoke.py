@@ -190,6 +190,21 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    within BF16_SWEEP_TOL); (e) score_videos_end_to_end with
    bank_impl="device" (the bank a CUDA tensor) against "host" on config 4,
    within 1e-3, bank_s of both. The phase's seconds.
+13. The last two paths: (a) the legacy crops (batched_person_crops,
+   crop_scale 1.2, matmul and gather, at ViT-H's 256 x 192 and DWPose-L's
+   384 x 288) on the card against the CPU within 1e-3 in 0-255 units, ms a
+   32-frame chunk; (b) process_video_full(with_keypoints=True) with
+   preproc="legacy" in the yolox and rcnn modes at phase 10's full width in
+   fp32, keep_all_frames (contract shapes, K6 32 a chunk, K5 once a detect
+   chunk, kp120 finite), frames/s, then the reference's rule; (c) the
+   extract CLI with --preproc legacy over phase 10's tree (RUN_CONFIG.json
+   legacy, not parity); (d) the train CLI with --tp 2 on phase 5's tree, two
+   ranks sharing the card through gloo, 2 epochs: train and eval losses
+   within TP_LOSS_RTOL of phase 5's --tp 1 run epoch by epoch, each rank's
+   K4, K1 and K3 launches, clips/s, the gathered best checkpoint scored by
+   the score CLI and written as the JAX package's .npz, and a --tp 2 run
+   resumed from epoch 0's checkpoint bitwise the uninterrupted one. The
+   phase's seconds.
 
 Then the smoke's wall time, a JSON line listing the kernels, the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -2843,6 +2858,218 @@ def phase_bank_layer(torch, card, train_ctx, root):
     return kern, k3_default
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the legacy preprocessing and tensor-parallel training
+
+# the train CLI's --tp 2 against phase 5's --tp 1 run, epoch by epoch: the
+# train and eval losses, relative (the same rows through the same K4 and K3
+# launches; only the transformer's sums run in another order)
+TP_LOSS_RTOL = 1e-3
+
+
+def _legacy_config(mesh_detector="yolox", keep_all_frames=True):
+    """Phase 10's full-width extractor (YOLOX-L, ViT-H depth 32, the SMPL
+    head, DWPose-L, the exact R-CNN in rcnn mode) in fp32 with the legacy
+    preprocessing."""
+    import dataclasses
+
+    return dataclasses.replace(_pose_config(mesh_detector=mesh_detector, keep_all_frames=keep_all_frames),
+                               preproc="legacy")
+
+
+def phase_last_paths(torch, card, train_ctx, kp_ctx, root):
+    """Phase 13: preproc="legacy" (its crops on the card against the CPU,
+    process_video_full in the yolox and rcnn modes, the extract CLI on phase
+    10's tree) and the train CLI's --tp 2 on phase 5's tree (2 gloo ranks
+    sharing the card) against phase 5's run, its checkpoint scored and saved
+    as the JAX package's .npz, and a resumed --tp 2 run. Returns the phase's
+    launch counts."""
+    import copy
+
+    import numpy as np
+
+    from video_gen_evals_tpu_torch.models import EncoderConfig, HumanActionScorer
+    from video_gen_evals_tpu_torch.ops.attention_core import mha_core
+    from video_gen_evals_tpu_torch.ops.conv_kernel_train import LAUNCHES_PER_BACKWARD
+    from video_gen_evals_tpu_torch.ops.image import batched_person_crops
+    from video_gen_evals_tpu_torch.ops.roi_align import roi_align_pyramid_dma
+    from video_gen_evals_tpu_torch.pipelines.extract import Extractor
+    from video_gen_evals_tpu_torch.pipelines.extract import main as extract_main
+    from video_gen_evals_tpu_torch.pipelines.score import main as score_main
+    from video_gen_evals_tpu_torch.pipelines.train_cli import main as train_main
+    from video_gen_evals_tpu_torch.train.checkpoint import load_jax_npz_params, save_jax_npz_params
+
+    t_phase = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    launches = {}
+    frames, boxes, _large = mesh_video()
+    n = len(frames)
+    chunks = -(-n // 32)
+
+    # (a) the legacy crops (batched_person_crops, crop_scale 1.2) on the card against the CPU
+    fr_cpu, bx_cpu = torch.from_numpy(frames).float(), torch.from_numpy(boxes)
+    fr_dev, bx_dev = fr_cpu.cuda(), bx_cpu.cuda()
+    crop_lines = []
+    for out_hw in ((256, 192), (384, 288)):
+        for impl in ("matmul", "gather"):
+            want = batched_person_crops(fr_cpu, bx_cpu, out_hw, scale=1.2, impl=impl)
+            got = batched_person_crops(fr_dev, bx_dev, out_hw, scale=1.2, impl=impl)
+            d = float((got.cpu() - want).abs().max())
+            _check(bool(torch.isfinite(got).all()) and d <= 1e-3,
+                   f"legacy (a): {impl} crops {out_hw} on the card differ from the CPU by {d:.3e} (tol 1e-3)")
+            ms = _time_ms(lambda: batched_person_crops(fr_dev[:32], bx_dev[:32], out_hw, scale=1.2, impl=impl), 5)
+            crop_lines.append(f"{out_hw[0]}x{out_hw[1]} {impl} max |d| {d:.2e}, {ms:.3f} ms a 32-frame chunk")
+    print("legacy (a): batched_person_crops on the card against the CPU, 0-255 units (tol 1e-3): "
+          + "; ".join(crop_lines) + f" on {card}")
+
+    # (b) process_video_full(with_keypoints=True) in the legacy mode, yolox and rcnn, fp32
+    fps = {}
+    for mode in ("yolox", "rcnn"):
+        ex = Extractor(_legacy_config(mode), seed=SEED)
+        if ex.rcnn is not None:
+            _person_class_(torch, ex.rcnn)
+        mha_core.launches = 0
+        _reset_k5_counts()
+        mesh, kp = ex.process_video_full(frames, with_keypoints=True)
+        torch.cuda.synchronize()
+        got = (mha_core.launches, roi_align_pyramid_dma.launches)
+        want = (32 * chunks, -(-n // RCNN_BATCH) if mode == "rcnn" else 0)
+        worst = _check_contract(torch, np, mesh, n, f"legacy {mode}")
+        _check(got == want, f"legacy (b) {mode}: (K6, K5) launches {got} != {want}")
+        _check(kp["kp120"].shape == (n, 120) and kp["kp120"].dtype == np.float32
+               and bool(np.isfinite(kp["kp120"]).all()) and kp["valid"].shape == (n,) and bool(kp["valid"].all()),
+               f"legacy (b) {mode}: keypoints {kp['kp120'].shape}, valid {int(kp['valid'].sum())} of {n}")
+        launches[f"K6 legacy {mode}"], launches[f"K5 legacy {mode}"] = got
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.process_video_full(frames, with_keypoints=True)
+        fps[mode] = n / (time.perf_counter() - t0)
+        print(f"legacy (b): process_video_full({n} frames, with_keypoints) {mode} mode, fp32, keep_all_frames: "
+              f"K6 {got[0]}, K5 {got[1]}; contract shapes, rotations within {worst:.1e}, kp120 finite; "
+              f"{fps[mode]:.1f} frames/s on {card}")
+        if mode == "yolox":
+            ex.cfg.keep_all_frames = False
+            single = ex.detect_stage(torch.from_numpy(frames).cuda())["single"].cpu().numpy()
+            ruled, ruled_kp = ex.process_video_full(frames, with_keypoints=True)
+            if single.sum() > 0 and single.mean() >= ex.cfg.min_single_ratio:
+                _check(ruled is not None and np.array_equal(ruled["frame_idx"], np.flatnonzero(single)),
+                       "legacy (b): keep_all_frames=False kept other frames than the mask")
+            else:
+                _check(ruled is None and ruled_kp is None, "legacy (b): a video below min_single_ratio was kept")
+            print(f"legacy (b): keep_all_frames=False: single-person mask {int(single.sum())} of {n} frames -> "
+                  f"{'(None, None)' if ruled is None else str(len(ruled['frame_idx'])) + ' mesh frames'}")
+        del ex
+        torch.cuda.empty_cache()
+
+    # (c) the extract CLI with --preproc legacy over phase 10's tree
+    out = {k: os.path.join(root, f"legacy_cli_{k}") for k in ("meshes", "kps", "logs")}
+    t0 = time.perf_counter()
+    counts = extract_main(["--videos", kp_ctx["tree"], "--out-meshes", out["meshes"], "--out-kps", out["kps"],
+                           "--log-dir", out["logs"], "--preproc", "legacy"])
+    with open(os.path.join(out["logs"], "RUN_CONFIG.json")) as f:
+        run_config = json.load(f)
+    keys = ("single", "not_single", "errors", "skipped")
+    _check(run_config["preproc"] == "legacy" and run_config["parity"] is False,
+           f"legacy (c): RUN_CONFIG.json {run_config['preproc']}, parity {run_config['parity']}")
+    _check(sum(counts[k] for k in keys) == sum(kp_ctx["cli_counts"][k] for k in keys)
+           and counts["errors"] == kp_ctx["cli_counts"]["errors"],
+           f"legacy (c): counts {counts} against phase 10's {kp_ctx['cli_counts']}")
+    print(f"legacy (c): extract CLI --preproc legacy over phase 10's tree in {time.perf_counter() - t0:.1f} s: "
+          f"{ {k: counts[k] for k in keys} }; RUN_CONFIG.json preproc legacy, parity false")
+
+    # (d) the train CLI with --tp 2 on phase 5's tree: 2 ranks sharing the card (gloo), 2 epochs
+    ctx = train_ctx
+    cfg = copy.deepcopy(ctx["base"])
+    cfg.save_dir = os.path.join(root, "SAVE_tp2")
+    cfg_path = os.path.join(root, "train_tp2.json")
+    cfg.to_json(cfg_path)
+    t0 = time.perf_counter()
+    ranks = train_main(["--config", cfg_path, "--device", "cuda", "--tp", "2"])
+    wall = time.perf_counter() - t0
+    _check([r["grid"] for r in ranks] == [(1, 2), (1, 2)] and ranks[0]["save_dir"] == ranks[1]["save_dir"],
+           f"tp (d): ranks {ranks}")
+    run_tp = ranks[0]["save_dir"]
+    one, two = _events(ctx["run_two"]), _events(run_tp)
+    rel = {}
+    for kind, key in (("train_epoch", "loss"), ("eval_loss", "loss"), ("centroid_distance", "avg")):
+        a = [e[key] for e in one if e["event"] == kind]
+        b = [e[key] for e in two if e["event"] == kind]
+        _check(len(a) == len(b) == 2 and all(map(math.isfinite, b)), f"tp (d): {kind} events {a} vs {b}")
+        rel[kind] = [abs(y - x) / abs(x) for x, y in zip(a, b)]
+    worst = max(max(rel["train_epoch"]), max(rel["eval_loss"]))
+    _check(worst <= TP_LOSS_RTOL, f"tp (d): --tp 2 losses off by {rel} relative (tol {TP_LOSS_RTOL:g})")
+    steps = ctx["steps"]
+    loss_chunks = -(-ctx["n_test"] // BATCH)
+    sweeps = [-(-ctx[k] // BATCH) for k in ("n_train", "n_test", "n_gen")]
+    for r in ranks:
+        own = sum(_rank_share(nb, r["rank"], 2) for nb in sweeps)
+        k = r["launches"]
+        got = (k["fused_temporal_block_train"], k["fused_temporal_block_train_bwd"], k["gather_windows"],
+               k["fused_temporal_block"])
+        want = (40 * steps * 2, 40 * steps * 2 * LAUNCHES_PER_BACKWARD, 2 * (steps + loss_chunks + own),
+                2 * 40 * (loss_chunks + own))
+        print(f"tp (d): train CLI --tp 2 rank {r['rank']}: launches K4 forward={got[0]} backward={got[1]} "
+              f"K1={got[2]} K3={got[3]}")
+        _check(got == want and min(got) > 0, f"tp (d): rank {r['rank']} launches {got} != {want}")
+        launches[f"K4 tp2 rank {r['rank']}"], launches[f"K1 tp2 rank {r['rank']}"] = got[0], got[2]
+    second = [e for e in two if e["event"] == "train_epoch"][1]
+    print(f"tp (d): train CLI --tp 2 --device cuda, 2 ranks sharing the card through gloo, 2 epochs of {steps} "
+          f"steps in {wall:.1f} s (rank start, host stats + banks included): relative to phase 5's --tp 1 run, "
+          f"epoch by epoch, " + ", ".join(f"{k} {v[0]:.2e} / {v[1]:.2e}" for k, v in rel.items())
+          + f" (losses held to {TP_LOSS_RTOL:g}); second epoch {second['clips_per_sec']:.1f} clips/s against "
+          f"--tp 1's {ctx['clips_per_sec']:.1f} on {card} (two ranks share one card: this measures the code "
+          f"path, not scaling)")
+
+    # the gathered best checkpoint: the score CLI, and the JAX package's .npz
+    best = ranks[0]["best_ckpt"]
+    scores_path = os.path.join(root, "scores_tp2.json")
+    score_main(["--generated-meshes", ctx["gen_dir"], "--real-meshes", ctx["mesh_root"], "--checkpoint", best,
+                "--real-kp-dir", ctx["kp_root"], "--gen-kp-dir", ctx["gen_kp"], "--output", scores_path,
+                "--no-bug-compat", "--device", "cuda"])
+    with open(scores_path) as f:
+        scored = json.load(f)
+    with open(ctx["scores"]) as f:
+        scored_one = json.load(f)
+    _check(sorted(scored) == sorted(scored_one) and all(
+        math.isfinite(v.get("ac", math.nan)) and math.isfinite(v.get("tc", math.nan)) for v in scored.values()),
+        "tp (d): the --tp 2 checkpoint did not score every generated video finite")
+    d_scores = max(abs(scored[v][m] - scored_one[v][m]) for v in scored for m in scored[v])
+    state = torch.load(best, map_location="cpu", weights_only=True)["model_state_dict"]
+    model = HumanActionScorer(EncoderConfig.create(DIMS_RAW, DIMS_DIFF))
+    model.load_state_dict(state, strict=True)
+    npz = save_jax_npz_params(os.path.join(root, "best_tp2"), state, model.config)
+    back = HumanActionScorer(EncoderConfig.create(DIMS_RAW, DIMS_DIFF))
+    load_jax_npz_params(npz, back)
+    _check(all(torch.equal(v, back.state_dict()[k]) for k, v in state.items()),
+           "tp (d): the gathered checkpoint's .npz does not read back bitwise")
+    print(f"tp (d): {os.path.basename(best)} (the gathered tree) scored {len(scored)} generated videos, all "
+          f"finite, max |d AC/TC| {d_scores:.2e} from phase 5's --tp 1 checkpoint (reported); loaded strictly by "
+          f"the one-device model and written as the JAX package's .npz, read back bitwise")
+
+    # epoch 0's checkpoint + --resume at --tp 2 against the uninterrupted --tp 2 run
+    resumed_cfg = copy.deepcopy(cfg)
+    resumed_cfg.save_dir = os.path.join(root, "SAVE_tp2_resumed")
+    resumed_cfg.to_json(cfg_path)
+    t0 = time.perf_counter()
+    train_main(["--config", cfg_path, "--device", "cuda", "--tp", "2",
+                "--resume", os.path.join(run_tp, "resume_epoch000.pt")])
+    final = torch.load(os.path.join(run_tp, "resume_epoch001.pt"), map_location="cpu", weights_only=True)
+    resumed = torch.load(os.path.join(_only_run(resumed_cfg.save_dir), "resume_epoch001.pt"), map_location="cpu",
+                         weights_only=True)
+    d_model = max(float((v - resumed["model"][k]).abs().max()) for k, v in final["model"].items())
+    opt_a, opt_b = final["train_step"]["optimizer"]["state"], resumed["train_step"]["optimizer"]["state"]
+    d_moments = max(float((opt_a[i][k] - opt_b[i][k]).abs().max()) for i in opt_a for k in opt_a[i])
+    _check(final["train_step"]["step"] == resumed["train_step"]["step"] == 2 * steps,
+           f"tp (d): resumed step {resumed['train_step']['step']}")
+    _check(d_model == 0.0 and d_moments == 0.0 and final["best_eval_loss"] == resumed["best_eval_loss"],
+           f"tp (d): the resumed --tp 2 run differs from the uninterrupted one: weights {d_model:.3e}, moments "
+           f"{d_moments:.3e}")
+    print(f"tp (d): --tp 2 resumed from epoch 0's gathered checkpoint ({time.perf_counter() - t0:.1f} s) ends "
+          f"bitwise equal to the uninterrupted --tp 2 run (weights, Adam moments, step, best eval loss)")
+    print(f"last paths: phase 13 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
 
 def main() -> int:
     import torch
@@ -2883,6 +3110,7 @@ def main() -> int:
     phase_parallel(torch, card, train_ctx, kp_ctx, os.path.join(keep.name, "parallel"))
     bank_kern, k3_default = phase_bank_layer(torch, card, train_ctx, os.path.join(keep.name, "bank"))
     kern.update(bank_kern)
+    last_launches = phase_last_paths(torch, card, train_ctx, kp_ctx, os.path.join(keep.name, "last"))
     keep.cleanup()
 
     src = "video_gen_evals_tpu_torch/csrc/"
@@ -2931,6 +3159,10 @@ def main() -> int:
     for name, _f, _rep, n in rows:
         _check(n > 0, f"{name} was never launched on its main path")
     print("keypoint path launches: " + ", ".join(f"{k} {v}" for k, v in kp_launches.items()))
+    for name in ("K6 legacy yolox", "K6 legacy rcnn", "K5 legacy rcnn", "K4 tp2 rank 0", "K4 tp2 rank 1",
+                 "K1 tp2 rank 0", "K1 tp2 rank 1"):
+        _check(last_launches[name] > 0, f"{name}: never launched on its path")
+    print("legacy and tensor-parallel path launches: " + ", ".join(f"{k} {v}" for k, v in last_launches.items()))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + f, "replaces": rep, "launches": n,

@@ -14,6 +14,7 @@ from the 0.3 visibility threshold exceed the logits' tolerance (an argmax or
 a threshold on a near tie may go either way in either framework); the tests
 print how many entries they excused."""
 
+import copy
 import dataclasses
 import json
 import os
@@ -262,26 +263,28 @@ def test_fullframe_fallback_and_kp_bug_compat(pair):
 
 def test_parity_preset_knobs():
     """``ExtractorConfig.parity()`` and ``is_parity()`` knob for knob against
-    JAX's (the port has no legacy preprocessing); a default config is the
-    yolox throughput mode."""
+    JAX's, the legacy preprocessing included (never parity); a default
+    config is the yolox throughput mode."""
     cfg = ExtractorConfig.parity()
     jcfg = jax_extract.ExtractorConfig.parity()
     for f in ("mesh_detector", "preproc", "matmul_precision", "param_dtype", "kp_bug_compat", "vitdet_antialias",
               "pose_fullframe_fallback", "pose_padding", "pose_det_prefilter", "pose_det_iou",
-              "pose_det_score_thresh", "det_score_thresh", "min_single_ratio", "frame_batch", "rcnn_frame_batch"):
+              "pose_det_score_thresh", "det_score_thresh", "min_single_ratio", "frame_batch", "rcnn_frame_batch",
+              "crop_scale"):
         assert getattr(cfg, f) == getattr(jcfg, f), f
     assert cfg.rcnn == RCNNConfig.x101_32x8d() and cfg.rcnn != RCNNConfig.fast()
     assert ExtractorConfig.parity(frame_batch=16).frame_batch == 16
     cases = [{}, dict(matmul_precision="highest"), dict(mesh_detector="yolox"), dict(kp_bug_compat=False),
-             dict(vitdet_antialias=False), dict(pose_fullframe_fallback=False), dict(keep_all_frames=True)]
+             dict(vitdet_antialias=False), dict(pose_fullframe_fallback=False), dict(keep_all_frames=True),
+             dict(preproc="legacy"), dict(preproc="legacy", crop_scale=1.0)]
     for kw in cases:
         assert ExtractorConfig.parity(**kw).is_parity() == jax_extract.ExtractorConfig.parity(**kw).is_parity(), kw
     assert not ExtractorConfig.parity(rcnn=RCNNConfig.fast()).is_parity()
     assert jax_extract.ExtractorConfig.parity(rcnn=jax_rcnn.RCNNConfig.fast()).is_parity() is False
     assert not ExtractorConfig.parity(matmul_precision="default", param_dtype="bfloat16").is_parity()
     assert not ExtractorConfig().is_parity() and not jax_extract.ExtractorConfig().is_parity()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 3"):
-        ExtractorConfig.parity(preproc="legacy")
+    legacy = ExtractorConfig.parity(preproc="legacy")
+    assert legacy.preproc == "legacy" and legacy.crop_scale == 1.2 and not legacy.is_parity()
 
 
 def test_streamed_matches_per_video(pair):
@@ -468,12 +471,13 @@ def test_run_tree_across_hosts_and_ranks(pair, weights, tmp_path):
 
 
 def test_cli_refusals_and_main(pair, tmp_path, monkeypatch, capsys):
-    """The CLI refuses what is not ported and names its ROADMAP item (legacy
-    crops: item 3) and refuses the distributed flags' bad combinations as
-    JAX's CLIs do (an unpaired --coordinator or --process-id, --num-processes
-    without its partners, --host-id -1 outside a distributed run of
-    --num-hosts processes); ``main`` drives a tiny
-    ``Extractor.from_checkpoints`` through ``run_tree`` at its defaults."""
+    """The CLI refuses the distributed flags' bad combinations as JAX's CLIs
+    do (an unpaired --coordinator or --process-id, --num-processes without
+    its partners, --host-id -1 outside a distributed run of --num-hosts
+    processes) and a preprocessing it does not know; ``main`` drives a tiny
+    ``Extractor.from_checkpoints`` through ``run_tree`` at its defaults, and
+    again with ``--preproc legacy``, which reaches the extractor's config
+    and RUN_CONFIG.json (not parity)."""
     port, _ = pair
     for argv, said in ((["--coordinator", "h:1"], "--num-processes"), (["--process-id", "0"], "--num-processes"),
                        (["--num-processes", "2"], "--process-id"),
@@ -484,15 +488,19 @@ def test_cli_refusals_and_main(pair, tmp_path, monkeypatch, capsys):
         port_extract.main(["--videos", "v", "--device", "cpu", "--num-hosts", "2"])
     assert "--host-id -1" in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        port_extract.main(["--videos", "v", "--preproc", "legacy"])
-    assert "ROADMAP.md, Queue 1, item 3" in capsys.readouterr().err
+        port_extract.main(["--videos", "v", "--preproc", "stretched"])
+    assert "invalid choice: 'stretched'" in capsys.readouterr().err
 
     _tree(tmp_path / "videos")
     built = {}
 
     def from_checkpoints(cls, config, **kw):
-        built.update(kw, parity=config.is_parity(), kp_bug_compat=config.kp_bug_compat)
-        return port
+        built.update(kw, parity=config.is_parity(), kp_bug_compat=config.kp_bug_compat, preproc=config.preproc)
+        if config.preproc == port.cfg.preproc:
+            return port
+        other = copy.copy(port)   # the same tiny nets under the CLI's preprocessing
+        other.cfg = dataclasses.replace(port.cfg, preproc=config.preproc)
+        return other
 
     monkeypatch.setattr(Extractor, "from_checkpoints", classmethod(from_checkpoints))
     logs = str(tmp_path / "logs")
@@ -504,3 +512,14 @@ def test_cli_refusals_and_main(pair, tmp_path, monkeypatch, capsys):
     with open(os.path.join(logs, "errors", "PushUps.json")) as f:
         assert list(json.load(f)) == ["c.npy"]
     assert os.path.exists(str(tmp_path / "k" / "JumpingJack" / "a" / "keypoints.npy"))
+
+    legacy_logs = str(tmp_path / "legacy_logs")
+    counts = port_extract.main(["--videos", str(tmp_path / "videos"), "--out-meshes", str(tmp_path / "lm"),
+                                "--log-dir", legacy_logs, "--out-kps", str(tmp_path / "lk"), "--device", "cpu",
+                                "--preproc", "legacy"])
+    assert built["preproc"] == "legacy" and built["parity"] is False
+    assert sum(counts.values()) == 6 and counts["errors"] == 1 and counts["skipped"] == 0
+    with open(os.path.join(legacy_logs, "RUN_CONFIG.json")) as f:
+        run_config = json.load(f)
+    assert run_config["preproc"] == "legacy" and run_config["parity"] is False
+    assert "preproc: legacy" in capsys.readouterr().err

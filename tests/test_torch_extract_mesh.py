@@ -190,8 +190,9 @@ def test_seeded_weights_and_checkpoint_file(tmp_path, weights, port):
 
 
 def test_calls_that_need_a_detector_raise(port, tmp_path):
-    """What is not ported raises and names its ROADMAP item (the legacy
-    preprocessing), and a run_tree across hosts refuses a host index outside
+    """The legacy preprocessing is accepted (and its detector input need not
+    be square: only the upstream letterbox needs that), an unknown one
+    refused, and a run_tree across hosts refuses a host index outside
     [0, num_hosts) before it writes anything. Without boxes, process_video
     runs the default YOLOX detect stage (its seeded lite net here) under
     JAX's default rule (keep_all_frames False): the result is None or the
@@ -211,8 +212,10 @@ def test_calls_that_need_a_detector_raise(port, tmp_path):
         port.run_tree(str(tmp_path / "videos"), str(tmp_path / "meshes"), str(tmp_path / "logs"),
                       num_hosts=2, host_id=2)
     assert not (tmp_path / "logs").exists()
-    with pytest.raises(NotImplementedError, match="legacy"):
-        ExtractorConfig(preproc="legacy")
+    legacy = ExtractorConfig(preproc="legacy", det=DetectorConfig(input_hw=(416, 320)))
+    assert legacy.preproc == "legacy" and legacy.crop_scale == 1.2
+    with pytest.raises(ValueError, match="unknown preproc"):
+        ExtractorConfig(preproc="stretched")
     with pytest.raises(ValueError, match="square"):
         ExtractorConfig(det=DetectorConfig(input_hw=(416, 320)))
     with pytest.raises(ValueError, match="not a mode"):

@@ -91,7 +91,7 @@ def _step_main(rank: Rank, state_dict, stacked, labels, dropout):
     ts = TrainStep(model, 3e-4, 100, hard_weight=HARD_WEIGHT, precision="highest", rank=rank)
     masks = []
     draw = fusion_encoder.Dropout.mask
-    fusion_encoder.Dropout.mask = lambda self, like: masks.append(draw(self, like)) or masks[-1]
+    fusion_encoder.Dropout.mask = lambda self, like, *split: masks.append(draw(self, like, *split)) or masks[-1]
     try:
         emb = ts.embed(torch.from_numpy(stacked), "highest", seeded_generator(0, 0, _DROPOUT))
     finally:
@@ -475,16 +475,19 @@ def test_launch_local_stops_every_rank_on_a_failure_or_past_its_deadline():
 
 
 def test_train_cli_distributed_flags(env, tmp_path, capsys):
-    """The train CLI: --tp 2 refused, naming its ROADMAP item; --dp 2 on
-    cuda without a card refused; --dp that does not divide P x K refused; a
+    """The train CLI: --tp 0 refused, --tp 2 accepted (two ranks start, and
+    a missing tree fails them, as --dp 2's below); --dp 2 on cuda without a
+    card refused; --dp that does not divide P x K refused; a
     rank that fails makes the CLI fail (RankFailed, so a nonzero exit); the
     distributed flags validated as JAX validates them."""
     cfg = _cfg(env, "cli")
     path = str(tmp_path / "cfg.json")
     cfg.to_json(path)
     with pytest.raises(SystemExit):
-        train_cli.main(["--config", path, "--tp", "2", "--device", "cpu"])
-    assert "ROADMAP.md, Queue 1, item 9" in capsys.readouterr().err
+        train_cli.main(["--config", path, "--tp", "0", "--device", "cpu"])
+    assert "--tp must be >= 1" in capsys.readouterr().err
+    with pytest.raises(RankFailed, match=r"launch_local\(2 ranks of _run\).*\(exit code 1\)"):
+        train_cli.main(["--config", path, "--tp", "2", "--device", "cpu", "--real-meshes", str(tmp_path / "missing")])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit):
             train_cli.main(["--config", path, "--dp", "2", "--device", "cuda"])

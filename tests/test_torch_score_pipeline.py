@@ -367,7 +367,7 @@ def test_port_imports_no_jax():
         "          'models.rcnn', 'models.pose2d', 'pipelines.full', 'utils.native_video',\n"
         "          'parallel.mesh', 'utils.cli', 'pipelines.merge_scores', 'pipelines.leaderboard',\n"
         "          'human.mos', 'data.device_bank', 'utils.native_npz', 'utils.profiling',\n"
-        "          'utils.hostload'):\n"
+        "          'utils.hostload', 'parallel.tensor'):\n"
         "    assert 'video_gen_evals_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'video_gen_evals_tpu')]\n"

@@ -43,6 +43,16 @@ Every masked tensor has the window axis first. A data-parallel rank that
 forwards rows ``[lo, lo + B)`` of an ``N``-window batch passes ``rows=(lo,
 N)``: each mask is then drawn at the whole batch's shape, in the same order,
 and the rank keeps its own rows, so N ranks drop what one rank drops.
+
+Tensor parallelism (:meth:`HumanActionScorer.shard_`, on a grid's model
+axis; ``parallel/tensor.py``): the model keeps its rank's blocks of the
+sharded parameters, the transformer runs column-parallel ``in_proj`` (by
+heads) and ``linear1`` and row-parallel ``out_proj`` and ``linear2``, and
+the conv stages gather their kernels and run whole. The dropout masks of the
+attention weights and the FFN hidden are drawn at the one-rank shape too and
+cut to the rank's heads and columns, so a model axis of any length drops
+what one rank drops. :meth:`~HumanActionScorer.full_state_dict` gathers the
+whole tree, :meth:`~HumanActionScorer.load_full_state_dict` slices one.
 """
 
 from __future__ import annotations
@@ -60,6 +70,14 @@ from ..ops.attention import flash_attention, flash_attention_plain
 from ..ops.conv_kernel import fused_temporal_block
 from ..ops.conv_kernel_train import fused_temporal_block_train, fused_temporal_block_train_plain
 from ..ops.deltas import l2_normalize
+from ..parallel.mesh import Rank
+from ..parallel.tensor import (
+    TensorParallel,
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+    scatter_to_model,
+)
 
 DimsMap = T.Mapping[str, int]
 
@@ -142,7 +160,9 @@ class Dropout:
     """What one training forward needs to drop activations: the rate, the
     generator its masks come from and, for a data-parallel rank, its rows
     ``(lo, total)`` of the whole batch. ``None`` in its place means no
-    dropout."""
+    dropout. A tensor-parallel layer passes its ``split`` ``(dim, lo,
+    total)``: the mask is drawn at ``total`` along ``dim`` and cut to the
+    rank's block from ``lo``."""
 
     def __init__(self, rate: float, generator: torch.Generator,
                  rows: T.Optional[T.Tuple[int, int]] = None):
@@ -150,31 +170,45 @@ class Dropout:
         self.generator = generator
         self.rows = rows
 
-    def mask(self, like: torch.Tensor) -> torch.Tensor:
+    def mask(self, like: torch.Tensor, split: T.Optional[T.Tuple[int, int, int]] = None) -> torch.Tensor:
         """Scaled keep mask of ``like``'s shape: 0 or 1/keep. With ``rows``
         drawn at the whole batch's shape (``like``'s window axis, the first,
-        at ``total``) and cut to ``like``'s rows."""
-        shape = like.shape if self.rows is None else (self.rows[1], *like.shape[1:])
+        at ``total``) and cut to ``like``'s rows; with ``split`` likewise
+        along its axis."""
+        shape = list(like.shape)
+        if self.rows is not None:
+            shape[0] = self.rows[1]
+        if split is not None:
+            shape[split[0]] = split[2]
         u = torch.rand(shape, generator=self.generator, device=like.device)
         if self.rows is not None:
             u = u[self.rows[0] : self.rows[0] + like.shape[0]]
+        if split is not None:
+            u = u.narrow(split[0], split[1], like.shape[split[0]])
         return (u < self.keep).to(like.dtype) / self.keep
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.mask(x)
+    def __call__(self, x: torch.Tensor, split: T.Optional[T.Tuple[int, int, int]] = None) -> torch.Tensor:
+        return x * self.mask(x, split)
 
 
-def _drop(x: torch.Tensor, dropout: T.Optional[Dropout]) -> torch.Tensor:
-    return x if dropout is None else dropout(x)
+def _drop(x: torch.Tensor, dropout: T.Optional[Dropout],
+          split: T.Optional[T.Tuple[int, int, int]] = None) -> torch.Tensor:
+    return x if dropout is None else dropout(x, split)
 
 
 class _ConvWeight(nn.Module):
     """A bias-free Conv1d's parameter, ``weight [Cout, Cin, K]``; the forward
-    is the caller's (a matmul for the stem, the fused kernel for the blocks)."""
+    is the caller's (a matmul for the stem, the fused kernel for the blocks).
+    Under tensor parallelism it may hold the rank's output channels only,
+    and :meth:`full` gathers the whole kernel."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(c_out, c_in, kernel_size))
+        self.tp: T.Optional[TensorParallel] = None   # set where the weight is sharded
+
+    def full(self) -> torch.Tensor:
+        return self.weight if self.tp is None else gather_from_model(self.weight, self.tp, 0)
 
 
 class _Affine(nn.Module):
@@ -203,8 +237,8 @@ class TemporalConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, precision: str = "highest",
                 dropout: T.Optional[Dropout] = None) -> torch.Tensor:
-        w1 = self.conv1.weight.permute(2, 1, 0)   # [K, Cin, Cout]
-        w2 = self.conv2.weight.permute(2, 1, 0)
+        w1 = self.conv1.full().permute(2, 1, 0)   # [K, Cin, Cout]
+        w2 = self.conv2.full().permute(2, 1, 0)
         if self.training:
             mask = None if dropout is None else dropout.mask(x)
             train = fused_temporal_block_train_plain if self.train_impl == "module" else fused_temporal_block_train
@@ -225,7 +259,7 @@ class MovementConvEncoder(nn.Module):
 
     def apply_stem(self, x: torch.Tensor) -> torch.Tensor:
         """The 1x1 stem: ``[B, T, d_in] -> [B, T, d_out]``."""
-        return x @ self.stem.weight[:, :, 0].t()
+        return x @ self.stem.full()[:, :, 0].t()
 
     def forward(self, x: torch.Tensor, precision: str = "highest",
                 dropout: T.Optional[Dropout] = None) -> torch.Tensor:
@@ -293,11 +327,15 @@ def flash_attend(heads: int, impl: str) -> Attention:
 class TransformerEncoderLayer(nn.Module):
     """``nn.TransformerEncoderLayer`` semantics: post-LN, ReLU FFN, packed
     qkv; attention is a plain matmul + softmax, as the JAX einsum path, unless
-    the caller hands an ``attention`` function of the q, k, v slices."""
+    the caller hands an ``attention`` function of the q, k, v slices. Under
+    tensor parallelism (``tp`` set) the sharded projections hold the rank's
+    blocks."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int):
         super().__init__()
         self.n_heads = n_heads
+        self.d_ff = d_ff
+        self.tp: T.Optional[TensorParallel] = None
         self.self_attn = _SelfAttention(d_model)
         self.linear1 = nn.Linear(d_model, d_ff)
         self.linear2 = nn.Linear(d_ff, d_model)
@@ -306,19 +344,44 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, dropout: T.Optional[Dropout] = None,
                 attention: T.Optional[Attention] = None) -> torch.Tensor:
+        """Under tensor parallelism the layer runs Megatron's way
+        (``parallel/tensor.py``): the same function, with the masks of the
+        one-rank forward cut to this rank's heads and FFN columns. A
+        projection is sharded where its weight's shape is a block's."""
+        tp = self.tp
         B, S, D = x.shape
         H = self.n_heads
         hd = D // H
-        qkv = F.linear(x, self.self_attn.in_proj_weight, self.self_attn.in_proj_bias)
+        sa = self.self_attn
+        if sa.in_proj_weight.shape[0] != 3 * D:            # column-parallel
+            qkv = F.linear(copy_to_model(x, tp), sa.in_proj_weight, sa.in_proj_bias)
+            if not tp.by_heads:                            # a block of rows: gathered, attended whole
+                qkv = gather_from_model(qkv, tp, 2)
+        else:
+            qkv = F.linear(x, sa.in_proj_weight, sa.in_proj_bias)
+        hl = qkv.shape[-1] // (3 * hd)                     # this rank's heads
+        local = hl != H
         if attention is not None:
             ctx = attention(*qkv.chunk(3, dim=-1))
         else:
-            q, k, v = (t.reshape(B, S, H, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-            attn = _drop(torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(hd), dim=-1), dropout)
-            ctx = (attn @ v).transpose(1, 2).reshape(B, S, D)
-        x = self.norm1(x + _drop(self.self_attn.out_proj(ctx), dropout))
-        h = _drop(F.relu(self.linear1(x)), dropout)
-        h = _drop(self.linear2(h), dropout)
+            q, k, v = (t.reshape(B, S, hl, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+            attn = torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(hd), dim=-1)
+            attn = _drop(attn, dropout, (1, tp.index * hl, H) if local else None)
+            ctx = (attn @ v).transpose(1, 2).reshape(B, S, hl * hd)
+        if sa.out_proj.weight.shape[1] != D:               # row-parallel
+            if not local:
+                ctx = scatter_to_model(ctx, tp, 2)
+            out = reduce_from_model(F.linear(ctx, sa.out_proj.weight), tp) + sa.out_proj.bias
+        else:
+            out = sa.out_proj(ctx)
+        x = self.norm1(x + _drop(out, dropout))
+        if self.linear1.weight.shape[0] != self.d_ff:     # column- then row-parallel
+            h = F.relu(F.linear(copy_to_model(x, tp), self.linear1.weight, self.linear1.bias))
+            h = _drop(h, dropout, (2, tp.index * h.shape[-1], self.d_ff))
+            h = reduce_from_model(F.linear(h, self.linear2.weight), tp) + self.linear2.bias
+        else:
+            h = self.linear2(_drop(F.relu(self.linear1(x)), dropout))
+        h = _drop(h, dropout)
         return self.norm2(x + h)
 
 
@@ -368,6 +431,7 @@ class HumanActionScorer(nn.Module):
         self.cls = nn.Parameter(torch.empty(1, 1, d))
         self.temporal = _TemporalStack(d, config.time_heads, config.time_layers)
         self.pos_enc = _PositionalEncoding(d)
+        self.tp: T.Optional[TensorParallel] = None
         self.reset_parameters(generator)
         # a new model scores: the trainer switches to training mode itself
         self.eval()
@@ -387,6 +451,49 @@ class HumanActionScorer(nn.Module):
                 p.fill_(1.0)
             else:
                 p.zero_()
+
+    def shard_(self, rank: Rank) -> "HumanActionScorer":
+        """Keep only ``rank``'s blocks of the parameters that a model axis of
+        ``rank.world`` ranks shards (``rank``: the rank within the axis,
+        ``parallel.Rank.model``), and run the forward tensor-parallel over
+        its group from now on. Call it on the whole model, the same on every
+        rank of the axis, before an optimizer is built."""
+        if self.tp is not None:
+            raise ValueError("the model is sharded already")
+        if rank.world == 1:
+            return self
+        tp = TensorParallel(rank, self.config.time_heads, {n: tuple(p.shape) for n, p in self.named_parameters()})
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                p.data = tp.shard(name, p.data)
+        for name, m in self.named_modules():
+            if isinstance(m, TransformerEncoderLayer) or (isinstance(m, _ConvWeight) and tp.sharded(f"{name}.weight")):
+                m.tp = tp
+        self.tp = tp
+        return self
+
+    def full_state_dict(self) -> T.Dict[str, torch.Tensor]:
+        """The whole state_dict: the sharded parameters gathered over the
+        model axis (a collective under tensor parallelism: every rank of the
+        axis calls it), in the reference's names and layouts."""
+        sd = self.state_dict()
+        if self.tp is None:
+            return sd
+        return {k: self.tp.gather(k, v) for k, v in sd.items()}
+
+    def load_full_state_dict(self, state_dict: T.Mapping[str, torch.Tensor], strict: bool = True):
+        """Load a whole state_dict (as :meth:`full_state_dict` gives it, or a
+        reference checkpoint), each sharded parameter cut to this rank's block."""
+        if self.tp is not None:
+            state_dict = {k: self.tp.shard(k, v) for k, v in state_dict.items()}
+        return self.load_state_dict(state_dict, strict=strict)
+
+    def attention_heads(self) -> int:
+        """The heads this rank attends over: all of them, or under tensor
+        parallelism by heads its share."""
+        if self.tp is not None and self.tp.by_heads:
+            return self.config.time_heads // self.tp.size
+        return self.config.time_heads
 
     def set_conv_impl(self, impl: str) -> None:
         """The training conv stages: ``"kernel"`` (K4 through its autograd
@@ -412,7 +519,7 @@ class HumanActionScorer(nn.Module):
             (enc(xin, precision, dropout) for enc, xin, _slot in chains),   # one chain at a time
             [slot for _enc, _xin, slot in chains])
         attention = (None if self.training or cfg.attention_impl == "xla"
-                     else flash_attend(cfg.time_heads, cfg.attention_impl))
+                     else flash_attend(self.attention_heads(), cfg.attention_impl))
         return self.embed_tokens(m_tokens, dropout, attention)
 
     def chain_inputs(self, x: torch.Tensor

@@ -1,5 +1,7 @@
-"""Parallelism: data-parallel ranks on ``torch.distributed`` and the
-multi-host split of a work list (``mesh``)."""
+"""Parallelism: data-parallel ranks and the (data, model) grid on
+``torch.distributed`` and the multi-host split of a work list (``mesh``),
+and the fusion encoder's tensor-parallel layout and collectives
+(``tensor``)."""
 
 from .mesh import (
     Rank,
@@ -11,9 +13,11 @@ from .mesh import (
     broadcast_object,
     initialize_distributed,
     launch_local,
+    make_grid,
     rank_device,
     shard_items,
     shutdown,
+    tp_param_spec,
 )
 
 __all__ = [
@@ -26,7 +30,9 @@ __all__ = [
     "broadcast_object",
     "initialize_distributed",
     "launch_local",
+    "make_grid",
     "rank_device",
     "shard_items",
     "shutdown",
+    "tp_param_spec",
 ]

@@ -1,4 +1,4 @@
-"""Data parallelism and multi-host sharding on ``torch.distributed``.
+"""Data and tensor parallelism and multi-host sharding on ``torch.distributed``.
 
 Port of ``video_gen_evals_tpu/parallel/mesh.py``, in PyTorch's idiom: one
 process per rank, each rank with one explicit device, and explicit
@@ -11,6 +11,13 @@ collectives.
   :class:`Rank`; a no-op for one process.
 - :func:`launch_local`: spawns n ranks on this host, joins them with a
   deadline, and kills them all if one fails.
+- :func:`make_grid`: JAX ``make_mesh``'s ``(data, model)`` grid over the
+  ranks of a group: rank r is data index ``r // n_model`` and model index
+  ``r % n_model`` (JAX's ``reshape(n_data, n_model)``), and its
+  :class:`Rank` gains its data group and its model group.
+- :func:`tp_param_spec`: JAX ``tp_param_sharding``'s layout of the fusion
+  encoder, by the port's parameter names: which axis of a parameter the
+  model axis shards, or None.
 - :func:`all_gather_rows`, :func:`all_reduce_sum`, :func:`broadcast_`,
   :func:`barrier`: the collectives the port uses.
 
@@ -23,13 +30,13 @@ learn whether devices are shared by publishing ``host/device`` in the
 rendezvous store before the group exists; nothing else picks the backend,
 and it is printed.
 
-The JAX file's ``make_mesh``, ``batch_sharding``, ``replicated_sharding``,
-``put_global`` and ``fetch_global`` have no counterpart: under one process
-per rank every tensor is simply local to its rank, a "global fetch" is
+The JAX file's ``batch_sharding``, ``replicated_sharding``, ``put_global``
+and ``fetch_global`` have no counterpart: under one process per rank every
+tensor is simply local to its rank, a "global fetch" is
 :func:`all_gather_rows` or :func:`all_reduce_sum`, and a replicated value is
-one that every rank computes or receives by :func:`broadcast_`.
-``tp_param_sharding`` (tensor parallelism, ``--tp > 1``) is not ported:
-ROADMAP.md, Queue 1, item 9.
+one that every rank computes or receives by :func:`broadcast_`. The model
+axis's collectives live in the tensor-parallel forward
+(``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -48,7 +55,6 @@ import typing as T
 import torch
 import torch.distributed as dist
 
-TENSOR_PARALLEL = "ROADMAP.md, Queue 1, item 9"
 # seconds a collective may wait for its peers before it fails (the group's
 # timeout); a deadline given to launch_local lowers it to the deadline
 COLLECTIVE_TIMEOUT_S = 1800.0
@@ -76,20 +82,101 @@ def shard_items(
 
 @dataclasses.dataclass(frozen=True)
 class Rank:
-    """One rank of a data-parallel group: its index, the group's size, its
-    device, the process group (``None`` for the default group) and the
-    group's backend."""
+    """One rank of a group: its index, the group's size, its device, the
+    process group (``None`` for the default group) and the group's backend.
+    On a :func:`make_grid` grid also the model axis's size ``tp`` and the
+    process groups of the rank's data and model axes (see :attr:`data` and
+    :attr:`model`)."""
 
     rank: int
     world: int
     device: torch.device
     backend: str
     group: T.Optional[T.Any] = None
+    tp: int = 1
+    data_group: T.Optional[T.Any] = None
+    model_group: T.Optional[T.Any] = None
 
     @property
     def is_primary(self) -> bool:
         """Rank 0, the one that writes files."""
         return self.rank == 0
+
+    @property
+    def data(self) -> "Rank":
+        """This rank within its data axis (the ranks of its model index):
+        the group the batch splits over. Off a grid, the rank itself."""
+        if self.tp == 1:
+            return self
+        n_data = self.world // self.tp
+        if n_data == 1:
+            return Rank(0, 1, self.device, backend="none")
+        return Rank(self.rank // self.tp, n_data, self.device, self.backend, self.data_group)
+
+    @property
+    def model(self) -> "Rank":
+        """This rank within its model axis (the ranks of its data index):
+        the group a tensor-parallel forward shards over. Off a grid, a group
+        of one."""
+        if self.tp == 1:
+            return Rank(0, 1, self.device, backend="none")
+        return Rank(self.rank % self.tp, self.tp, self.device, self.backend, self.model_group)
+
+
+def make_grid(rank: Rank, n_model: int = 1, n_data: T.Optional[int] = None) -> Rank:
+    """The ``(data, model)`` grid of JAX ``make_mesh`` over ``rank``'s group
+    (the default group): rank r is data index ``r // n_model`` and model
+    index ``r % n_model``. Every rank of the group calls it, with the same
+    arguments; it returns ``rank`` with its data and model groups
+    (``dist.new_group``, made only for axes longer than one). The errors are
+    JAX's, and the grid must cover every rank of the group, as JAX's mesh
+    must in a multi-process runtime: a rank outside it could never join the
+    collectives."""
+    if n_model < 1:
+        raise ValueError(f"n_model must be >= 1, got {n_model}")
+    if n_data is None:
+        n_data = rank.world // n_model
+    if n_data < 1:
+        raise ValueError(f"need at least n_model={n_model} ranks to form a grid, have {rank.world}")
+    need = n_data * n_model
+    if need != rank.world:
+        raise ValueError(f"grid ({n_data} data x {n_model} model) needs {need} ranks, the group has "
+                         f"{rank.world}: the grid must span every rank")
+    if n_model == 1:
+        return rank
+    if rank.group is not None:
+        raise ValueError("make_grid splits the default group; this rank is of another one")
+    model_groups = [dist.new_group([d * n_model + m for m in range(n_model)]) for d in range(n_data)]
+    data_groups = ([dist.new_group([d * n_model + m for d in range(n_data)]) for m in range(n_model)]
+                   if n_data > 1 else [None] * n_model)
+    return dataclasses.replace(rank, tp=n_model, model_group=model_groups[rank.rank // n_model],
+                               data_group=data_groups[rank.rank % n_model])
+
+
+def tp_param_spec(name: str, shape: T.Sequence[int], tp: int) -> T.Optional[int]:
+    """The axis of the port's parameter ``name`` (a ``HumanActionScorer``
+    state_dict name, shape ``shape``) that a ``tp``-way model axis shards,
+    or None where it is replicated: JAX ``parallel/mesh.py``'s
+    ``_spec_for_param`` with ``tp_param_sharding``'s rule that a dimension
+    ``tp`` does not divide is never sharded. Column-parallel ``in_proj`` and
+    ``linear1`` (weight and bias), row-parallel ``out_proj`` and ``linear2``
+    weights, the ``state_enc`` / ``motion_enc`` stem and block conv kernels
+    on their output channels; everything else replicated. The axes are the
+    port's layouts: torch ``Linear.weight`` is ``[out, in]`` where flax's
+    kernel is ``[in, out]``, ``Conv1d.weight`` ``[out, in, k]`` where flax's
+    is ``[k, in, out]``. At ``tp`` 1 the axis is named as JAX names it (a
+    shard of one is the whole)."""
+    parts = name.split(".")
+    leaf, owner = parts[-1], (parts[-2] if len(parts) > 1 else "")
+    if leaf in ("in_proj_weight", "in_proj_bias") or (owner == "linear1" and leaf in ("weight", "bias")):
+        axis = 0      # column-parallel: the output features (flax P(None, "model") / P("model"))
+    elif owner in ("out_proj", "linear2") and leaf == "weight":
+        axis = 1      # row-parallel: the input features (flax P("model", None))
+    elif parts[0] in ("state_enc", "motion_enc") and owner in ("stem", "conv1", "conv2") and leaf == "weight":
+        axis = 0      # conv stacks: the output channels (flax P(None, None, "model"))
+    else:
+        return None
+    return None if shape[axis] % tp else axis
 
 
 def rank_device(rank: int, device: T.Union[str, torch.device]) -> torch.device:

@@ -41,8 +41,17 @@ may share one output root. ``--mesh-data N`` runs N local ranks, each on its
 own device (``parallel.launch_local``), and each rank is one shard of the
 sweep as a host is (rank r of host h: shard ``h * N + r`` of ``H * N``).
 JAX shards the frames of each chunk over its mesh instead; both write the
-same per-video files. Not ported: ``preproc="legacy"`` (ROADMAP.md, Queue
-1, item 3).
+same per-video files.
+
+``preproc="legacy"`` keeps JAX's home-grown geometry of its first rounds,
+which matches no published weight pipeline: the detector sees the
+ImageNet-normalised frame stretched to its input (``person_detections``:
+``obj * cls[person]``, NMS, ``det_score_thresh`` for both branches, no
+full-frame pose fallback), and the mesh and pose crops are
+``ops/image.py::batched_person_crops`` (boxes scaled by ``crop_scale`` and
+expanded to the crop's aspect, ImageNet-normalised); the keypoints are mapped
+back through the inverse of that crop, and a frame with no person is dropped
+from the keypoints.
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ from ..models.detector import (
     YOLOXDetector,
     dwpose_person_detections,
     init_yolox_weights_,
+    person_detections,
     single_person_mask,
 )
 from ..models.pose2d import (
@@ -84,6 +94,7 @@ from ..models.rcnn import (
 )
 from ..models.smpl_head import SMPLHeadConfig, SMPLTokenDecoderHead
 from ..models.vit import ViTBackbone, ViTConfig
+from ..ops.image import batched_person_crops, crop_resize_matmul, expand_to_aspect, true_div
 from ..ops.upstream_crops import dwpose_backmap, dwpose_topdown_crop, vitdet_mesh_crop, yolox_letterbox
 from ..parallel import Rank, shard_items
 from ..utils.device import disable_tf32, resolve_device
@@ -95,12 +106,18 @@ _WORKING_DTYPE = {
     ("high", "float32"): torch.float32,
     ("default", "bfloat16"): torch.bfloat16,
 }
+# the legacy crops' and detector canvas's ImageNet normalisation (0..255 scale)
+_MEAN = (123.675, 116.28, 103.53)
+_STD = (58.395, 57.12, 57.375)
 _MESH_KEYS = (("pose", "body_pose"), ("betas", "betas"), ("global_orient", "global_orient"), ("vit", "token_out"))
 
 
 @dataclasses.dataclass
 class ExtractorConfig:
-    """The JAX package's ``ExtractorConfig`` without its legacy crop options.
+    """The JAX package's ``ExtractorConfig``. ``preproc``: ``"upstream"``
+    (the published preprocessing each net's weights expect) or ``"legacy"``
+    (JAX's home-grown crops and detector canvas, ``crop_scale``; see the
+    module docstring).
 
     Numerics, named by what is computed: ``matmul_precision="highest"`` runs
     every product in true fp32 (TF32 off) and the attention kernels at
@@ -123,6 +140,7 @@ class ExtractorConfig:
     pose: PoseNetConfig = dataclasses.field(default_factory=PoseNetConfig)
     frame_batch: int = 32
     preproc: str = "upstream"
+    crop_scale: float = 1.2        # legacy-mode crop expansion only
     vitdet_rescale: float = 2.5    # ViTDetDataset rescale_factor
     vitdet_antialias: bool = True  # hmr2 gaussian pre-blur (df > 1.1)
     pose_padding: float = 1.25     # mmpose bbox_xyxy2cs padding
@@ -151,11 +169,7 @@ class ExtractorConfig:
     keep_all_frames: bool = False
 
     def __post_init__(self):
-        if self.preproc == "legacy":
-            raise NotImplementedError(
-                "preproc='legacy' (batched_person_crops, ops/image.py) is not ported: "
-                "ROADMAP.md, Queue 1, item 3")
-        if self.preproc != "upstream":
+        if self.preproc not in ("upstream", "legacy"):
             raise ValueError(f"unknown preproc {self.preproc!r}")
         if (self.matmul_precision, self.param_dtype) not in _WORKING_DTYPE:
             raise ValueError(
@@ -165,7 +179,7 @@ class ExtractorConfig:
             self.rcnn = RCNNConfig.x101_32x8d()
         if self.mesh_detector not in ("yolox", "rcnn"):
             raise ValueError(f"unknown mesh_detector {self.mesh_detector!r}")
-        if self.det.input_hw[0] != self.det.input_hw[1]:
+        if self.preproc == "upstream" and self.det.input_hw[0] != self.det.input_hw[1]:
             raise ValueError(f"the letterbox needs a square detector input, not {self.det.input_hw}")
         if self.frame_batch < 1 or self.rcnn_frame_batch < 1:
             raise ValueError(f"frame_batch {self.frame_batch} and rcnn_frame_batch "
@@ -351,10 +365,20 @@ class Extractor:
     # ------------------------------------------------------------------
     # the stages, on one chunk on the device
 
+    def _legacy_crops(self, frames: torch.Tensor, boxes_xyxy: torch.Tensor,
+                      out_hw: T.Tuple[int, int]) -> torch.Tensor:
+        """The legacy mode's ImageNet-normalised ``batched_person_crops``."""
+        mean, std = (torch.tensor(v, device=frames.device) for v in (_MEAN, _STD))
+        return batched_person_crops(frames.to(torch.float32), boxes_xyxy.to(torch.float32), out_hw=out_hw,
+                                    scale=self.cfg.crop_scale, mean=mean, std=std)
+
     def crops(self, frames: torch.Tensor, boxes_xyxy: torch.Tensor) -> torch.Tensor:
-        """Normalised ViTDet crops ``[B, h, w, 3]`` (fp32) of ``frames``
-        (``[B, H, W, 3]``, uint8 or float, RGB 0..255)."""
+        """Normalised mesh crops ``[B, h, w, 3]`` (fp32) of ``frames``
+        (``[B, H, W, 3]``, uint8 or float, RGB 0..255): ViTDet's, or in the
+        legacy mode ``batched_person_crops``."""
         cfg = self.cfg
+        if cfg.preproc == "legacy":
+            return self._legacy_crops(frames, boxes_xyxy, cfg.vit.img_size)
         return vitdet_mesh_crop(frames.to(torch.float32), boxes_xyxy.to(torch.float32),
                                 out_hw=cfg.vit.img_size, rescale_factor=cfg.vitdet_rescale,
                                 antialias=cfg.vitdet_antialias)
@@ -370,16 +394,35 @@ class Extractor:
 
     @torch.inference_mode()
     def pose_forward(self, frames: torch.Tensor, boxes_xyxy: torch.Tensor) -> T.Dict[str, torch.Tensor]:
-        """One chunk of the keypoint branch (JAX's upstream ``pose_forward``):
-        DWPose's top-down crops of the pose boxes, RTMPose and its SimCC
-        decode, the keypoints mapped back to the frame and put in openpose's
-        order. Returns ``kps [B, 134, 2]`` (frame pixels) and ``scores
-        [B, 134]``, fp32."""
+        """One chunk of the keypoint branch (JAX's ``pose_forward``):
+        DWPose's top-down crops of the pose boxes (``batched_person_crops`` in
+        the legacy mode), RTMPose and its SimCC decode, the keypoints mapped
+        back to the frame and put in openpose's order. Returns ``kps [B, 134,
+        2]`` (frame pixels) and ``scores [B, 134]``, fp32."""
         cfg = self.cfg
+        if cfg.preproc == "legacy":
+            return self._legacy_pose_forward(frames, boxes_xyxy)
         crops, center, scale = dwpose_topdown_crop(frames.to(torch.float32), boxes_xyxy.to(torch.float32),
                                                    input_hw=cfg.pose.input_hw, padding=cfg.pose_padding)
         kps_crop, scores = self.pose_net(crops)
         kps, scores = wholebody_to_openpose(dwpose_backmap(kps_crop, center, scale, cfg.pose.input_hw), scores)
+        return {"kps": kps, "scores": scores}
+
+    def _legacy_pose_forward(self, frames: torch.Tensor, boxes_xyxy: torch.Tensor) -> T.Dict[str, torch.Tensor]:
+        """JAX's legacy ``pose_forward``: the crops, RTMPose, and each crop
+        pixel mapped back through the inverse of the crop's sampling
+        (``x0 + (x + 0.5) * w / pw - 0.5`` on the scaled, aspect-expanded box)."""
+        cfg = self.cfg
+        ph, pw = cfg.pose.input_hw
+        boxes = boxes_xyxy.to(torch.float32)
+        kps_crop, scores = self.pose_net(self._legacy_crops(frames, boxes, (ph, pw)))
+        x0, y0, x1, y1 = boxes.unbind(-1)
+        w_e, h_e = expand_to_aspect((x1 - x0) * cfg.crop_scale, (y1 - y0) * cfg.crop_scale, pw / ph)
+        bx0 = (x0 + x1) / 2 - w_e / 2
+        by0 = (y0 + y1) / 2 - h_e / 2
+        xf = bx0[:, None] + (kps_crop[..., 0] + 0.5) * true_div(w_e, pw)[:, None] - 0.5
+        yf = by0[:, None] + (kps_crop[..., 1] + 0.5) * true_div(h_e, ph)[:, None] - 0.5
+        kps, scores = wholebody_to_openpose(torch.stack([xf, yf], dim=-1), scores)
         return {"kps": kps, "scores": scores}
 
     @staticmethod
@@ -394,29 +437,44 @@ class Extractor:
     @torch.inference_mode()
     def detect_yolox(self, frames: torch.Tensor) -> T.Dict[str, torch.Tensor]:
         """The YOLOX detect stage on one chunk ``[B, H, W, 3]`` (RGB 0..255),
-        JAX's ``detect`` with upstream preprocessing: Megvii's letterbox, the
-        detector, DWPose's postprocess (:func:`dwpose_person_detections`),
-        boxes divided by the letterbox ratio (unclipped). The mesh rule keeps
-        person boxes above ``det_score_thresh``, the keypoint rule those above
-        ``pose_det_score_thresh``. Returns ``box_mesh [B, 4]`` (the best mesh
-        person box, or slot 0's box where there is none), ``box_pose [B, 4]``
-        (the best pose box, or the full frame where there is none and
-        ``pose_fullframe_fallback``), ``single [B]`` (exactly one mesh person)
-        and ``present [B]`` (at least one pose person)."""
+        JAX's ``detect``. Upstream: Megvii's letterbox, the detector, DWPose's
+        postprocess (:func:`dwpose_person_detections`), boxes divided by the
+        letterbox ratio (unclipped); the mesh rule keeps person boxes above
+        ``det_score_thresh``, the keypoint rule those above
+        ``pose_det_score_thresh``. Legacy: the frame stretched to the
+        detector's input (``crop_resize_matmul`` of the whole frame) and
+        ImageNet-normalised, :func:`person_detections` above
+        ``det_score_thresh`` for both rules, boxes scaled back by ``W / dw``
+        and ``H / dh``. Returns ``box_mesh [B, 4]`` (the best mesh person box,
+        or slot 0's box where there is none), ``box_pose [B, 4]`` (the best
+        pose box, or, upstream, the full frame where there is none and
+        ``pose_fullframe_fallback``), ``single [B]`` (exactly one mesh
+        person) and ``present [B]`` (at least one pose person)."""
         cfg = self.cfg
         H, W = frames.shape[1:3]
-        canvas, ratio = yolox_letterbox(frames.to(torch.float32), size=cfg.det.input_hw[0])
-        boxes, scores, person = dwpose_person_detections(
-            self.detector(canvas), prefilter_thresh=cfg.pose_det_prefilter, iou_thresh=cfg.pose_det_iou,
-            max_out=cfg.det.max_detections)
-        boxes = boxes * (1.0 / ratio)
-        mesh_valid = person & (scores > cfg.det_score_thresh)
-        pose_valid = person & (scores > cfg.pose_det_score_thresh)
+        upstream = cfg.preproc == "upstream"
+        if upstream:
+            canvas, ratio = yolox_letterbox(frames.to(torch.float32), size=cfg.det.input_hw[0])
+            boxes, scores, person = dwpose_person_detections(
+                self.detector(canvas), prefilter_thresh=cfg.pose_det_prefilter, iou_thresh=cfg.pose_det_iou,
+                max_out=cfg.det.max_detections)
+            boxes = boxes * (1.0 / ratio)
+            mesh_valid = person & (scores > cfg.det_score_thresh)
+            pose_valid = person & (scores > cfg.pose_det_score_thresh)
+        else:
+            dh, dw = cfg.det.input_hw
+            full = torch.tensor([W / 2.0, H / 2.0, float(W), float(H)], device=frames.device)
+            canvas = crop_resize_matmul(frames.to(torch.float32), full.expand(frames.shape[0], 4), (dh, dw))
+            mean, std = (torch.tensor(v, device=frames.device) for v in (_MEAN, _STD))
+            boxes, scores, mesh_valid = person_detections(self.detector((canvas - mean) / std),
+                                                          score_thresh=cfg.det_score_thresh)
+            boxes = boxes * torch.tensor([W / dw, H / dh, W / dw, H / dh], dtype=boxes.dtype, device=boxes.device)
+            pose_valid = mesh_valid
         present = pose_valid.any(dim=-1)
         best_m = torch.argmax(torch.where(mesh_valid, scores, -1.0), dim=-1)
         best_p = torch.argmax(torch.where(pose_valid, scores, -1.0), dim=-1)
         box_pose = torch.take_along_dim(boxes, best_p[:, None, None], dim=1)[:, 0]
-        if cfg.pose_fullframe_fallback:   # onnxpose: no detection -> pose on [0, 0, W, H]
+        if upstream and cfg.pose_fullframe_fallback:   # onnxpose: no detection -> pose on [0, 0, W, H]
             full = torch.tensor([0.0, 0.0, float(W), float(H)], device=boxes.device)
             box_pose = torch.where(present[:, None], box_pose, full)
         return {"box_mesh": torch.take_along_dim(boxes, best_m[:, None, None], dim=1)[:, 0],
@@ -503,12 +561,15 @@ class Extractor:
         return np.flatnonzero(single)
 
     def _kp_frame_mask(self, valid: np.ndarray, present: np.ndarray) -> np.ndarray:
-        """The keypoint frames kept: with onnxpose's full-frame fallback no
-        frame is dropped for lack of a detection, without it a frame with no
-        pose person is; ``keep_all_frames`` keeps every frame."""
+        """The keypoint frames kept: with onnxpose's full-frame fallback
+        (upstream only) no frame is dropped for lack of a detection, without
+        it a frame with no pose person is; ``keep_all_frames`` keeps every
+        frame."""
         if self.cfg.keep_all_frames:
             return np.ones_like(valid, dtype=bool)
-        return valid if self.cfg.pose_fullframe_fallback else valid & present
+        if self.cfg.preproc == "upstream" and self.cfg.pose_fullframe_fallback:
+            return valid
+        return valid & present
 
     @staticmethod
     def _mesh_dict(out: T.Mapping[str, T.Any], keep: np.ndarray) -> T.Dict[str, T.Any]:
@@ -885,7 +946,8 @@ def main(argv: T.Optional[T.Sequence[str]] = None) -> T.Dict[str, T.Any]:
                         "family, ref mesh_generator.py:69-74); 'yolox' = the shared DWPose detector")
     p.add_argument("--preproc", choices=["upstream", "legacy"], default="upstream",
                    help="input preprocessing: 'upstream' = the published pipelines the weights expect; "
-                        f"'legacy' is not ported (ROADMAP.md, Queue 1, item 3)")
+                        "'legacy' = the home-grown crop_scale crops and stretched, ImageNet-normalised "
+                        "detector canvas (matches no published weights)")
     p.add_argument("--tokenhmr-ckpt", default=None,
                    help="TokenHMR checkpoint (tokenhmr_model_latest.ckpt / .pt / .npz): ViT-H + SMPL token head")
     p.add_argument("--dwpose-ckpt", default=None,
@@ -911,8 +973,6 @@ def main(argv: T.Optional[T.Sequence[str]] = None) -> T.Dict[str, T.Any]:
     add_distributed_args(p)
     args = p.parse_args(argv)
 
-    if args.preproc == "legacy":
-        p.error("--preproc legacy is not ported (ROADMAP.md, Queue 1, item 3)")
     if args.parity and args.rcnn_fast:
         p.error("--parity pins the exact RCNNConfig; drop --rcnn-fast")
     if args.rcnn_fast and args.mesh_detector != "rcnn" and not args.rcnn_ckpt:
@@ -928,7 +988,7 @@ def main(argv: T.Optional[T.Sequence[str]] = None) -> T.Dict[str, T.Any]:
         ex_cfg = ExtractorConfig.parity(kp_bug_compat=args.bug_compat)
     else:
         ex_cfg = ExtractorConfig(kp_bug_compat=args.bug_compat, mesh_detector=args.mesh_detector,
-                                 rcnn=RCNNConfig.fast() if args.rcnn_fast else None)
+                                 rcnn=RCNNConfig.fast() if args.rcnn_fast else None, preproc=args.preproc)
     rank = maybe_initialize_distributed(args, args.device)
     try:
         world = rank.world if rank is not None else 1

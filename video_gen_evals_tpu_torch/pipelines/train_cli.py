@@ -5,7 +5,7 @@ Port of ``video_gen_evals_tpu/pipelines/train_cli.py``:
     python -m video_gen_evals_tpu_torch.pipelines.train_cli \\
         --real-meshes REAL --real-kp-dir KP --generated-meshes GEN \\
         --gen-kp-dir GKP --human-scores MOS.json [--device cuda] [--resume CKPT] \\
-        [--dp N] [--bank-cache DIR] [--conv-impl auto|module|kernel]
+        [--dp N] [--tp N] [--bank-cache DIR] [--conv-impl auto|module|kernel]
 
 ``--bank-cache DIR`` (or ``TrainConfig.bank_cache_dir``) keeps the stats and
 the train and test banks between runs. ``--conv-impl`` (or
@@ -17,10 +17,13 @@ version under autograd on any device.
 data-parallel ranks: on one host N local processes (rank r on
 ``cuda:{r % device count}``, or the CPU with ``--device cpu``); under
 ``--coordinator`` / ``--num-processes P`` / ``--process-id`` each process is
-one rank and ``--dp`` is absent or P. ``--tp`` other than 1 (tensor
-parallelism) is not ported. The best checkpoint it writes
-(``best_eval_epochNNN.pt``) is what the scoring CLI's ``--checkpoint``
-takes.
+one rank and ``--dp`` is absent or P. ``--tp N`` adds JAX's model axis:
+``dp x tp`` ranks on a ``(data, model)`` grid (``parallel.make_grid``; rank r
+is data index ``r // tp`` and model index ``r % tp``), the fusion encoder
+tensor-parallel over each model axis (``parallel/tensor.py``) and the batch
+split over the data axis; under ``--num-processes P``, ``dp x tp`` must be
+P. The best checkpoint it writes (``best_eval_epochNNN.pt``, the gathered
+tree at any grid) is what the scoring CLI's ``--checkpoint`` takes.
 """
 
 from __future__ import annotations
@@ -30,11 +33,18 @@ import typing as T
 
 def _run(rank, cfg, args) -> T.Dict[str, T.Any]:
     """One process's run: alone on ``--device`` (``rank`` None) or as
-    ``rank`` (a local rank of ``--dp``, or a process of a distributed run).
-    Returns where it wrote and this process's kernel launches."""
+    ``rank`` (a local rank of ``--dp`` / ``--tp``, or a process of a
+    distributed run). Returns where it wrote and this process's kernel
+    launches."""
     from ..ops import launch_counts
+    from ..parallel import make_grid
     from ..train.experiment import Experiment
 
+    if rank is not None and args.tp > 1:
+        rank = make_grid(rank, n_model=args.tp)
+        if rank.is_primary:
+            # JAX train_cli.py:87-88
+            print(f"Mesh: {{'data': {rank.world // rank.tp}, 'model': {rank.tp}}} over {rank.world} ranks")
     exp = Experiment(cfg, device=args.device, rank=rank)
     talk = exp.writes
     if talk:
@@ -43,7 +53,8 @@ def _run(rank, cfg, args) -> T.Dict[str, T.Any]:
         print(
             f"Training on {len(exp.train_ds)} videos ({len(exp.train_windows)} windows), "
             f"evaluating on {len(exp.test_ds)} videos; classes: {exp.full_ds.classes}"
-            + ("" if rank is None else f"; {rank.world} data-parallel ranks")
+            + ("" if rank is None else f"; {rank.data.world} data-parallel ranks"
+               + (f" x {rank.tp} tensor-parallel" if rank.tp > 1 else ""))
             + f"; conv stages: --conv-impl {cfg.conv_impl} ({convs})"
         )
     start_epoch = 0
@@ -54,7 +65,8 @@ def _run(rank, cfg, args) -> T.Dict[str, T.Any]:
     exp.run(start_epoch=start_epoch)
     if talk:
         print(f"Training complete. Best checkpoint: {exp.best_ckpt}")
-    return {"rank": 0 if rank is None else rank.rank, "save_dir": exp.save_dir,
+    return {"rank": 0 if rank is None else rank.rank,
+            "grid": None if rank is None else (rank.world // rank.tp, rank.tp), "save_dir": exp.save_dir,
             "best_ckpt": exp.best_ckpt, "launches": launch_counts()}
 
 
@@ -65,7 +77,6 @@ def main(argv: T.Optional[T.List[str]] = None) -> T.List[T.Dict[str, T.Any]]:
 
     from ..core.config import CONV_IMPLS, PathsConfig, TrainConfig
     from ..parallel import launch_local, shutdown
-    from ..parallel.mesh import TENSOR_PARALLEL
     from ..utils.cli import add_distributed_args, maybe_initialize_distributed
     from ..utils.device import resolve_device
 
@@ -98,7 +109,8 @@ def main(argv: T.Optional[T.List[str]] = None) -> T.List[T.Dict[str, T.Any]]:
                    help="data-parallel ranks: split each PK batch's stacked windows over N "
                         "ranks (default: one device; also TrainConfig.num_dp_devices)")
     p.add_argument("--tp", type=int, default=1,
-                   help=f"tensor-parallel devices per data shard: 1 only ({TENSOR_PARALLEL})")
+                   help="tensor-parallel ranks per data shard: Megatron-style shardings of the fusion "
+                        "encoder over the grid's model axis (dp x tp ranks in all)")
     p.add_argument("--resume", default=None,
                    help="resume-checkpoint file of a previous run (restores "
                         "model, optimizer, schedule, step and epoch exactly and "
@@ -110,8 +122,8 @@ def main(argv: T.Optional[T.List[str]] = None) -> T.List[T.Dict[str, T.Any]]:
         resolve_device(args.device)
     except RuntimeError as e:
         p.error(f"--device: {e}")
-    if args.tp != 1:
-        p.error(f"--tp {args.tp}: tensor parallelism is not ported ({TENSOR_PARALLEL}); --tp 1 only")
+    if args.tp < 1:
+        p.error(f"--tp must be >= 1, got {args.tp}")
 
     cfg = TrainConfig.from_json(args.config) if args.config else TrainConfig()
     paths: PathsConfig = cfg.paths
@@ -143,14 +155,16 @@ def main(argv: T.Optional[T.List[str]] = None) -> T.List[T.Dict[str, T.Any]]:
     rank = maybe_initialize_distributed(args, args.device)
     if rank is not None:
         try:
-            if n_dp not in (None, rank.world):
-                p.error(f"--dp {n_dp} under --num-processes {rank.world}: one rank a process, so "
-                        f"--dp must be absent or {rank.world}")
+            if rank.world % args.tp or n_dp not in (None, rank.world // args.tp):
+                p.error(f"--dp {n_dp} --tp {args.tp} under --num-processes {rank.world}: one rank a "
+                        f"process, so --tp must divide {rank.world} and --dp be absent or "
+                        f"{rank.world} / --tp")
             return [_run(rank, cfg, args)]
         finally:
             shutdown(rank)
-    if n_dp is not None and n_dp > 1:
-        return launch_local(n_dp, _run, cfg, args, device=args.device)
+    ranks = (n_dp or 1) * args.tp
+    if ranks > 1:
+        return launch_local(ranks, _run, cfg, args, device=args.device)
     return [_run(None, cfg, args)]
 
 

@@ -30,6 +30,18 @@ barrier follows each epoch's writes; every rank restores a resume file. The
 background saver runs only at one rank, as in JAX. The parameters stay
 bitwise equal on every rank.
 
+Tensor parallelism (``rank`` on a ``parallel.make_grid`` grid of data x
+model ranks; JAX ``experiment.py:165-172``): the model is drawn whole from
+the seed and broadcast as above, then each rank keeps its blocks of the
+sharded parameters (``HumanActionScorer.shard_``), and the batch splits
+over the data axis only. The eval passes and the best checkpoint use the
+gathered model, a whole copy refreshed from the shards after each epoch's
+training (``eval_model``), on every rank of the grid as the data-parallel
+eval does. Checkpoints and resume files hold the gathered tree, moments
+included, so they load at any grid, in the score CLI and as the JAX
+package's ``.npz`` (``checkpoint.save_jax_npz_params`` of
+``model.full_state_dict()``); a run resumes from one by cutting it.
+
 Exact resume: a step's randomness is a function of ``(seed, step)`` and an
 epoch's batch stream of ``(seed, epoch)``, so a run of N epochs and a run
 resumed from any epoch's checkpoint end with the same bits.
@@ -94,18 +106,19 @@ class Experiment:
         """``precision``: the trainable conv-stage kernel's arithmetic,
         "default" (bf16 operands, fp32 sums) or "highest" (fp32). The eval
         passes run the scoring kernel at "high", or "highest" with it.
-        ``rank``: this process's rank of a data-parallel group (its device
-        replaces ``device``)."""
+        ``rank``: this process's rank of a data-parallel group or of a
+        (data, model) grid (its device replaces ``device``)."""
         if cfg.conv_impl not in CONV_IMPLS:
             raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {cfg.conv_impl!r}")
         self.cfg = cfg
         self.eval_batch = eval_batch
         self.rank = rank
         self.world = 1 if rank is None else rank.world
-        if self.world > 1 and cfg.batch_size % self.world:
+        n_data = 1 if rank is None else rank.data.world
+        if n_data > 1 and cfg.batch_size % n_data:
             raise ValueError(
                 f"PK batch size {cfg.batch_size} must divide evenly over the "
-                f"{self.world} data-parallel ranks"
+                f"{n_data} data-parallel ranks"
             )
         self.device = resolve_device(rank.device if rank is not None else device)
         self.writes = rank is None or rank.is_primary   # only rank 0 writes files
@@ -167,17 +180,26 @@ class Experiment:
             self.enc_cfg, generator=torch.Generator().manual_seed(cfg.seed)
         ).to(self.device)
         self.conv_impl = "module" if cfg.conv_impl == "module" else "kernel"
-        self.model.set_conv_impl(self.conv_impl)
         if rank is not None:
             broadcast_([p.data for p in self.model.parameters()], rank)
+        # the model the eval passes and checkpoints use: the trained one, or
+        # under tensor parallelism a whole copy of its shards
+        self.eval_model = self.model
+        if rank is not None and rank.tp > 1:
+            self.eval_model = HumanActionScorer(
+                self.enc_cfg, generator=torch.Generator().manual_seed(0)).to(self.device)
+            self.eval_model.load_state_dict(self.model.state_dict())
+            self.model.shard_(rank.model)
+        self.model.set_conv_impl(self.conv_impl)
+        self.eval_model.set_conv_impl(self.conv_impl)
         eval_precision = "highest" if precision == "highest" else "high"
         self.train_step = TrainStep(
             self.model, cfg.lr, steps_per_epoch * cfg.epochs, eta_min=cfg.eta_min,
             hard_weight=cfg.hard_negative_weight, precision=precision,
-            eval_precision=eval_precision, seed=cfg.seed, rank=rank,
+            eval_precision=eval_precision, seed=cfg.seed, rank=rank, eval_model=self.eval_model,
         )
         self.encoder = WindowEncoder(
-            self.model, eval_batch, cfg.clip_len, eval_precision, self.device, rank=rank)
+            self.eval_model, eval_batch, cfg.clip_len, eval_precision, self.device, rank=rank)
         self._train_bank_dev = self.encoder.upload(self.train_bank)
         self._test_bank_dev = self.encoder.upload(self.test_bank)
         self.best_eval_loss = float("inf")
@@ -204,6 +226,12 @@ class Experiment:
             for k in (0, 1)
         )
         return gather_windows(*bank_dev, bank.one_pass_raw, vi, st, self.cfg.clip_len)
+
+    def refresh_eval_model(self) -> None:
+        """Under tensor parallelism, the eval model gathered anew from the
+        trained shards (a collective over the model axis); else nothing."""
+        if self.eval_model is not self.model:
+            self.eval_model.load_state_dict(self.model.full_state_dict())
 
     def _labels(self, labels: np.ndarray, idxs) -> torch.Tensor:
         return torch.from_numpy(labels[idxs]).to(self.device)
@@ -388,13 +416,16 @@ class Experiment:
         ``block=False`` (used by :meth:`run` when async checkpointing is on)
         copies the state on the device and hands the fetch and the write to
         a worker thread; call :meth:`wait_for_checkpoints` before relying on
-        the file. Only rank 0 writes; every rank returns the path."""
+        the file. Only rank 0 writes; every rank returns the path. Under
+        tensor parallelism every rank calls it (the gathers are collectives)
+        and the file holds the gathered tree."""
         path = path or os.path.join(self.save_dir, f"resume_epoch{epoch:03d}.pt")
+        model_state, step_state = self.model.full_state_dict(), self.train_step.state_dict()
         if not self.writes:
             return path
         state = {
-            "model": self.model.state_dict(),
-            "train_step": self.train_step.state_dict(),
+            "model": model_state,
+            "train_step": step_state,
             "epoch": epoch,
             "best_eval_loss": self.best_eval_loss,
         }
@@ -409,8 +440,9 @@ class Experiment:
         """Restore the full train state; returns the next epoch to run."""
         self.wait_for_checkpoints()  # never read a file a worker is writing
         st = restore_train_state(path)
-        self.model.load_state_dict(st["model"], strict=True)
+        self.model.load_full_state_dict(st["model"], strict=True)
         self.train_step.load_state_dict(st["train_step"])
+        self.refresh_eval_model()
         self.best_eval_loss = float(st["best_eval_loss"])
         return int(st["epoch"]) + 1
 
@@ -423,18 +455,19 @@ class Experiment:
         try:
             for epoch in range(start_epoch, self.cfg.epochs):
                 self.train_one_epoch(epoch)
+                self.refresh_eval_model()
                 centroids = self.evaluate_centroids()
                 eval_loss, _comps = self.evaluate_test_loss(epoch)
                 if eval_loss < self.best_eval_loss:
                     self.best_eval_loss = eval_loss
                     ckpt = os.path.join(self.save_dir, f"best_eval_epoch{epoch + 1:03d}.pt")
                     if self.writes and background:
-                        snap = snapshot(self.model.state_dict())
+                        snap = snapshot(self.eval_model.state_dict())
                         # bind per-iteration values: ckpt and snap are rebound
                         # on later epochs before the worker may run
                         self._saver().submit(lambda p=ckpt, s=snap: save_params(p, s))
                     elif self.writes:
-                        save_params(ckpt, self.model.state_dict())
+                        save_params(ckpt, self.eval_model.state_dict())
                     self.best_ckpt = ckpt
                     self._log({"event": "checkpoint", "epoch": epoch, "loss": eval_loss})
                 self.evaluate_centroid_distance(epoch, centroids)

@@ -31,6 +31,16 @@ labels) -> metrics``; a step is their composition.
   same sum, skips the same non-finite steps and applies the same update, so
   the parameters stay bitwise equal on every rank. At world 1 the path gives
   the single-device run's bits.
+- Tensor parallelism (``rank`` on a ``parallel.make_grid`` grid, the model
+  sharded by ``HumanActionScorer.shard_``): the rows split, the embeddings'
+  gather and the gradient sum above run over the rank's data axis
+  (``Rank.data``); the model axis's collectives run inside the forward
+  (``parallel/tensor.py``). Every rank still computes the same loss and
+  skips the same non-finite steps, and AdamW updates each rank's own blocks.
+  :meth:`TrainStep.state_dict` gathers the AdamW moments of the sharded
+  parameters whole, and :meth:`TrainStep.load_state_dict` cuts them again, so
+  a resume file is the same at every grid. The eval loss runs ``eval_model``
+  (the gathered model) when one is given.
 
 Precision: ``precision`` ("default" or "highest") selects the arithmetic of
 the trainable conv-stage kernel only. Every other matmul of the step runs in
@@ -138,10 +148,13 @@ class TrainStep:
         eval_precision: str = "high",
         seed: int = 0,
         rank: T.Optional[Rank] = None,
+        eval_model: T.Optional[HumanActionScorer] = None,
     ):
         disable_tf32()
         self.rank = rank
+        self.data = None if rank is None else rank.data   # the rows and the gradient sum
         self.model = model
+        self.eval_model = model if eval_model is None else eval_model
         self.total_steps = max(1, total_steps)
         self.optimizer, self.scheduler = make_optimizer(
             model.parameters(), lr, total_steps, eta_min)
@@ -163,28 +176,30 @@ class TrainStep:
         """This rank's block ``(lo, hi)`` of an ``n``-row stacked batch, or
         None for the whole batch: without a rank, or (``required`` False)
         where the rows do not divide over the ranks."""
-        if self.rank is None:
+        if self.data is None:
             return None
-        if n % self.rank.world:
+        if n % self.data.world:
             if required:
                 raise ValueError(f"{n} stacked windows must divide evenly over "
-                                 f"{self.rank.world} data-parallel ranks")
+                                 f"{self.data.world} data-parallel ranks")
             return None
-        per = n // self.rank.world
-        return self.rank.rank * per, (self.rank.rank + 1) * per
+        per = n // self.data.world
+        return self.data.rank * per, (self.data.rank + 1) * per
 
     def embed(self, stacked: torch.Tensor, precision: str,
-              generator: T.Optional[torch.Generator] = None, required: bool = True) -> torch.Tensor:
-        """The embeddings ``[4B, D]`` of the stacked batch: on one device the
-        model's forward; on a data-parallel rank the forward of its rows,
-        gathered from every rank in order."""
+              generator: T.Optional[torch.Generator] = None, required: bool = True,
+              model: T.Optional[HumanActionScorer] = None) -> torch.Tensor:
+        """The embeddings ``[4B, D]`` of the stacked batch by ``model``
+        (default: the trained one): on one device its forward; on a
+        data-parallel rank the forward of its rows, gathered from every rank
+        of its data axis in order."""
+        model = self.model if model is None else model
         rows = self._my_rows(stacked.shape[0], required)
         if rows is None:
-            return self.model(stacked, precision, generator=generator)[0]
+            return model(stacked, precision, generator=generator)[0]
         lo, hi = rows
-        emb, _, _ = self.model(stacked[lo:hi], precision, generator=generator,
-                               rows=(lo, stacked.shape[0]))
-        return all_gather_rows(emb, self.rank)
+        emb, _, _ = model(stacked[lo:hi], precision, generator=generator, rows=(lo, stacked.shape[0]))
+        return all_gather_rows(emb, self.data)
 
     def update(self, stacked: torch.Tensor, labels: torch.Tensor) -> T.Dict[str, float]:
         """Forward in training mode, backward, and one optimizer and schedule
@@ -200,7 +215,7 @@ class TrainStep:
         if finite:
             self.optimizer.zero_grad(set_to_none=True)
             total.backward()
-            if self.rank is not None:
+            if self.data is not None:
                 self._sum_gradients()
             self.optimizer.step()
             if self.scheduler.last_epoch < self.total_steps:
@@ -210,12 +225,12 @@ class TrainStep:
         return metrics
 
     def _sum_gradients(self) -> None:
-        """Every parameter's gradient summed over the ranks, in one collective."""
+        """Every parameter's gradient summed over the data axis, in one collective."""
         params = [p for p in self.model.parameters() if p.requires_grad]
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        all_reduce_sum([p.grad for p in params], self.rank)
+        all_reduce_sum([p.grad for p in params], self.data)
 
     def __call__(self, feats: torch.Tensor, labels: torch.Tensor) -> T.Dict[str, float]:
         return self.update(self.stack(feats), labels)
@@ -227,24 +242,40 @@ class TrainStep:
         On a data-parallel rank the chunk's rows are split over the ranks
         where they divide evenly, as the training step's; a chunk that does
         not divide runs whole on every rank."""
-        self.model.eval()
+        self.eval_model.eval()
         with torch.no_grad():
             stacked = stack_corruptions(
                 feats, seeded_generator(self.seed + 999, chunk, _SHUFFLE))
-            emb = self.embed(stacked, self.eval_precision, required=False)
+            emb = self.embed(stacked, self.eval_precision, required=False, model=self.eval_model)
             components = loss_components(emb, labels, self.hard_weight)
             return _to_floats(components, sum(components.values()))
 
+    def _moments(self, state: T.Mapping[str, T.Any], fn) -> T.Dict[str, T.Any]:
+        """``state`` (an optimizer state_dict) with ``fn(name, tensor)`` on
+        each parameter's AdamW moments."""
+        names = [n for n, _ in self.model.named_parameters()]
+        per_param = {i: {k: fn(names[i], v) if k in ("exp_avg", "exp_avg_sq") else v for k, v in s.items()}
+                     for i, s in state["state"].items()}
+        return {**state, "state": per_param}
+
     def state_dict(self) -> T.Dict[str, T.Any]:
-        return {"optimizer": self.optimizer.state_dict(),
-                "scheduler": self.scheduler.state_dict(), "step": self.step}
+        """The optimizer, schedule and step counter; under tensor parallelism
+        the moments gathered whole (a collective over the model axis)."""
+        optimizer = self.optimizer.state_dict()
+        if self.model.tp is not None:
+            optimizer = self._moments(optimizer, self.model.tp.gather)
+        return {"optimizer": optimizer, "scheduler": self.scheduler.state_dict(), "step": self.step}
 
     def load_state_dict(self, state: T.Mapping[str, T.Any]) -> None:
         """An interrupted run's state restores exactly. A checkpoint of a run
         with another length keeps its weights, moments and counts, and this
         run's schedule takes over at the saved count (the schedule is a
-        function of the count, as optax's is)."""
-        self.optimizer.load_state_dict(state["optimizer"])
+        function of the count, as optax's is). Whole moments are cut to this
+        rank's blocks under tensor parallelism."""
+        optimizer = state["optimizer"]
+        if self.model.tp is not None:
+            optimizer = self._moments(optimizer, self.model.tp.shard)
+        self.optimizer.load_state_dict(optimizer)
         saved = state["scheduler"]
         if saved["T_max"] == self.scheduler.T_max:
             self.scheduler.load_state_dict(saved)
