@@ -68,7 +68,8 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    Then K2 (gather_windows_subblock: bitwise equal to its plain version on a
    B = 512 x 32 x 2596 gather with a window clipped to an unaligned start,
    where it must differ from K1), K9 (fused_temporal_block_stacked over 10
-   chains of [512, 32, 256], dilations 1/2/4/8) and K10
+   chains of [512, 32, 256], dilations 1/2/4/8; bitwise K3 "high" chain by
+   chain, and timed beside ten K3 "high" launches) and K10
    (fused_temporal_chain over one chain's 4 stages, and the two halves of
    chain2) against their plain versions at "high" (FUSED_TOL), with ms,
    bound and library time as in phase 2.
@@ -597,7 +598,7 @@ def phase_fused_kernels(torch, dev, gen):
     the two halves of chain2, K2 on a sweep-sized bank."""
     from video_gen_evals_tpu_torch.ops.chain_kernel import fused_temporal_chain, fused_temporal_chain_plain
     from video_gen_evals_tpu_torch.ops.conv_kernel import (
-        fused_temporal_block_stacked, fused_temporal_block_stacked_plain)
+        fused_temporal_block, fused_temporal_block_stacked, fused_temporal_block_stacked_plain)
     from video_gen_evals_tpu_torch.ops.window_kernel import (
         gather_windows, gather_windows_subblock, gather_windows_subblock_plain)
 
@@ -646,7 +647,12 @@ def phase_fused_kernels(torch, dev, gen):
         """x read and out written once; each conv's [5, C, C] fp32 weights read once."""
         return 4 * (2 * windows * CLIP * C + 2 * weight_sets * 5 * C * C)
 
-    errs, kms, pms, bounds = [], [], [], []
+    def k3_per_chain(d):
+        """K3 "high" launched once a chain: what K9 does in one launch."""
+        return torch.stack([fused_temporal_block(xs[i], w1s[i], w2s[i], gs[i], gb[i], d, "high")
+                            for i in range(S)])
+
+    errs, kms, pms, bounds, k9_ms, k3_ms = [], [], [], [], [], []
     for d in (1, 2, 4, 8):
         got = fused_temporal_block_stacked(xs, w1s, w2s, gs, gb, d)
         want = fused_temporal_block_stacked_plain(xs, w1s, w2s, gs, gb, d)
@@ -654,16 +660,24 @@ def phase_fused_kernels(torch, dev, gen):
         _check(bool(torch.isfinite(got).all()), f"K9 d={d}: non-finite output")
         errs.append((got - want).abs().max().item())
         _check(errs[-1] <= FUSED_TOL, f"K9 d={d}: max |kernel - plain| {errs[-1]:.3e} > {FUSED_TOL}")
+        _check(torch.equal(got, k3_per_chain(d)), f"K9 d={d}: differs from K3 high chain by chain")
         k, p = _interleaved_ms(lambda: fused_temporal_block_stacked(xs, w1s, w2s, gs, gb, d),
                                lambda: fused_temporal_block_stacked_plain(xs, w1s, w2s, gs, gb, d), 5)
         kms.append(k)
         pms.append(p)
+        k, p = _interleaved_ms(lambda: fused_temporal_block_stacked(xs, w1s, w2s, gs, gb, d),
+                               lambda: k3_per_chain(d), 10)
+        k9_ms.append(k)
+        k3_ms.append(p)
         bounds.append(_bound(act_w_bytes(S * BATCH, S), 6 * 2 * S * _conv_fmas(BATCH, CLIP, C, d), PEAK_BF16))
     fmt = lambda v: ", ".join(f"{m:.3f}" for m in v)   # noqa: E731
     bound_ms = sum(b[0] for b in bounds) / 4
     print(f"K9 fused_temporal_block_stacked[high] [{S}, {BATCH}, {CLIP}, {C}] d=1/2/4/8: max |kernel - plain| "
-          f"{', '.join(f'{e:.2e}' for e in errs)} (tol {FUSED_TOL}); kernel ms {fmt(kms)}; plain ms {fmt(pms)}; "
-          f"bound {bound_ms:.4f} ms ({bounds[0][1]}); no single PyTorch call computes the fused stage")
+          f"{', '.join(f'{e:.2e}' for e in errs)} (tol {FUSED_TOL}); bitwise K3 high chain by chain; "
+          f"kernel ms {fmt(kms)}; plain ms {fmt(pms)}; bound {bound_ms:.4f} ms ({bounds[0][1]}, "
+          f"{bound_ms / (sum(kms) / 4):.1%} of the mean); no single PyTorch call computes the fused stage")
+    print(f"   K9 beside {S} K3 high launches (one a chain, each with its weight planes), interleaved: "
+          f"K9 ms {fmt(k9_ms)}; {S} x K3 ms {fmt(k3_ms)}; ratio {sum(k9_ms) / sum(k3_ms):.3f}")
     results["fused_temporal_block_stacked[high]"] = dict(
         max_abs_err=max(errs), ms=sum(kms) / 4, plain_ms=sum(pms) / 4, bound_ms=bound_ms,
         bound_by=bounds[0][1], library_ms=None)
@@ -956,7 +970,7 @@ def phase_fused_sweep(torch, card):
          {}, BF16_SWEEP_TOL),
     ]
     counters = _kernel_counters()
-    ref, launches = None, {}
+    ref, launches, rates = None, {}, {}
     for arm, sweep, want, rows, tol in arms:
         for fn in counters.values():
             fn.launches = 0
@@ -980,9 +994,12 @@ def phase_fused_sweep(torch, card):
         for _ in range(reps):
             sweep()   # ends in its one fetch, so the host clock sees it finish
         dt = (time.perf_counter() - t0) / reps
-        print(f"fused sweep high batch {BATCH}, {arm}: {len(windows) / dt:.0f} windows/s "
+        rates[arm] = len(windows) / dt
+        print(f"fused sweep high batch {BATCH}, {arm}: {rates[arm]:.0f} windows/s "
               f"({dt * 1e3 / nb:.2f} ms/batch); launches a sweep {got}; max |dAC| {d_ac:.2e}, "
               f"|dTC| {d_tc:.2e} vs module (tol {tol}) on {card}")
+    print("fused sweep: windows/s against module's, " + "; ".join(
+        f"{arm} {rate / rates['module']:.1%}" for arm, rate in rates.items() if arm != "module"))
     return launches
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the fused conv-stage kernels of the PyTorch + CUDA port (K3
-``fused_temporal_block``, K10 ``fused_temporal_chain``, K4
+``fused_temporal_block``, K9 ``fused_temporal_block_stacked``, K10
+``fused_temporal_chain``, K4
 ``fused_temporal_block_train`` forward and backward) on one NVIDIA GPU,
 alone. It builds only ``csrc/temporal_block.cu``, ``csrc/temporal_chain.cu``
 and ``csrc/temporal_block_train.cu`` (``cuda_lib.load_library`` with a
@@ -21,12 +22,13 @@ kernel the build instantiated; ``--build-only`` also the number of HMMA, FFMA
 and LDS instructions in each conv kernel's SASS (``cuobjdump``). The
 measurement helpers come from this checkout's ``chip_smoke.py``, the package
 from ``--root``. A timed run prints,
-at the main paths' shapes ([512, 32, 256] for K3 and K10, [960, 32, 256]
+at the main paths' shapes ([512, 32, 256] for K3 and K10, [10, 512, 32,
+256] for K9 beside ten K3 ``"high"`` launches, [960, 32, 256]
 with a keep mask for K4; dilations 1, 2, 4, 8 and their mean, as phase 2
 reports it; K10 over 4 stages and over chain2's two halves, as phase 6 does):
 ms a call from CUDA events, the bound and the kernel's share of it; K3 at
 ``"high"``, K10 and the backward split into their launches by
-``torch.profiler`` (device ms a call of each kernel, the weight
+``torch.profiler`` (K9 too; device ms a call of each kernel, the weight
 preparation's small launches included; K3 at both precisions, K4's backward
 at "highest" at every dilation); K10's error at 1 to 4 stages
 against its plain version beside K3 ``"high"`` run once a stage (and
@@ -103,6 +105,32 @@ def timing(torch, ck, ckc, ckt, iters, card):
         for ms, n, key in _device_split(torch, lambda: ck.fused_temporal_block(
                 x, w1, w2, gs, gb, 2, precision), iters)[:6]:
             print(f"  K3 {precision} d=2 device split: {ms:.4f} ms, {n:g} launches a call: {key[:90]}")
+
+    # K9 at [10, 512, 32, 256]: the scorer's 10 chains in one launch, beside
+    # K3 "high" launched once a chain
+    S = 10
+    xs = torch.randn(S, BATCH, CLIP, C, generator=gen).to(dev)
+    w1s, w2s = ((torch.randn(S, 5, C, C, generator=gen) / math.sqrt(5 * C)).to(dev) for _ in range(2))
+    gss = (1.0 + 0.1 * torch.randn(S, C, generator=gen)).to(dev)
+    gbs = (0.1 * torch.randn(S, C, generator=gen)).to(dev)
+    k9_ms, k3_ms, bounds = [], [], []
+    for d in (1, 2, 4, 8):
+        k9_ms.append(_time_ms(lambda: ck.fused_temporal_block_stacked(xs, w1s, w2s, gss, gbs, d), iters))
+        k3_ms.append(_time_ms(lambda: [ck.fused_temporal_block(xs[i], w1s[i], w2s[i], gss[i], gbs[i], d, "high")
+                                       for i in range(S)], iters))
+        # xs in, out; each conv's fp32 weights once; three bf16 products a term
+        bounds.append(_bound(4 * (2 * S * BATCH * CLIP * C + 2 * S * 5 * C * C),
+                             6 * 2 * S * _conv_fmas(BATCH, CLIP, C, d), PEAK_BF16))
+    mean, bound = sum(k9_ms) / 4, sum(b[0] for b in bounds) / 4
+    print(f"K9 [{S}, {BATCH}, {CLIP}, {C}] d=1/2/4/8: {fmt(k9_ms)} ms, mean {mean:.4f}; bound {bound:.4f} ms "
+          f"({bounds[0][1]}, {bound / mean:.1%} of it); {S} K3 high launches {fmt(k3_ms)} ms, mean "
+          f"{sum(k3_ms) / 4:.4f}, K9 / {S} K3 {mean / (sum(k3_ms) / 4):.3f} on {card}")
+    print(f"K9 weight preparation (high_weight_planes on {S} chains): "
+          f"{_time_ms(lambda: ck.high_weight_planes(w1s, w2s), iters):.4f} ms a call on {card}")
+    for ms, n, key in _device_split(torch, lambda: ck.fused_temporal_block_stacked(
+            xs, w1s, w2s, gss, gbs, 2), iters)[:6]:
+        print(f"  K9 d=2 device split: {ms:.4f} ms, {n:g} launches a call: {key[:90]}")
+    del xs
 
     # K10 at [512, 32, 256]: one chain's 4 stages, and chain2's two halves
     S = 4

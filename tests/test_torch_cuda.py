@@ -217,11 +217,16 @@ def _stage_weights(gen, lead, channels):
     return w1, w2, gs, gb
 
 
-@pytest.mark.parametrize("chains,batch,t_len,channels", [(10, 512, 32, 256), (3, 37, 16, 64)])
+# the scorer's 10 chains, batches that are no multiple of W = 128 / T
+# windows a block (37, 5, 513), one chain, and the T and C corners
+@pytest.mark.parametrize("chains,batch,t_len,channels", [
+    (10, 512, 32, 256), (3, 37, 16, 64), (2, 5, 32, 256), (3, 513, 32, 256), (1, 512, 32, 256),
+    (1, 5, 8, 128), (2, 513, 8, 128), (2, 37, 32, 64)])
 @pytest.mark.parametrize("dilation", [1, 2, 4, 8])
 def test_stacked_kernel_matches_plain(cuda, chains, batch, t_len, channels, dilation):
     """K9 against its plain version (K3's plain version at "high" per chain)
-    on the card: 1e-4, as K3 "high"."""
+    on the card: 1e-4, as K3 "high"; and chain by chain bitwise K3 "high",
+    whose kernel K9 runs with the chain on the grid's second axis."""
     gen = torch.Generator().manual_seed(dilation)
     xs = torch.randn(chains, batch, t_len, channels, generator=gen)
     args = [a.to(cuda) for a in (xs,) + _stage_weights(gen, (chains,), channels)]
@@ -232,6 +237,39 @@ def test_stacked_kernel_matches_plain(cuda, chains, batch, t_len, channels, dila
     assert fused_temporal_block_stacked.launches == before + 1
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 1e-4
+    for s, chain in enumerate(zip(*args)):
+        assert torch.equal(got[s], fused_temporal_block(*chain, dilation, "high")), s
+
+
+def test_stacked_kernel_refuses_a_foreign_plan(cuda):
+    """The "high" C entry point, with K9's chains, launches only with its
+    instantiation's plan (another window count or shared-memory size is
+    refused before any launch) and refuses more chains than the grid's
+    second axis holds."""
+    from video_gen_evals_tpu_torch.ops.conv_kernel import high_weight_planes, tc_plan
+    from video_gen_evals_tpu_torch.ops.cuda_lib import load_library, stream_handle
+
+    gen = torch.Generator().manual_seed(0)
+    xs = torch.randn(2, 8, 32, 256, generator=gen).to(cuda)
+    w1s, w2s, gs, gb = (a.to(cuda) for a in _stage_weights(gen, (2,), 256))
+    wk = high_weight_planes(w1s, w2s)
+    out = torch.full_like(xs, float("nan"))
+    plan = tc_plan(32, 256, 8, "block_high")
+    lib = load_library().lib
+
+    def launch(windows_per_block, smem_bytes, chains=2):
+        return lib.vge_temporal_block_high(
+            xs.device.index, xs.data_ptr(), wk.data_ptr(), gs.data_ptr(), gb.data_ptr(), out.data_ptr(),
+            chains, 8, 32, 256, 1, windows_per_block, smem_bytes, stream_handle(xs.device))
+
+    assert launch(plan.windows_per_block + 1, plan.smem_bytes) != 0
+    assert launch(plan.windows_per_block, plan.smem_bytes - 16) != 0
+    assert launch(plan.windows_per_block, plan.smem_bytes, chains=65536) != 0
+    torch.cuda.synchronize()
+    assert torch.isnan(out).all()   # nothing ran
+    assert launch(plan.windows_per_block, plan.smem_bytes) == 0
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
 
 
 # batches that are no multiple of W = 128 / T windows a block (1, 5, 37, 513)

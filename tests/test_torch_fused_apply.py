@@ -51,6 +51,19 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _jax_fast_compiles():
+    """XLA's optimization passes off for the module: its CPU compiles of the
+    interpret-mode kernels dominate these tests, and the passes change what
+    an f32 program computes by rounding only. The flag is put back and every
+    executable compiled under it dropped after the module."""
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+    jax.clear_caches()
+
+
 def _t(arrays):
     return [torch.from_numpy(a) for a in arrays]
 

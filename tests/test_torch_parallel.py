@@ -110,6 +110,15 @@ def _steps_main(rank: Rank, state_dict, stacked, labels, dropouts):
     return {d: _step_main(rank, state_dict, stacked, labels, d) for d in dropouts}
 
 
+def _world2_main(rank: Rank, state_dict, stacked, labels, dropouts, cfg: TrainConfig,
+                 resume_cfg: TrainConfig):
+    """Both world-2 jobs of this module in one launch, since each launch
+    spawns its ranks and imports anew: the step at each dropout, then the
+    2-epoch run and its resumed run."""
+    return {"steps": _steps_main(rank, state_dict, stacked, labels, dropouts),
+            "train": _train_main(rank, cfg, resume_cfg)}
+
+
 def _train(cfg: TrainConfig, rank: Rank, resume: str = None) -> Experiment:
     exp = Experiment(cfg, eval_batch=16, device="cpu", precision="highest", rank=rank)
     exp.run(start_epoch=exp.restore_resume_checkpoint(resume) if resume else 0)
@@ -240,13 +249,18 @@ def step_case():
 
 
 @pytest.fixture(scope="module")
-def step_runs(step_case):
-    """The step at world 2 without dropout (against JAX) and with dropout 0.1
-    (against the one-device run below), in one launch."""
+def world2(step_case, env):
+    """One launch of 2 ranks for the step cases and the experiment below."""
     c = step_case
-    ranks = launch_local(2, _steps_main, c["sd"], c["stacked"], c["labels"], (0.0, 0.1),
-                         device="cpu", timeout=DEADLINE)
-    return {d: [r[d] for r in ranks] for d in (0.0, 0.1)}
+    return launch_local(2, _world2_main, c["sd"], c["stacked"], c["labels"], (0.0, 0.1),
+                        _cfg(env, "w2"), _cfg(env, "w2_resumed"), device="cpu", timeout=DEADLINE)
+
+
+@pytest.fixture(scope="module")
+def step_runs(world2):
+    """The step at world 2 without dropout (against JAX) and with dropout 0.1
+    (against the one-device run below)."""
+    return {d: [r["steps"][d] for r in world2] for d in (0.0, 0.1)}
 
 
 def test_dp_loss_and_gradients_match_jax_mesh(step_case, step_runs):
@@ -322,7 +336,7 @@ def _cfg(env, name, **kw) -> TrainConfig:
 
 
 @pytest.fixture(scope="module")
-def runs(env):
+def runs(env, world2):
     """The same 2-epoch run alone (no rank) and at worlds 1 and 2; world 2
     also resumes from its epoch-0 checkpoint."""
     out = {"single": _train_main(None, _cfg(env, "single"))}
@@ -332,8 +346,7 @@ def runs(env):
         out[1] = [_train_main(rank, _cfg(env, "w1"))]
     finally:
         shutdown(rank)
-    out[2] = launch_local(2, _train_main, _cfg(env, "w2"), _cfg(env, "w2_resumed"), device="cpu",
-                          timeout=DEADLINE)
+    out[2] = [r["train"] for r in world2]
     return out
 
 

@@ -84,11 +84,17 @@ def _stacked_as_jax(feats: np.ndarray, step_rng) -> torch.Tensor:
 
 @pytest.fixture(scope="module")
 def jax_run(_one_thread):
-    """The JAX side, run once: loss components and gradients of one batch,
-    then four optimizer steps (states kept after the third and the fourth).
-    XLA's CPU compiles dominate, and its optimization passes do not change
-    what an f32 program computes beyond rounding, so they are off while this
-    runs; afterwards the flag is restored and the executables dropped."""
+    """The JAX side, run once: four optimizer steps of JAX's jitted train
+    step (states kept after each), the first step's loss components, and its
+    gradients. The step does not return its gradients, but Adam's first
+    moment after one step from zero is ``(1 - b1) * g``, one fp32 product
+    away from them, so they are read from it (an ulp apart, far inside the
+    tolerance); compiling the loss and its gradient apart again would double
+    the XLA CPU compile that dominates here. Its optimization passes do not
+    change what an f32 program computes beyond rounding, so they are off
+    while this runs; afterwards the flag is restored and the executables
+    dropped. The parameters come from a jitted init (an eager flax init
+    costs seconds of dispatch)."""
     rng = np.random.default_rng(0)
     jcfg = JaxEncoderConfig.create(DIMS_RAW, DIMS_DIFF, conv_impl="kernel",
                                    conv_precision="highest", **KW)
@@ -99,37 +105,36 @@ def jax_run(_one_thread):
     jax.config.update("jax_disable_most_optimizations", True)
     try:
         # the module-conv encoder has the same parameter tree and inits faster
-        _, params = init_encoder(JaxEncoderConfig.create(DIMS_RAW, DIMS_DIFF, **KW),
-                                 jax.random.key(0), clip_len=T_LEN)
+        init_cfg = JaxEncoderConfig.create(DIMS_RAW, DIMS_DIFF, **KW)
+        params = jax.jit(lambda k: init_encoder(init_cfg, k, clip_len=T_LEN)[1])(jax.random.key(0))
         model = JaxHumanActionScorer(jcfg)
-        loss_fn = jax_step.make_loss_fn(model, HARD_WEIGHT, matmul_precision="highest")
-        (total, comps), grads = jax.jit(jax.value_and_grad(
-            lambda p: loss_fn(p, jnp.asarray(feats), jnp.asarray(labels), key, True),
-            has_aux=True))(params)
         tx = jax_step.make_optimizer(LR, TOTAL_STEPS)
         state = jax_step.TrainState(params, tx.init(params), jnp.zeros((), jnp.int32))
         step = jax_step.make_train_step(model, tx, HARD_WEIGHT, donate=False)
-        totals, states = [], []
+        metrics, states = [], []
         for _ in range(4):
-            state, metrics = step(state, jnp.asarray(feats), jnp.asarray(labels), key)
-            totals.append(float(metrics["total"]))
+            state, m = step(state, jnp.asarray(feats), jnp.asarray(labels), key)
+            metrics.append({k: float(v) for k, v in m.items()})
             states.append(_numpy({"params": state.params, "mu": state.opt_state[0].mu,
                                   "nu": state.opt_state[0].nu,
                                   "count": state.opt_state[0].count}))
     finally:
         jax.config.update("jax_disable_most_optimizations", before)
         jax.clear_caches()
+    b1 = np.float32(1 - 0.9)   # make_optimizer's b1
+    grads = jax.tree_util.tree_map(lambda mu: mu / b1, states[0]["mu"])
     return dict(feats=feats, labels=labels, key=key, params=_numpy(params),
-                total=float(total), comps={k: float(v) for k, v in comps.items()},
-                grads=_numpy(grads), totals=totals, states=states)
+                total=metrics[0]["total"], comps={k: metrics[0][k] for k in COMPONENTS},
+                grads=grads, totals=[m["total"] for m in metrics], states=states)
 
 
 def test_loss_and_every_gradient_match_jax(jax_run):
-    """Loss components within 1e-5 relative; every parameter's gradient,
-    mapped through ``named_tensors_from_jax_tree``, within atol 3e-4 / rtol
-    3e-3 (the JAX package's own kernel-vs-module tolerance)."""
+    """JAX's first step: loss components within 1e-5 relative; every
+    parameter's gradient, mapped through ``named_tensors_from_jax_tree``,
+    within atol 3e-4 / rtol 3e-3 (the JAX package's own kernel-vs-module
+    tolerance)."""
     port = _port_from(jax_run["params"]).train()
-    stacked = _stacked_as_jax(jax_run["feats"], jax_run["key"])
+    stacked = _stacked_as_jax(jax_run["feats"], _step_rng(jax_run["key"], 0))
     emb, _, _ = port(stacked, "highest")
     comps = loss_components(emb, torch.from_numpy(jax_run["labels"]).long(), HARD_WEIGHT)
     total = sum(comps.values())

@@ -1,12 +1,9 @@
 // Device helpers shared by the fused conv-stage kernels (temporal_block.cu,
-// temporal_block_train.cu, temporal_chain.cu), three bodies:
-// - conv_columns (CUDA cores): a [T, C] conv-input tile in shared memory,
-//   read as broadcasts, and each thread's output channels for all T rows in
-//   registers, one window a block, for K9. See temporal_block.cu for the
-//   design.
+// temporal_block_train.cu, temporal_chain.cu), two bodies:
 // - tc_conv (tensor cores): the conv over several windows a block as bf16
-//   mma.sync products with fp32 sums, for K3 and K10 at "high" and K4 at
-//   "default" (forward and backward). See the comment above TcConv.
+//   mma.sync products with fp32 sums, for K3, K9 and K10 at "high" (bf16x3,
+//   three products a term) and K4 at "default" (forward and backward, one
+//   product). See the comment above TcConv.
 // - fma_conv (CUDA cores): the conv over several windows a block in fp32,
 //   weights through a shared-memory ring, register-tiled outer products, for
 //   K3 and K4 (forward and backward) at "highest". See the comment above
@@ -24,14 +21,6 @@ namespace {
 
 constexpr int kTaps = 5;
 
-// Output channels per thread of conv_columns (co, co + C/kCols): 2, whose
-// split weights take two registers each (4 spilled and ran 1.6x slower on
-// the H100), and never fewer than 32 threads.
-template <int C>
-struct Cols {
-  static constexpr int value = 2 < C / 32 ? 2 : C / 32;
-};
-
 __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752440f));
 }
@@ -40,116 +29,12 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Sum of v over the block; every thread gets the same value (same order).
-template <int kWarps>
-__device__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float total = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kWarps; ++i) total += red[i];
-  __syncthreads();  // red is reused by the next call
-  return total;
-}
-
-// The thread's columns of a [T, C] conv input into shared memory as (hi,
-// lo) bf16 pairs held in fp32.
-template <int T, int C, int kCols>
-__device__ __forceinline__ void store_columns(float* tile, const float (&col)[kCols][T], int co) {
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int ch = co + c * (C / kCols);
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const float hi = bf16_round(col[c][t]);
-      const float lo = bf16_round(col[c][t] - hi);
-      reinterpret_cast<float2*>(tile)[t * C + ch] = make_float2(hi, lo);
-    }
-  }
-}
-
-// The (hi, lo) weight pairs of input channels ci .. ci+3 of tap j for the
-// thread's output channels.
-template <int C, int kCols>
-__device__ __forceinline__ void load_weights(const float* __restrict__ w, int j, int ci, int co,
-                                             float (&wv)[kCols][8]) {
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const size_t idx = (size_t)(j * C + ci + q) * C + co + c * (C / kCols);
-      const float2 v = __ldg(reinterpret_cast<const float2*>(w) + idx);
-      wv[c][2 * q] = v.x;
-      wv[c][2 * q + 1] = v.y;
-    }
-  }
-}
-
-// acc[c][t] = sum_j sum_ci in[t + (j - 2) * dilation][ci] * w[j][ci][co + c * C/kCols]
-// in bf16x3 ((hi, lo) pairs of input and weights), with rows outside [0, T)
-// reading zero.
-template <int T, int C, int kCols>
-__device__ __forceinline__ void conv_columns(const float* tile, const float* __restrict__ w,
-                                             int co, int dilation, float (&acc)[kCols][T]) {
-  constexpr int kW = 8;
-  constexpr int kRow4 = C / 2;  // float4s per tile row
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) acc[c][t] = 0.0f;
-  }
-  const float4* tile4 = reinterpret_cast<const float4*>(tile);
-  for (int j = 0; j < kTaps; ++j) {
-    const int o = (j - kTaps / 2) * dilation;
-    if (o >= T || o <= -T) continue;  // the tap lies wholly outside the window
-    // output rows t whose input row t + o lies inside the window
-    const int lo = o < 0 ? -o : 0;
-    const int hi = o > 0 ? T - o : T;
-    const uint32_t valid = (uint32_t)(((1ull << (hi - lo)) - 1ull) << lo);
-    float wv[kCols][kW], wn[kCols][kW];
-    load_weights<C, kCols>(w, j, 0, co, wv);
-    for (int ci = 0; ci < C; ci += 4) {
-      // the next step's weights (this step's again on the last one)
-      load_weights<C, kCols>(w, j, ci + 4 < C ? ci + 4 : ci, co, wn);
-      const int base = o * kRow4 + ci / 2;
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        if (valid & (1u << t)) {
-          // (hi, lo) of input channels ci, ci+1 and ci+2, ci+3
-          const float4 a01 = tile4[base + t * kRow4];
-          const float4 a23 = tile4[base + t * kRow4 + 1];
-          const float ahi[4] = {a01.x, a01.z, a23.x, a23.z};
-          const float alo[4] = {a01.y, a01.w, a23.y, a23.w};
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            float s = acc[c][t];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              s = fmaf(ahi[q], wv[c][2 * q], s);
-              s = fmaf(ahi[q], wv[c][2 * q + 1], s);
-              s = fmaf(alo[q], wv[c][2 * q], s);
-            }
-            acc[c][t] = s;
-          }
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-        for (int k = 0; k < kW; ++k) wv[c][k] = wn[c][k];
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Tensor-core body: acc[r, co] = sum_j sum_ci in[r + (j - 2) d, ci] * w[j, ci, co]
 // for the kRows rows of the block's W = kRows / T windows, on mma.sync
 // m16n8k16 (bf16 operands, fp32 sums), with P products a term: hi*whi at
 // P = 1 (K4 at "default", one rounded plane), hi*whi + hi*wlo + lo*whi at
-// P = 3 (K3 and K10 at "high", hi and lo planes; K10 sums the two small
+// P = 3 (K3, K9 and K10 at "high", hi and lo planes; K10 sums the two small
 // products first, tc_conv_small_first). Products of bf16 values are exact in
 // fp32, so only the order and the rounding of the sums differ from the plain
 // versions.

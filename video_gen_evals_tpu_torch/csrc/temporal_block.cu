@@ -4,7 +4,7 @@
 // Replaces: video_gen_evals_tpu/ops/conv_kernel.py::fused_temporal_block
 // (bodies _block_kernel_f32 for precision "highest" and _block_kernel_high_mm
 // for "high"), and ::fused_temporal_block_stacked (_block_kernel_high_stacked,
-// "high" only) through vge_temporal_block_stacked.
+// "high" only) through vge_temporal_block_high over its chains.
 //
 // For each window b, with x[b] a [T, C] tile and weights laid out [K, Cin, Cout]:
 //   h      = GELU(conv(x[b], w1))   k = 5, dilation d, zero padding inside the
@@ -58,131 +58,32 @@
 // rows of C + 1 floats 130 KB, a 4-stage ring of 16 input channels 64 KB),
 // so one block an SM: 128 blocks on 132 SMs.
 //
-// K9 (temporal_block_kernel): CUDA-core FMAs on bf16x3
-// (hi, lo) weight pairs, bound by the fp32 FMA issue rate. One block per
-// window owns its whole [T, C] tile, so GroupNorm is a block reduction over
-// registers, with no second pass over device memory. Each thread computes
-// kCols = 2 output channels (co, co + C/2) for all T rows, in 2T fp32
-// registers. The conv input tile sits in shared memory as (hi, lo) pairs and
-// is read as broadcasts, two 16-byte loads for four input channels, each
-// feeding 24 FMAs, so the shared-memory pipe stops being the limit. Weight
-// rows are read coalesced across threads (consecutive co) through the
-// read-only path, each weight once per block, and the next four input
-// channels' weights are loaded before the current ones are used, so the L2
-// latency hides behind the FMAs. T and C are template parameters: tile
-// addresses are immediate offsets and the row loop unrolls. conv1's input x
-// and conv2's input h share one shared buffer (each thread keeps its h
-// columns in registers across the barrier), so the block holds one tile: T *
-// C * 8 bytes (64 KB at T = 32, C = 256); above 48 KB the dynamic shared
-// memory limit is raised with cudaFuncSetAttribute before the launch. The
-// residual re-reads x from device memory. K9's tensor-core redesign is a
-// later change.
-//
-// K9 (stacked chains): blockIdx.y picks the chain, and with it the chain's
-// slice of x, out, w1, w2, gn_scale and gn_bias; each block then runs the
-// FMA body above unchanged, on (hi, lo) weight pairs held as [K, Cin, Cout,
-// 2] fp32. Bound: S times K3's at "high". The windows are on
-// blockIdx.x and the chain on blockIdx.y because blocks are dispatched
-// x-fastest: the resident blocks then work through one chain's weights
-// (5.2 MB at "high") at a time, where a chain-fastest order would cycle
-// through all S chains' weights (52 MB for the scorer's 10 chains, more than
-// the 50 MB L2) and stream them from device memory.
+// K9 (stacked chains): the "high" kernel above with a chain axis. blockIdx.y
+// picks the chain, and with it the chain's slice of x and out ([S, B, T, C]),
+// of the weight planes ([S, 2 convs, 2 planes, 5, C, C] bf16, the layout K10
+// reads) and of gn_scale and gn_bias ([S, C]); each block then runs K3
+// "high"'s body unchanged, so K9 on chain s is bitwise K3 "high" on chain s,
+// and K3 "high" is the launch with S = 1. Bound: S times K3's (0.56 ms for
+// the scorer's 10 chains at [512, 32, 256], counting only the rows a shifted
+// tap reaches). The windows are on blockIdx.x and the chain on blockIdx.y
+// because blocks are dispatched x-fastest: the resident blocks then work
+// through one chain's 2.6 MB of weight planes at a time, where a
+// chain-fastest order would cycle through all S chains' planes (26 MB for
+// the scorer's 10 chains, half the 50 MB L2, beside the activations) at
+// once. At [10, 512, 32, 256]: 1280 blocks of 4 windows, one an SM, 9.7
+// waves on 132 SMs; 3.4 GB of plane reads from L2 a launch. There, on an
+// H100 at 700 W, K9 read 2.35 ms (23.8% of the bound; 0.95 of ten K3 "high"
+// launches), where the one-window CUDA-core bf16x3 body it replaced read
+// 20.6 ms (scripts/profile_torch_conv.py).
 
 #include "conv_tile.cuh"
 
 namespace {
 
-// K9: bf16x3 (hi, lo) weight pairs, the chain axis on blockIdx.y.
-template <int T, int C>
-__global__ void __launch_bounds__(C / Cols<C>::value) temporal_block_kernel(
-    const float* __restrict__ x, const float* __restrict__ w1,
-    const float* __restrict__ w2, const float* __restrict__ gn_scale,
-    const float* __restrict__ gn_bias, float* __restrict__ out, int dilation) {
-  constexpr int kCols = Cols<C>::value;
-  constexpr int kThreads = C / kCols;
-  extern __shared__ float4 smem[];
-  __shared__ float red[kThreads / 32];
-  float* tile = reinterpret_cast<float*>(smem);
-  const int co = threadIdx.x;
-  // chain blockIdx.y of the grid (windows, chains): its activations, weights
-  // and norm parameters
-  const size_t chain = blockIdx.y;
-  x += chain * gridDim.x * T * C;
-  out += chain * gridDim.x * T * C;
-  w1 += chain * kTaps * C * C * 2;
-  w2 += chain * kTaps * C * C * 2;
-  gn_scale += chain * C;
-  gn_bias += chain * C;
-  const size_t win = (size_t)blockIdx.x * T * C;
-
-  float col[kCols][T];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) col[c][t] = x[win + t * C + co + c * kThreads];
-  }
-  store_columns<T, C, kCols>(tile, col, co);
-  __syncthreads();
-
-  conv_columns<T, C, kCols>(tile, w1, co, dilation, col);
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) col[c][t] = gelu(col[c][t]);
-  }
-  __syncthreads();  // every thread has finished reading x's tile
-  store_columns<T, C, kCols>(tile, col, co);
-  __syncthreads();
-
-  conv_columns<T, C, kCols>(tile, w2, co, dilation, col);
-  float sum = 0.0f;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      col[c][t] = gelu(col[c][t] + x[win + t * C + co + c * kThreads]);
-      sum += col[c][t];
-    }
-  }
-  constexpr float inv_n = 1.0f / (float)(T * C);
-  const float mean = block_sum<kThreads / 32>(sum, red) * inv_n;
-  float sq = 0.0f;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const float dv = col[c][t] - mean;
-      sq += dv * dv;
-    }
-  }
-  const float var = block_sum<kThreads / 32>(sq, red) * inv_n;
-  const float rstd = rsqrtf(var + 1e-5f);
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int ch = co + c * kThreads;
-    const float g = gn_scale[ch];
-    const float bias = gn_bias[ch];
-#pragma unroll
-    for (int t = 0; t < T; ++t) out[win + t * C + ch] = (col[c][t] - mean) * rstd * g + bias;
-  }
-}
-
-template <int T, int C>
-cudaError_t launch_kernel(const float* x, const float* w1, const float* w2, const float* gs,
-                          const float* gb, float* out, int chains, int batch, int dilation,
-                          cudaStream_t stream) {
-  constexpr size_t smem = (size_t)T * C * 8;
-  cudaError_t err = cudaFuncSetAttribute(temporal_block_kernel<T, C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  temporal_block_kernel<T, C>
-      <<<dim3(batch, chains), C / Cols<C>::value, smem, stream>>>(
-          x, w1, w2, gs, gb, out, dilation);
-  return cudaGetLastError();
-}
-
-// K3 at "high": W = 128 / T windows a block on the tensor cores (see the
-// header). w: [2 convs, 2 planes (hi, lo), 5, C, C] bf16.
+// K3 at "high", and K9 over the chains of blockIdx.y: W = 128 / T windows a
+// block on the tensor cores (see the header). x, out [chains, batch, T, C];
+// w [chains, 2 convs, 2 planes (hi, lo), 5, C, C] bf16; gn_scale, gn_bias
+// [chains, C].
 template <int T, int C>
 __global__ void __launch_bounds__(TcConv<T, C, 3>::kThreads, 1) temporal_block_high_kernel(
     const float* __restrict__ x, const __nv_bfloat16* __restrict__ w,
@@ -190,6 +91,12 @@ __global__ void __launch_bounds__(TcConv<T, C, 3>::kThreads, 1) temporal_block_h
     float* __restrict__ out, int batch, int dilation) {
   using L = TcConv<T, C, 3>;
   constexpr size_t kPlaneW = (size_t)kTaps * C * C;
+  const size_t chain = blockIdx.y;
+  x += chain * batch * T * C;
+  out += chain * batch * T * C;
+  w += chain * 4 * kPlaneW;
+  gn_scale += chain * C;
+  gn_bias += chain * C;
   extern __shared__ float4 smem_tc[];
   __nv_bfloat16* planes = reinterpret_cast<__nv_bfloat16*>(smem_tc);
   __nv_bfloat16* ring = planes + L::kPlanes * L::kPlaneElems;
@@ -257,7 +164,7 @@ __global__ void __launch_bounds__(TcConv<T, C, 3>::kThreads, 1) temporal_block_h
 
 template <int T, int C>
 cudaError_t launch_high(const float* x, const __nv_bfloat16* w, const float* gs, const float* gb,
-                        float* out, int batch, int dilation, int windows_per_block,
+                        float* out, int chains, int batch, int dilation, int windows_per_block,
                         int smem_bytes, cudaStream_t stream) {
   using L = TcConv<T, C, 3>;
   // the caller's plan (ops/conv_kernel.py::tc_plan) must be this instantiation's
@@ -267,7 +174,7 @@ cudaError_t launch_high(const float* x, const __nv_bfloat16* w, const float* gs,
                                          (int)L::kSmem);
   if (err != cudaSuccess) return err;
   const int blocks = (batch + L::kWindows - 1) / L::kWindows;
-  temporal_block_high_kernel<T, C><<<blocks, L::kThreads, L::kSmem, stream>>>(
+  temporal_block_high_kernel<T, C><<<dim3(blocks, chains), L::kThreads, L::kSmem, stream>>>(
       x, w, gs, gb, out, batch, dilation);
   return cudaGetLastError();
 }
@@ -293,37 +200,23 @@ extern "C" int vge_temporal_block(int device, const float* x, const float* w1,
   });
 }
 
-// K3 at "high" on the tensor cores: w [2 convs, 2 planes (hi, lo), 5, C, C]
-// bf16. windows_per_block and smem_bytes: the wrapper's plan, which must
-// match the instantiation's (else cudaErrorInvalidValue).
+// K3 at "high" on the tensor cores (chains = 1), and K9 over chains on
+// blockIdx.y: x, out [chains, batch, t_len, channels]; w [chains, 2 convs, 2
+// planes (hi, lo), 5, C, C] bf16; gs, gb [chains, C]. windows_per_block and
+// smem_bytes: the wrapper's plan, which must match the instantiation's (else
+// cudaErrorInvalidValue), as must chains <= 65535 (the grid's second axis).
 extern "C" int vge_temporal_block_high(int device, const float* x, const void* w,
-                                       const float* gs, const float* gb, float* out, int batch,
-                                       int t_len, int channels, int dilation,
+                                       const float* gs, const float* gb, float* out, int chains,
+                                       int batch, int t_len, int channels, int dilation,
                                        int windows_per_block, int smem_bytes,
                                        cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (batch == 0) return (int)cudaSuccess;
+  if (batch == 0 || chains == 0) return (int)cudaSuccess;
+  if (chains > 65535) return (int)cudaErrorInvalidValue;
   const auto* wb = static_cast<const __nv_bfloat16*>(w);
   return (int)with_shape(t_len, channels, [&](auto t, auto c) {
     return launch_high<decltype(t)::value, decltype(c)::value>(
-        x, wb, gs, gb, out, batch, dilation, windows_per_block, smem_bytes, stream);
-  });
-}
-
-// K9: x, out [chains, batch, t_len, channels]; w1, w2 [chains, 5, C, C, 2]
-// (hi, lo) pairs, "high" only; gs, gb [chains, C].
-extern "C" int vge_temporal_block_stacked(int device, const float* x, const float* w1,
-                                          const float* w2, const float* gs,
-                                          const float* gb, float* out, int chains,
-                                          int batch, int t_len, int channels,
-                                          int dilation, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (batch == 0 || chains == 0) return (int)cudaSuccess;
-  if (chains > 65535) return (int)cudaErrorInvalidValue;
-  return (int)with_shape(t_len, channels, [&](auto t, auto c) {
-    return launch_kernel<decltype(t)::value, decltype(c)::value>(
-        x, w1, w2, gs, gb, out, chains, batch, dilation, stream);
+        x, wb, gs, gb, out, chains, batch, dilation, windows_per_block, smem_bytes, stream);
   });
 }

@@ -43,9 +43,10 @@ Details in the source.
 :func:`fused_temporal_block_stacked` (K9) runs the ``"high"`` stage on
 ``xs [S, B, T, C]`` with per-chain weights ``[S, K, C, C]`` and norms
 ``[S, C]``: one launch for all S chains (4 a scoring batch instead of K3's
-40), a grid of (window, chain) blocks each running the CUDA-core body on its
-chain's slices, with bf16x3 products on :func:`split_pairs` weights. Bound:
-S times K3's. ``"high"`` only, as in JAX.
+40). It is K3 ``"high"``'s kernel with the chain on the grid's second axis,
+the planes of :func:`high_weight_planes` stacked ``[S, 2, 2, K, C, C]`` and
+the plan of :func:`tc_plan`: chain ``s`` of K9 is bitwise K3 ``"high"`` on
+``xs[s]``. Bound: S times K3's. ``"high"`` only, as in JAX.
 
 :func:`fused_temporal_block` and :func:`fused_temporal_block_stacked` launch
 their kernel for CUDA tensors and run their plain versions for CPU tensors;
@@ -119,12 +120,6 @@ def fused_temporal_block_plain(
     mu = y.mean(dim=(1, 2), keepdim=True)
     var = ((y - mu) ** 2).mean(dim=(1, 2), keepdim=True)
     return (y - mu) * torch.rsqrt(var + 1e-5) * gn_scale + gn_bias
-
-
-def split_pairs(w: torch.Tensor) -> torch.Tensor:
-    """``[..., Cin, Cout]`` fp32 -> ``[..., Cin, Cout, 2]`` fp32 holding each
-    weight's (hi, lo) bf16 pair: the layout K9's CUDA-core body reads."""
-    return torch.stack([p.float() for p in split_bf16(w)], dim=-1)
 
 
 def high_weight_planes(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
@@ -305,7 +300,7 @@ def fused_temporal_block(
         wk = high_weight_planes(w1, w2)
         code = lib.vge_temporal_block_high(
             x.device.index, x.data_ptr(), wk.data_ptr(), gs.data_ptr(), gb.data_ptr(),
-            out.data_ptr(), B, t_len, C, int(dilation), plan.windows_per_block,
+            out.data_ptr(), 1, B, t_len, C, int(dilation), plan.windows_per_block,
             plan.smem_bytes, stream_handle(x.device),
         )
     elif precision == "default":
@@ -364,15 +359,16 @@ def fused_temporal_block_stacked(
         return fused_temporal_block_stacked_plain(xs, w1s, w2s, gn_scales, gn_biases, dilation)
     check_launchable("fused_temporal_block_stacked", xs, w1s, w2s, gn_scales, gn_biases)
     S, B, t_len, C = xs.shape
-    xs = xs.contiguous()
-    w1k, w2k = split_pairs(w1s), split_pairs(w2s)
-    gs, gb = gn_scales.contiguous(), gn_biases.contiguous()
+    plan = tc_plan(t_len, C, B, "block_high")
+    xs = aligned(xs)
+    wk = high_weight_planes(w1s, w2s)
+    gs, gb = aligned(gn_scales), aligned(gn_biases)
     out = torch.empty_like(xs)
     lib = load_library().lib
-    code = lib.vge_temporal_block_stacked(
-        xs.device.index, xs.data_ptr(), w1k.data_ptr(), w2k.data_ptr(),
-        gs.data_ptr(), gb.data_ptr(), out.data_ptr(), S, B, t_len, C,
-        int(dilation), stream_handle(xs.device),
+    code = lib.vge_temporal_block_high(
+        xs.device.index, xs.data_ptr(), wk.data_ptr(), gs.data_ptr(), gb.data_ptr(),
+        out.data_ptr(), S, B, t_len, C, int(dilation), plan.windows_per_block,
+        plan.smem_bytes, stream_handle(xs.device),
     )
     check(code, "fused_temporal_block_stacked launch")
     fused_temporal_block_stacked.launches += 1

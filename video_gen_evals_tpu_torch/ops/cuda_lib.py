@@ -56,12 +56,10 @@ _SIGNATURES = {
     # device, x, w1, w2, gn_scale, gn_bias, out, batch, t_len, channels,
     # dilation, windows_per_block, smem_bytes, stream ("highest")
     "vge_temporal_block": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # device, x, w (bf16 planes), gn_scale, gn_bias, out, batch, t_len,
-    # channels, dilation, windows_per_block, smem_bytes, stream ("high")
-    "vge_temporal_block_high": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # device, x, w1s, w2s, gn_scales, gn_biases, out, chains, batch, t_len,
-    # channels, dilation, stream
-    "vge_temporal_block_stacked": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # device, x, w (bf16 planes of every chain), gn_scales, gn_biases, out,
+    # chains (1 for K3, S for K9), batch, t_len, channels, dilation,
+    # windows_per_block, smem_bytes, stream ("high")
+    "vge_temporal_block_high": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # device, x, w (bf16 planes of every stage), gn_scales, gn_biases, out,
     # batch, t_len, channels, n_stages, dilations (host int array),
     # windows_per_block, smem_bytes, stream
