@@ -30,6 +30,16 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    kernels run. Every video's AC and TC must be finite, the two card runs
    must agree within 1e-3, the card's highest run must agree with the CPU
    run within 1e-4, and the launch counts must match the number of batches.
+   Then the per-window route on the same tree and weights: the real train
+   split's and the generated banks swept by WindowEncoder.encode_bank at
+   "high" (K1 and K3 launched once and 40 times a batch), centroids by
+   build_centroids and per-video AC and TC by video_ac_scores and
+   video_tc_scores on the card, within 1e-5 of score_bank's segment sums on
+   the same banks; build_centroids twice bitwise equal. Then
+   apply_with_attention on one batch of generated windows at "highest": the
+   fusion attention map's rows sum to 1 within 1e-6, the outputs are bitwise
+   model(x, "highest") on the card, and map and outputs agree with the CPU
+   within 1e-4.
 4. Throughput of the WindowEncoder sweep at batch 256 and 512 on a
    64 x 120-frame bank. Then the same sweep at "high", batch 512, under the
    fused forwards of models/fused_apply.py: encoder_impl block_kernel (K3)
@@ -742,6 +752,105 @@ def _expected_batches(mesh_root, gen_dir) -> int:
     return -(-n_train // BATCH) + -(-n_gen // BATCH)
 
 
+def _e2e_window_metrics(torch, model, mesh_root, kp_root, gen_dir, gen_kp, batches):
+    """Phase 3's per-window route, on the tree the score CLI just read: the
+    real train split's and the generated banks swept once each by
+    WindowEncoder.encode_bank at "high" (K1 once and K3 40 times a batch),
+    then build_centroids on the real windows and video_ac_scores /
+    video_tc_scores on the generated ones, all on the card, against the
+    segment-sum route (build_real_centroids and score_bank) on the same banks
+    and encoder; build_centroids twice, bitwise. Then apply_with_attention on
+    one batch of the generated windows at "highest": its rows, its outputs
+    against model(x, "highest") on the card, and the card against the CPU."""
+    import copy
+
+    import numpy as np
+
+    from video_gen_evals_tpu_torch.data import (
+        ModalityPaths, build_feature_bank, compute_stats, enumerate_windows, scan_class_tree,
+        scan_generated_flat, train_test_split)
+    from video_gen_evals_tpu_torch.metrics import build_centroids, video_ac_scores, video_tc_scores
+    from video_gen_evals_tpu_torch.models.fusion_encoder import apply_with_attention
+    from video_gen_evals_tpu_torch.ops.conv_kernel import fused_temporal_block
+    from video_gen_evals_tpu_torch.ops.window_kernel import gather_windows
+    from video_gen_evals_tpu_torch.pipelines.score import (
+        ScoreConfig, WindowEncoder, build_real_centroids, score_bank)
+    from video_gen_evals_tpu_torch.utils.names import ACTION_CLASSES, canonicalize_class
+
+    t0 = time.perf_counter()
+    cfg = ScoreConfig(CLIP, STRIDE, BATCH, precision="high")
+    real_paths = ModalityPaths(keypoint_dir=kp_root, layout="real")
+    gen_paths = ModalityPaths(keypoint_dir=gen_kp, layout="generated")
+    real = scan_class_tree(mesh_root, filter_classes=list(ACTION_CLASSES))
+    train, _ = train_test_split(real, 0.8, seed=cfg.seed)
+    gen = scan_generated_flat(gen_dir)
+    stats = compute_stats(train.items, real_paths)
+    real_bank = build_feature_bank(train.items, real_paths, stats, min_rows=CLIP + 8)
+    gen_bank = build_feature_bank(gen.items, gen_paths, stats, min_rows=CLIP + 8)
+    label_dict = real.label_dict()
+    real_windows = enumerate_windows(train, CLIP, STRIDE)
+    gen_windows = enumerate_windows(gen, CLIP, STRIDE)
+    enc = WindowEncoder(model, BATCH, CLIP, "high", "cuda")
+
+    gather_windows.launches = 0
+    fused_temporal_block.launches = 0
+    seq_r, _tc_r, vid_r = enc.encode_bank(real_bank, real_windows)
+    seq_g, tc_g, vid_g = enc.encode_bank(gen_bank, gen_windows)
+    n = (gather_windows.launches, fused_temporal_block.launches)
+    _check(n == (batches, 40 * batches), f"e2e encode_bank: launches {n} != {(batches, 40 * batches)}")
+    card = lambda a: torch.from_numpy(np.asarray(a)).cuda()   # noqa: E731
+    labels = card(np.array([label_dict[real_bank.classes[v]] for v in vid_r], np.int64))
+    centroids, counts = build_centroids(card(seq_r), labels, len(label_dict))
+    again, _ = build_centroids(card(seq_r), labels, len(label_dict))
+    _check(centroids.is_cuda and torch.equal(centroids.view(torch.int32), again.view(torch.int32)),
+           "e2e: two build_centroids calls on the card differ")
+    _check(bool((counts > 0).all()), f"e2e: a class with no real windows: {counts.tolist()}")
+    video_cls = [canonicalize_class(c) for c in gen_bank.classes]
+    video_label = card(np.array([label_dict.get(c, 0) for c in video_cls], np.int64))
+    ac = video_ac_scores(card(seq_g), card(vid_g), video_label, centroids).cpu().numpy()
+    tc = video_tc_scores(card(tc_g), card(vid_g), len(gen.items)).cpu().numpy()
+
+    want_cen, _ = build_real_centroids(enc, real, real_paths, stats, cfg)
+    want = score_bank(enc, gen_bank, gen, want_cen, label_dict, cfg)
+    d_cen = float(np.abs(centroids.cpu().numpy() - want_cen).max())
+    d_ac = d_tc = 0.0
+    for v, it in enumerate(gen.items):
+        w = want[os.path.splitext(it.name)[0]]
+        _check(video_cls[v] in label_dict and "ac" in w, f"e2e: {it.name} has no class centroid")
+        d_ac = max(d_ac, abs(float(ac[v]) - w["ac"]))
+        d_tc = max(d_tc, abs(float(tc[v]) - w["tc"]))
+    _check(len(want) == len(gen.items) and np.isfinite(ac).all() and np.isfinite(tc).all(),
+           "e2e: per-window AC/TC not finite for every generated video")
+    _check(max(d_ac, d_tc) <= 1e-5,
+           f"e2e: per-window AC/TC against the segment sums: {d_ac:.3e}, {d_tc:.3e} > 1e-5")
+    print(f"e2e per-window route (encode_bank at high, launches gather={n[0]} conv={n[1]}; "
+          f"build_centroids, video_ac_scores, video_tc_scores on the card): max |dAC| {d_ac:.3e}, "
+          f"|dTC| {d_tc:.3e}, |d centroid| {d_cen:.3e} against score_bank's segment sums over "
+          f"{len(gen.items)} videos (tol 1e-5); build_centroids twice bitwise equal")
+
+    vi = card(np.array([v for v, _s in gen_windows[:BATCH]], np.int32))
+    st = card(np.array([s for _v, s in gen_windows[:BATCH]], np.int32))
+    x = gather_windows(*enc.upload(gen_bank), gen_bank.one_pass_raw, vi, st, CLIP)
+    (outs, attn) = apply_with_attention(model, x, "highest")
+    with torch.no_grad():
+        plain = model(x, "highest")
+    _check(all(torch.equal(a, b) for a, b in zip(outs, plain)),
+           "e2e: apply_with_attention's outputs differ from model(x, 'highest') on the card")
+    m = len(DIMS_RAW)
+    _check(tuple(attn.shape) == (x.shape[0], CLIP, m), f"e2e: attention map shape {tuple(attn.shape)}")
+    d_rows = float((attn.sum(-1) - 1.0).abs().max())
+    _check(d_rows <= 1e-6, f"e2e: attention rows sum to 1 within {d_rows:.3e} > 1e-6")
+    outs_cpu, attn_cpu = apply_with_attention(copy.deepcopy(model).cpu(), x.cpu(), "highest")
+    d_attn = float((attn.cpu() - attn_cpu).abs().max())
+    d_out = max(float((a.cpu() - b).abs().max()) for a, b in zip(outs, outs_cpu))
+    _check(max(d_attn, d_out) <= 1e-4, f"e2e: apply_with_attention card vs CPU: map {d_attn:.3e}, "
+                                        f"outputs {d_out:.3e} > 1e-4")
+    print(f"e2e apply_with_attention on {x.shape[0]} generated windows at highest: map [{x.shape[0]}, "
+          f"{CLIP}, {m}], rows sum to 1 within {d_rows:.3e} (tol 1e-6); outputs bitwise model(x, "
+          f"'highest') on the card; card vs CPU: map {d_attn:.3e}, outputs {d_out:.3e} (tol 1e-4); "
+          f"{time.perf_counter() - t0:.1f} s for the per-window route and the map")
+
+
 def phase_end_to_end(torch):
     from video_gen_evals_tpu_torch.models import EncoderConfig, HumanActionScorer
     from video_gen_evals_tpu_torch.ops.conv_kernel import fused_temporal_block
@@ -785,6 +894,7 @@ def phase_end_to_end(torch):
             _check(n == want, f"{arm}: launches {n} != {want}")
             if device == "cuda":
                 launches[precision] = n
+        _e2e_window_metrics(torch, model, mesh_root, kp_root, gen_dir, gen_kp, batches)
 
     def worst_diff(a, b):
         _check(len(a) == 20 and sorted(a) == sorted(b), "e2e: not every generated video scored")

@@ -275,6 +275,50 @@ def test_touched_source_invalidates_both_caches(env, tmp_path):
             os.utime(touched, ns=(st_before.st_atime_ns, st_before.st_mtime_ns))
 
 
+def test_compute_video_features_matches_jax(env, monkeypatch):
+    """compute_video_features against JAX's on real and generated fixture
+    videos (a default-stats video, a modality subset, a preloaded npz,
+    min_rows under and over the height): bank, height, class and name
+    bitwise. JAX's diffs come from the port's compute_modality_diffs here:
+    JAX computes them with eager jnp ops (a compile each, ~5 s a video on
+    the CPU) whose last bits differ from torch's; the diff ops are held
+    against JAX in tests/test_torch_ops.py and the banks in
+    tests/test_torch_score_pipeline.py. Everything else (the loading, the
+    keypoint rule, the normalization, the sentinel padding) is numpy on both
+    sides. A video without keypoints raises on both."""
+    monkeypatch.setattr(jax_features, "compute_modality_diffs", features.compute_modality_diffs)
+    (real_p, gen_p), (real_j, gen_j) = _paths(data, env), _paths(jax_data, env)
+    items_p = data.scan_class_tree(env["mesh_root"]).items
+    items_j = jax_data.scan_class_tree(env["mesh_root"]).items
+    gen_items_p = data.scan_generated_flat(env["gen_dir"]).items
+    gen_items_j = jax_data.scan_generated_flat(env["gen_dir"]).items
+    st = data.compute_stats(items_p[:3], real_p)
+    st_j = jax_stats.ModalityStats(st.mean_raw, st.std_raw, st.mean_diff, st.std_diff)
+    cases = [
+        (items_p[0], items_j[0], real_p, real_j, {}),
+        (items_p[2], items_j[2], real_p, real_j, dict(modalities=["pose", "kp2d", "vit"], min_rows=56)),
+        (gen_items_p[1], gen_items_j[1], gen_p, gen_j, dict(min_rows=24)),
+    ]
+    for it_p, it_j, paths_p, paths_j, kw in cases:
+        got = features.compute_video_features(it_p, paths_p, st, **kw)
+        want = jax_features.compute_video_features(it_j, paths_j, st_j, **kw)
+        assert isinstance(got, data.VideoFeatures)
+        assert (got.height, got.cls, got.name) == (want.height, want.cls, want.name)
+        assert got.bank.dtype == want.bank.dtype == np.float32
+        np.testing.assert_array_equal(got.bank, want.bank)
+    with np.load(items_p[1].path) as z:
+        npz = {k: z[k] for k in z.files if z[k].dtype.kind not in "OSU"}
+    got = features.compute_video_features(items_p[1], real_p, st, npz=npz)
+    np.testing.assert_array_equal(
+        got.bank, jax_features.compute_video_features(items_j[1], real_j, st_j, npz=npz).bank)
+    no_kp = data.ModalityPaths(keypoint_dir=env["root"], layout="real")
+    with pytest.raises(FileNotFoundError, match="keypoints"):
+        features.compute_video_features(items_p[0], no_kp, st)
+    with pytest.raises(FileNotFoundError, match="keypoints"):
+        jax_features.compute_video_features(items_j[0], jax_data.ModalityPaths(keypoint_dir=env["root"],
+                                                                               layout="real"), st_j)
+
+
 # -------------------------------------------------------------------- gathers
 
 def test_gathers_match_jax(rng):

@@ -1,8 +1,9 @@
 """The port's ``HumanActionScorer`` and weight converters against the JAX
 package on the CPU: both converter directions against
 ``video_gen_evals_tpu.models.torch_compat``, strict loading of the reference
-key set, and the full forward against ``HumanActionScorer.apply`` and
-``block_kernel_forward`` (Pallas conv stages in interpret mode)."""
+key set, the full forward against ``HumanActionScorer.apply`` and
+``block_kernel_forward`` (Pallas conv stages in interpret mode), and
+``apply_with_attention``'s fusion attention map against JAX's."""
 
 import numpy as np
 import jax
@@ -12,6 +13,7 @@ import torch
 
 from video_gen_evals_tpu.models import EncoderConfig as JaxEncoderConfig
 from video_gen_evals_tpu.models import HumanActionScorer as JaxHumanActionScorer
+from video_gen_evals_tpu.models.fusion_encoder import apply_with_attention as jax_apply_with_attention
 from video_gen_evals_tpu.models.fused_apply import block_kernel_forward
 from video_gen_evals_tpu.models.torch_compat import (
     flax_params_to_torch_state_dict,
@@ -19,6 +21,9 @@ from video_gen_evals_tpu.models.torch_compat import (
 )
 
 from video_gen_evals_tpu_torch.models import EncoderConfig, HumanActionScorer
+from video_gen_evals_tpu_torch.models import fusion_encoder
+from video_gen_evals_tpu_torch.models.fusion_encoder import apply_with_attention
+from video_gen_evals_tpu_torch.ops.conv_kernel import fused_temporal_block
 from video_gen_evals_tpu_torch.models.torch_compat import (
     jax_params_from_state_dict,
     load_torch_checkpoint,
@@ -112,20 +117,60 @@ def test_load_torch_checkpoint_unwraps_and_switches_strictness(jax_model, tmp_pa
     assert not load_torch_checkpoint(path, HumanActionScorer(pcfg), strict=True).missing_keys
 
 
-def test_forward_matches_jax_module(rng):
-    """atol 2e-5: fp32 throughout (conv stages at "highest"). Two modalities
-    with diff streams (4 chains) keep the JAX compile short."""
+@pytest.fixture(scope="module")
+def two_modalities(_one_thread):
+    """Two modalities with diff streams (4 chains; a short JAX compile), the
+    port model on the JAX weights, the input, and JAX's
+    ``apply_with_attention`` on it, jitted once: ``(outputs, attn)``."""
     jcfg, pcfg = _configs({"vit": 16, "pose": 18}, {"vit": 16, "pose": 6}, layers=2)
     params = _jax_params(jcfg, pcfg, seed=1)
-    x = rng.normal(size=(4, CLIP, pcfg.input_dim)).astype(np.float32)
-    want = jax.jit(lambda p, x: JaxHumanActionScorer(jcfg).apply(
-        {"params": p}, x, deterministic=True))(params, jnp.asarray(x))
+    x = np.random.default_rng(1337).normal(size=(4, CLIP, pcfg.input_dim)).astype(np.float32)
+    want = jax.jit(lambda p, x: jax_apply_with_attention(JaxHumanActionScorer(jcfg), p, x))(
+        params, jnp.asarray(x))
     port = HumanActionScorer(pcfg)
     port.load_state_dict(state_dict_from_jax_params(params, pcfg), strict=True)
+    return port, x, want
+
+
+def test_forward_matches_jax_module(two_modalities):
+    """atol 2e-5: fp32 throughout (conv stages at "highest")."""
+    port, x, (want, _attn) = two_modalities
     with torch.no_grad():
         got = port(torch.from_numpy(x), "highest")
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5)
+
+
+def test_apply_with_attention_matches_jax(two_modalities, monkeypatch):
+    """The fusion attention map [B, T, M] (the softmax before dropout) at
+    atol 2e-5 against JAX's, its rows summing to 1; the outputs bitwise the
+    port's own forward at "highest", from one pass (the conv stage's plain
+    version runs 4 chains x 4 stages once), and the module left as it was:
+    no new attribute or buffer holds a tensor, and training mode comes back."""
+    port, x, (want, want_attn) = two_modalities
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        plain = port(xt, "highest")
+    tensors_before = {id(m): {k for k, v in vars(m).items() if isinstance(v, torch.Tensor)}
+                      for m in port.modules()}
+    buffers_before = sorted(n for n, _ in port.named_buffers())
+    port.train()
+    calls = []
+    monkeypatch.setattr(fusion_encoder, "fused_temporal_block",
+                        lambda *a, **k: calls.append(1) or fused_temporal_block(*a, **k))
+    got, attn = apply_with_attention(port, xt, "highest")
+    assert port.training
+    port.eval()
+    assert len(calls) == 16
+    assert attn.shape == (4, CLIP, 2) and not attn.requires_grad
+    np.testing.assert_allclose(attn.sum(-1).numpy(), 1.0, atol=1e-6)
+    np.testing.assert_allclose(attn.numpy(), np.asarray(want_attn), atol=2e-5)
+    for g, p, w in zip(got, plain, want):
+        assert torch.equal(g, p)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5)
+    assert {id(m): {k for k, v in vars(m).items() if isinstance(v, torch.Tensor)}
+            for m in port.modules()} == tensors_before
+    assert sorted(n for n, _ in port.named_buffers()) == buffers_before
 
 
 def test_forward_matches_jax_block_kernel_forward(rng):

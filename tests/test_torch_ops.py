@@ -48,6 +48,37 @@ def _near_identity_rotmats(rng, T):
     return np.asarray(jax_so3.axis_angle_to_matrix(jnp.asarray(a.astype(np.float32))))
 
 
+def _axis_angles(rng, T, J, angles):
+    """``[T, 3J]`` axis-angle vectors: random unit axes scaled by ``angles``."""
+    axis = rng.normal(size=(T, J, 3))
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    return (axis * np.resize(angles, (T, J))[..., None]).reshape(T, 3 * J).astype(np.float32)
+
+
+def _axis_angle_motion(rng, T, start, step=0.05):
+    """A pose sequence ``[T, 3J]`` from the axis-angles ``start [1, 3J]``, each
+    frame moving every component by up to ``step`` rad, as a 30 fps SMPL pose
+    does. The log map's error grows as 1 / sin(theta) of the frame-to-frame
+    turn, so consecutive frames turning by nearly pi would hold both packages
+    only to their float32 rounding over sin(theta): real motion turns a joint
+    by far less between frames."""
+    return (start + np.cumsum(rng.uniform(-step, step, size=(T, start.shape[1])), axis=0)
+            ).astype(np.float32)
+
+
+def _axis_angle_pose_near_zero_and_pi(rng, T=30):
+    """Joints turned by pi, just under and just over it (a global orientation
+    often is), moving across pi; a joint at exact zero and under the 1e-8
+    clamp in every frame, and one moving by 1e-6 rad a frame."""
+    near_pi = _axis_angle_motion(
+        rng, T, _axis_angles(rng, 1, 3, [np.pi, np.pi - 1e-4, np.pi + 1e-3]))
+    tiny = np.zeros((T, 9), np.float32)
+    tiny[1::2, 0:3] = 1e-9
+    tiny[:, 3:6] = _axis_angle_motion(rng, T, np.zeros((1, 3)), step=1e-6)
+    tiny[:, 6:9] = 0.0
+    return np.concatenate([near_pi, tiny], axis=1)
+
+
 def _reflected_keypoints(rng, T, K=60):
     """Alternate frames mirrored in x, so det(H) < 0 for every pair."""
     kp = rng.uniform(0.2, 0.8, size=(T, K, 2)).astype(np.float32)
@@ -66,6 +97,15 @@ GEOMETRY_CASES = {
         jax_so3.rotmat_delta, so3.rotmat_delta, _random_rotmats(rng, (40, 23))),
     "rotmat_delta_near_identity": lambda rng: (
         jax_so3.rotmat_delta, so3.rotmat_delta, _near_identity_rotmats(rng, 30)),
+    "axis_angle_to_matrix": lambda rng: (
+        jax_so3.axis_angle_to_matrix, so3.axis_angle_to_matrix,
+        _axis_angles(rng, 40, 1, [0.0, 1e-9, 1e-6, 1e-3, 0.5, 2.0, np.pi - 1e-4, np.pi, np.pi + 1e-3, 5.0]
+                     ).reshape(40, 3)),
+    "axis_angle_delta": lambda rng: (
+        jax_so3.axis_angle_delta, so3.axis_angle_delta,
+        _axis_angle_motion(rng, 40, _axis_angles(rng, 1, 23, rng.uniform(0.0, np.pi, size=23)))),
+    "axis_angle_delta_near_zero_and_pi": lambda rng: (
+        jax_so3.axis_angle_delta, so3.axis_angle_delta, _axis_angle_pose_near_zero_and_pi(rng)),
     "procrustes_kp_delta": lambda rng: (
         jax_procrustes.procrustes_kp_delta, procrustes.procrustes_kp_delta,
         (rng.uniform(0.2, 0.8, size=(1, 120))

@@ -112,6 +112,46 @@ def test_finalize_matches_jax(rng):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_metrics_from_window_embeddings_match_jax(rng, masked):
+    """segment_mean, build_centroids, video_tc_scores and video_ac_scores at
+    atol 1e-6 on the same per-window values: 4 classes, the third with no
+    windows (a NaN centroid on both sides), 5 videos, the fourth with one
+    window; ``masked`` adds a 0/1 weights mask that drops windows, all of
+    video 1's among them (its mean is 0 over a clamped count on both sides)."""
+    n, d = 23, 8
+    seq = rng.normal(size=(n, d)).astype(np.float32)
+    seq /= np.linalg.norm(seq, axis=-1, keepdims=True)
+    tc = rng.uniform(size=n).astype(np.float32)
+    labels = rng.choice([0, 1, 3], size=n).astype(np.int32)
+    video = np.sort(rng.choice([0, 1, 2, 4], size=n - 1)).astype(np.int32)
+    video = np.insert(video, rng.integers(n), 3)   # video 3: one window
+    video_label = np.array([0, 3, 2, 1, 0], np.int32)   # video 2's class has no centroid
+    weights = None
+    if masked:
+        weights = (rng.uniform(size=n) > 0.3).astype(np.float32)
+        weights[video == 1] = 0.0
+        weights[video == 3] = 1.0
+    P = lambda a: None if a is None else torch.from_numpy(a)   # noqa: E731
+    J = lambda a: None if a is None else jnp.asarray(a)        # noqa: E731
+
+    got = scores.segment_mean(P(seq), P(video), 5, P(weights)).numpy()
+    want = np.asarray(jax_scores.segment_mean(J(seq), J(video), 5, J(weights)))
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    cen_p, cnt_p = scores.build_centroids(P(seq), P(labels), 4, P(weights))
+    cen_j, cnt_j = jax_scores.build_centroids(J(seq), J(labels), 4, J(weights))
+    np.testing.assert_array_equal(cnt_p.numpy(), np.asarray(cnt_j))
+    assert cnt_p[2] == 0 and np.all(np.isnan(cen_p[2].numpy())) and np.all(np.isnan(np.asarray(cen_j)[2]))
+    np.testing.assert_allclose(cen_p.numpy(), np.asarray(cen_j), atol=1e-6)   # NaNs compare equal
+    tc_p = scores.video_tc_scores(P(tc), P(video), 5, P(weights)).numpy()
+    np.testing.assert_allclose(tc_p, np.asarray(jax_scores.video_tc_scores(J(tc), J(video), 5, J(weights))),
+                               atol=1e-6)
+    ac_p = scores.video_ac_scores(P(seq), P(video), P(video_label), cen_p, P(weights)).numpy()
+    ac_j = np.asarray(jax_scores.video_ac_scores(J(seq), J(video), J(video_label), cen_j, J(weights)))
+    assert np.isnan(ac_p[2]) and np.isnan(ac_j[2]) and np.all(np.isfinite(ac_p[[0, 1, 3, 4]]))
+    np.testing.assert_allclose(ac_p, ac_j, atol=1e-6)
+
+
 def _models(seed, d_model=32, layers=1, heads=4):
     """The same seeded weights for both packages."""
     pcfg = EncoderConfig.create(DIMS_RAW, DIMS_DIFF, d_model=d_model, time_layers=layers,

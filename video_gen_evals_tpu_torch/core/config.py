@@ -125,3 +125,7 @@ class TrainConfig:
             d = json.load(f)
         d["paths"] = PathsConfig(**d.get("paths", {}))
         return cls(**d)
+
+
+def default_train_config() -> TrainConfig:
+    return TrainConfig()

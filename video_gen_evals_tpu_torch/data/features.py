@@ -53,6 +53,8 @@ __all__ = [
     "ModalityPaths",
     "load_video_arrays",
     "compute_modality_diffs",
+    "VideoFeatures",
+    "compute_video_features",
     "assemble_video_bank",
     "FeatureBank",
     "build_feature_bank",
@@ -192,6 +194,37 @@ def _normalize(X: np.ndarray, mean: np.ndarray, std: np.ndarray) -> np.ndarray:
     return (X - mean[None, :]) / (std[None, :] + _NORM_EPS)
 
 
+@dataclasses.dataclass
+class VideoFeatures:
+    """One video's normalized bank ``[N_v, D]``: ``N_v = round_up(max(height
+    + 1, min_rows), 8)``, and the rows from ``height`` on hold the video's
+    sentinel row (edge-repeated raw features, normalized-zero diffs), so a
+    window past the last real frame reads the reference's tail padding."""
+
+    bank: np.ndarray       # [N_v, D] float32, normalized, sentinel-padded
+    height: int            # number of real frames (sentinel rows start here)
+    cls: str
+    name: str
+
+
+def compute_video_features(
+    item,
+    paths: ModalityPaths,
+    stats: "ModalityStats",
+    modalities: T.Optional[T.Sequence[str]] = None,
+    min_rows: int = 40,
+    npz: T.Optional[T.Dict[str, np.ndarray]] = None,
+) -> VideoFeatures:
+    """The normalized bank of one video: :func:`load_video_arrays` (keypoints
+    required) and :func:`assemble_video_bank`. ``modalities`` defaults to
+    the stats' modalities, and each must load for this video; ``min_rows``
+    must be at least the largest ``clip_len`` that will be gathered."""
+    arrays = load_video_arrays(item, paths, strict_kp=True, npz=npz)
+    mods = list(modalities) if modalities is not None else stats.modalities
+    bank, height = assemble_video_bank(arrays, mods, stats, min_rows, item.name)
+    return VideoFeatures(bank=bank, height=height, cls=item.cls, name=item.name)
+
+
 def assemble_video_bank(
     arrays: T.Dict[str, np.ndarray],
     mods: T.Sequence[str],
@@ -316,10 +349,8 @@ def build_feature_bank(
         arrays_list = [load_video_arrays(it, paths, strict_kp=True, npz=z) for it, z in zip(items, npzs)]
         return build_bank_device(arrays_list, [it.name for it in items], [it.cls for it in items], sub,
                                  min_rows=min_rows, device=device)
-    banks = []
-    for it, z in zip(items, npzs):
-        arrays = load_video_arrays(it, paths, strict_kp=True, npz=z)
-        banks.append(assemble_video_bank(arrays, mods, stats, min_rows, it.name)[0])
+    banks = [compute_video_features(it, paths, stats, mods, min_rows, npz=z).bank
+             for it, z in zip(items, npzs)]
     return finalize_feature_bank(banks, [it.name for it in items], [it.cls for it in items], stats, mods)
 
 

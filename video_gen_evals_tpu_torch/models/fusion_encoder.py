@@ -18,6 +18,8 @@ stages as that kernel's plain version under autograd instead, on any device
 - :class:`TransformerEncoderLayer` <- torch ``nn.TransformerEncoderLayer``
   semantics (post-LN, ReLU, packed qkv), ref ``model.py:145-146``
 - :class:`HumanActionScorer`       <- ref ``model.py:102-193``
+- :func:`apply_with_attention`     <- the forward and its fusion attention
+  map (ref ``model.py:77,94,148,185``)
 
 Activations stay ``[B, T, C]`` throughout, as in JAX; the 1x1 stem is a
 matmul. Parameter and buffer names follow the reference's state_dict
@@ -287,7 +289,9 @@ class PerFrameFusion(nn.Module):
         self.logit_bias = nn.Parameter(torch.zeros(n_modalities))
 
     def forward(self, m_tokens: torch.Tensor,                    # [B, T, M, D]
-                dropout: T.Optional[Dropout] = None) -> torch.Tensor:
+                dropout: T.Optional[Dropout] = None) -> T.Tuple[torch.Tensor, torch.Tensor]:
+        """``(fused frame tokens [B, T, D], attention map [B, T, M])``; the
+        map is the softmax before dropout (the reference's ``last_attn``)."""
         D = m_tokens.shape[-1]
         kv = self.kv_ln(m_tokens)
         q = self.Wq(self.q_ln(self.latent))[0, 0]                 # [D], same for every frame
@@ -295,9 +299,9 @@ class PerFrameFusion(nn.Module):
         V = self.Wv(kv)
         logits = (K @ q) / math.sqrt(D)                           # [B, T, M]
         tau = F.softplus(self.logit_temp) + 1e-3
-        A = _drop(torch.softmax(logits / tau + self.logit_bias, dim=-1), dropout)
-        fused = (A.unsqueeze(-2) @ V).squeeze(-2)                 # [B, T, D]
-        return self.Wo(fused)
+        A = torch.softmax(logits / tau + self.logit_bias, dim=-1)
+        fused = (_drop(A, dropout).unsqueeze(-2) @ V).squeeze(-2)  # [B, T, D]
+        return self.Wo(fused), A
 
 
 class _SelfAttention(nn.Module):
@@ -507,7 +511,10 @@ class HumanActionScorer(nn.Module):
 
     def forward(self, x: torch.Tensor, precision: str = "highest",
                 generator: T.Optional[torch.Generator] = None,
-                rows: T.Optional[T.Tuple[int, int]] = None):
+                rows: T.Optional[T.Tuple[int, int]] = None, with_attention: bool = False):
+        """``(seq_embed [B, D], frame_embeds [B, T+1, D], tokens [B, T+1, D])``
+        of the windows ``x [B, T, input_dim]``; with ``with_attention``,
+        ``(those, fusion attention map [B, T, M])`` (:func:`apply_with_attention`)."""
         cfg = self.config
         dropout = None
         if self.training and cfg.dropout > 0.0:
@@ -520,7 +527,7 @@ class HumanActionScorer(nn.Module):
             [slot for _enc, _xin, slot in chains])
         attention = (None if self.training or cfg.attention_impl == "xla"
                      else flash_attend(self.attention_heads(), cfg.attention_impl))
-        return self.embed_tokens(m_tokens, dropout, attention)
+        return self.embed_tokens(m_tokens, dropout, attention, with_attention)
 
     def chain_inputs(self, x: torch.Tensor
                      ) -> T.List[T.Tuple[MovementConvEncoder, torch.Tensor, int]]:
@@ -558,16 +565,34 @@ class HumanActionScorer(nn.Module):
         return torch.stack(per_mod, dim=2)
 
     def embed_tokens(self, m_tokens: torch.Tensor, dropout: T.Optional[Dropout] = None,
-                     attention: T.Optional[Attention] = None):
+                     attention: T.Optional[Attention] = None, with_attention: bool = False):
         """The forward after the conv chains: per-frame fusion of the modality
         tokens ``[B, T, M, D]``, the CLS token, positions and the temporal
-        transformer (its attention ``attention``, plain when None)."""
+        transformer (its attention ``attention``, plain when None). With
+        ``with_attention``, ``(outputs, the fusion's attention map)``."""
         B, Tlen = m_tokens.shape[:2]
-        frame_tok = self.fusion(m_tokens, dropout)                # [B, T, D]
+        frame_tok, attn = self.fusion(m_tokens, dropout)          # [B, T, D], [B, T, M]
         tokens = torch.cat([self.cls.expand(B, 1, self.config.d_model), frame_tok], dim=1)
         tokens = tokens + self.pos_enc.pe[:, : Tlen + 1]
         for layer in self.temporal.layers:
             tokens = layer(tokens, dropout, attention)
         seq_embed = l2_normalize(tokens[:, 0, :], axis=-1)
         frame_embeds = l2_normalize(tokens, axis=-1)
-        return seq_embed, frame_embeds, tokens
+        outputs = (seq_embed, frame_embeds, tokens)
+        return (outputs, attn) if with_attention else outputs
+
+
+def apply_with_attention(model: HumanActionScorer, x: torch.Tensor, precision: str = "highest"):
+    """``((seq_embed, frame_embeds, tokens), attn [B, T, M])``: the forward in
+    eval mode under ``torch.no_grad()`` and the per-frame fusion attention
+    map, the softmax before dropout. The reference keeps the map on the
+    module as ``last_attn`` (ref ``model.py:77,94,148,185``); here it comes
+    out of the same single pass, and nothing is left on the module. The
+    module's training mode is restored after the call."""
+    training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            return model(x, precision, with_attention=True)
+    finally:
+        model.train(training)

@@ -10,10 +10,10 @@ for CUDA tensors and run their plain PyTorch versions for CPU tensors.
 Each wrapper counts its kernel launches; :func:`launch_counts` reads the
 counts of the kernels a data-parallel rank runs."""
 
+from .corruption import partial_shuffle_within_window, reverse_sequence, static_window
 from .deltas import betas_delta, l2_normalize, vit_delta
 from .procrustes import procrustes_kp_delta
-from .so3 import log_so3, rotmat_delta
-
+from .so3 import axis_angle_delta, axis_angle_to_matrix, log_so3, rotmat_delta
 
 
 def launch_counts() -> dict:
@@ -41,6 +41,11 @@ __all__ = [
     "l2_normalize",
     "vit_delta",
     "procrustes_kp_delta",
+    "axis_angle_to_matrix",
     "log_so3",
     "rotmat_delta",
+    "axis_angle_delta",
+    "partial_shuffle_within_window",
+    "reverse_sequence",
+    "static_window",
 ]

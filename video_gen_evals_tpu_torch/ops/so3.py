@@ -1,6 +1,7 @@
-"""SO(3) log map, per-frame relative rotations and the 6D representation.
+"""SO(3) geometry: Rodrigues, the log map, per-frame relative rotations of
+rotation matrices and of axis-angle poses, and the 6D representation.
 
-Port of ``video_gen_evals_tpu/ops/so3.py`` (ref ``utils.py:130-174``). The
+Port of ``video_gen_evals_tpu/ops/so3.py`` (ref ``utils.py:112-174``). The
 clamping constants match the reference, so the log map stays finite at the
 identity: the trace clamp keeps ``theta`` off zero and the ``2 sin(theta)``
 floor keeps the division bounded, while the skew part is exactly zero there.
@@ -10,8 +11,26 @@ from __future__ import annotations
 
 import torch
 
+_THETA_MIN = 1e-8      # ref utils.py:116 clamp_min on |axis-angle|
 _TRACE_EPS = 1e-6      # ref utils.py:132 trace clamp margin
 _SIN_MIN = 1e-6        # ref utils.py:134 clamp_min on 2*sin(theta)
+
+
+def axis_angle_to_matrix(a: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: axis-angle ``[..., 3]`` -> rotation matrix ``[..., 3, 3]``."""
+    theta = torch.linalg.vector_norm(a, dim=-1, keepdim=True).clamp_min(_THETA_MIN)
+    kx, ky, kz = (a / theta).unbind(-1)
+    zero = torch.zeros_like(kx)
+    # K is the cross-product (skew) matrix of the unit axis
+    K = torch.stack([
+        torch.stack([zero, -kz, ky], dim=-1),
+        torch.stack([kz, zero, -kx], dim=-1),
+        torch.stack([-ky, kx, zero], dim=-1),
+    ], dim=-2)
+    eye = torch.eye(3, dtype=a.dtype, device=a.device).expand(a.shape[:-1] + (3, 3))
+    s = torch.sin(theta)[..., None]
+    c = torch.cos(theta)[..., None]
+    return eye + s * K + (1.0 - c) * (K @ K)
 
 
 def log_so3(R: torch.Tensor) -> torch.Tensor:
@@ -40,6 +59,13 @@ def rotmat_delta(R: torch.Tensor) -> torch.Tensor:
     R_prev = torch.cat([R[:1], R[:-1]], dim=0)
     R_rel = R_prev.transpose(-1, -2) @ R
     return log_so3(R_rel)
+
+
+def axis_angle_delta(aa: torch.Tensor) -> torch.Tensor:
+    """Axis-angle pose ``[T, 3J]`` -> per-joint ``log(R_{t-1}^T R_t)``
+    ``[T, 3J]``; frame 0 pairs with itself (ref ``utils.py:149-159``)."""
+    Tlen, D = aa.shape
+    return rotmat_delta(axis_angle_to_matrix(aa.reshape(Tlen, D // 3, 3))).reshape(Tlen, D)
 
 
 def rot6d_to_rotmat(x: torch.Tensor) -> torch.Tensor:

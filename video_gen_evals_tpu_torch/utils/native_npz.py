@@ -117,9 +117,14 @@ def load_library() -> T.Optional[ctypes.CDLL]:
         return lib
 
 
+def native_available() -> bool:
+    """Whether this process reads npz files with the native library."""
+    return load_library() is not None
+
+
 def reader() -> str:
     """``"native"`` or ``"numpy"``: the route this process reads npz files by."""
-    return "native" if load_library() is not None else "numpy"
+    return "native" if native_available() else "numpy"
 
 
 def _members(lib, handle):
