@@ -216,6 +216,22 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    the score CLI and written as the JAX package's .npz, and a --tp 2 run
    resumed from epoch 0's checkpoint bitwise the uninterrupted one. The
    phase's seconds.
+14. The activation-diff harness (pipelines/activation_diff.py) at the
+   published geometry: phase 10's seeded nets in the rcnn mode (ViT-H, the
+   SMPL head, DWPose-L, YOLOX-L, the X101-32x8d-FPN) saved in their
+   published containers (TokenHMR's .ckpt with backbone. / smpl_head.
+   prefixes and the tokenizer decoder nested as upstream nests it, YOLOX's
+   .pth under "model", DWPose's under "state_dict", detectron2's .pkl); the
+   reference activations dumped by torch_module_activations from an fp32 CPU
+   copy of each net on one seeded input at the extraction's input size (the
+   256 x 192 crop, the ViT's own tokens for the head, the 384 x 288 pose
+   crop, the 640 x 640 letterbox and the 768 x 1344 detect canvas of a frame
+   of phase 7's video); the harness's main on the card for all five networks
+   with --tol ADIFF_REL_TOL of the network's max|ref| (every anchor ok, and
+   each row within ADIFF_REL_TOL of its own max|ref|); then the ViT with one
+   block's mlp.fc1.weight perturbed (the blocks before it within tol, it
+   over); K6 once a ViT block a run. Each table, each network's max|diff|
+   and max|ref|, K6's launches in the phase and its seconds.
 
 Then the smoke's wall time, a JSON line listing the kernels, the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -3198,6 +3214,157 @@ def phase_last_paths(torch, card, train_ctx, kp_ctx, root):
 
 
 
+# the harness's budget a network, relative to the largest reference activation
+# it compares: the card's fp32 against the CPU's fp32, the same weights and
+# input, only the order of the sums differing (TF32 off on the card)
+ADIFF_REL_TOL = 1e-4
+
+
+def phase_activation_diff(torch, card, cfg=None):
+    """Phase 14: the activation-diff harness (pipelines/activation_diff.py) at
+    the published geometry of the five networks, with the seeded full-width
+    nets of phases 7, 8 and 10 saved in their published containers; the
+    reference activations dumped by torch_module_activations from an fp32 CPU
+    copy, the harness's main on the card, a corrupted ViT block caught.
+    ``cfg``: the extractor's config (default phase 10's at full width, in
+    the rcnn mode). Returns K6's launches in the phase."""
+    import contextlib
+    import copy
+    import dataclasses
+    import io
+    import pickle
+
+    import numpy as np
+
+    from video_gen_evals_tpu_torch.models.rcnn import predictor_canvas
+    from video_gen_evals_tpu_torch.ops.attention_core import mha_core
+    from video_gen_evals_tpu_torch.ops.upstream_crops import yolox_letterbox
+    from video_gen_evals_tpu_torch.pipelines import activation_diff as ad
+    from video_gen_evals_tpu_torch.pipelines.extract import Extractor
+
+    class RPN(torch.nn.Module):
+        """FasterRCNN.rpn_raw as a forward, which torch_module_activations
+        calls; its names gain the prefix ``m.``, which the harness's suffix
+        lookup ignores."""
+
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+
+        def forward(self, x):
+            return self.m.rpn_raw(x)
+
+    t_phase = time.perf_counter()
+    cfg = cfg or _pose_config(mesh_detector="rcnn")
+    depth, block = cfg.vit.depth, cfg.vit.depth // 2
+    ex = Extractor(cfg, seed=SEED)
+    mods = {"vit": ex.backbone, "smpl_head": ex.head, "yolox": ex.detector, "rtmpose": ex.pose_net,
+            "rcnn": RPN(ex.rcnn)}
+    sds = {net: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+           for net, m in (("vit", ex.backbone), ("smpl_head", ex.head), ("yolox", ex.detector),
+                          ("rtmpose", ex.pose_net), ("rcnn", ex.rcnn))}
+    frame = torch.from_numpy(mesh_video(n_frames=1)[0]).float()
+    rng = np.random.default_rng(SEED + 14)
+    inputs = {"vit": rng.standard_normal((1, *cfg.vit.img_size, 3), dtype=np.float32),      # the 256 x 192 crop
+              "rtmpose": rng.standard_normal((1, *cfg.pose.input_hw, 3), dtype=np.float32),  # 384 x 288
+              "yolox": yolox_letterbox(frame)[0].numpy(),
+              "rcnn": predictor_canvas(frame, ex.rcnn.config)[0].numpy()}
+    del ex
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    # the published containers: TokenHMR's Lightning .ckpt (the head's
+    # tokenizer decoder nested as upstream nests it), Megvii's .pth under
+    # "model", mmpose's under "state_dict", detectron2's model-zoo .pkl
+    head = {("decpose.tokenizer." + k[8:] if k.startswith("decpose.") and not k.startswith("decpose.cls_head")
+             else k): v for k, v in sds["smpl_head"].items()}
+    torch.save({"state_dict": {**{f"backbone.{k}": v for k, v in sds["vit"].items()},
+                               **{f"smpl_head.{k}": v for k, v in head.items()}}},
+               os.path.join(root, "tokenhmr_model_latest.ckpt"))
+    torch.save({"model": sds["yolox"]}, os.path.join(root, "yolox_l.pth"))
+    torch.save({"state_dict": sds["rtmpose"]}, os.path.join(root, "dw-ll_ucoco_384.pth"))
+    with open(os.path.join(root, "model_final_68b088.pkl"), "wb") as f:
+        pickle.dump({"model": {**{k: v.numpy() for k, v in sds["rcnn"].items()},
+                               "pixel_mean": np.array([103.53, 116.28, 123.675], np.float32)},
+                     "__author__": "Detectron2 Model Zoo"}, f)
+    # the geometry each net was drawn at, as the harness's --config-json
+    over = {net: dataclasses.asdict(c) for net, c in (("vit", cfg.vit), ("smpl_head", cfg.head), ("yolox", cfg.det),
+                                                     ("rtmpose", cfg.pose), ("rcnn", cfg.rcnn))}
+    files = {"vit": ("tokenhmr_model_latest.ckpt", "backbone."),
+             "smpl_head": ("tokenhmr_model_latest.ckpt", "smpl_head."),
+             "yolox": ("yolox_l.pth", ""), "rtmpose": ("dw-ll_ucoco_384.pth", ""),
+             "rcnn": ("model_final_68b088.pkl", "")}
+    print(f"activation diff: nets drawn and saved in {time.perf_counter() - t_phase:.1f} s")
+
+    mha_core.launches = 0
+    tols, dumps = {}, {}
+    for net in ("vit", "smpl_head", "rtmpose", "yolox", "rcnn"):
+        t0 = time.perf_counter()
+        ref = copy.deepcopy(mods[net]).cpu().float().eval()
+        x = torch.from_numpy(inputs[net])
+        acts = ad.torch_module_activations(ref, x)
+        del ref
+        anchors = ad.NETWORKS[net](sds[net], over[net]).anchors
+        # the dump under upstream's names, only the anchored modules (a full
+        # dump of the X101 at this canvas is GBs)
+        dump = {}
+        for t_name, p_name in anchors:
+            hit = ad._lookup_torch(acts, p_name)
+            _check(hit is not None, f"activation diff {net}: the CPU dump lacks {p_name}")
+            dump[t_name] = hit
+        if net == "vit":
+            inputs["smpl_head"] = acts["__output__"]      # the ViT's tokens, [1, 192, 1280]
+        dumps[net], tols[net] = dump, ADIFF_REL_TOL * max(float(np.abs(a).max()) for a in dump.values())
+        tol = tols[net]
+        np.save(os.path.join(root, f"{net}_input.npy"), inputs[net])
+        np.savez(os.path.join(root, f"{net}_acts.npz"), **dump)
+        t_dump = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        name, prefix = files[net]
+        with contextlib.redirect_stdout(out):
+            rc = ad.main(["--network", net, "--state-dict", os.path.join(root, name), "--key-prefix", prefix,
+                          "--input", os.path.join(root, f"{net}_input.npy"),
+                          "--acts", os.path.join(root, f"{net}_acts.npz"), "--tol", repr(tol),
+                          "--config-json", json.dumps(over[net])])
+        torch.cuda.synchronize()
+        table = out.getvalue()
+        print(f"activation diff {net} (tol {tol:.3e} = {ADIFF_REL_TOL:g} x max|ref|):\n{table}")
+        m = re.search(r"(\d+) layers compared, (\d+) over tol \S+, (\d+) unmatched; "
+                      r"max\|diff\| (\S+), max\|ref\| (\S+)", table)
+        _check(rc == 0 and m is not None and int(m.group(1)) == len(anchors),
+               f"activation diff {net}: exit {rc}, {m and m.groups()}")
+        # tighter than the network's budget: each row within ADIFF_REL_TOL of
+        # its own max|ref| (DWPose-L's stage 4 reads ~5e4 and its head ~4)
+        rel = max(float(ln.split()[-2]) / float(ln.split()[-1]) for ln in table.splitlines()[1:len(anchors) + 1])
+        _check(rel <= ADIFF_REL_TOL, f"activation diff {net}: a row's max|diff| is {rel:.2e} of its max|ref|")
+        print(f"activation diff {net}: max|diff| {m.group(4)} max|ref| {m.group(5)} over {len(anchors)} anchors, "
+              f"worst row {rel:.2e} of its max|ref| (CPU dump {t_dump:.1f} s, harness on the card "
+              f"{time.perf_counter() - t0:.1f} s) on {card}")
+    vit_runs = mha_core.launches
+    _check(vit_runs == depth, f"activation diff: K6 launched {vit_runs} times on the ViT, expected {depth}")
+
+    # a corrupted block: the blocks before it within tol, it over
+    sd = dict(sds["vit"])
+    key = f"blocks.{block}.mlp.fc1.weight"
+    w = sd[key]
+    sd[key] = w + torch.randn(w.shape, generator=torch.Generator().manual_seed(SEED)) * w.std()
+    tol = tols["vit"]
+    rows = {r.torch_name: r for r in ad.run_diff("vit", sd, inputs["vit"], dumps["vit"], over["vit"])}
+    torch.cuda.synchronize()
+    before = max(rows[f"blocks.{i}"].max_abs for i in range(block))
+    hit = rows[f"blocks.{block}"].max_abs
+    _check(all(r.status == "ok" for r in rows.values()) and before <= tol < hit,
+           f"activation diff: corrupted {key}: blocks before it {before:.3e}, it {hit:.3e}, tol {tol:.3e}")
+    print(f"activation diff corrupted {key}: blocks 0-{block - 1} max|diff| {before:.3e} "
+          f"<= tol {tol:.3e} < block {block} {hit:.3e}")
+    tmp.cleanup()
+    k6 = mha_core.launches
+    _check(k6 == 2 * depth, f"activation diff: K6 launched {k6} times, expected 2 x {depth}")
+    print(f"activation diff: K6 (mha_core[highest]) launches in the phase {k6}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    return k6
+
+
 def main() -> int:
     import torch
 
@@ -3219,26 +3386,37 @@ def main() -> int:
         if "<" not in line or "T=32, C=256" in line or "hd=80" in line or line.startswith(_TC_KERNELS):
             print(f"  ptxas: {line}")
 
+    seconds = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = time.perf_counter() - t0
+        return out
+
     gen = torch.Generator().manual_seed(SEED)
-    kern = phase_kernels(torch, dev, gen)
-    kern.update(phase_attention_kernels(torch, dev, gen))
-    kern.update(phase_fused_kernels(torch, dev, gen))
-    launches = phase_end_to_end(torch)
-    phase_throughput(torch, card)
-    fused_launches = phase_fused_sweep(torch, card)
+    kern = timed(2, phase_kernels, torch, dev, gen)
+    kern.update(timed(6, phase_attention_kernels, torch, dev, gen))
+    kern.update(timed("6b", phase_fused_kernels, torch, dev, gen))
+    launches = timed(3, phase_end_to_end, torch)
+    timed(4, phase_throughput, torch, card)
+    fused_launches = timed("4b", phase_fused_sweep, torch, card)
     keep = tempfile.TemporaryDirectory()   # phases 5 and 10's trees, which phase 11 reuses
-    train_launches, train_ctx = phase_training(torch, card, os.path.join(keep.name, "train"))
-    mesh_launches = phase_mesh_stage(torch, card)
-    det_kern, det_launches, exact_det = phase_detector(torch, card)
+    train_launches, train_ctx = timed(5, phase_training, torch, card, os.path.join(keep.name, "train"))
+    mesh_launches = timed(7, phase_mesh_stage, torch, card)
+    det_kern, det_launches, exact_det = timed(8, phase_detector, torch, card)
     kern.update(det_kern)
-    mode_kern, mode_launches = phase_detector_modes(torch, card, exact_det)
+    mode_kern, mode_launches = timed(9, phase_detector_modes, torch, card, exact_det)
     kern.update(mode_kern)
-    kp_launches, kp_ctx = phase_keypoints(torch, card, os.path.join(keep.name, "keypoints"))
-    phase_parallel(torch, card, train_ctx, kp_ctx, os.path.join(keep.name, "parallel"))
-    bank_kern, k3_default = phase_bank_layer(torch, card, train_ctx, os.path.join(keep.name, "bank"))
+    kp_launches, kp_ctx = timed(10, phase_keypoints, torch, card, os.path.join(keep.name, "keypoints"))
+    timed(11, phase_parallel, torch, card, train_ctx, kp_ctx, os.path.join(keep.name, "parallel"))
+    bank_kern, k3_default = timed(12, phase_bank_layer, torch, card, train_ctx, os.path.join(keep.name, "bank"))
     kern.update(bank_kern)
-    last_launches = phase_last_paths(torch, card, train_ctx, kp_ctx, os.path.join(keep.name, "last"))
+    last_launches = timed(13, phase_last_paths, torch, card, train_ctx, kp_ctx, os.path.join(keep.name, "last"))
     keep.cleanup()
+    adiff_k6 = timed(14, phase_activation_diff, torch, card)
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; build {lib.build_seconds:.1f}")
 
     src = "video_gen_evals_tpu_torch/csrc/"
     rows = [
@@ -3290,6 +3468,8 @@ def main() -> int:
                  "K1 tp2 rank 0", "K1 tp2 rank 1"):
         _check(last_launches[name] > 0, f"{name}: never launched on its path")
     print("legacy and tensor-parallel path launches: " + ", ".join(f"{k} {v}" for k, v in last_launches.items()))
+    _check(adiff_k6 > 0, "K6 activation diff: never launched on its path")
+    print(f"activation-diff path launches: K6 {adiff_k6}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + f, "replaces": rep, "launches": n,

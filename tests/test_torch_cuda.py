@@ -7,6 +7,8 @@ they skip. The file imports no jax, so it runs on a machine without JAX:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import json
+
 import pytest
 import torch
 
@@ -911,3 +913,35 @@ def test_rcnn_matmul_pool_refused_on_card(cuda):
     model = FasterRCNN(dataclasses.replace(RCNNConfig.small(), roi_impl="matmul")).eval().to(cuda)
     with torch.inference_mode(), pytest.raises(ValueError, match="matmul"):
         model(torch.zeros(1, 64, 96, 3, device=cuda))
+
+
+def test_activation_diff_harness_on_card(cuda, tmp_path, capsys):
+    """The activation-diff harness on the card (its default device) against
+    a tiny port ViT's own fp32 CPU activations: every row within 1e-5, and
+    K6 launched once a block."""
+    import numpy as np
+
+    from video_gen_evals_tpu_torch.models.vit import ViTBackbone, ViTConfig
+    from video_gen_evals_tpu_torch.ops import launch_counts
+    from video_gen_evals_tpu_torch.pipelines import activation_diff as ad
+
+    over = dict(img_size=[32, 24], patch_size=8, embed_dim=128, depth=3, num_heads=4)
+    torch.manual_seed(11)
+    ref = ViTBackbone(ViTConfig(**{**over, "img_size": (32, 24)})).eval()
+    with torch.no_grad():
+        ref.pos_embed.normal_(std=0.02)
+    x = np.random.default_rng(11).normal(size=(2, 32, 24, 3)).astype(np.float32)
+    acts = ad.torch_module_activations(ref, torch.from_numpy(x))
+    sd = {k: v.numpy() for k, v in ref.state_dict().items()}
+    rows = ad.run_diff("vit", sd, x, acts, over)
+    assert [r.status for r in rows] == ["ok"] * (over["depth"] + 2)
+    assert max(r.max_abs for r in rows) <= 1e-5, [(r.torch_name, r.max_abs) for r in rows]
+    np.savez(tmp_path / "sd.npz", **sd)
+    np.save(tmp_path / "x.npy", x)
+    np.savez(tmp_path / "acts.npz", **acts)
+    before = launch_counts()["mha_core"]
+    rc = ad.main(["--network", "vit", "--state-dict", str(tmp_path / "sd.npz"), "--input", str(tmp_path / "x.npy"),
+                  "--acts", str(tmp_path / "acts.npz"), "--tol", "1e-5", "--config-json", json.dumps(over)])
+    torch.cuda.synchronize()
+    assert rc == 0, capsys.readouterr().out
+    assert launch_counts()["mha_core"] - before == over["depth"]
