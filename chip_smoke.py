@@ -66,7 +66,8 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    flash_attention) against their plain versions at the ViT-H shape
    (B = 32, N = 192, 16 heads of 80; q, k, v as slices of one qkv buffer,
    which K7 also reads in place: bitwise K6's result) in fp32 at "highest"
-   (2e-5) and in bf16 at "default" (0.03), K6 at "high" (5e-5); at N = 100
+   (2e-5; their rows), in bf16 at "default" (0.03; no path hands them bf16
+   any more, so no row), K6 at "high" (5e-5); at N = 100
    and 300 (K8 with 64-key blocks at ViT-H's width, K6 and K7 at widths 80
    and 32); at the scorer's [512, 33, 256] with 8 heads (K6 at all three
    precisions, K7 and K8 at "highest" and "default"). ms per call, the
@@ -93,8 +94,9 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    within 1e-3 of the same run with attention_impl "plain". Then
    "head_batched" and "flash" through the same entry at depth 4 against
    "plain"; the card against the CPU's plain versions at depth 2 on 4 frames
-   (1e-3); the bf16 fast mode at full depth and at depth 4 for K7 and K8
-   against the fp32 run (BF16_STAGE_TOL); the mesh dict written with
+   (1e-3); the bf16 mode at full depth against the fp32 run and at depth 4
+   for K7 and K8 against "plain" (BF16_STAGE_TOL; the launches of K7 and K8
+   at "default" on fp32 I/O counted there); the mesh dict written with
    save_video_npz and read back by the scoring path's loader. Frames/s and
    ms per chunk (crop, backbone, head) for each attention_impl in fp32 and
    for core, head_batched and flash in the bf16 mode, peak memory.
@@ -232,6 +234,24 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
    block's mlp.fc1.weight perturbed (the blocks before it within tol, it
    over); K6 once a ViT block a run. Each table, each network's max|diff|
    and max|ref|, K6's launches in the phase and its seconds.
+15. Extraction numerics (ops/precision.py): the mesh stage at full width
+   (ViT-H depth 32, the SMPL head, phase 7's video) under the JAX package's
+   (matmul_precision, param_dtype) pairs, one set of fp32 weights drawn from
+   the seed and rounded per pair: ("high", "float32") bitwise ("highest",
+   "float32"); ("default", "float32"), ("high", "bfloat16") and ("highest",
+   "bfloat16") against ("highest", "float32") (max |d| per output), the
+   weights' stored type, K6's launches by precision (32 x chunks at the
+   pair's kernel precision), frames/s; the block schedule VIT_H_SCHEDULE (K6
+   24 x chunks at "default", 8 x chunks at "highest") beside the
+   all-"default" and all-"high" runs; each new pair and the bf16 mode
+   against its plain versions on the CPU at depth 2 (NUMERICS_CPU_TOL at
+   "high" and "highest"; at "default" with attention_impl "core" and
+   "plain", each output within NUMERICS_DEFAULT_TOL, and the RMS distance
+   under NUMERICS_CLASS_SHARE of the card's distance to the "highest" twin);
+   K6, K7 and K8 at "default" on fp32 I/O at ViT-H's [32, 192, 16 x 80] as
+   the block hands them (ATTN_FP32IO_TOL), ms, plain ms, bound at 4-byte
+   elements, fp32 SDPA on the same tensors as the library call and bf16
+   SDPA with its cast beside it: the three "default, fp32 io" rows.
 
 Then the smoke's wall time, a JSON line listing the kernels, the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -272,12 +292,20 @@ K4_TOL = {"highest": (1e-4, 5e-4), "default": (1e-2, 2e-2)}
 # 2^-16 relative, and kernel and plain version split a p that differs in its
 # last bits
 ATTN_TOL = {"highest": 2e-5, "high": 5e-5, "default": 0.03}
+# K6, K7 and K8 at "default" on fp32 I/O against their plain versions: fp32
+# outputs of order 1, p rounded to bf16 at another point than in the plain
+# version (2^-9 relative on each p); K6 read 1.46e-3 at ViT-H's shape and
+# 2.88e-3 at the scorer's [512, 33, 8 x 32] (K8 1.51e-3 there)
+ATTN_FP32IO_TOL = 5e-3
 VIT_B, VIT_N, VIT_H, VIT_HD = 32, 192, 16, 80   # one ViT-H layer of one 32-frame chunk
-# the bf16 fast mode against the fp32 run on the same weights: max |d token_out|
-# over the video, relative to max |token_out|. bf16 keeps 8 bits through 32
-# residual blocks and 6 decoder layers of random weights; measured 0.013 at
-# depth 32 and 0.017 at depth 4 on an H100.
+# the bf16 mode against the fp32 run on the same weights: max |d token_out|
+# over the video, relative to max |token_out|. Each product's operands are
+# rounded to bf16 through 32 residual blocks and 6 decoder layers of random
+# weights; measured 0.0070 at depth 32 on an H100, and 0.0037 for K7 and K8
+# against "plain" at depth 4.
 BF16_STAGE_TOL = 0.05
+# (matmul_precision, param_dtype): the exact pair and JAX's bf16 mode
+FP32_MODE, BF16_MODE = ("highest", "float32"), ("default", "bfloat16")
 MESH_FRAMES, MESH_HW = 72, (360, 640)
 # K5 against its plain version, both on the card: fp32 sums of up to 48 x 56
 # taps a bin in another order; relative to max(1, max |plain|), so 2e-5 on
@@ -288,11 +316,11 @@ RCNN_BATCH = 8   # ExtractorConfig.rcnn_frame_batch
 # order, relative to max(1, max |logit|) (the CPU tests' tolerance against JAX)
 POSE_LOGIT_TOL = 1e-4
 # DWPose-L's SimCC logits in the bf16 mode against fp32, ||d|| / ||logits||
-# over a chunk: bf16 keeps 8 bits through each of the backbone's ~90
-# convolutions and the error accumulates (0.053-0.077 measured on the CPU for
-# the seeded DWPose-L on this video's crops, two seeds; the max-norm ratio that
-# BF16_STAGE_TOL bounds for ViT-H's residual stream read 0.11-0.32 there, set
-# by single outlying logits)
+# over a chunk: each of the backbone's ~90 convolutions rounds its operands to
+# bf16 and the error accumulates (0.027 measured on an H100 for the seeded
+# DWPose-L on this video's crops; the max-norm ratio that BF16_STAGE_TOL
+# bounds for ViT-H's residual stream read 0.15 there, set by single outlying
+# logits)
 POSE_BF16_TOL = 0.15
 # K9 and K10 against their plain versions at "high", both on the card, and a
 # fused forward's AC and TC against the module forward's: bf16x3 on both
@@ -1313,10 +1341,12 @@ def phase_attention_kernels(torch, dev, gen):
         return (a.float() - b.float()).abs().max().item()
 
     def check(tag, got, want, precision):
+        """ATTN_TOL, or ATTN_FP32IO_TOL for fp32 I/O at "default"."""
         torch.cuda.synchronize()
         _check(bool(torch.isfinite(got.float()).all()), f"{tag}: non-finite output")
         e = err(got, want)
-        _check(e <= ATTN_TOL[precision], f"{tag}: max |kernel - plain| {e:.3e} > {ATTN_TOL[precision]}")
+        tol = ATTN_FP32IO_TOL if precision == "default" and got.dtype == torch.float32 else ATTN_TOL[precision]
+        _check(e <= tol, f"{tag}: max |kernel - plain| {e:.3e} > {tol}")
         return e
 
     def sdpa_ms(q4, k4, v4, precision):
@@ -1340,26 +1370,41 @@ def phase_attention_kernels(torch, dev, gen):
               f"plain {plain_ms:.4f} ms, {library}, bound {bound[0]:.4f} ms ({bound[1]}, "
               f"{bound[0] / ms:.1%} of the kernel's time)")
 
+    # fp32 at "highest" (the exact mode's path; its rows), and bf16 I/O at
+    # "default", which the wrappers take but no path of the port hands them
+    # since the bf16 mode runs fp32 activations: held against the plain
+    # versions, no row (the "default" rows, on the fp32 I/O the path gives
+    # them, come from phase 15)
     for dtype, precision in ((torch.float32, "highest"), (torch.bfloat16, "default")):
         qkv = torch.randn(B, N, 3 * D, generator=gen).to(dev).to(dtype)
         q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]            # as the ViT block hands them
         q4, k4, v4 = qkv.reshape(B, N, 3, H, hd).unbind(dim=2)
-        elem = 4 if dtype == torch.float32 else 2
-        bound = _attn_bound(B, N, H, hd, elem, 2, PEAK_FP32 if precision == "highest" else PEAK_BF16)
-        library_ms = sdpa_ms(q4, k4, v4, precision)
         what = f"{str(dtype)[6:]} [{B}, {N}, {H}, {hd}]"
-        kernel_row(f"mha_core[{precision}]", f"K6 mha_core[{precision}] {what}, strided slices of qkv",
-                   lambda: mha_core(q, k, v, H, precision=precision),
-                   lambda: mha_core_plain(q, k, v, H, precision=precision), precision, bound, library_ms)
-        kernel_row(f"mha_head_batched[{precision}]", f"K7 mha_head_batched[{precision}] {what}, read in place",
-                   lambda: mha_head_batched(q, k, v, H, precision=precision),
-                   lambda: mha_head_batched_plain(q, k, v, H, precision=precision), precision, bound, library_ms)
+        if precision == "highest":
+            bound = _attn_bound(B, N, H, hd, 4, 2, PEAK_FP32)
+            library_ms = sdpa_ms(q4, k4, v4, precision)
+            kernel_row(f"mha_core[{precision}]", f"K6 mha_core[{precision}] {what}, strided slices of qkv",
+                       lambda: mha_core(q, k, v, H, precision=precision),
+                       lambda: mha_core_plain(q, k, v, H, precision=precision), precision, bound, library_ms)
+            kernel_row(f"mha_head_batched[{precision}]", f"K7 mha_head_batched[{precision}] {what}, read in place",
+                       lambda: mha_head_batched(q, k, v, H, precision=precision),
+                       lambda: mha_head_batched_plain(q, k, v, H, precision=precision), precision, bound,
+                       library_ms)
+            kernel_row(f"flash_attention[{precision}]", f"K8 flash_attention[{precision}] {what}, blocks 128/128",
+                       lambda: flash_attention(q4, k4, v4, precision=precision),
+                       lambda: flash_attention_plain(q4, k4, v4, precision=precision), precision, bound, library_ms)
+        else:
+            e6 = check(f"K6 {precision} {what}", mha_core(q, k, v, H, precision=precision),
+                       mha_core_plain(q, k, v, H, precision=precision), precision)
+            e7 = check(f"K7 {precision} {what}", mha_head_batched(q, k, v, H, precision=precision),
+                       mha_head_batched_plain(q, k, v, H, precision=precision), precision)
+            e8 = check(f"K8 {precision} {what}", flash_attention(q4, k4, v4, precision=precision),
+                       flash_attention_plain(q4, k4, v4, precision=precision), precision)
+            print(f"K6, K7, K8 [{precision}] {what} (bf16 I/O, no caller on a path): max |kernel - plain| "
+                  f"{e6:.2e}, {e7:.2e}, {e8:.2e} (tol {ATTN_TOL[precision]})")
         _check(torch.equal(mha_head_batched(q, k, v, H, precision=precision),
                            mha_core(q, k, v, H, precision=precision)),
                f"K7 {precision}: not bitwise equal to K6 on the same strides")
-        kernel_row(f"flash_attention[{precision}]", f"K8 flash_attention[{precision}] {what}, blocks 128/128",
-                   lambda: flash_attention(q4, k4, v4, precision=precision),
-                   lambda: flash_attention_plain(q4, k4, v4, precision=precision), precision, bound, library_ms)
 
         # N that is no multiple of a 16- or 64-key chunk: K8 over several
         # 64-key blocks; K6 and K7 at ViT-H's width for N = 100 and at head
@@ -1463,15 +1508,19 @@ def mesh_video(n_frames=MESH_FRAMES, hw=MESH_HW, seed=SEED):
     return frames, boxes, large
 
 
-def mesh_config(depth=32, impl="core", bf16=False, frame_batch=32):
+def mesh_config(depth=32, impl="core", frame_batch=32, pair=FP32_MODE, block_precision=None):
     """The mesh stage at full width: ViT-H and the default head; only the
-    backbone's depth is ever cut."""
+    backbone's depth is ever cut. ``pair`` is (matmul_precision,
+    param_dtype); BF16_MODE, JAX's bf16 mode: every floating tensor of the
+    nets rounded once to bf16 and stored so, fp32 activations throughout,
+    each product's operands rounded to bf16 with fp32 sums and output, K6 at
+    "default" on the fp32 slices of the qkv projection."""
     from video_gen_evals_tpu_torch.models.vit import ViTConfig
     from video_gen_evals_tpu_torch.pipelines.extract import ExtractorConfig
 
     return ExtractorConfig(
-        vit=ViTConfig(depth=depth, attention_impl=impl), frame_batch=frame_batch,
-        matmul_precision="default" if bf16 else "highest", param_dtype="bfloat16" if bf16 else "float32")
+        vit=ViTConfig(depth=depth, attention_impl=impl, block_precision=block_precision), frame_batch=frame_batch,
+        matmul_precision=pair[0], param_dtype=pair[1])
 
 
 def _attention_counts():
@@ -1572,19 +1621,20 @@ def phase_mesh_stage(torch, card):
 
     # K7 and K8 on a path, at depth 4, against plain on the same weights
     short_frames, short_boxes = frames[:40], boxes[:40]
-    for bf16 in (False, True):
-        ex4 = Extractor(mesh_config(depth=4, impl="plain", bf16=bf16), seed=SEED)
+    for pair in (FP32_MODE, BF16_MODE):
+        ex4 = Extractor(mesh_config(depth=4, impl="plain", pair=pair), seed=SEED)
         ref, _ = _run_counted(torch, ex4, short_frames, short_boxes)
-        tag = "default" if bf16 else "highest"
+        tag = pair[0]
         for impl, slot, name in (("head_batched", 1, "mha_head_batched"), ("flash", 2, "flash_attention")):
             ex4.set_attention_impl(impl)
             out, counts = _run_counted(torch, ex4, short_frames, short_boxes)
             _check_contract(torch, np, out, 40, f"mesh {impl} {tag}")
             want = tuple(8 if i == slot else 0 for i in range(3))
             _check(counts == want, f"mesh {impl} {tag}: launches {counts} != {want}")
-            launches[f"{name}[{tag}]"] = counts[slot]
+            # the bf16 mode hands K7 and K8 the fp32 slices of the qkv projection
+            launches[f"{name}[highest]" if pair == FP32_MODE else f"{name}[default, fp32 io]"] = counts[slot]
             d = _max_diff(np, out, ref)
-            tol = 1e-3 if not bf16 else BF16_STAGE_TOL * float(np.abs(ref["vit"]).max())
+            tol = 1e-3 if pair == FP32_MODE else BF16_STAGE_TOL * float(np.abs(ref["vit"]).max())
             print(f"mesh depth 4 {tag}: attention_impl {impl} launched its kernel {counts[slot]} times; "
                   f"max |{impl} - plain| {d} (tol {tol:.3g} on vit)")
             _check(d["vit"] <= tol, f"mesh {impl} {tag}: token_out vs plain {d['vit']:.3e} > {tol:.3g}")
@@ -1611,11 +1661,10 @@ def phase_mesh_stage(torch, card):
     torch.cuda.empty_cache()
 
     # the bf16 fast mode at full depth, same seed and so the same weights rounded
-    fast = Extractor(mesh_config(bf16=True), seed=SEED)
+    fast = Extractor(mesh_config(pair=BF16_MODE), seed=SEED)
     out, counts = _run_counted(torch, fast, frames, boxes)
     _check_contract(torch, np, out, n, "mesh bf16")
     _check(counts == (32 * chunks, 0, 0), f"mesh bf16: launches {counts}")
-    launches["mha_core[default]"] = counts[0]
     d = _max_diff(np, out, mesh)
     scale = float(np.abs(mesh["vit"]).max())
     print(f"mesh bf16 fast mode, depth 32: K6[default] launched {counts[0]} times; max |bf16 - fp32| {d}, "
@@ -1645,7 +1694,7 @@ def _stage_timing(torch, ex, frames, boxes, tag, card):
     f = torch.from_numpy(frames[:32]).cuda()
     b = torch.from_numpy(boxes[:32]).cuda()
     with torch.inference_mode():
-        crops = ex.crops(f, b).to(ex.cfg.working_dtype)
+        crops = ex.crops(f, b)
         tokens, _ = ex.backbone(crops)
         parts = (_time_ms(lambda: ex.crops(f, b), 3), _time_ms(lambda: ex.backbone(crops), 3),
                  _time_ms(lambda: ex.head(tokens), 3))
@@ -1960,8 +2009,8 @@ def phase_detector(torch, card):
 # kept person boxes of one run overlapping more, so a frame whose best box
 # switched to another detection drops out), the median IoU at least 0.9.
 # fast() changes only the pool (the levels rounded to bf16, 2^-9 relative, and
-# a 32-row window), the bf16 mode every layer of the detector (2^-8 relative
-# through 33 blocks); with the seeded weights a box is its proposal refined by
+# a 32-row window), the bf16 mode every product of the detector (operands
+# rounded to bf16 through 33 blocks) and its weights; with the seeded weights a box is its proposal refined by
 # small deltas (the box predictor's std is 0.001), so the same detection moves
 # by a fraction of a pixel. And at most a sixth of the frames may flip between
 # one person and not, or between a person and none.
@@ -2014,13 +2063,12 @@ def phase_detector_modes(torch, card, exact):
     chunks, mesh_chunks = -(-n // RCNN_BATCH), -(-n // 32)
     frames_dev = torch.from_numpy(frames).cuda()
     results, launches = {}, {}
-    modes = (("fast() fp32", RCNNConfig.fast(), False, "bfloat16"),
-             ("fast() bf16 mode", RCNNConfig.fast(), True, "bfloat16"),
-             ("exact bf16 mode", RCNNConfig.x101_32x8d(), True, "float32"))
-    for tag, rc, bf16, pyramid in modes:
+    modes = (("fast() fp32", RCNNConfig.fast(), FP32_MODE, "bfloat16"),
+             ("fast() bf16 mode", RCNNConfig.fast(), BF16_MODE, "bfloat16"),
+             ("exact bf16 mode", RCNNConfig.x101_32x8d(), BF16_MODE, "float32"))
+    for tag, rc, pair, pyramid in modes:
         cfg = ExtractorConfig(vit=ViTConfig(depth=32, attention_impl="core"), frame_batch=32, mesh_detector="rcnn",
-                              rcnn=rc, keep_all_frames=True, matmul_precision="default" if bf16 else "highest",
-                              param_dtype="bfloat16" if bf16 else "float32")
+                              rcnn=rc, keep_all_frames=True, matmul_precision=pair[0], param_dtype=pair[1])
         ex = Extractor(cfg, seed=SEED)
         _person_class_(torch, ex.rcnn)
         if tag == "fast() fp32":   # K5 over chunk 0's own levels cast to bf16, fast()'s proposals, window 32
@@ -2139,7 +2187,7 @@ def phase_detector_modes(torch, card, exact):
 # phase 10: the keypoint branch, process_video_full, the streamed path,
 # run_tree, the extract CLI and score_videos_end_to_end
 
-def _pose_config(bf16=False, mesh_detector="yolox", keep_all_frames=True):
+def _pose_config(pair=FP32_MODE, mesh_detector="yolox", keep_all_frames=True):
     """The extractor at full width: YOLOX-L, ViT-H at depth 32, the SMPL head,
     DWPose-L and, in rcnn mode, the exact X101-32x8d-FPN."""
     from video_gen_evals_tpu_torch.models.detector import DetectorConfig
@@ -2149,8 +2197,7 @@ def _pose_config(bf16=False, mesh_detector="yolox", keep_all_frames=True):
 
     return ExtractorConfig(det=DetectorConfig.yolox_l(), vit=ViTConfig(depth=32, attention_impl="core"),
                            pose=PoseNetConfig.dwpose_l(), frame_batch=32, mesh_detector=mesh_detector,
-                           keep_all_frames=keep_all_frames, matmul_precision="default" if bf16 else "highest",
-                           param_dtype="bfloat16" if bf16 else "float32")
+                           keep_all_frames=keep_all_frames, matmul_precision=pair[0], param_dtype=pair[1])
 
 
 def _config4_inputs(torch):
@@ -2233,6 +2280,7 @@ def phase_keypoints(torch, card, keep):
         PoseNetConfig, RTMPoseNet, init_pose_weights_, simcc_decode, wholebody_to_openpose)
     from video_gen_evals_tpu_torch.ops.attention_core import mha_core
     from video_gen_evals_tpu_torch.ops.conv_kernel import fused_temporal_block
+    from video_gen_evals_tpu_torch.ops.precision import set_precision_
     from video_gen_evals_tpu_torch.ops.roi_align import roi_align_pyramid_dma
     from video_gen_evals_tpu_torch.ops.upstream_crops import dwpose_backmap, dwpose_topdown_crop
     from video_gen_evals_tpu_torch.ops.window_kernel import gather_windows
@@ -2341,10 +2389,11 @@ def phase_keypoints(torch, card, keep):
           f"({int((~clear).sum())} excused as near ties)")
     _check(d <= POSE_LOGIT_TOL and same, "keypoints: small pose net card vs CPU differ")
 
-    # the bf16 mode's pose net against fp32 on the same crops (the same weights rounded)
+    # the bf16 mode's pose net against fp32 on the same crops (the same weights
+    # rounded, products at "default", the head and gates at fp32 products)
     bf16 = RTMPoseNet(pcfg).cuda().eval()
     bf16.load_state_dict(ex.pose_net.state_dict())
-    bf16.to(torch.bfloat16).fp32_head_()
+    set_precision_(bf16.to(torch.bfloat16), "default")
     with torch.inference_mode():
         det = ex.detect_yolox(frames_dev[:32])
         crops, _, _ = dwpose_topdown_crop(frames_dev[:32].float(), det["box_pose"], pcfg.input_hw)
@@ -2470,10 +2519,10 @@ def phase_keypoints(torch, card, keep):
     print(f"keypoints timing: process_video_keypoints {n / dt:.1f} frames/s ({n} frames, upload and fetch "
           f"included); one 32-frame chunk: " + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items()) + f" on {card}")
     fps = {}
-    for tag, bf16_mode, detector, net in (("yolox fp32", False, "yolox", ex), ("rcnn fp32", False, "rcnn", rc),
-                                          ("yolox bf16", True, "yolox", None), ("rcnn bf16", True, "rcnn", None)):
+    for tag, detector, net in (("yolox fp32", "yolox", ex), ("rcnn fp32", "rcnn", rc),
+                               ("yolox bf16", "yolox", None), ("rcnn bf16", "rcnn", None)):
         if net is None:   # the fp32 extractors ran this video already
-            net = Extractor(_pose_config(bf16=bf16_mode, mesh_detector=detector), seed=SEED)
+            net = Extractor(_pose_config(pair=BF16_MODE, mesh_detector=detector), seed=SEED)
             if net.rcnn is not None:
                 _person_class_(torch, net.rcnn)
             net.process_video_full(frames, with_keypoints=True)   # warm
@@ -3365,6 +3414,302 @@ def phase_activation_diff(torch, card, cfg=None):
     return k6
 
 
+# phase 15: each (matmul_precision, param_dtype) pair of the mesh stage on the
+# card against its plain versions on the CPU at depth 2, 4 blurred frames. At
+# "high" and "highest" fp32 sums in another order (phase 7's 1e-3 on every
+# output). At "default" the products of the rounded operands are exact in fp32
+# and only their sums' order differs, but then a value next to a bf16
+# rounding boundary rounds the other way on one device before the next
+# product, and the flip reaches every output of its row. So two right
+# implementations part by about a rounding's noise after a few products: on
+# an NVIDIA H100 80GB HBM3 (700 W) the stage's outputs read an RMS card-CPU
+# distance of 0.5-1.7 times the card's distance between the pair and its
+# "highest" twin, with attention_impl "core" (K6) and "plain" (the einsum on
+# both devices) alike, so the gap is not K6's rounding of p. The stage's outputs
+# are held at NUMERICS_DEFAULT_TOL, about twice the largest reading of either
+# pair: max |d| vit 0.0475 / 0.0490, pose 0.134 / 0.241, betas 0.0437 /
+# 0.0394, global_orient 0.0044 / 0.0062 (core / plain). The class itself is
+# told apart layer by layer: every product layer of the stage, fed the CPU
+# run's own input on both devices, within NUMERICS_LAYER_TOL of the float64
+# product of its rounded operands (relative to the largest; read 6.96e-06 on
+# the card, cuBLAS's bf16 products over K = 5120, and 5.1e-07 on the CPU),
+# and the worst such error under NUMERICS_CLASS_SHARE of the median distance
+# between a layer's route and its unrounded product (read 1.8e-03 to
+# 2.5e-03). It prints the first module output where the two runs part.
+NUMERICS_CPU_TOL = 1e-3
+NUMERICS_DEFAULT_TOL = {
+    "core": {"vit": 0.1, "pose": 0.3, "betas": 0.1, "global_orient": 0.01},
+    "plain": {"vit": 0.1, "pose": 0.5, "betas": 0.1, "global_orient": 0.015},
+}
+NUMERICS_LAYER_TOL = 1.5e-5
+NUMERICS_CLASS_SHARE = 0.01
+# the per-block schedule named in the JAX module's comment
+VIT_H_SCHEDULE = ("default",) * 24 + ("high",) * 8
+NEW_PAIRS = (("default", "float32"), ("high", "bfloat16"), ("highest", "bfloat16"))
+
+
+def _rms_diff(np, a, b, keys=("vit", "pose", "betas", "global_orient")):
+    return {k: float(np.sqrt(np.mean((a[k].astype(np.float64) - b[k]) ** 2))) for k in keys}
+
+
+def _product_layers(torch, pair, weights, frames, boxes):
+    """The depth-2 mesh stage at ``pair`` on the CPU and on the card with the
+    same weights, a forward hook on every module. Returns the two runs' mesh
+    dicts; for every product layer (precision.Linear / Conv2d) fed the CPU
+    run's own input on each device: (name, input shape, max |card route -
+    oracle|, max |CPU plain - oracle|, max |card route - unrounded
+    product|), each over max |oracle|, the oracle being the float64 product
+    of the bf16-rounded operands; and every module's output, card run
+    against CPU run (max |d| over max |CPU|), in the order the forward
+    reaches them."""
+    import torch.nn.functional as F
+
+    from video_gen_evals_tpu_torch.ops import precision as P
+    from video_gen_evals_tpu_torch.pipelines.extract import Extractor
+
+    def product(m, x, rounded):
+        w, x = m.weight.double().cpu(), x.double()
+        if rounded:
+            w, x = P.round_bf16(w.float()).double(), P.round_bf16(x.float()).double()
+        b = None if m.bias is None else m.bias.double().cpu()
+        if isinstance(m, P.Linear):
+            return F.linear(x, w, b)
+        return F.conv2d(x, w, b, m.stride, m.padding, m.dilation, m.groups)
+
+    def rel(a, b):
+        return (a.double().cpu() - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        ex = Extractor(mesh_config(depth=2, frame_batch=4, pair=pair), state_dicts=weights, seed=SEED, device=dev)
+        rec, order = {}, []
+        named = list(ex.backbone.named_modules(prefix="vit")) + list(ex.head.named_modules(prefix="head"))
+
+        def hook(m, inp, out, rec=rec, order=order, names={id(m): n for n, m in named}):
+            """A copy of the module's first input and its output (a CPU
+            tensor's .cpu() is the tensor itself, which a later op may
+            change in place)."""
+            if isinstance(out, torch.Tensor):
+                x = inp[0] if inp and isinstance(inp[0], torch.Tensor) else None
+                rec[names[id(m)]] = (None if x is None else x.detach().to("cpu", copy=True),
+                                     out.detach().to("cpu", copy=True))
+                order.append(names[id(m)])
+        handles = [m.register_forward_hook(hook) for _n, m in named]
+        out = ex.process_video(frames, boxes)
+        for h in handles:   # the layer-by-layer calls below are not recorded
+            h.remove()
+        runs[dev] = (out, dict(named), rec, order)
+    (b, cpu_mods, cpu_rec, order), (a, card_mods, card_rec, _) = runs["cpu"], runs["cuda"]
+    layers, outputs = [], []
+    with torch.inference_mode():
+        for name in dict.fromkeys(order):
+            m, (x, out) = cpu_mods[name], cpu_rec[name]
+            if isinstance(m, (P.Linear, P.Conv2d)) and x is not None:
+                oracle = product(m, x, True)
+                route = card_mods[name](x.cuda())
+                layers.append((name, tuple(x.shape), rel(route, oracle), rel(m(x), oracle),
+                               rel(route, product(m, x, False))))
+            if name in card_rec and card_rec[name][1].shape == out.shape:
+                outputs.append((name, rel(card_rec[name][1], out.double())))
+    return a, b, layers, outputs
+
+
+def _numerics_card_vs_cpu(torch, card, frames, boxes):
+    """Depth 2, the given frames: each new pair and BF16_MODE on the card
+    against the same pair's plain versions on the CPU, on one set of fp32
+    weights rounded per pair; at "default" with attention_impl "core" and
+    "plain", the card's distance between the pair and its "highest" twin
+    (same param_dtype) beside it, and the stage's product layers one by one
+    (_product_layers)."""
+    import numpy as np
+
+    from video_gen_evals_tpu_torch.pipelines.extract import Extractor
+
+    small = Extractor(mesh_config(depth=2, frame_batch=4), seed=SEED)
+    weights = {"vit": {k: v.cpu() for k, v in small.backbone.state_dict().items()},
+               "head": {k: v.cpu() for k, v in small.head.state_dict().items()}}
+    del small
+
+    def stage(pair, impl, device="cuda"):
+        cfg = mesh_config(depth=2, impl=impl, frame_batch=4, pair=pair)
+        return Extractor(cfg, state_dicts=weights, seed=SEED, device=device).process_video(frames, boxes)
+
+    for pair in NEW_PAIRS + (BF16_MODE,):
+        if pair[0] != "default":
+            d = _max_diff(np, stage(pair, "core"), stage(pair, "core", "cpu"))
+            print(f"numerics: {pair} depth 2, 4 frames: card (K6) vs CPU plain versions max |d| {d} "
+                  f"(tol {NUMERICS_CPU_TOL}) on {card}")
+            _check(max(d.values()) <= NUMERICS_CPU_TOL, f"numerics {pair}: card vs CPU {d} > {NUMERICS_CPU_TOL}")
+            continue
+        twin = stage(("highest", pair[1]), "core")
+        for impl in ("core", "plain"):
+            if impl == "core":
+                a, b, layers, outputs = _product_layers(torch, pair, weights, frames, boxes)
+            else:
+                a, b = stage(pair, impl), stage(pair, impl, "cpu")
+            d, rms = _max_diff(np, a, b), _rms_diff(np, a, b)
+            rms_class = _rms_diff(np, a, twin)
+            tol = NUMERICS_DEFAULT_TOL[impl]
+            print(f"numerics: {pair} depth 2, 4 frames, attention_impl {impl}: card vs CPU plain versions max |d| "
+                  f"{d} (tol {tol}), rms {rms}; card against (highest, {pair[1]}) max |d| "
+                  f"{_max_diff(np, a, twin)}, rms {rms_class}; rms ratio "
+                  f"{ {k: round(rms[k] / rms_class[k], 3) for k in rms} } on {card}")
+            for key, limit in tol.items():
+                _check(d[key] <= limit, f"numerics {pair} {impl}: card vs CPU {key} {d[key]:.3e} > {limit}")
+        worst_card = max(layers, key=lambda r: r[2])
+        worst_cpu = max(r[3] for r in layers)
+        class_gap = float(np.median([r[4] for r in layers]))
+        first = next((name for name, e in outputs if e > 1e-5), None)
+        print(f"numerics: {pair} depth 2, {len(layers)} product layers on the CPU run's inputs: max |route - "
+              f"float64 of the rounded operands| / max |oracle| card {worst_card[2]:.3e} ({worst_card[0]}), CPU "
+              f"{worst_cpu:.3e} (tol {NUMERICS_LAYER_TOL}); median distance from the unrounded product "
+              f"{class_gap:.3e} (the worst card error must be under {NUMERICS_CLASS_SHARE} of it); module "
+              f"outputs first above 1e-5 of max apart at {first}, block outputs "
+              + ", ".join(f"{n} {e:.2e}" for n, e in outputs if n.count(".") <= 2 and "blocks" in n or n == "vit.norm"))
+        _check(worst_card[2] <= NUMERICS_LAYER_TOL and worst_cpu <= NUMERICS_LAYER_TOL,
+               f"numerics {pair}: a product layer off its oracle: card {worst_card[2]:.3e} ({worst_card[0]}), "
+               f"CPU {worst_cpu:.3e} > {NUMERICS_LAYER_TOL}")
+        _check(worst_card[2] <= NUMERICS_CLASS_SHARE * class_gap,
+               f"numerics {pair}: the card's worst layer error {worst_card[2]:.3e} is not under "
+               f"{NUMERICS_CLASS_SHARE} x the class's median gap {class_gap:.3e}")
+
+
+def _fp32_io_rows(torch, card):
+    """K6, K7 and K8 at "default" on fp32 I/O at ViT-H's [32, 192, 16 x 80],
+    as a "default" ViT block hands them: K6 and K7 on the strided column
+    slices of one qkv projection, K8 on its reshape/unbind views. Each
+    against its plain version (ATTN_FP32IO_TOL), timed beside it, its bound
+    at 4-byte elements, fp32 SDPA on the same tensors as the library call,
+    and bf16 SDPA on the same slices with their cast counted printed beside
+    it."""
+    import torch.nn.functional as F
+
+    from video_gen_evals_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+    from video_gen_evals_tpu_torch.ops.attention_core import (
+        mha_core, mha_core_plain, mha_head_batched, mha_head_batched_plain)
+
+    gen = torch.Generator().manual_seed(SEED + 15)
+    B, N, H, hd = VIT_B, VIT_N, VIT_H, VIT_HD
+    D = H * hd
+    qkv = torch.randn(B, N, 3 * D, generator=gen).cuda()
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    q4, k4, v4 = qkv.reshape(B, N, 3, H, hd).unbind(dim=2)
+    ts = [t.transpose(1, 2) for t in (q4, k4, v4)]
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(*ts), 20)
+    bf16_ms = _time_ms(lambda: F.scaled_dot_product_attention(*(t.to(torch.bfloat16) for t in ts)), 20)
+    bound_ms, bound_by = _attn_bound(B, N, H, hd, 4, 2, PEAK_BF16)
+    rows = {}
+    for name, tag, kernel, plain in (
+            ("mha_core", "K6", lambda: mha_core(q, k, v, H, precision="default"),
+             lambda: mha_core_plain(q, k, v, H, precision="default")),
+            ("mha_head_batched", "K7", lambda: mha_head_batched(q, k, v, H, precision="default"),
+             lambda: mha_head_batched_plain(q, k, v, H, precision="default")),
+            ("flash_attention", "K8", lambda: flash_attention(q4, k4, v4, precision="default"),
+             lambda: flash_attention_plain(q4, k4, v4, precision="default"))):
+        got = kernel()
+        torch.cuda.synchronize()
+        err = (got - plain()).abs().max().item()
+        _check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()) and err <= ATTN_FP32IO_TOL,
+               f"{tag} default fp32 io: {got.dtype}, max |kernel - plain| {err:.3e} > {ATTN_FP32IO_TOL}")
+        ms, plain_ms = _interleaved_ms(kernel, plain, 20)
+        print(f"{tag} {name}[default, fp32 io] float32 [{B}, {N}, {H} x {hd}], "
+              f"{'reshape/unbind views' if tag == 'K8' else 'strided slices'} of qkv: max |kernel - plain| "
+              f"{err:.2e} (tol {ATTN_FP32IO_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA fp32 "
+              f"{library_ms:.4f} ms ({ms / library_ms:.2f}x), SDPA bf16 with the cast {bf16_ms:.4f} ms "
+              f"({ms / bf16_ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of the kernel's "
+              f"time) on {card}")
+        rows[f"{name}[default, fp32 io]"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                                 bound_by=bound_by, library_ms=library_ms)
+    _check(torch.equal(mha_head_batched(q, k, v, H, precision="default"), mha_core(q, k, v, H, precision="default")),
+           "K7 default fp32 io: not bitwise equal to K6 on the same strides")
+    return rows
+
+
+def phase_numerics(torch, card):
+    """Phase 15: the extraction numerics at full width (ViT-H depth 32 and the
+    SMPL head on phase 7's video): the three pairs the port added,
+    ("default", "float32"), ("high", "bfloat16") and ("highest", "bfloat16"),
+    on one set of fp32 weights rounded per pair, each against ("highest",
+    "float32") with K6's launches by precision and frames/s;
+    ("high", "float32") bitwise ("highest", "float32"); the block schedule
+    VIT_H_SCHEDULE (K6 24 x chunks at "default", 8 x chunks at "highest"),
+    its token_out beside the all-"default" and all-"high" runs; each new
+    pair and the bf16 mode against its plain versions on the CPU at depth 2
+    (_numerics_card_vs_cpu); then K6, K7 and K8 at "default" on fp32 I/O at
+    ViT-H's shape (_fp32_io_rows). Returns the kernel rows and K6's
+    launches at "default" in the ("default", "float32") run."""
+    import numpy as np
+
+    from video_gen_evals_tpu_torch.ops.attention_core import mha_core
+    from video_gen_evals_tpu_torch.ops.precision import kernel_precision
+    from video_gen_evals_tpu_torch.pipelines.extract import Extractor
+
+    frames, boxes, large = mesh_video()
+    n = len(frames)
+    chunks = -(-n // 32)
+
+    def run(ex):
+        """process_video with K6's counts set to 0 just before and read just
+        after; frames/s of two more warm runs."""
+        mha_core.launches_by_precision = dict.fromkeys(mha_core.launches_by_precision, 0)
+        out, counts = _run_counted(torch, ex, frames, boxes)
+        by_precision = dict(mha_core.launches_by_precision)
+        _check(counts[1:] == (0, 0), f"numerics: K7 / K8 launched {counts[1:]}")
+        t0 = time.perf_counter()
+        for _ in range(2):
+            ex.process_video(frames, boxes)
+        return out, by_precision, 2 * n / (time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    ref_ex = Extractor(mesh_config(), seed=SEED)
+    weights = {"vit": ref_ex.backbone.state_dict(), "head": ref_ex.head.state_dict()}
+    ref, ref_counts, ref_fps = run(ref_ex)
+    _check(ref_counts["highest"] == 32 * chunks, f"numerics: K6 by precision {ref_counts}")
+    print(f"numerics: (highest, float32): {ref_fps:.1f} frames/s, K6 {ref_counts} on {card}")
+    high, _, _ = run(Extractor(mesh_config(pair=("high", "float32")), state_dicts=weights, seed=SEED))
+    _check(all(np.array_equal(high[k], ref[k]) for k in ref), "numerics: (high, float32) is not bitwise highest")
+    print("numerics: (high, float32) bitwise (highest, float32)")
+    del ref_ex
+    runs = {}
+    for pair in NEW_PAIRS:
+        ex = Extractor(mesh_config(pair=pair), state_dicts=weights, seed=SEED)
+        stored = {t.dtype for net in (ex.backbone, ex.head) for t in net.state_dict().values()}
+        _check(stored == {getattr(torch, pair[1])}, f"numerics {pair}: weights stored as {stored}")
+        out, by_precision, fps = run(ex)
+        _check_contract(torch, np, out, n, f"numerics {pair}")
+        want = dict.fromkeys(by_precision, 0)
+        want[kernel_precision(pair[0])] = 32 * chunks
+        _check(by_precision == want, f"numerics {pair}: K6 by precision {by_precision} != {want}")
+        d = _max_diff(np, out, ref)
+        print(f"numerics: {pair}: max |d| against (highest, float32) {d} (max |vit| "
+              f"{np.abs(ref['vit']).max():.2f}); K6 by precision {by_precision}; {fps:.1f} frames/s on {card}")
+        runs[pair] = (out, by_precision)
+        del ex
+        torch.cuda.empty_cache()
+
+    # the block schedule on the same fp32 weights, the stage at "high"
+    sched_ex = Extractor(mesh_config(pair=("high", "float32"), block_precision=VIT_H_SCHEDULE),
+                         state_dicts=weights, seed=SEED)
+    sched, by_precision, fps = run(sched_ex)
+    del sched_ex
+    _check_contract(torch, np, sched, n, "numerics schedule")
+    want = dict(by_precision, default=24 * chunks, highest=8 * chunks, high=0)
+    _check(by_precision == want, f"numerics schedule: K6 by precision {by_precision} != {want}")
+    to_default = _max_diff(np, sched, runs[("default", "float32")][0])
+    to_high = _max_diff(np, sched, high)
+    print(f"numerics: block_precision (default x 24, high x 8), stage high: K6 by precision {by_precision}; "
+          f"max |d| to all-default {to_default}, to all-high {to_high}; {fps:.1f} frames/s on {card}")
+    launches = {"mha_core[default, fp32 io]": runs[("default", "float32")][1]["default"]}
+    del weights
+    torch.cuda.empty_cache()
+
+    idx = np.where(large)[0][:4]
+    _numerics_card_vs_cpu(torch, card, frames[idx], boxes[idx])
+    kern = _fp32_io_rows(torch, card)
+    print(f"numerics: phase set up and ran in {time.perf_counter() - t0:.1f} s")
+    return kern, launches
+
+
 def main() -> int:
     import torch
 
@@ -3415,6 +3760,8 @@ def main() -> int:
     last_launches = timed(13, phase_last_paths, torch, card, train_ctx, kp_ctx, os.path.join(keep.name, "last"))
     keep.cleanup()
     adiff_k6 = timed(14, phase_activation_diff, torch, card)
+    num_kern, num_launches = timed(15, phase_numerics, torch, card)
+    kern.update(num_kern)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; build {lib.build_seconds:.1f}")
 
@@ -3447,9 +3794,13 @@ def main() -> int:
             (f"fused_temporal_block_train_bwd[{precision}]", "temporal_block_train.cu",
              "video_gen_evals_tpu/ops/conv_kernel_train.py:335", train_launches[precision][1]),
         ]
-    for precision in ("highest", "default"):
+    # fp32 I/O at "highest" (phase 7's exact mode) and at "default" (K6 from
+    # phase 15's ("default", "float32") run, K7 and K8 from phase 7's bf16
+    # mode at depth 4): each row's launches from runs of its own variant
+    attn_launches = dict(mesh_launches, **num_launches)
+    for variant in ("highest", "default, fp32 io"):
         rows += [
-            (f"{name}[{precision}]", "attention.cu", replaces, mesh_launches[f"{name}[{precision}]"])
+            (f"{name}[{variant}]", "attention.cu", replaces, attn_launches[f"{name}[{variant}]"])
             for name, replaces in (
                 ("mha_core", "video_gen_evals_tpu/ops/attention_core.py:102"),
                 ("mha_head_batched", "video_gen_evals_tpu/ops/attention_core.py:172"),

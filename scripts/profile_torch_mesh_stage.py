@@ -7,9 +7,13 @@ seed), runs warm 32-frame chunks of its synthetic 360 x 640 video through
 ``Extractor.mesh_forward`` under ``torch.profiler`` and prints, as one JSON
 line: device time per kernel name (averaged over the profiled chunks), the
 share of the wall time the device was busy, peak memory, and the card's name
-and power limit. Needs one NVIDIA GPU.
+and power limit. Needs one NVIDIA GPU. ``--matmul-precision`` and
+``--param-dtype`` pick one of the JAX package's six numerics pairs
+(``ExtractorConfig``); ``--matmul-precision default --param-dtype bfloat16``
+is its bf16 mode.
 
-    python scripts/profile_torch_mesh_stage.py [--attention-impl core] [--bf16] [--depth 32]
+    python scripts/profile_torch_mesh_stage.py [--attention-impl core] [--matmul-precision highest]
+        [--param-dtype float32] [--depth 32]
 """
 
 from __future__ import annotations
@@ -30,11 +34,13 @@ def main(argv=None) -> int:
     from chip_smoke import SEED, mesh_config, mesh_video
     from profile_torch_sweep import device_summary
     from video_gen_evals_tpu_torch.models.vit import ATTENTION_IMPLS
+    from video_gen_evals_tpu_torch.ops.precision import PARAM_DTYPES, PRECISIONS
     from video_gen_evals_tpu_torch.pipelines.extract import Extractor
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--attention-impl", default="core", choices=ATTENTION_IMPLS)
-    p.add_argument("--bf16", action="store_true", help="the bf16 fast mode (default: fp32 'highest')")
+    p.add_argument("--matmul-precision", default="highest", choices=PRECISIONS)
+    p.add_argument("--param-dtype", default="float32", choices=sorted(PARAM_DTYPES))
     p.add_argument("--depth", type=int, default=32)
     p.add_argument("--chunks", type=int, default=3)
     args = p.parse_args(argv)
@@ -42,7 +48,8 @@ def main(argv=None) -> int:
         print("profile_torch_mesh_stage: no CUDA device", file=sys.stderr)
         return 1
 
-    ex = Extractor(mesh_config(depth=args.depth, impl=args.attention_impl, bf16=args.bf16), seed=SEED)
+    ex = Extractor(mesh_config(depth=args.depth, impl=args.attention_impl,
+                               pair=(args.matmul_precision, args.param_dtype)), seed=SEED)
     frames, boxes, _large = mesh_video(32)
     frames_dev, boxes_dev = torch.from_numpy(frames).cuda(), torch.from_numpy(boxes).cuda()
     ex.mesh_forward(frames_dev, boxes_dev)   # warm (builds the kernels on first use)
@@ -60,7 +67,8 @@ def main(argv=None) -> int:
     attention = sum(v for k, v in kernels.items()
                     if any(name in k for name in ("attention_fma", "flash_attention", "attention_resident")))
     print(json.dumps({
-        "attention_impl": args.attention_impl, "mode": "bf16 default" if args.bf16 else "fp32 highest",
+        "attention_impl": args.attention_impl, "matmul_precision": args.matmul_precision,
+        "param_dtype": args.param_dtype,
         "depth": args.depth, "frames_per_chunk": 32,
         "chunk_ms": round(wall_us / args.chunks / 1e3, 3),
         "frames_per_s": round(32 * args.chunks / (wall_us / 1e6), 1),

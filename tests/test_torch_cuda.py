@@ -15,6 +15,7 @@ import torch
 from video_gen_evals_tpu_torch.models import EncoderConfig, HumanActionScorer
 from video_gen_evals_tpu_torch.models.fused_apply import block_kernel_forward
 from video_gen_evals_tpu_torch.models.vit import ViTBlock
+from video_gen_evals_tpu_torch.ops import precision as P
 from video_gen_evals_tpu_torch.ops.attention import flash_attention, flash_attention_plain
 from video_gen_evals_tpu_torch.ops.attention_core import (
     mha_core,
@@ -552,6 +553,9 @@ def test_forward_on_card_matches_cpu(cuda):
 # bits: 5e-5. With bf16 operands a p or an output on a rounding boundary can
 # round the other way: 0.03.
 _ATTN_TOL = {"highest": 2e-5, "high": 5e-5, "default": 0.03}
+# "default" on fp32 I/O: fp32 outputs, only p rounded to bf16, at another
+# point than in the plain version (chip_smoke.py's ATTN_FP32IO_TOL)
+_ATTN_FP32IO_TOL = 5e-3
 
 
 def _qkv_slices(seed, B, N, H, hd, dtype, device):
@@ -748,19 +752,105 @@ def test_attention_kernels_refuse_what_they_cannot_run(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_vit_block_on_card_matches_plain_impl(cuda, impl, dtype):
     """One ViT-H-width block per attention_impl against the einsum block on
-    the same weights: 1e-4 in fp32 (5e-2 for "flash_bf16", which rounds q, k,
-    v and p), 0.1 in bf16 on activations of order 1."""
+    the same weights, fp32 activations: fp32 weights at "highest" within
+    1e-4 (5e-2 for "flash_bf16", which rounds q, k, v and p); bf16-rounded
+    weights at "default" (the extraction's bf16 mode: every product's
+    operands rounded, the kernels at "default") within 0.1 on activations of
+    order 1."""
     gen = torch.Generator().manual_seed(5)
     ref = ViTBlock(1280, 16, attention_impl="plain").eval()
     blk = ViTBlock(1280, 16, attention_impl=impl).eval()
     blk.load_state_dict(ref.state_dict())
-    x = torch.randn(4, 192, 1280, generator=gen).to(cuda).to(dtype)
+    precision = "default" if dtype == torch.bfloat16 else "highest"
+    x = torch.randn(4, 192, 1280, generator=gen).to(cuda)
     with torch.inference_mode():
-        want = ref.to(cuda).to(dtype)(x)
-        got = blk.to(cuda).to(dtype)(x)
+        want = P.set_precision_(ref.to(cuda).to(dtype), precision)(x)
+        got = P.set_precision_(blk.to(cuda).to(dtype), precision)(x)
     torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.float32
     tol = 0.1 if dtype == torch.bfloat16 else 5e-2 if impl == "flash_bf16" else 1e-4
-    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("B,N,H,hd", [(2, 192, 16, 80), (512, 33, 8, 32)])
+def test_mha_core_default_on_fp32_slices(cuda, B, N, H, hd):
+    """K6 at "default" on fp32 q, k, v, the strided slices of one qkv
+    projection as a ViT-H block at the "default" class hands them (and the
+    scorer's shape): within _ATTN_FP32IO_TOL of its plain version, an fp32 output,
+    one launch counted under "default", and the same bits as contiguous and
+    unaligned copies of the inputs."""
+    q, k, v = _qkv_slices(7, B, N, H, hd, torch.float32, cuda)
+    assert not q.is_contiguous()
+    before = dict(mha_core.launches_by_precision)
+    got = mha_core(q, k, v, H, precision="default")
+    torch.cuda.synchronize()
+    assert mha_core.launches_by_precision == dict(before, default=before["default"] + 1)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert (got - mha_core_plain(q, k, v, H, precision="default")).abs().max().item() <= _ATTN_FP32IO_TOL
+    assert torch.equal(got, mha_core(q.contiguous(), k.contiguous(), v.contiguous(), H, precision="default"))
+    assert torch.equal(got, mha_core(*(_unaligned(t) for t in (q, k, v)), H, precision="default"))
+
+
+def test_attention_launches_by_precision(cuda):
+    """K6, K7 and K8 count each launch under the precision asked for, and
+    only there."""
+    q, k, v = _qkv_slices(8, 2, 64, 4, 32, torch.float32, cuda)
+    q4, k4, v4 = (t.reshape(2, 64, 4, 32) for t in (q, k, v))
+    calls = ((mha_core, lambda p: mha_core(q, k, v, 4, precision=p), ("default", "high", "highest")),
+             (mha_head_batched, lambda p: mha_head_batched(q, k, v, 4, precision=p), ("default", "highest")),
+             (flash_attention, lambda p: flash_attention(q4, k4, v4, block_q=64, block_kv=64, precision=p),
+              ("default", "highest")))
+    for fn, call, precisions in calls:
+        assert set(fn.launches_by_precision) == set(precisions)
+        for p in precisions:
+            before, total = dict(fn.launches_by_precision), fn.launches
+            call(p)
+            assert fn.launches_by_precision == dict(before, **{p: before[p] + 1}) and fn.launches == total + 1
+    torch.cuda.synchronize()
+
+
+# the card's routes against their plain versions on the CPU: fp32 sums in
+# another order over K = 1280 (linear) and 1152 (conv) terms of unit scale
+_PRECISION_ROUTE_TOL = 2e-4
+
+
+@pytest.mark.parametrize("precision", ["default", "high", "highest"])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_precision_routes_match_plain(cuda, precision, wdtype):
+    """ops/precision.py on the card (cuBLAS with an fp32 output from bf16
+    operands at "default", else fp32 with TF32 off; cuDNN and batched matmul
+    in TF32 on the rounded operands at "default", where it is exact) against
+    the plain versions on the CPU, fp32 out, whatever the global TF32 flags
+    say (cuDNN's is on, torch's default, matmul's off), and the flags left
+    as they were (cuDNN's put back after the test)."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _precision_routes_match_plain(cuda, precision, wdtype)
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def _precision_routes_match_plain(cuda, precision, wdtype):
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(3, 256, 1280, generator=gen)
+    w = (torch.randn(640, 1280, generator=gen) / 36).to(wdtype)
+    b = torch.randn(640, generator=gen).to(wdtype)
+    got = P.linear(x.to(cuda), w.to(cuda), b.to(cuda), precision)
+    assert got.dtype == torch.float32 and got.shape == (3, 256, 640)
+    assert (got.cpu() - P.linear_plain(x, w, b, precision)).abs().max().item() <= _PRECISION_ROUTE_TOL
+    img = torch.randn(2, 128, 20, 24, generator=gen)
+    k = (torch.randn(96, 64, 3, 3, generator=gen) / 24).to(wdtype)
+    got = P.conv2d(img.to(cuda), k.to(cuda), None, 2, 1, 1, 2, precision)
+    assert got.dtype == torch.float32
+    assert (got.cpu() - P.conv2d_plain(img, k, None, 2, 1, 1, 2, precision)).abs().max().item() <= _PRECISION_ROUTE_TOL
+    a, m = torch.randn(4, 133, 128, generator=gen), torch.randn(4, 128, 133, generator=gen) / 11
+    got = P.matmul(a.to(cuda), m.to(cuda), precision)
+    assert (got.cpu() - P.matmul_plain(a, m, precision)).abs().max().item() <= _PRECISION_ROUTE_TOL
+    if precision == "default":   # the rounding happened: not the fp32 product
+        assert (got.cpu() - P.matmul_plain(a, m, "highest")).abs().max().item() > 1e-3
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
 
 
 # K5 against its plain version: fp32 sums of at most 48 x 56 taps a bin in

@@ -119,8 +119,9 @@ def test_padding_does_not_change_kept_frames(port):
 
 def test_every_attention_impl_and_the_bf16_mode(weights, port):
     """The stage gives the same features through each attention_impl (1e-4),
-    and the bf16 fast mode stays finite and near them (0.25 on features of
-    order 1: bf16 carries 8 bits through two blocks and the head)."""
+    and the bf16 mode (bf16-rounded weights, fp32 activations, each
+    product's operands rounded to bf16) stays finite and near them: 0.1 on
+    features of order 1 (0.045 measured)."""
     frames, boxes = _video(3, 5)
     want = port.process_video(frames, boxes)
     for impl in ("plain", "head_batched", "flash"):
@@ -132,7 +133,7 @@ def test_every_attention_impl_and_the_bf16_mode(weights, port):
     got = Extractor(fast, state_dicts=weights["sds"], device="cpu").process_video(frames, boxes)
     for key in OUT_KEYS:
         assert got[key].dtype == np.float32 and np.isfinite(got[key]).all(), key
-    assert np.abs(got["vit"] - want["vit"]).max() <= 0.25
+    assert np.abs(got["vit"] - want["vit"]).max() <= 0.1
     R = torch.from_numpy(got["pose"])
     assert (R @ R.transpose(-1, -2) - torch.eye(3)).abs().max().item() <= 1e-4
 
@@ -218,8 +219,12 @@ def test_calls_that_need_a_detector_raise(port, tmp_path):
         ExtractorConfig(preproc="stretched")
     with pytest.raises(ValueError, match="square"):
         ExtractorConfig(det=DetectorConfig(input_hw=(416, 320)))
-    with pytest.raises(ValueError, match="not a mode"):
-        ExtractorConfig(matmul_precision="default", param_dtype="float32")
+    # every (matmul_precision, param_dtype) pair of JAX's is a mode; an
+    # unknown class or dtype is refused, never run as another
+    with pytest.raises(ValueError, match="unknown matmul_precision"):
+        ExtractorConfig(matmul_precision="bf16x3", param_dtype="float32")
+    with pytest.raises(ValueError, match="unknown param_dtype"):
+        ExtractorConfig(matmul_precision="default", param_dtype="float16")
     with pytest.raises(ValueError, match=r"\[2, 4\]"):
         port.process_video(frames, boxes[:1])
 

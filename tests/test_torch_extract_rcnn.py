@@ -183,8 +183,11 @@ def test_rcnn_checkpoint_selects_the_mode(tmp_path, weights, pair):
     got = ex.rcnn(torch.zeros(1, 64, 64, 3))
     assert all(torch.equal(got[k], want[k]) for k in want)
     assert torch.equal(ex.detect_stage(frames)["box_mesh"], pair[0].detect_stage(frames)["box_mesh"])
-    assert dataclasses.replace(weights["cfg"], param_dtype="bfloat16",
-                               matmul_precision="default").working_dtype == torch.bfloat16
+    bf16 = Extractor(dataclasses.replace(weights["cfg"], param_dtype="bfloat16", matmul_precision="default"),
+                     state_dicts={"rcnn": weights["sds"]["rcnn"]}, device="cpu")
+    fc1 = bf16.rcnn.roi_heads.box_head.fc1
+    assert fc1.weight.dtype == torch.bfloat16 and fc1.precision == "default"
+    assert bf16.rcnn(torch.zeros(1, 64, 64, 3))["scores"].dtype == torch.float32
     assert not dataclasses.replace(base, keep_all_frames=False).keep_all_frames
     with pytest.raises(ValueError, match="mesh_detector"):
         dataclasses.replace(base, mesh_detector="dino")

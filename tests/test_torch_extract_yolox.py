@@ -172,18 +172,19 @@ def test_process_video_from_frames_matches_jax(pair, video, keep_all_frames, kep
 
 @pytest.mark.parametrize("rcnn", ["exact", "fast"])
 def test_bf16_mode_with_the_rcnn_against_fp32(rcnn):
-    """The bf16 extraction mode with the R-CNN (bf16 weights and activations
-    in the detectors, the ViT and the head; proposals, NMS and box decoding
-    in fp32; fast()'s pyramid bf16, the exact one widened to fp32) against
-    the port's own fp32 run on the same weights, at RCNNConfig.small() on the
-    9 frames of tests/test_torch_extract_rcnn.py (5 hold one person). The
-    same frames hold one person in both runs but for at most two flips near
-    the 0.5 threshold. Where both keep one, it is the same person (IoU >=
-    0.5, as NMS would merge them), and the median box moves by at most 0.5
-    pixel: bf16 rounds the features by 2^-8 relative, and the boxes are 20 to
-    60 pixels wide; a box may still swap with an overlapping candidate whose
-    score it passes. The features stay finite and within 0.25 (the mesh
-    stage's bf16 tolerance; they reach 7 here)."""
+    """The bf16 extraction mode with the R-CNN (bf16-rounded weights in the
+    detectors, the ViT and the head, fp32 activations, each product's
+    operands rounded to bf16; proposals, NMS and box decoding in fp32;
+    fast()'s pyramid bf16, the exact one fp32) against the port's own fp32
+    run on the same weights, at RCNNConfig.small() on the 9 frames of
+    tests/test_torch_extract_rcnn.py (5 hold one person). The same frames
+    hold one person in both runs but for at most two flips near the 0.5
+    threshold. Where both keep one, it is the same person (IoU >= 0.5, as
+    NMS would merge them), and the median box moves by at most 0.1 pixel
+    (0.03 measured): the products' operands carry 2^-9 relative, and the boxes are 20 to 60
+    pixels wide; a box may still swap with an overlapping candidate whose
+    score it passes. The features stay finite and within 0.25 (0.16
+    measured; they reach 7 here)."""
     from test_torch_extract_rcnn import _frames
 
     from video_gen_evals_tpu_torch.models.detector import box_iou
@@ -198,7 +199,8 @@ def test_bf16_mode_with_the_rcnn_against_fp32(rcnn):
     fp32 = Extractor(base, seed=3, device="cpu", state_dicts={"rcnn": sd})
     bf16 = Extractor(dataclasses.replace(base, matmul_precision="default", param_dtype="bfloat16"), seed=3,
                      device="cpu", state_dicts={"rcnn": sd})
-    assert bf16.rcnn.dtype == torch.bfloat16 and bf16.detector.dtype == torch.bfloat16
+    assert {t.dtype for net in (bf16.rcnn, bf16.detector) for t in net.state_dict().values()
+            if t.is_floating_point()} == {torch.bfloat16}
     frames = _frames(1, 9)
     a, b = fp32.detect_stage(torch.from_numpy(frames)), bf16.detect_stage(torch.from_numpy(frames))
     assert b["box_mesh"].dtype == torch.float32 and torch.isfinite(b["box_mesh"]).all()
@@ -206,7 +208,7 @@ def test_bf16_mode_with_the_rcnn_against_fp32(rcnn):
     assert both.sum() >= 4 and (a["single"] != b["single"]).sum() <= 2
     iou = box_iou(a["box_mesh"][both][:, None], b["box_mesh"][both][:, None])[:, 0, 0]
     assert (iou >= 0.5).all()
-    assert (a["box_mesh"][both] - b["box_mesh"][both]).abs().amax(-1).median().item() <= 0.5
+    assert (a["box_mesh"][both] - b["box_mesh"][both]).abs().amax(-1).median().item() <= 0.1
     want, got = fp32.process_video(frames), bf16.process_video(frames)
     for key in OUT_KEYS:
         assert got[key].dtype == np.float32 and np.isfinite(got[key]).all(), key

@@ -25,6 +25,7 @@ from video_gen_evals_tpu_torch.models.torch_compat import (
     vit_state_dict_from_jax_tree,
 )
 from video_gen_evals_tpu_torch.models.vit import ViTBackbone, ViTBlock, ViTConfig
+from video_gen_evals_tpu_torch.ops.precision import set_precision_
 from video_gen_evals_tpu_torch.ops.so3 import rot6d_to_rotmat
 from video_gen_evals_tpu_torch.ops.upstream_crops import vitdet_mesh_crop
 
@@ -171,7 +172,8 @@ def test_vit_backbone_matches_jax(highest, impl):
 
 def test_vit_flash_bf16_impl_and_bf16_activations():
     """"flash_bf16" rounds q, k, v and p to bf16: within 0.05 of "plain" on
-    the same weights, and not equal to it. A bf16 module runs every impl."""
+    the same weights, and not equal to it. A block with bf16-rounded weights
+    at the "default" class runs every impl on fp32 activations."""
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.normal(size=(2, 12, 64)).astype(np.float32))
     blocks = {impl: ViTBlock(64, 4, attention_impl=impl).eval()
@@ -184,9 +186,9 @@ def test_vit_flash_bf16_impl_and_bf16_activations():
         assert (got - want).abs().max().item() <= 0.05
         assert not torch.equal(got, want)
         for impl in ("core", "head_batched", "flash"):
-            out = blocks[impl].to(torch.bfloat16)(x.bfloat16())
-            assert out.dtype == torch.bfloat16
-            assert (out.float() - want).abs().max().item() <= 0.1, impl
+            out = set_precision_(blocks[impl].to(torch.bfloat16), "default")(x)
+            assert out.dtype == torch.float32
+            assert (out - want).abs().max().item() <= 0.1, impl
     with pytest.raises(ValueError, match="attention_impl"):
         ViTConfig(attention_impl="xla")
 

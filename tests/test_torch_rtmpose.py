@@ -23,6 +23,7 @@ from video_gen_evals_tpu.ops import upstream_crops as jax_crops
 from video_gen_evals_tpu_torch.models import pose2d as port_pose
 from video_gen_evals_tpu_torch.models.torch_compat import pose_state_dict_from_jax_tree
 from video_gen_evals_tpu_torch.ops import upstream_crops as port_crops
+from video_gen_evals_tpu_torch.ops.precision import set_precision_
 
 from test_rtmpose import TINY, TorchRTMPose
 from test_torch_mesh_models import assert_trees_equal
@@ -35,9 +36,9 @@ CONFIGS = {
                       gau_dim=32, gau_s=16),
 }
 LOGIT_TOL = 1e-4   # relative to max(1, max |logit|): fp32 sums in another order
-# the bf16 pose net's SimCC logits against fp32's, ||d|| / ||logits||: bf16's
-# rounding accumulates over the convolutions (0.05-0.08 measured on the CPU
-# at DWPose-L's size)
+# the bf16 pose net's SimCC logits against fp32's, ||d|| / ||logits||: the
+# rounding of each product's operands accumulates over the convolutions
+# (0.03-0.05 measured here)
 POSE_BF16_TOL = 0.15
 
 
@@ -276,16 +277,19 @@ def test_mmpose_to_flax_round_trip(nets):
 
 
 def test_bf16_pose_net_keeps_its_head_in_fp32(nets):
-    """In the bf16 mode the backbone runs in bf16 and the channel attentions'
-    gates and the head in fp32 on the bf16-rounded weights: the logits stay
-    within POSE_BF16_TOL of the fp32 net's in L2 norm, and seeding is
-    deterministic."""
+    """In the bf16 mode (bf16-rounded weights, fp32 activations, products at
+    "default") the backbone's products are single-pass bf16 and the channel
+    attentions' gates and the head run fp32 products on the rounded weights:
+    the logits stay within POSE_BF16_TOL of the fp32 net's in L2 norm, and
+    seeding is deterministic."""
     cfg, port, _jnet, _tree, _ = nets
     bf16 = port_pose.RTMPoseNet(cfg).eval()
     bf16.load_state_dict(port.state_dict())
-    bf16.to(torch.bfloat16).fp32_head_()
-    assert bf16.dtype == torch.bfloat16 and bf16.head.cls_x.weight.dtype == torch.float32
-    assert bf16.backbone.stage1[1].attention.fc.weight.dtype == torch.float32
+    set_precision_(bf16.to(torch.bfloat16), "default")
+    assert bf16.backbone.stem[0].conv.weight.dtype == bf16.head.cls_x.weight.dtype == torch.bfloat16
+    assert bf16.backbone.stem[0].conv.precision == "default"
+    assert bf16.head.cls_x.precision == bf16.head.gau.precision == "highest"
+    assert bf16.backbone.stage1[1].attention.fc.precision == "highest"
     x = torch.from_numpy(_crops(cfg))
     with torch.no_grad():
         for a, b in zip(port.logits(x), bf16.logits(x)):

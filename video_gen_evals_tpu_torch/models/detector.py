@@ -12,9 +12,11 @@ package's tree across.
 Layouts: frames in and predictions out are JAX's (``[B, H, W, 3]``; boxes
 ``[B, N, 4]``, ``obj [B, N]``, ``cls [B, N, C]`` with the locations of each
 stride row-major, strides in order); inside, NCHW. The convolutions are
-``F.conv2d``: JAX runs them as XLA convolutions, outside any Pallas kernel.
-The net works in the type of its weights (bfloat16 in the extraction's bf16
-mode); the predictions are decoded in float32.
+``ops/precision.py``'s ``conv2d``: JAX runs them as XLA convolutions,
+outside any Pallas kernel. Activations are float32 at every class, the
+weights float32 or bfloat16-rounded, every convolution at the net's class
+(:func:`..ops.precision.set_precision_`); the predictions are decoded in
+float32.
 
 The postprocessing (:func:`nms_xla_indexed`, :func:`dwpose_person_detections`,
 ...) is batched over the leading axes where JAX ``vmap``s one frame: a
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.precision import Conv2d
 from .pose2d import ConvBN, SPPBottleneck, TrackedBatchNorm, calibrate_norms_
 
 
@@ -173,9 +176,9 @@ class YOLOXHead(nn.Module):
         self.stems = nn.ModuleList(ConvBN(c, hidden, kernel=1) for c in in_chs)
         self.cls_convs = nn.ModuleList(nn.Sequential(ConvBN(hidden, hidden), ConvBN(hidden, hidden)) for _ in in_chs)
         self.reg_convs = nn.ModuleList(nn.Sequential(ConvBN(hidden, hidden), ConvBN(hidden, hidden)) for _ in in_chs)
-        self.cls_preds = nn.ModuleList(nn.Conv2d(hidden, cfg.num_classes, 1) for _ in in_chs)
-        self.reg_preds = nn.ModuleList(nn.Conv2d(hidden, 4, 1) for _ in in_chs)
-        self.obj_preds = nn.ModuleList(nn.Conv2d(hidden, 1, 1) for _ in in_chs)
+        self.cls_preds = nn.ModuleList(Conv2d(hidden, cfg.num_classes, 1) for _ in in_chs)
+        self.reg_preds = nn.ModuleList(Conv2d(hidden, 4, 1) for _ in in_chs)
+        self.obj_preds = nn.ModuleList(Conv2d(hidden, 1, 1) for _ in in_chs)
 
 
 class YOLOXDetector(nn.Module):
@@ -190,20 +193,16 @@ class YOLOXDetector(nn.Module):
         self.backbone = YOLOPAFPN(config)
         self.head = YOLOXHead(config)
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.head.obj_preds[0].weight.dtype
-
     def forward(self, frames: torch.Tensor) -> T.Dict[str, torch.Tensor]:
-        feats = self.backbone(frames.permute(0, 3, 1, 2).contiguous().to(self.dtype))
+        feats = self.backbone(frames.permute(0, 3, 1, 2).contiguous().float())
         head = self.head
         boxes, objs, clss = [], [], []
         for i, (stride, f) in enumerate(zip(self.config.strides, feats)):
             h = head.stems[i](f)
             r = head.reg_convs[i](h)
-            cls = head.cls_preds[i](head.cls_convs[i](h)).float()
-            reg = head.reg_preds[i](r).float()
-            obj = head.obj_preds[i](r).float()
+            cls = head.cls_preds[i](head.cls_convs[i](h))
+            reg = head.reg_preds[i](r)
+            obj = head.obj_preds[i](r)
             B, _, fh, fw = reg.shape
             gy = torch.arange(fh, dtype=torch.float32, device=reg.device)[:, None]
             gx = torch.arange(fw, dtype=torch.float32, device=reg.device)[None, :]

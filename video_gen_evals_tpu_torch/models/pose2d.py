@@ -17,7 +17,11 @@ pose_state_dict_from_jax_tree`` carries the JAX package's tree across. The
 JAX modules work on NHWC; these on NCHW, which flattens the token map as
 JAX's ``[B, h, w, K] -> [B, K, h * w]`` does with no transpose. JAX runs the
 convolutions and the GAU's two products as XLA ops outside any Pallas
-kernel, as ``F.conv2d`` and ``torch.matmul`` run them here.
+kernel, as ``ops/precision.py``'s library calls run them here: activations
+float32, parameters float32 or bfloat16-rounded, every product at the net's
+class (:func:`..ops.precision.set_precision_`), except that
+:class:`RTMPoseNet` keeps its head and channel-attention gates at fp32
+products at every class.
 
 :func:`wholebody_to_openpose`, :func:`dwpose_postprocess` and
 :func:`flatten_first_person` are DWPose's conversion and the reference's
@@ -34,6 +38,8 @@ import typing as T
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.precision import Conv2d, Linear, Precise, matmul, set_precision_
 
 
 class BatchNormInference(nn.Module):
@@ -59,7 +65,10 @@ class BatchNormInference(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        # each op of the scale in fp32, rounded to the statistics' type
+        dt = self.running_var.dtype
+        var = (self.running_var.float() + self.eps).to(dt).float()
+        scale = (self.weight.float() * torch.rsqrt(var).to(dt).float()).to(dt)
         return (x - self.running_mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
 
 
@@ -80,7 +89,7 @@ class ConvBN(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1, groups: int = 1,
                  act: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2, groups=groups, bias=False)
+        self.conv = Conv2d(cin, cout, kernel, stride, kernel // 2, groups=groups, bias=False)
         self.bn = TrackedBatchNorm(cout)
         self.act = act
 
@@ -220,16 +229,14 @@ class CSPNeXtBlock(nn.Module):
 
 class ChannelAttention(nn.Module):
     """A global mean, a 1x1 conv with bias (``fc``, mmdet's layout), a hard
-    sigmoid gate. The mean and the gate are computed in the type of ``fc``'s
-    weights (float32 in every mode; see :meth:`RTMPoseNet.fp32_head_`)."""
+    sigmoid gate (the conv at fp32 products in :class:`RTMPoseNet`)."""
 
     def __init__(self, channels: int):
         super().__init__()
-        self.fc = nn.Conv2d(channels, channels, 1, bias=True)
+        self.fc = Conv2d(channels, channels, 1, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        g = x.to(self.fc.weight.dtype).mean(dim=(2, 3), keepdim=True)
-        return x * F.hardsigmoid(self.fc(g)).to(x.dtype)
+        return x * F.hardsigmoid(self.fc(x.mean(dim=(2, 3), keepdim=True)))
 
 
 class CSPLayer(nn.Module):
@@ -301,7 +308,7 @@ class Scale(nn.Module):
         return x * self.scale
 
 
-class GatedAttentionUnit(nn.Module):
+class GatedAttentionUnit(Precise, nn.Module):
     """mmpose's ``RTMCCBlock`` as RTMPose configures it (self-attention, no
     relative bias or position encoding, dropout 0)::
 
@@ -315,8 +322,8 @@ class GatedAttentionUnit(nn.Module):
         super().__init__()
         self.e, self.s = dim * expansion, s
         self.ln = ScaleNorm()
-        self.uv = nn.Linear(dim, 2 * self.e + s, bias=False)
-        self.o = nn.Linear(self.e, dim, bias=False)
+        self.uv = Linear(dim, 2 * self.e + s, bias=False)
+        self.o = Linear(self.e, dim, bias=False)
         self.gamma = nn.Parameter(torch.ones(2, s))
         self.beta = nn.Parameter(torch.zeros(2, s))
         self.res_scale = Scale(dim)
@@ -327,8 +334,8 @@ class GatedAttentionUnit(nn.Module):
         u, v, base = torch.split(uv, [self.e, self.e, self.s], dim=-1)
         q = base * self.gamma[0] + self.beta[0]
         k = base * self.gamma[1] + self.beta[1]
-        qk = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(self.s)
-        out = u * torch.matmul(torch.square(F.relu(qk)), v)
+        qk = matmul(q, k.transpose(-1, -2), self.precision) / math.sqrt(self.s)
+        out = u * matmul(torch.square(F.relu(qk)), v, self.precision)
         return shortcut + self.o(out)
 
 
@@ -342,28 +349,30 @@ class RTMCCHead(nn.Module):
         fk = cfg.final_kernel
         fh, fw = cfg.feature_hw
         nx, ny = cfg.simcc_bins
-        self.final_layer = nn.Conv2d(cfg.width(cfg._ARCH[-1][1]), cfg.num_keypoints, fk, padding=fk // 2)
-        self.mlp = nn.Sequential(ScaleNorm(), nn.Linear(fh * fw, cfg.gau_dim, bias=False))
+        self.final_layer = Conv2d(cfg.width(cfg._ARCH[-1][1]), cfg.num_keypoints, fk, padding=fk // 2)
+        self.mlp = nn.Sequential(ScaleNorm(), Linear(fh * fw, cfg.gau_dim, bias=False))
         self.gau = GatedAttentionUnit(cfg.gau_dim, cfg.gau_expansion, cfg.gau_s)
-        self.cls_x = nn.Linear(cfg.gau_dim, nx, bias=False)
-        self.cls_y = nn.Linear(cfg.gau_dim, ny, bias=False)
+        self.cls_x = Linear(cfg.gau_dim, nx, bias=False)
+        self.cls_y = Linear(cfg.gau_dim, ny, bias=False)
 
     def forward(self, feats: torch.Tensor) -> T.Tuple[torch.Tensor, torch.Tensor]:
-        tok = self.final_layer(feats.to(self.final_layer.weight.dtype)).flatten(2)   # [B, K, h * w]
+        tok = self.final_layer(feats).flatten(2)                                   # [B, K, h * w]
         tok = self.gau(self.mlp(tok))
         return self.cls_x(tok), self.cls_y(tok)
 
 
-class RTMPoseNet(nn.Module):
+class RTMPoseNet(Precise, nn.Module):
     """RTMPose top-down pose net: ``backbone`` (CSPNeXt) and ``head`` (RTMCC).
     ``forward(crops [B, H, W, 3])`` (normalised) -> ``(keypoints [B, K, 2]`` in
     crop pixels, ``scores [B, K])``, float32.
 
-    The backbone works in the type of its weights. The channel attentions'
-    gates and the whole head work in float32 (:meth:`fp32_head_`), so that in
-    the extraction's bf16 mode the SimCC logits, whose argmax gives the
-    keypoints, are not rounded to 8 bits (an argmax over bf16 logits ties
-    often, and a tie moves a keypoint by whole bins)."""
+    Activations are float32, whatever the weights' storage type. The
+    backbone's products run at the net's class. The channel attentions'
+    gates and the whole head (ScaleNorm, GAU, SimCC classifiers) run fp32
+    products on the (possibly bf16-rounded) weights at every class
+    (:meth:`set_precision`), finer than JAX's ``"default"``: an argmax over
+    logits from single-pass bf16 products ties often, and a tie moves a
+    keypoint by whole bins."""
 
     def __init__(self, config: PoseNetConfig):
         super().__init__()
@@ -371,26 +380,21 @@ class RTMPoseNet(nn.Module):
         self.backbone = CSPNeXt(config)
         self.head = RTMCCHead(config)
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.backbone.stem[0].conv.weight.dtype
-
-    def fp32_head_(self) -> "RTMPoseNet":
-        """Put the head and the channel attentions back in float32, on the
-        (possibly bf16-rounded) weights they hold."""
-        self.head.float()
+    def set_precision(self, precision: str) -> None:
+        """The backbone at ``precision``; the head and the gates at fp32."""
+        self.precision = precision
+        set_precision_(self.head, "highest")
         for m in self.backbone.modules():
             if isinstance(m, ChannelAttention):
-                m.float()
-        return self
+                set_precision_(m, "highest")
 
     def logits(self, crops: torch.Tensor) -> T.Tuple[torch.Tensor, torch.Tensor]:
-        """The SimCC logits ``(x [B, K, nx], y [B, K, ny])``."""
-        return self.head(self.backbone(crops.permute(0, 3, 1, 2).contiguous().to(self.dtype)))
+        """The SimCC logits ``(x [B, K, nx], y [B, K, ny])``, float32."""
+        return self.head(self.backbone(crops.permute(0, 3, 1, 2).contiguous().float()))
 
     def forward(self, crops: torch.Tensor) -> T.Tuple[torch.Tensor, torch.Tensor]:
         x_logits, y_logits = self.logits(crops)
-        return simcc_decode(x_logits.float(), y_logits.float(), self.config.simcc_ratio)
+        return simcc_decode(x_logits, y_logits, self.config.simcc_ratio)
 
 
 def simcc_decode(x_logits: torch.Tensor, y_logits: torch.Tensor,

@@ -24,14 +24,17 @@ The grouped 3x3 convs are ``F.conv2d(groups=32)``; the JAX package's
 ``RCNNConfig.fast()`` is JAX's throughput preset: the levels packed in
 bfloat16 and a 32-row window, pooled by K5's bfloat16 instantiation.
 
-The detector runs in the type of its weights: cast to bfloat16 (the
-extraction's bf16 mode), the canvas, the convolutions and the box head work
-in bfloat16, while anchors are decoded, proposals ranked and suppressed, the
-pool sums and the second stage decoded in float32.
+Numerics (``ops/precision.py``): activations are float32 at every class,
+the weights float32 or bfloat16-rounded; the convolutions and the box head
+run at the net's class (:func:`..ops.precision.set_precision_`), while
+anchors are decoded, proposals ranked and suppressed, the pool sums and the
+second stage decoded in float32 at every class. K5's pyramid takes
+``RCNNConfig.roi_dtype`` (float32 unless ``fast()``), whatever the class.
 
 On a CUDA device every entry point sets and checks TF32 off
 (``utils/device.py::disable_tf32``): cuDNN would run a float32 convolution in
-TF32 otherwise.
+TF32 otherwise (``"default"`` allows it for one call on bf16-rounded
+operands, where it is exact).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.image import resize_pil_matmul
+from ..ops.precision import Conv2d, Linear
 from ..ops.roi_align import assign_fpn_levels, pack_pyramid, roi_align_pyramid, roi_align_pyramid_dma
 from ..utils.device import disable_tf32
 from .detector import nms_masked
@@ -118,7 +122,7 @@ class RCNNConfig:
                    rpn_post_nms_topk=32, min_size_test=48, max_size_test=80, second_stage_candidates=64)
 
 
-class ConvFrozenBN(nn.Conv2d):
+class ConvFrozenBN(Conv2d):
     """detectron2's ``Conv2d(..., bias=False, norm=FrozenBatchNorm2d)``: the
     norm is an attribute of the conv, so its names are ``<conv>.norm.*``."""
 
@@ -179,8 +183,8 @@ class ResNeXtFPN(nn.Module):
         self.config = cfg
         self.bottom_up = _BottomUp(cfg)
         for i, cout in enumerate(cfg.stage_out):
-            setattr(self, f"fpn_lateral{i + 2}", nn.Conv2d(cout, cfg.fpn_channels, 1))
-            setattr(self, f"fpn_output{i + 2}", nn.Conv2d(cfg.fpn_channels, cfg.fpn_channels, 3, padding=1))
+            setattr(self, f"fpn_lateral{i + 2}", Conv2d(cout, cfg.fpn_channels, 1))
+            setattr(self, f"fpn_output{i + 2}", Conv2d(cfg.fpn_channels, cfg.fpn_channels, 3, padding=1))
 
     def forward(self, x: torch.Tensor) -> T.List[torch.Tensor]:
         bu = self.bottom_up
@@ -208,9 +212,9 @@ class RPNHead(nn.Module):
     def __init__(self, cfg: RCNNConfig):
         super().__init__()
         A = len(cfg.anchor_ratios)
-        self.conv = nn.Conv2d(cfg.fpn_channels, cfg.fpn_channels, 3, padding=1)
-        self.objectness_logits = nn.Conv2d(cfg.fpn_channels, A, 1)
-        self.anchor_deltas = nn.Conv2d(cfg.fpn_channels, A * 4, 1)
+        self.conv = Conv2d(cfg.fpn_channels, cfg.fpn_channels, 3, padding=1)
+        self.objectness_logits = Conv2d(cfg.fpn_channels, A, 1)
+        self.anchor_deltas = Conv2d(cfg.fpn_channels, A * 4, 1)
 
     def forward(self, feats: T.Sequence[torch.Tensor]):
         outs = []
@@ -354,15 +358,15 @@ class _ProposalGenerator(nn.Module):
 class _BoxHead(nn.Module):
     def __init__(self, cfg: RCNNConfig):
         super().__init__()
-        self.fc1 = nn.Linear(cfg.fpn_channels * cfg.roi_resolution ** 2, cfg.fc_dim)
-        self.fc2 = nn.Linear(cfg.fc_dim, cfg.fc_dim)
+        self.fc1 = Linear(cfg.fpn_channels * cfg.roi_resolution ** 2, cfg.fc_dim)
+        self.fc2 = Linear(cfg.fc_dim, cfg.fc_dim)
 
 
 class _BoxPredictor(nn.Module):
     def __init__(self, cfg: RCNNConfig):
         super().__init__()
-        self.cls_score = nn.Linear(cfg.fc_dim, cfg.num_classes + 1)
-        self.bbox_pred = nn.Linear(cfg.fc_dim, cfg.num_classes * 4)
+        self.cls_score = Linear(cfg.fc_dim, cfg.num_classes + 1)
+        self.bbox_pred = Linear(cfg.fc_dim, cfg.num_classes * 4)
 
 
 class _ROIHeads(nn.Module):
@@ -386,15 +390,10 @@ class FasterRCNN(nn.Module):
         self.roi_heads = _ROIHeads(config)
         self._anchors: T.Dict[T.Tuple, torch.Tensor] = {}
 
-    @property
-    def dtype(self) -> torch.dtype:
-        """The type the convolutions and the box head work in: the weights'."""
-        return self.roi_heads.box_head.fc1.weight.dtype
-
     def _prepare(self, images: torch.Tensor) -> torch.Tensor:
         if images.is_cuda:
             disable_tf32()
-        return images.permute(0, 3, 1, 2).contiguous().to(self.dtype)
+        return images.permute(0, 3, 1, 2).contiguous().float()
 
     def backbone_features(self, images: torch.Tensor) -> T.List[torch.Tensor]:
         """p2..p6, each ``[B, C, H_l, W_l]``."""
@@ -416,7 +415,7 @@ class FasterRCNN(nn.Module):
 
     def proposals(self, feats: T.Sequence[torch.Tensor], image_hw: T.Tuple):
         """RPN head and :func:`rpn_proposals` (in float32) on the backbone's levels."""
-        rpn_outs = [(o.float(), d.float()) for o, d in self.proposal_generator.rpn_head(feats)]
+        rpn_outs = self.proposal_generator.rpn_head(feats)
         return rpn_proposals(rpn_outs, self.anchors(feats), image_hw, self.config)
 
     def pool(self, feats: T.Sequence[torch.Tensor], boxes: torch.Tensor,
@@ -444,10 +443,10 @@ class FasterRCNN(nn.Module):
         float32. fc1 keeps torch's weight layout, so the pool is flattened
         channel first, as detectron2 flattens its NCHW pool."""
         rh = self.roi_heads
-        x = pooled.permute(0, 3, 1, 2).reshape(pooled.shape[0], -1).to(self.dtype)
+        x = pooled.permute(0, 3, 1, 2).reshape(pooled.shape[0], -1)
         x = F.relu(rh.box_head.fc1(x))
         x = F.relu(rh.box_head.fc2(x))
-        return rh.box_predictor.cls_score(x).float(), rh.box_predictor.bbox_pred(x).float()
+        return rh.box_predictor.cls_score(x), rh.box_predictor.bbox_pred(x)
 
     def box_forward(self, images: torch.Tensor, boxes: torch.Tensor, levels: torch.Tensor):
         """Pool the fixed ``boxes [B, N, 4]`` at ``levels [B, N]`` and run the

@@ -27,7 +27,12 @@ still unknown makes ``load_state_dict`` fail. LayerNorm eps is torch's 1e-5
 here (1e-6 in the ViT), GELU is exact, and the decoder has no final norm.
 
 The decoder's own attention has one query token; it is an einsum outside
-any kernel in the JAX package and plain PyTorch here.
+any kernel in the JAX package and plain PyTorch here. Numerics
+(``ops/precision.py``): activations float32, parameters float32 or
+bfloat16-rounded, every product (the linear layers, both attention
+products, the codebook's soft lookup) at the head's class
+(:func:`..ops.precision.set_precision_`); the rotation matrices are
+orthonormalised in float32, as at every class.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import typing as T
 import torch
 from torch import nn
 
+from ..ops.precision import LayerNorm, Linear, Precise, matmul
 from ..ops.so3 import rot6d_to_rotmat
 
 
@@ -71,15 +77,16 @@ class SMPLHeadConfig:
         return self.num_body_joints - 2  # 21 tokenized (non-hand) body joints
 
 
-def _attend(q, k, v, heads: int, dim_head: int) -> torch.Tensor:
-    """softmax(q k^T * dim_head^-0.5) v on [B, N, heads * dim_head] tensors."""
+def _attend(q, k, v, heads: int, dim_head: int, precision: str) -> torch.Tensor:
+    """softmax(q k^T * dim_head^-0.5) v on [B, N, heads * dim_head] tensors,
+    both products at ``precision``."""
     B, Nq, inner = q.shape
-    q, k, v = (t.reshape(B, t.shape[1], heads, dim_head) for t in (q, k, v))
-    attn = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * dim_head ** -0.5, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, Nq, inner)
+    q, k, v = (t.reshape(B, t.shape[1], heads, dim_head).transpose(1, 2) for t in (q, k, v))
+    attn = torch.softmax(matmul(q, k.transpose(-1, -2), precision) * dim_head ** -0.5, dim=-1)
+    return matmul(attn, v, precision).transpose(1, 2).reshape(B, Nq, inner)
 
 
-class _SelfAttention(nn.Module):
+class _SelfAttention(Precise, nn.Module):
     """Upstream ``pose_transformer.Attention``: fused bias-free ``to_qkv``,
     scale ``dim_head**-0.5``, ``to_out`` with bias. The inner width
     (heads * dim_head, 512) need not equal ``dim`` (1024)."""
@@ -87,35 +94,35 @@ class _SelfAttention(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
-        self.to_qkv = nn.Linear(dim, heads * dim_head * 3, bias=False)
-        self.to_out = nn.Sequential(nn.Linear(heads * dim_head, dim), nn.Dropout(0.0))
+        self.to_qkv = Linear(dim, heads * dim_head * 3, bias=False)
+        self.to_out = nn.Sequential(Linear(heads * dim_head, dim), nn.Dropout(0.0))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self.to_qkv(x).chunk(3, dim=-1)
-        return self.to_out(_attend(q, k, v, self.heads, self.dim_head))
+        return self.to_out(_attend(q, k, v, self.heads, self.dim_head, self.precision))
 
 
-class _CrossAttention(nn.Module):
+class _CrossAttention(Precise, nn.Module):
     """Upstream ``pose_transformer.CrossAttention``: ``to_q`` from the token
     stream, fused ``to_kv`` from the context (both bias-free), ``to_out``."""
 
     def __init__(self, dim: int, context_dim: int, heads: int, dim_head: int):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
-        self.to_q = nn.Linear(dim, heads * dim_head, bias=False)
-        self.to_kv = nn.Linear(context_dim, heads * dim_head * 2, bias=False)
-        self.to_out = nn.Sequential(nn.Linear(heads * dim_head, dim), nn.Dropout(0.0))
+        self.to_q = Linear(dim, heads * dim_head, bias=False)
+        self.to_kv = Linear(context_dim, heads * dim_head * 2, bias=False)
+        self.to_out = nn.Sequential(Linear(heads * dim_head, dim), nn.Dropout(0.0))
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         k, v = self.to_kv(context).chunk(2, dim=-1)
-        return self.to_out(_attend(self.to_q(x), k, v, self.heads, self.dim_head))
+        return self.to_out(_attend(self.to_q(x), k, v, self.heads, self.dim_head, self.precision))
 
 
 class _FeedForward(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.net = nn.Sequential(nn.Linear(dim, hidden), nn.GELU(), nn.Dropout(0.0),
-                                 nn.Linear(hidden, dim), nn.Dropout(0.0))
+        self.net = nn.Sequential(Linear(dim, hidden), nn.GELU(), nn.Dropout(0.0),
+                                 Linear(hidden, dim), nn.Dropout(0.0))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)
@@ -124,7 +131,7 @@ class _FeedForward(nn.Module):
 class _PreNorm(nn.Module):
     def __init__(self, dim: int, fn: nn.Module):
         super().__init__()
-        self.norm = nn.LayerNorm(dim)
+        self.norm = LayerNorm(dim)
         self.fn = fn
 
     def forward(self, x: torch.Tensor, *args) -> torch.Tensor:
@@ -160,7 +167,7 @@ class CrossAttentionDecoder(nn.Module):
 
     def __init__(self, config: SMPLHeadConfig):
         super().__init__()
-        self.to_token_embedding = nn.Linear(1, config.dim)
+        self.to_token_embedding = Linear(1, config.dim)
         self.pos_embedding = nn.Parameter(torch.zeros(1, 1, config.dim))
         self.transformer = _DecoderLayers(config)
 
@@ -173,8 +180,8 @@ class CrossAttentionDecoder(nn.Module):
 class _MixerMlp(nn.Module):
     def __init__(self, dim: int, inter: int):
         super().__init__()
-        self.ff = nn.Sequential(nn.Linear(dim, inter), nn.GELU(), nn.Dropout(0.0),
-                                nn.Linear(inter, dim))
+        self.ff = nn.Sequential(Linear(dim, inter), nn.GELU(), nn.Dropout(0.0),
+                                Linear(inter, dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.ff(x)
@@ -187,9 +194,9 @@ class _MixerLayer(nn.Module):
 
     def __init__(self, hidden_dim: int, hidden_inter_dim: int, token_dim: int, token_inter_dim: int):
         super().__init__()
-        self.layernorm1 = nn.LayerNorm(hidden_dim)
+        self.layernorm1 = LayerNorm(hidden_dim)
         self.MLP_token = _MixerMlp(token_dim, token_inter_dim)
-        self.layernorm2 = nn.LayerNorm(hidden_dim)
+        self.layernorm2 = LayerNorm(hidden_dim)
         self.MLP_channel = _MixerMlp(hidden_dim, hidden_inter_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -198,7 +205,7 @@ class _MixerLayer(nn.Module):
         return x + y + z
 
 
-class TokenClassifier(nn.Module):
+class TokenClassifier(Precise, nn.Module):
     """Body-pose token classifier over a frozen VQ tokenizer decoder (upstream
     TokenHMR ``TokenClassfier``; ref ``token_head.py:160-164,217``): a linear
     ``cls_head`` gives per-token class logits ``[B, token_num, classes]``; the
@@ -210,22 +217,22 @@ class TokenClassifier(nn.Module):
     def __init__(self, config: SMPLHeadConfig):
         super().__init__()
         self.config = cfg = config
-        self.cls_head = nn.Linear(cfg.dim, cfg.token_num * cfg.token_class_num)
+        self.cls_head = Linear(cfg.dim, cfg.token_num * cfg.token_class_num)
         self.codebook = nn.Parameter(torch.zeros(cfg.token_class_num, cfg.token_code_dim))
-        self.decoder_token_mlp = nn.Linear(cfg.token_num, cfg.n_parts)
-        self.decoder_start = nn.Linear(cfg.token_code_dim, cfg.dec_hidden_dim)
+        self.decoder_token_mlp = Linear(cfg.token_num, cfg.n_parts)
+        self.decoder_start = Linear(cfg.token_code_dim, cfg.dec_hidden_dim)
         self.decoder = nn.ModuleList(
             _MixerLayer(cfg.dec_hidden_dim, cfg.dec_hidden_inter_dim, cfg.n_parts, cfg.dec_token_inter_dim)
             for _ in range(cfg.dec_num_blocks))
-        self.decoder_layer_norm = nn.LayerNorm(cfg.dec_hidden_dim)
-        self.recover_embed = nn.Linear(cfg.dec_hidden_dim, 6)
+        self.decoder_layer_norm = LayerNorm(cfg.dec_hidden_dim)
+        self.recover_embed = Linear(cfg.dec_hidden_dim, 6)
 
     def forward(self, token_out: torch.Tensor) -> T.Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
         B = token_out.shape[0]
         logits = self.cls_head(token_out).reshape(B, cfg.token_num, cfg.token_class_num)
         probs = torch.softmax(logits, dim=-1)
-        codes = probs @ self.codebook                                       # soft lookup
+        codes = matmul(probs, self.codebook, self.precision)                # soft lookup
         x = self.decoder_token_mlp(codes.transpose(1, 2)).transpose(1, 2)   # [B, 21, C]
         x = self.decoder_start(x)
         for layer in self.decoder:
@@ -242,10 +249,10 @@ class SMPLTokenDecoderHead(nn.Module):
         self.config = cfg = config
         self.transformer = CrossAttentionDecoder(cfg)
         self.decpose = TokenClassifier(cfg)
-        self.decpose_grot = nn.Linear(cfg.dim, 6)
-        self.decpose_hands = nn.Linear(cfg.dim, 12)
-        self.decshape = nn.Linear(cfg.dim, 10)
-        self.deccam = nn.Linear(cfg.dim, 3)
+        self.decpose_grot = Linear(cfg.dim, 6)
+        self.decpose_hands = Linear(cfg.dim, 12)
+        self.decshape = Linear(cfg.dim, 10)
+        self.deccam = Linear(cfg.dim, 3)
         self.register_buffer("init_body_pose", torch.zeros(1, cfg.npose))
         self.register_buffer("init_betas", torch.zeros(1, 10))
         self.register_buffer("init_cam", torch.zeros(1, 3))
@@ -263,7 +270,7 @@ class SMPLTokenDecoderHead(nn.Module):
         pred_cam = self.init_cam.expand(B, -1)
         token_out = None
         for _ in range(cfg.ief_iters):
-            token = context_tokens.new_zeros(B, 1, 1)                  # zero input token
+            token = context_tokens.new_zeros(B, 1, 1, dtype=torch.float32)   # zero input token
             token_out = self.transformer(token, context_tokens)[:, 0, :]
             body_6d, _probs = self.decpose(token_out)
             pred_body_pose = torch.cat(
@@ -271,8 +278,7 @@ class SMPLTokenDecoderHead(nn.Module):
             ) + pred_body_pose
             pred_betas = self.decshape(token_out) + pred_betas
             pred_cam = self.deccam(token_out) + pred_cam
-        # orthonormalise in fp32 whatever the working dtype
-        R = rot6d_to_rotmat(pred_body_pose.float().reshape(B, cfg.num_body_joints + 1, 6))
+        R = rot6d_to_rotmat(pred_body_pose.reshape(B, cfg.num_body_joints + 1, 6))
         return {
             "global_orient": R[:, :1],          # [B, 1, 3, 3]
             "body_pose": R[:, 1:],              # [B, 23, 3, 3]

@@ -276,6 +276,8 @@ def load_torch_checkpoint(path: str, model: HumanActionScorer, strict: bool = Fa
 
 
 def _as_tensors(sd: T.Dict[str, np.ndarray]) -> T.Dict[str, torch.Tensor]:
+    """fp32 tensors, whatever the leaves' type (a bf16 tree widens exactly):
+    the Extractor rounds once itself under ``param_dtype="bfloat16"``."""
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 

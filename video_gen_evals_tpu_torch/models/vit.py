@@ -23,11 +23,20 @@ tokens and the channel-first ``[B, C, h, w]`` map.
 
 The JAX module defaults to its einsum branch because XLA fuses it on the
 TPU; PyTorch runs eagerly, and the JAX package's own answer for this regime
-is the layout-preserving kernel. The kernels run at ``"highest"`` on float32
-activations and at ``"default"`` on bfloat16 ones (``"flash_bf16"`` asks for
-``"default"`` whatever the dtype); on CPU tensors they run their plain
-versions. The JAX module's per-block ``block_precision`` schedule is not
-ported.
+is the layout-preserving kernel.
+
+Numerics (``ops/precision.py``): activations are float32 at every class,
+the parameters float32 or bfloat16-rounded. Each block runs its four
+products (qkv, proj, fc1, fc2) and its attention at the block's class: the
+stage's (:func:`..ops.precision.set_precision_`), or its entry of
+``ViTConfig.block_precision``, the JAX module's per-block schedule (JAX
+wraps only ``blk(tokens)`` in the entry's context, so the patch embedding
+and the final norm keep the stage's class). The attention kernels take the
+block's class: ``"default"`` runs them at ``"default"`` on the fp32 slices
+of the qkv projection (q, k, v rounded to bf16 as they are loaded),
+``"high"`` and ``"highest"`` at ``"highest"``; ``"flash_bf16"`` asks for
+``"default"`` at every class. On CPU tensors the kernels run their plain
+versions.
 """
 
 from __future__ import annotations
@@ -40,8 +49,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import multihead_attention
+from ..ops.attention import flash_attention
 from ..ops.attention_core import mha_core, mha_head_batched
+from ..ops.precision import (
+    Conv2d,
+    LayerNorm,
+    Linear,
+    Precise,
+    check_precision,
+    kernel_precision,
+    matmul,
+    set_precision_,
+)
 
 ATTENTION_IMPLS = ("core", "head_batched", "flash", "flash_bf16", "plain")
 _LN_EPS = 1e-6   # the ViT's LayerNorms; the SMPL head uses torch's 1e-5
@@ -58,11 +77,19 @@ class ViTConfig:
     use_cls_token: bool = False
     final_norm: bool = True
     attention_impl: str = "core"
+    # a matmul class a block (len == depth), e.g. ("default",) * 24 +
+    # ("high",) * 8; None: every block at the stage's class
+    block_precision: T.Optional[T.Tuple[str, ...]] = None
 
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}: "
                              f"expected one of {ATTENTION_IMPLS}")
+        if self.block_precision is not None:
+            if len(self.block_precision) != self.depth:
+                raise ValueError(f"block_precision needs {self.depth} entries, got {len(self.block_precision)}")
+            for p in self.block_precision:
+                check_precision(p, "block_precision entry")
 
     @property
     def grid(self) -> T.Tuple[int, int]:
@@ -74,39 +101,35 @@ class ViTConfig:
         return h * w
 
 
-def _kernel_precision(x: torch.Tensor) -> str:
-    return "default" if x.dtype == torch.bfloat16 else "highest"
-
-
-class _Attention(nn.Module):
+class _Attention(Precise, nn.Module):
     def __init__(self, dim: int, num_heads: int, attention_impl: str):
         super().__init__()
         self.num_heads = num_heads
         self.attention_impl = attention_impl
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, D = x.shape
         H = self.num_heads
         qkv = self.qkv(x)
         impl = self.attention_impl
+        precision = kernel_precision(self.precision)
         if impl in ("core", "head_batched"):
             # the qkv weight's columns are head-major inside each third, so
             # the three slices are [B, N, H * hd] as the kernels take them
             q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
             fn = mha_core if impl == "core" else mha_head_batched
-            ctx = fn(q, k, v, heads=H, precision=_kernel_precision(x))
+            ctx = fn(q, k, v, heads=H, precision=precision)
         else:
             q, k, v = qkv.reshape(B, N, 3, H, D // H).unbind(dim=2)
             if impl == "plain":
-                attn = torch.softmax(
-                    torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(D // H), dim=-1)
-                ctx = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+                # the JAX module's einsum branch, its two products at the class
+                logits = matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1), self.precision)
+                attn = torch.softmax(logits / math.sqrt(D // H), dim=-1)
+                ctx = matmul(attn, v.transpose(1, 2), self.precision).transpose(1, 2)
             else:
-                if impl == "flash" and x.dtype == torch.bfloat16:
-                    impl = "flash_bf16"
-                ctx = multihead_attention(q, k, v, impl=impl)
+                ctx = flash_attention(q, k, v, precision="default" if impl == "flash_bf16" else precision)
             ctx = ctx.reshape(B, N, D)
         return self.proj(ctx)
 
@@ -114,8 +137,8 @@ class _Attention(nn.Module):
 class _Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x)))
@@ -127,9 +150,9 @@ class ViTBlock(nn.Module):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
-        self.norm1 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.norm1 = LayerNorm(dim, eps=_LN_EPS)
         self.attn = _Attention(dim, num_heads, attention_impl)
-        self.norm2 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.norm2 = LayerNorm(dim, eps=_LN_EPS)
         self.mlp = _Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -140,13 +163,13 @@ class ViTBlock(nn.Module):
 class _PatchEmbed(nn.Module):
     def __init__(self, patch: int, dim: int):
         super().__init__()
-        self.proj = nn.Conv2d(3, dim, kernel_size=patch, stride=patch)
+        self.proj = Conv2d(3, dim, kernel_size=patch, stride=patch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj(x)
 
 
-class ViTBackbone(nn.Module):
+class ViTBackbone(Precise, nn.Module):
     def __init__(self, config: ViTConfig):
         super().__init__()
         self.config = cfg = config
@@ -159,7 +182,13 @@ class ViTBackbone(nn.Module):
             ViTBlock(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.attention_impl)
             for _ in range(cfg.depth))
         if cfg.final_norm:
-            self.norm = nn.LayerNorm(cfg.embed_dim, eps=_LN_EPS)
+            self.norm = LayerNorm(cfg.embed_dim, eps=_LN_EPS)
+
+    def set_precision(self, precision: str) -> None:
+        """The stage's class everywhere, then each block's schedule entry."""
+        self.precision = precision
+        for blk, block_precision in zip(self.blocks, self.config.block_precision or ()):
+            set_precision_(blk, block_precision)
 
     def forward(self, x: torch.Tensor) -> T.Tuple[torch.Tensor, torch.Tensor]:
         """``x``: [B, H, W, 3] normalised crops ->

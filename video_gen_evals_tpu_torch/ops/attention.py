@@ -46,7 +46,8 @@ ms each) and 0.14 ms at the scorer's shape against SDPA's 0.15.
 The wrapper launches the kernel for CUDA tensors and runs
 :func:`flash_attention_plain` (the same block loop, mask and rescaling
 order) for CPU tensors; ``flash_attention.launches`` counts kernel
-launches. The kernel has no backward.
+launches and ``flash_attention.launches_by_precision`` splits them by
+precision. The kernel has no backward.
 """
 
 from __future__ import annotations
@@ -152,10 +153,12 @@ def flash_attention(
     )
     check(code, "flash_attention launch")
     flash_attention.launches += 1
+    flash_attention.launches_by_precision[precision] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_precision = dict.fromkeys(_PRECISIONS, 0)
 
 
 def multihead_attention(q, k, v, scale: T.Optional[float] = None, impl: str = "plain") -> torch.Tensor:

@@ -58,7 +58,8 @@ inputs are aligned, so a shape gives the same bits on every route.
 Each wrapper launches the kernel for CUDA tensors and runs its plain version
 (``mha_core_plain``, ``mha_head_batched_plain``) for CPU tensors;
 ``mha_core.launches`` and ``mha_head_batched.launches`` count kernel
-launches. Neither kernel has a backward.
+launches, and their ``launches_by_precision`` split them by the precision
+asked for. Neither kernel has a backward.
 """
 
 from __future__ import annotations
@@ -203,10 +204,12 @@ def mha_core(
         raise ValueError(f"mha_core runs on CUDA or CPU tensors, not {q.device}")
     out = _launch_core("mha_core", q, k, v, heads, scale, precision)
     mha_core.launches += 1
+    mha_core.launches_by_precision[precision] += 1
     return out
 
 
 mha_core.launches = 0
+mha_core.launches_by_precision = dict.fromkeys(PRECISION_CODES, 0)
 
 
 def mha_head_batched(
@@ -228,7 +231,9 @@ def mha_head_batched(
         raise ValueError(f"mha_head_batched runs on CUDA or CPU tensors, not {q.device}")
     out = _launch_core("mha_head_batched", q, k, v, heads, scale, precision)
     mha_head_batched.launches += 1
+    mha_head_batched.launches_by_precision[precision] += 1
     return out
 
 
 mha_head_batched.launches = 0
+mha_head_batched.launches_by_precision = dict.fromkeys(("default", "highest"), 0)

@@ -95,17 +95,12 @@ from ..models.rcnn import (
 from ..models.smpl_head import SMPLHeadConfig, SMPLTokenDecoderHead
 from ..models.vit import ViTBackbone, ViTConfig
 from ..ops.image import batched_person_crops, crop_resize_matmul, expand_to_aspect, true_div
+from ..ops.precision import check_precision, set_precision_, storage_dtype
 from ..ops.upstream_crops import dwpose_backmap, dwpose_topdown_crop, vitdet_mesh_crop, yolox_letterbox
 from ..parallel import Rank, shard_items
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.io import ResumableLedger, load_all_frames, save_video_npz
 
-# (matmul_precision, param_dtype) -> the dtype the networks work in
-_WORKING_DTYPE = {
-    ("highest", "float32"): torch.float32,
-    ("high", "float32"): torch.float32,
-    ("default", "bfloat16"): torch.bfloat16,
-}
 # the legacy crops' and detector canvas's ImageNet normalisation (0..255 scale)
 _MEAN = (123.675, 116.28, 103.53)
 _STD = (58.395, 57.12, 57.375)
@@ -119,20 +114,32 @@ class ExtractorConfig:
     (JAX's home-grown crops and detector canvas, ``crop_scale``; see the
     module docstring).
 
-    Numerics, named by what is computed: ``matmul_precision="highest"`` runs
-    every product in true fp32 (TF32 off) and the attention kernels at
-    ``"highest"``. ``"high"`` (the JAX default, bf16x3 on the TPU) runs the
-    same fp32 path here, which is at least as exact. ``"default"`` with
-    ``param_dtype="bfloat16"`` is the fast mode: bf16 parameters and
-    activations in every network (both detectors and the pose backbone too),
-    fp32 sums, the attention kernels at ``"default"``, the rotation matrices
-    orthonormalised in fp32, boxes decoded, ranked and suppressed in fp32, and
-    the pose net's channel-attention gates, its whole RTMCC head (ScaleNorm,
-    GAU, SimCC classifiers) and the SimCC decode in fp32 on the bf16-rounded
-    weights: an argmax over bf16 logits ties often, and a tie moves a
-    keypoint by whole bins. Other pairs are refused. (JAX's bf16 mode casts
-    the parameters only: flax promotes the detectors' and the pose net's fp32
-    activations, so there they run in fp32 on bf16-rounded weights.)"""
+    Numerics, JAX's six pairs (``ops/precision.py``). ``matmul_precision``
+    is the class of every product of every network (JAX's
+    ``jax.default_matmul_precision`` around each stage):
+
+    - ``"highest"``: fp32 operands, fp32 sums, TF32 off, the attention
+      kernels at ``"highest"``;
+    - ``"high"`` (the default; bf16x3 on the TPU): the same as
+      ``"highest"``, which is at least as exact;
+    - ``"default"``: each product's operands rounded to bf16 (round to
+      nearest even), fp32 sums, fp32 output; the attention kernels at
+      ``"default"`` on fp32 q, k, v (rounded as they are loaded).
+
+    ``param_dtype="bfloat16"`` rounds every floating tensor of each net's
+    state (JAX's ``tree_map`` over ``params``: weights, biases, norm
+    statistics, the head's codebook and IEF buffers) to bf16 once, when the
+    net is built, and stores it so (half the memory); a product widens the
+    rounded weights to fp32 at ``"highest"`` and ``"high"`` and takes them as
+    bf16 operands at ``"default"``. Activations are fp32 in every network at
+    every pair: crops, canvases, norms, BN, GELU / SiLU / hardsigmoid,
+    residuals, softmax. Finer than JAX's class at ``"default"``, as at every
+    class: the rotation matrices orthonormalised in fp32; anchors,
+    proposals, box decoding and NMS in fp32; RTMPose's SimCC head and its
+    channel-attention gates at fp32 products on the rounded weights (an
+    argmax over logits of single-pass bf16 products ties often, and a tie
+    moves a keypoint by whole bins). ``ViTConfig.block_precision`` gives
+    each ViT block its own class. An unknown class or dtype raises."""
 
     det: DetectorConfig = dataclasses.field(default_factory=DetectorConfig)
     vit: ViTConfig = dataclasses.field(default_factory=ViTConfig)
@@ -171,10 +178,8 @@ class ExtractorConfig:
     def __post_init__(self):
         if self.preproc not in ("upstream", "legacy"):
             raise ValueError(f"unknown preproc {self.preproc!r}")
-        if (self.matmul_precision, self.param_dtype) not in _WORKING_DTYPE:
-            raise ValueError(
-                f"matmul_precision={self.matmul_precision!r} with param_dtype={self.param_dtype!r} "
-                f"is not a mode of the port; the modes are {sorted(_WORKING_DTYPE)}")
+        check_precision(self.matmul_precision)
+        storage_dtype(self.param_dtype)
         if self.rcnn is None:
             self.rcnn = RCNNConfig.x101_32x8d()
         if self.mesh_detector not in ("yolox", "rcnn"):
@@ -184,10 +189,6 @@ class ExtractorConfig:
         if self.frame_batch < 1 or self.rcnn_frame_batch < 1:
             raise ValueError(f"frame_batch {self.frame_batch} and rcnn_frame_batch "
                              f"{self.rcnn_frame_batch} must be positive")
-
-    @property
-    def working_dtype(self) -> torch.dtype:
-        return _WORKING_DTYPE[(self.matmul_precision, self.param_dtype)]
 
     @classmethod
     def parity(cls, **kw) -> "ExtractorConfig":
@@ -249,10 +250,18 @@ def seeded_init_(module: nn.Module, generator: torch.Generator) -> None:
             buf.zero_()
 
 
-def _build_net(factory, config, state_dict, generator, device, dtype) -> nn.Module:
-    """The module on ``device`` in ``dtype``, its weights from ``state_dict``
-    or, without one, drawn from ``generator`` on the device. It is built
-    without storage first, so full-width weights never exist on the host."""
+def _numerics_(net: nn.Module, cfg: "ExtractorConfig") -> nn.Module:
+    """The net's floating state rounded once to ``param_dtype`` (fp32
+    weights and statistics first, as drawn or loaded) and every product at
+    ``matmul_precision``; eval mode."""
+    return set_precision_(net.to(storage_dtype(cfg.param_dtype)), cfg.matmul_precision).eval()
+
+
+def _build_net(factory, config, state_dict, generator, device, cfg) -> nn.Module:
+    """The module on ``device`` in ``cfg``'s numerics, its weights from
+    ``state_dict`` or, without one, drawn from ``generator`` on the device.
+    It is built without storage first, so full-width weights never exist on
+    the host."""
     with torch.device("meta"):
         net = factory(config)
     net.to_empty(device=device)
@@ -269,13 +278,13 @@ def _build_net(factory, config, state_dict, generator, device, dtype) -> nn.Modu
                 f"{type(net).__name__}: the state_dict does not match the module "
                 f"(missing {missing[:5]}, unexpected {result.unexpected_keys[:5]}): "
                 "refusing a half-loaded network")
-    return net.to(dtype).eval()
+    return _numerics_(net, cfg)
 
 
-def _build_detector(factory, config, state_dict, init_, generator, device, dtype) -> nn.Module:
-    """A detector on ``device`` in ``dtype``, its weights from a checkpoint's
-    state_dict in its published names (every key used, none missing) or
-    drawn from ``generator`` by ``init_``."""
+def _build_detector(factory, config, state_dict, init_, generator, device, cfg) -> nn.Module:
+    """A detector on ``device`` in ``cfg``'s numerics, its weights from a
+    checkpoint's state_dict in its published names (every key used, none
+    missing) or drawn from ``generator`` by ``init_``."""
     with torch.device("meta"):
         net = factory(config)
     net.to_empty(device=device)
@@ -283,7 +292,7 @@ def _build_detector(factory, config, state_dict, init_, generator, device, dtype
         init_(net, generator)
     else:
         net.load_state_dict(state_dict, strict=True)
-    return net.to(dtype).eval()
+    return _numerics_(net, cfg)
 
 
 class Extractor:
@@ -319,18 +328,17 @@ class Extractor:
         def generator(offset):
             return torch.Generator(device=self.device).manual_seed(seed + offset)
 
-        dtype = cfg.working_dtype
         mesh_gen = generator(0)
-        self.backbone = _build_net(ViTBackbone, cfg.vit, state_dicts.get("vit"), mesh_gen, self.device, dtype)
-        self.head = _build_net(SMPLTokenDecoderHead, cfg.head, state_dicts.get("head"), mesh_gen, self.device, dtype)
+        self.backbone = _build_net(ViTBackbone, cfg.vit, state_dicts.get("vit"), mesh_gen, self.device, cfg)
+        self.head = _build_net(SMPLTokenDecoderHead, cfg.head, state_dicts.get("head"), mesh_gen, self.device, cfg)
         self.detector = _build_detector(YOLOXDetector, cfg.det, state_dicts.get("det"), init_yolox_weights_,
-                                        generator(1), self.device, dtype)
+                                        generator(1), self.device, cfg)
         rcnn_sd = state_dicts.get("rcnn")
         self.rcnn = (_build_detector(FasterRCNN, cfg.rcnn, None if rcnn_sd is None else canonical_rcnn_state_dict(rcnn_sd),
-                                     init_rcnn_weights_, generator(2), self.device, dtype)
+                                     init_rcnn_weights_, generator(2), self.device, cfg)
                      if cfg.mesh_detector == "rcnn" else None)
         self.pose_net = _build_detector(RTMPoseNet, cfg.pose, state_dicts.get("pose"), init_pose_weights_,
-                                        generator(3), self.device, dtype).fp32_head_()
+                                        generator(3), self.device, cfg)
 
     @classmethod
     def from_checkpoints(cls, config: T.Optional[ExtractorConfig] = None, *,
@@ -388,9 +396,8 @@ class Extractor:
         """One chunk on the device: crops -> backbone -> head. Returns the
         head's dict (``body_pose``, ``betas``, ``global_orient``, ``cam``,
         ``token_out``) as fp32 tensors on the device."""
-        crops = self.crops(frames, boxes_xyxy).to(self.cfg.working_dtype)
-        tokens, _fmap = self.backbone(crops)
-        return {k: v.float() for k, v in self.head(tokens).items()}
+        tokens, _fmap = self.backbone(self.crops(frames, boxes_xyxy))
+        return self.head(tokens)
 
     @torch.inference_mode()
     def pose_forward(self, frames: torch.Tensor, boxes_xyxy: torch.Tensor) -> T.Dict[str, torch.Tensor]:

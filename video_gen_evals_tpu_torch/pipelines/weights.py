@@ -95,7 +95,9 @@ def extraction_params_from_checkpoints(cfg, *, tokenhmr=None, dwpose=None, yolox
     or a loaded state_dict): ``vit`` and ``head`` from ``tokenhmr``, ``pose``
     from an mmpose DWPose checkpoint, ``det`` from a Megvii YOLOX one,
     ``rcnn`` from a detectron2 one. ``cfg`` must hold the matching geometry
-    already (:func:`published_config`)."""
+    already (:func:`published_config`). The tensors keep the file's types;
+    the Extractor loads them into fp32 nets and rounds them once under
+    ``param_dtype="bfloat16"``, as JAX casts its loaded ``params``."""
     out: T.Dict[str, StateDict] = {}
     if tokenhmr is not None:
         sd = _as_state_dict(tokenhmr)
